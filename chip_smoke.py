@@ -12,15 +12,29 @@ prints no result line):
      N = 64, T = 2,000,000, for every mode and tier the main path runs
      plus one case with the H / Y^2 outputs on per kernel, and time both
      with CUDA events (median of 10 runs after warm-up);
+     The whitening kernels are held the same way: ``row_sums``,
+     ``centered_covariance_sums`` and ``covariance_sums`` at 64 x
+     4,000,000, ``_grouped_covariance`` (centered and not) at 600 x
+     1,000,000;
   3. fit a 64 x 2,000,000 mixed sub/super-Gaussian mixture (float64
-     NumPy input, made from a seed) with ``Picard.fit`` at the default
-     config, through the kernels, then again on the torch path, and
-     check convergence, separation, agreement and the kernels' launch
-     counts.
+     NumPy input, made from a seed: host-f64 whitening) with
+     ``Picard.fit`` at the default config, through the kernels, then
+     again on the torch path, and check convergence, separation,
+     agreement and the kernels' launch counts;
+  4. the device-whitening slice: the bench configuration (64 x 4,000,000
+     f32 made on the card, ``generate_bench_data_device``, seed 42):
+     ``center_whiten`` and its whiteness, then ``Picard.fit`` on the
+     CUDA tensor — converged at tol 1e-7, Amari to the mixing, every
+     whitening and core kernel launched in that fit, the caller's tensor
+     unchanged;
+  4b. ``center_whiten`` of a 600 x 1,000,000 f32 mixture on the card,
+     through ``_grouped_covariance``, with the same whiteness bounds.
 
 The line before the last is a JSON object describing every kernel
-(launches on the main path, error against the plain version, times);
-the last line is ``{"ok": true, "device": {...}}``. Needs one CUDA card.
+(launches on its path — phase 3 for the core kernels, phase 4 for the
+whitening kernels, 4b for the grouped one — error against the plain
+version, times); the
+last line is ``{"ok": true, "device": {...}}``. Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -42,6 +56,14 @@ F32_ERR_FACTOR = 4.0
 # bf16 tiers: the kernel and the plain version of the same tier differ
 # only in the order of f32 sums of exact bf16 products.
 BF16_RTOL = 1e-4
+# The device-whitening slice: bench.py's configuration, and the grouped
+# covariance's shape (N > 512).
+N4, T4, SEED4 = 64, 4_000_000, 42
+N4B, T4B = 600, 1_000_000
+# Whiteness of the device path (tests/test_whitening.py:374-408): of the
+# emitted data, and of K against the f64 covariance of the same input.
+SELF_WHITE_MAX = 1e-4
+K_RESIDUAL_MAX = 1e-3
 
 
 def _log(msg):
@@ -183,6 +205,80 @@ def phase2_kernels():
     return rows
 
 
+def _f32_check(name, label, n, t, run, plain, run64):
+    """Hold a kernel's f32 output against an f64 evaluation of the same
+    sums: its error may be F32_ERR_FACTOR x the plain f32 version's plus
+    F32_FLOOR_PER_COL per summed column. Returns the row of the case."""
+    import torch
+
+    out_k = run()
+    torch.cuda.synchronize()
+    out_p = plain()
+    out_64 = run64()
+    err_k = _max_abs([out_k], [out_64])
+    err_p = _max_abs([out_p], [out_64])
+    del out_p, out_64
+    bound = F32_ERR_FACTOR * err_p + F32_FLOOR_PER_COL * t
+    finite = bool(torch.isfinite(out_k).all())
+    del out_k
+    ms = _time_ms(run)
+    plain_ms = _time_ms(plain)
+    _log(f"{name} [{label}] {n} x {t}: err vs f64 {err_k:.4g} (plain f32 "
+         f"{err_p:.4g}, bound {bound:.4g}), finite={finite}, kernel {ms:.3f} ms, "
+         f"plain {plain_ms:.3f} ms")
+    if not (err_k <= bound and finite):
+        raise AssertionError(f"{name} [{label}] disagrees with its plain version")
+    return {"case": label, "ms": ms, "plain_ms": plain_ms, "max_abs_err": err_k}
+
+
+def phase2_whitening_kernels():
+    """The whitening kernels against their plain versions."""
+    import torch
+
+    from picard_ica_tpu_torch.ops import kernels as K
+    from picard_ica_tpu_torch.utils.datagen import laplace_sources_device
+
+    rows = {}
+
+    def add(name, row):
+        entry = rows.setdefault(name, {"max_abs_err": 0.0, "cases": []})
+        entry["max_abs_err"] = max(entry["max_abs_err"], row["max_abs_err"])
+        entry["cases"].append(row)
+
+    # Laplace rows around a mean of 1.5: centering matters.
+    x = laplace_sources_device(N4, T4, SEED, "cuda").add_(1.5)
+    x64 = x.double()
+    mean = (x64.mean(dim=1)).float()
+    add("row_sums", _f32_check(
+        "row_sums", "f32", N4, T4, lambda: K.row_sums(x),
+        lambda: K.row_sums_plain(x), lambda: K.row_sums_plain(x64)))
+    add("centered_covariance_sums", _f32_check(
+        "centered_covariance_sums", "f32", N4, T4,
+        lambda: K.centered_covariance_sums(x, mean),
+        lambda: K.centered_covariance_sums_plain(x, mean),
+        lambda: K.centered_covariance_sums_plain(x64, mean.double())))
+    add("covariance_sums", _f32_check(
+        "covariance_sums", "f32", N4, T4, lambda: K.covariance_sums(x),
+        lambda: K.covariance_sums_plain(x), lambda: K.covariance_sums_plain(x64)))
+    del x, x64
+
+    x = laplace_sources_device(N4B, T4B, SEED, "cuda").add_(1.5)
+    x64 = x.double()
+    mean = (x64.mean(dim=1)).float()
+    add("_grouped_covariance", _f32_check(
+        "_grouped_covariance", "centered", N4B, T4B,
+        lambda: K._grouped_covariance(x, mean),
+        lambda: K.grouped_covariance_plain(x, mean),
+        lambda: K.grouped_covariance_plain(x64, mean.double())))
+    add("_grouped_covariance", _f32_check(
+        "_grouped_covariance", "uncentered", N4B, T4B,
+        lambda: K._grouped_covariance(x, None),
+        lambda: K.grouped_covariance_plain(x, None),
+        lambda: K.grouped_covariance_plain(x64, None)))
+    del x, x64
+    return rows
+
+
 def _fit(x, use_kernels):
     import torch
 
@@ -193,6 +289,11 @@ def _fit(x, use_kernels):
     r = Picard.fit(x, PicardConfig(random_state=0, use_kernels=use_kernels))
     torch.cuda.synchronize()
     return r, time.perf_counter() - t0
+
+
+_CORE_KERNELS = ("rotated_fused_sums", "rotated_moments_sums", "rotated_loglik_sums")
+_PHASE4_KERNELS = ("row_sums", "centered_covariance_sums", "covariance_sums",
+                   "rotated_fused_sums", "rotated_moments_sums")
 
 
 def phase3_slice():
@@ -207,7 +308,7 @@ def phase3_slice():
 
     K.reset_launch_counts()
     r, wall = _fit(x, None)
-    launches = {k.__name__: k.launches for k in K.KERNELS}
+    launches = _launches()
     w_k = r.full_unmixing().double().cpu().numpy()
     amari = amari_distance(w_k, a)
     _log(f"slice (kernels): converged={r.converged} n_iterations={r.n_iterations} "
@@ -224,7 +325,8 @@ def phase3_slice():
         raise AssertionError("the result does not lie on the card")
     if tuple(r.sources.shape) != (N, T) or not bool(torch.isfinite(r.sources).all()):
         raise AssertionError("sources are not finite (N, T)")
-    missing = [k for k, v in launches.items() if v == 0]
+    # Host-f64 whitening: this path runs the three core kernels.
+    missing = [k for k in _CORE_KERNELS if launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
     del r
@@ -244,11 +346,136 @@ def phase3_slice():
     return launches
 
 
-_SOURCE = "picard_ica_tpu_torch/csrc/rotated_sums.cu"
-_REPLACES = {
-    "rotated_fused_sums": "picard_ica_tpu/ops/pallas_kernels.py:922",
-    "rotated_moments_sums": "picard_ica_tpu/ops/pallas_kernels.py:366",
-    "rotated_loglik_sums": "picard_ica_tpu/ops/pallas_kernels.py:702",
+def _launches():
+    from picard_ica_tpu_torch.ops import kernels as K
+
+    return {k.__name__: k.launches for k in K.KERNELS}
+
+
+def _checksum(x):
+    """Exact sum of the tensor's bit patterns."""
+    import torch
+
+    return int(torch.sum(x.view(torch.int32), dtype=torch.int64))
+
+
+def _whiteness(x, x1, k):
+    """(max |X1 X1^T / T - I|, max |K (C64 / T) K^T - I|), in f64 on the
+    card; C64 is the f64 centered covariance of the f32 input."""
+    import torch
+
+    t = x.shape[1]
+    x1d = x1.double()
+    eye = torch.eye(x1.shape[0], dtype=torch.float64, device=x1.device)
+    self_white = float((x1d @ x1d.T / t - eye).abs().max())
+    del x1d
+    xd = x.double()
+    xd -= xd.mean(dim=1, keepdim=True)
+    c64 = xd @ xd.T / t
+    del xd
+    kd = k.double()
+    resid = float((kd @ c64 @ kd.T - eye).abs().max())
+    return self_white, resid
+
+
+def _whiten_checked(x, label):
+    """center_whiten of ``x`` with its whiteness checked; returns the
+    launch counts and the seconds it took."""
+    import torch
+
+    from picard_ica_tpu_torch.ops import kernels as K
+    from picard_ica_tpu_torch.ops.whitening import center_whiten
+
+    K.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    x1, mean, k = center_whiten(x, x.shape[0])
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _launches()
+    self_white, resid = _whiteness(x, x1, k)
+    del x1, mean
+    _log(f"{label}: center_whiten {seconds:.4f} s, self-whiteness {self_white:.3e} "
+         f"(< {SELF_WHITE_MAX}), K residual {resid:.3e} (< {K_RESIDUAL_MAX}), "
+         f"launches {launches}")
+    if not (self_white < SELF_WHITE_MAX and resid < K_RESIDUAL_MAX):
+        raise AssertionError(f"{label}: device whitening is not white enough")
+    return launches, seconds
+
+
+def phase4_device_slice():
+    """bench.py's configuration through device whitening and the fit."""
+    from picard_ica_tpu_torch.utils.datagen import (
+        generate_bench_data_device,
+        reference_mixing_matrix,
+    )
+    from picard_ica_tpu_torch.utils.metrics import amari_distance
+
+    x = generate_bench_data_device(N4, T4, SEED4, "cuda")
+    a = reference_mixing_matrix(N4, T4, SEED4)
+    before = _checksum(x)
+    _, whiten_s = _whiten_checked(x, f"device slice {N4} x {T4}")
+
+    from picard_ica_tpu_torch.ops import kernels as K
+
+    K.reset_launch_counts()
+    r, wall = _fit(x, None)
+    launches = _launches()
+    amari = amari_distance(r.full_unmixing().double().cpu().numpy(), a)
+    _log(f"device slice: converged={r.converged} n_iterations={r.n_iterations} "
+         f"stage_exits={r.stage_exits} ls_calls={r.ls_calls} "
+         f"gradient_norm={r.gradient_norm:.3e} amari={amari:.3e}")
+    _log(f"device slice: whitening {whiten_s:.4f} s, fit {wall:.3f} s, core "
+         f"{r.core_seconds:.4f} s, {T4 * r.n_iterations / r.core_seconds:.4e} "
+         f"samples*iter/s (core)")
+    _log(f"launches: {launches}")
+    if not r.converged:
+        raise AssertionError("the device-whitened fit did not converge at tol 1e-7")
+    if not amari < 5e-3:
+        raise AssertionError(f"amari {amari} >= 5e-3")
+    if tuple(r.sources.shape) != (N4, T4) or not bool(r.sources.isfinite().all()):
+        raise AssertionError("sources are not finite (N, T)")
+    # The loglik kernel re-baselines the loss at extended sign changes;
+    # the bench sources are all Laplace, so no sign flips and the kernel
+    # is not on this path (phase 3's mixed-kurtosis fit runs it).
+    missing = [k for k in _PHASE4_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched in the device-whitened fit: {missing}")
+    if _checksum(x) != before:
+        raise AssertionError("the fit wrote the caller's tensor")
+    return launches
+
+
+def phase4b_grouped():
+    """center_whiten at N = 600: the grouped covariance on the card."""
+    import numpy as np
+    import torch
+
+    from picard_ica_tpu_torch.ops.linalg import rotate_rows_inplace
+    from picard_ica_tpu_torch.utils.datagen import laplace_sources_device
+
+    # Standard-normal mixing (seed 0), the JAX package's 600 x 1M exhibit
+    # (benchmarks/whiten_accuracy_tpu.py).
+    mix = torch.from_numpy(np.random.default_rng(0).standard_normal((N4B, N4B)))
+    x = rotate_rows_inplace(mix.float().cuda(), laplace_sources_device(N4B, T4B, 1, "cuda"))
+    launches, _ = _whiten_checked(x, f"grouped {N4B} x {T4B}")
+    if launches["_grouped_covariance"] == 0:
+        raise AssertionError("_grouped_covariance never launched at N = 600")
+    return launches
+
+
+_CORE_SOURCE = "picard_ica_tpu_torch/csrc/rotated_sums.cu"
+_STATS_SOURCE = "picard_ica_tpu_torch/csrc/covariance_sums.cu"
+_PALLAS = "picard_ica_tpu/ops/pallas_kernels.py"
+# name -> (source, pallas_call line of the TPU kernel it replaces)
+_KERNELS = {
+    "rotated_fused_sums": (_CORE_SOURCE, 922),
+    "rotated_moments_sums": (_CORE_SOURCE, 366),
+    "rotated_loglik_sums": (_CORE_SOURCE, 702),
+    "row_sums": (_STATS_SOURCE, 422),
+    "centered_covariance_sums": (_STATS_SOURCE, 635),
+    "covariance_sums": (_STATS_SOURCE, 598),
+    "_grouped_covariance": (_STATS_SOURCE, 531),
 }
 
 
@@ -258,15 +485,21 @@ def main():
     phase0_env()
     phase1_build()
     rows = phase2_kernels()
-    launches = phase3_slice()
+    rows.update(phase2_whitening_kernels())
+    by_path = {"phase3": phase3_slice(), "phase4": phase4_device_slice(),
+               "phase4b": phase4b_grouped()}
     kernels = []
-    for name, row in rows.items():
+    for name, (source, line) in _KERNELS.items():
+        row = rows[name]
         main_case = row["cases"][0]
+        path = ("phase3" if name in _CORE_KERNELS else
+                "phase4b" if name == "_grouped_covariance" else "phase4")
         kernels.append({
-            "name": name, "route": "cuda", "source": _SOURCE,
-            "replaces": _REPLACES[name], "launches": launches[name],
+            "name": name, "route": "cuda", "source": source,
+            "replaces": f"{_PALLAS}:{line}", "launches": by_path[path][name],
             "max_abs_err": row["max_abs_err"], "ms": main_case["ms"],
             "plain_ms": main_case["plain_ms"], "cases": row["cases"],
+            "launches_by_path": {p: c.get(name, 0) for p, c in by_path.items()},
         })
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -59,11 +59,11 @@ class PicardConfig:
     # cheaper tier (their floors cap reachable tolerance).
     kernel_precision: str = "auto"
     # Where the one-time center+whiten pass runs. "auto" (default):
-    # float64 NumPy inputs of up to 2e8 elements are preprocessed on the
-    # host in f64 (the whitening basis then matches an all-f64
-    # pipeline); everything else needs the device path, which is not
-    # ported yet. "f64" forces the host path (errors on tensor input);
-    # "device" forces the device path.
+    # float64 NumPy inputs of up to 2e8 elements to an f32 fit are
+    # preprocessed on the host in f64 (the whitening basis then matches
+    # an all-f64 pipeline); everything else runs on the device
+    # (ops/whitening.center_whiten). "f64" forces the host path (errors
+    # on tensor input); "device" forces the device path.
     whiten_precision: str = "auto"
 
     @staticmethod

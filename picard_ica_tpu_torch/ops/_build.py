@@ -1,7 +1,8 @@
 """Build and bind the CUDA kernels of ``picard_ica_tpu_torch/csrc``.
 
-The sources are compiled with ``nvcc`` into a shared library with a
-plain C interface and loaded with ``ctypes``. The library is built at
+Each source is compiled with ``nvcc`` to an object, all at once in
+parallel, and the objects are linked into one shared library with a
+plain C interface, loaded with ``ctypes``. The library is built at
 first use into ``picard_ica_tpu_torch/_build/`` (listed in
 ``.gitignore``) under a name keyed by a hash of the sources and the
 flags, so an edited source is rebuilt and a current build is reused.
@@ -22,10 +23,10 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("rotated_sums.cu",)
+SOURCES = ("rotated_sums.cu", "covariance_sums.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _P = ctypes.c_void_p
@@ -48,6 +49,9 @@ _SIGNATURES = {
     "picard_rotated_loglik_sums": [
         _I, _I, _I, _D, _I, _LL, _I, _P, _P, _P, _P, _I, _P,
     ],
+    "picard_cov_chunk": [],
+    "picard_row_sums": [_I, _LL, _P, _P, _I, _P],
+    "picard_covariance_sums": [_I, _LL, _P, _P, _I, _P, _I, _P],
 }
 
 
@@ -79,6 +83,14 @@ def library_path() -> Path:
     return BUILD_DIR / f"libpicard_kernels_{h.hexdigest()[:16]}.so"
 
 
+def _check(cmd, proc, stdout, stderr) -> None:
+    if proc.returncode != 0:
+        raise RuntimeError(
+            "nvcc failed (exit %d): %s\n%s\n%s"
+            % (proc.returncode, " ".join(cmd), stdout, stderr)
+        )
+
+
 def build() -> tuple:
     """Compile the library if it is missing. Returns ``(path, seconds)``
     with ``seconds`` 0.0 when an existing build was reused; a failed
@@ -88,21 +100,26 @@ def build() -> tuple:
         return path, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *(str(CSRC / s) for s in SOURCES)]
-    try:
+    nvcc = find_nvcc()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, Path(s).stem + ".o") for s in SOURCES]
+        cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", o, str(CSRC / s)]
+                for s, o in zip(SOURCES, objs)]
+        procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                  text=True) for c in cmds]
+        try:
+            for cmd, proc in zip(cmds, procs):
+                _check(cmd, proc, *proc.communicate())
+        finally:
+            for proc in procs:  # a failed build leaves no compiler running
+                if proc.poll() is None:
+                    proc.kill()
+                    proc.wait()
+        lib = os.path.join(tmp, "lib.so")
+        cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]
         proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                "nvcc failed (exit %d):\n%s\n%s"
-                % (proc.returncode, proc.stdout, proc.stderr)
-            )
-        os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+        _check(cmd, proc, proc.stdout, proc.stderr)
+        os.replace(lib, path)
     return path, time.perf_counter() - t0
 
 

@@ -1,7 +1,7 @@
-"""The core loop's three data passes: CUDA kernels and plain versions.
+"""The data passes of a fit: CUDA kernels and plain versions.
 
 Counterpart of ``picard_ica_tpu/ops/pallas_kernels.py`` for the kernels
-the Picard-O main path runs:
+the Picard-O main path runs. The core loop (``csrc/rotated_sums.cu``):
 
   * :func:`rotated_fused_sums`   — one line-search try in one read of X
     (replaces ``rotated_fused_sums``, pallas_kernels.py:838-955);
@@ -10,12 +10,26 @@ the Picard-O main path runs:
   * :func:`rotated_loglik_sums`  — loss re-baselines (replaces
     ``rotated_loglik_sums``, :674-719).
 
+Device whitening (``csrc/covariance_sums.cu``):
+
+  * :func:`row_sums` — per-row sums, the mean's numerator (replaces
+    ``row_sums``, :398-434);
+  * :func:`centered_covariance_sums` — (X - mean)(X - mean)^T with the
+    centering in the tile load (replaces ``centered_covariance_sums``,
+    :555-648);
+  * :func:`covariance_sums` — X X^T (replaces ``covariance_sums``,
+    :544-610);
+  * :func:`_grouped_covariance` — either covariance with one partial per
+    group of column chunks (replaces ``_grouped_covariance``,
+    :468-541); the two covariance wrappers hand off to it for
+    N > 512 or partials above 2 GB, as in the JAX package.
+
 Each returns UNNORMALIZED sums over T, so callers divide by T (or
 reduce across devices first). For each there is:
 
   * the wrapper, which runs the plain PyTorch version ONLY for a tensor
-    on the CPU, and for a CUDA tensor launches the kernel of
-    ``csrc/rotated_sums.cu`` or raises (no fallback);
+    on the CPU, and for a CUDA tensor launches the kernel or raises (no
+    fallback);
   * the plain version (``*_plain``), the same formulation as the TPU
     kernel with an explicit bf16 split for the bf16x3 tier; the CPU
     tests and ``chip_smoke.py`` hold the kernels against it;
@@ -49,6 +63,18 @@ KERNEL_MAX_N = 64
 # Columns of X each CUDA block reduces into one partial (BT * SUBTILES
 # in csrc/rotated_sums.cu).
 COLS_PER_BLOCK = 2048
+# Columns of X per partial of the whitening kernels (CHUNK in
+# csrc/covariance_sums.cu); the plain versions chunk alike by default.
+COV_CHUNK = 2048
+# Column chunks per partial of the grouped covariance (the JAX package's
+# _COV_GROUP, pallas_kernels.py:437).
+COV_GROUP = 16
+# The covariance wrappers take the grouped kernel above this N, or when
+# the per-chunk (n_chunks, N, N) f32 partials would pass this many bytes
+# (pallas_kernels.py:137, 438, 590-593). Both limits come from the TPU's
+# VMEM and are kept for parity; they are to be re-measured on the H100.
+COV_RESIDENT_MAX_N = 512
+RESIDENT_PARTIALS_MAX = 2 * 1024**3
 
 _TIERS = {"f32": 0, "bf16x3": 1, "bf16": 2}
 
@@ -157,6 +183,69 @@ def rotated_fused_sums_plain(m_new, m_old, x, density, need_h: bool,
     return dll, dysq, g, pm, h, ysq
 
 
+def _n_chunks(t: int, chunk: int) -> int:
+    return -(-t // chunk)
+
+
+def _chunk_products(x, chunk: int):
+    """(n_chunks, N, N) per-chunk products ``X_c X_c^T`` in X's dtype;
+    the last chunk is the ragged tail (nothing is padded, so nothing
+    padded can add to the sums)."""
+    n, t = x.shape
+    full = (t // chunk) * chunk
+    parts = []
+    if full:
+        body = x[:, :full].reshape(n, full // chunk, chunk).transpose(0, 1)
+        parts.append(torch.bmm(body, body.transpose(1, 2)))
+    if full < t:
+        tail = x[:, full:]
+        parts.append((tail @ tail.T)[None])
+    return torch.cat(parts) if len(parts) > 1 else parts[0]
+
+
+def row_sums_plain(x, chunk: int = COV_CHUNK):
+    """Per-row sums of X: one partial per ``chunk`` columns in X's dtype,
+    folded pairwise."""
+    n, t = x.shape
+    full = (t // chunk) * chunk
+    parts = []
+    if full:
+        parts.append(x[:, :full].reshape(n, full // chunk, chunk).sum(dim=2).T)
+    if full < t:
+        parts.append(x[:, full:].sum(dim=1)[None])
+    return fold_pairwise(torch.cat(parts))
+
+
+def covariance_sums_plain(x, chunk: int = COV_CHUNK):
+    """``X X^T``: one (N, N) partial per ``chunk`` columns, folded
+    pairwise."""
+    return fold_pairwise(_chunk_products(x, chunk))
+
+
+def centered_covariance_sums_plain(x, mean):
+    """``(X - mean)(X - mean)^T``; the mean is cast to X's dtype first
+    (pallas_kernels.py:647)."""
+    return covariance_sums_plain(x - mean.to(x.dtype)[:, None])
+
+
+def grouped_covariance_plain(x, mean=None):
+    """The covariance (centered when ``mean`` is given) with one partial
+    per :data:`COV_GROUP` chunks: the chunk products are added in order
+    within a group, and the groups are folded pairwise."""
+    if mean is not None:
+        x = x - mean.to(x.dtype)[:, None]
+    p = _chunk_products(x, COV_CHUNK)
+    n_groups = _n_chunks(p.shape[0], COV_GROUP)
+    pad = n_groups * COV_GROUP - p.shape[0]
+    if pad:  # exact zeros: the in-order sums of the last group are unchanged
+        p = torch.cat([p, p.new_zeros((pad,) + p.shape[1:])])
+    p = p.reshape(n_groups, COV_GROUP, *p.shape[1:])
+    acc = p[:, 0]
+    for k in range(1, COV_GROUP):
+        acc = acc + p[:, k]
+    return fold_pairwise(acc)
+
+
 # ---------------------------------------------------------------------------
 # CUDA wrappers.
 # ---------------------------------------------------------------------------
@@ -167,9 +256,10 @@ def _lib():
 
     lib = _build.load()
     if (lib.picard_max_n() != KERNEL_MAX_N
-            or lib.picard_cols_per_block() != COLS_PER_BLOCK):
-        raise RuntimeError("csrc/rotated_sums.cu and ops/kernels.py disagree "
-                           "on NMAX / COLS_PER_BLOCK")
+            or lib.picard_cols_per_block() != COLS_PER_BLOCK
+            or lib.picard_cov_chunk() != COV_CHUNK):
+        raise RuntimeError("csrc/ and ops/kernels.py disagree on NMAX / "
+                           "COLS_PER_BLOCK / CHUNK")
     return lib
 
 
@@ -323,14 +413,96 @@ def rotated_loglik_sums(m, x, density, need_ysq: bool):
     return fold_pairwise(ll), _fold(ysq, need_ysq, (n,), x)
 
 
-rotated_fused_sums.launches = 0
-rotated_moments_sums.launches = 0
-rotated_loglik_sums.launches = 0
+def _check_stats(x, mean=None):
+    """Validate a whitening kernel's inputs; returns ``(n, t, mean_f32)``."""
+    if x.dim() != 2:
+        raise ValueError(f"x must be 2-D (N, T), got shape {tuple(x.shape)}")
+    if x.dtype != torch.float32:
+        raise TypeError(
+            f"the whitening kernels take f32 X, got {x.dtype} (f64 takes the "
+            "plain torch reductions)"
+        )
+    if not x.is_contiguous():
+        raise ValueError("x must be contiguous")
+    n, t = x.shape
+    if mean is not None:
+        if tuple(mean.shape) != (n,):
+            raise ValueError(f"mean must have shape ({n},), got {tuple(mean.shape)}")
+        if mean.device != x.device:
+            raise ValueError("mean and x must be on the same device")
+        mean = mean.to(torch.float32).contiguous()
+    return n, t, mean
 
-KERNELS = (rotated_fused_sums, rotated_moments_sums, rotated_loglik_sums)
+
+def _use_grouped(n: int, t: int) -> bool:
+    """The JAX package's hand-off to the grouped covariance."""
+    return (n > COV_RESIDENT_MAX_N
+            or _n_chunks(t, COV_CHUNK) * n * n * 4 > RESIDENT_PARTIALS_MAX)
+
+
+def _covariance_launch(x, mean, group: int):
+    n, t, mean = _check_stats(x, mean)
+    n_parts = _n_chunks(_n_chunks(t, COV_CHUNK), group)
+    out = torch.empty((n_parts, n, n), dtype=torch.float32, device=x.device)
+    _run(_lib().picard_covariance_sums, n, t, x.data_ptr(), _ptr(mean), group,
+         out.data_ptr(), n_parts, device=x.device)
+    return fold_pairwise(out)
+
+
+def row_sums(x):
+    """Unnormalized per-row sums of X (the mean's numerator)."""
+    if x.device.type == "cpu":
+        return row_sums_plain(x)
+    n, t, _ = _check_stats(x)
+    n_parts = _n_chunks(t, COV_CHUNK)
+    out = torch.empty((n_parts, n), dtype=torch.float32, device=x.device)
+    _run(_lib().picard_row_sums, n, t, x.data_ptr(), out.data_ptr(), n_parts,
+         device=x.device)
+    row_sums.launches += 1
+    return fold_pairwise(out)
+
+
+def covariance_sums(x):
+    """Unnormalized ``X X^T``."""
+    if _use_grouped(*x.shape):
+        return _grouped_covariance(x, None)
+    if x.device.type == "cpu":
+        return covariance_sums_plain(x)
+    out = _covariance_launch(x, None, 1)
+    covariance_sums.launches += 1
+    return out
+
+
+def centered_covariance_sums(x, mean):
+    """Unnormalized ``(X - mean)(X - mean)^T`` in one read of X."""
+    if _use_grouped(*x.shape):
+        return _grouped_covariance(x, mean)
+    if x.device.type == "cpu":
+        return centered_covariance_sums_plain(x, mean)
+    out = _covariance_launch(x, mean, 1)
+    centered_covariance_sums.launches += 1
+    return out
+
+
+def _grouped_covariance(x, mean):
+    """Unnormalized covariance, centered when ``mean`` is given, with one
+    partial per :data:`COV_GROUP` chunks."""
+    if x.device.type == "cpu":
+        return grouped_covariance_plain(x, mean)
+    out = _covariance_launch(x, mean, COV_GROUP)
+    _grouped_covariance.launches += 1
+    return out
+
+
+KERNELS = (rotated_fused_sums, rotated_moments_sums, rotated_loglik_sums,
+           row_sums, centered_covariance_sums, covariance_sums,
+           _grouped_covariance)
 
 
 def reset_launch_counts() -> None:
     """Set every kernel's launch counter to 0."""
     for k in KERNELS:
         k.launches = 0
+
+
+reset_launch_counts()

@@ -4,11 +4,12 @@ Counterpart of ``picard_ica_tpu/solver.py`` (reference:
 src/solver.rs:45-189): validate -> RNG -> center + whiten -> init W
 -> pre-rotate -> core loop -> compose W·W_init -> PicardResult. The
 orchestration is eager Python around the device tensors of one
-``device``; the core loop is ``models/core.run_core``.
+``device``; the core loop is ``models/core.run_core``. Centering and
+whitening run in NumPy f64 on the host or on the device
+(``ops/whitening.py``; ``PicardConfig.whiten_precision`` chooses).
 
 Not ported yet (``NotImplementedError``): the JADE and FastICA warm
-starts (``jade_it``, ``fastica_it``), sample-sharded fits (``mesh``),
-and device-side whitening (see ``ops/whitening.py``).
+starts (``jade_it``, ``fastica_it``) and sample-sharded fits (``mesh``).
 """
 
 from __future__ import annotations
@@ -27,7 +28,7 @@ from .models.core import CoreOptions, _precision_stages, run_core
 from .ops.densities import Tanh
 from .ops.kernels import KERNEL_MAX_N
 from .ops.linalg import _SYM_DECORR_MIN_EIG, rotate_rows_inplace, sym_decorrelation_with_mineig
-from .ops.whitening import _HOST_F64_MAX_ELEMENTS, DEVICE_WHITENING_TODO, preprocess_f64
+from .ops.whitening import _HOST_F64_MAX_ELEMENTS, center_whiten, preprocess_f64
 from .results import PicardResult
 
 
@@ -93,25 +94,25 @@ class Picard:
         if n == 0 or p == 0:
             raise InvalidDimensionsError("Input matrix cannot be empty")
 
-        # Host-f64 preprocessing: float64 NumPy input of moderate size is
-        # centered and whitened in NumPy f64, so the whitening basis
-        # matches an all-f64 pipeline's.
+        # Host-f64 preprocessing: when the caller hands over float64
+        # NumPy data of moderate size and the core runs in f32, the
+        # one-time center+whiten pass runs in NumPy f64, so the whitening
+        # basis matches an all-f64 pipeline's. Everything else is
+        # centered and whitened on the device.
         x_host = x if isinstance(x, np.ndarray) else None
-        preprocess = config.centering or config.whiten
         host_f64 = config.whiten_precision == "f64"
         if config.whiten_precision == "auto":
             host_f64 = (
                 x_host is not None
                 and x_host.dtype == np.float64
+                and dtype == torch.float32
                 and x_host.size <= _HOST_F64_MAX_ELEMENTS
-                and preprocess
+                and (config.centering or config.whiten)
             )
         if host_f64 and x_host is None:
             raise InvalidDimensionsError(
                 "whiten_precision='f64' requires a host (NumPy) input array"
             )
-        if not host_f64 and preprocess:
-            raise NotImplementedError(DEVICE_WHITENING_TODO)
 
         seed = config.random_state
         if seed is None:
@@ -140,11 +141,20 @@ class Picard:
             x_mean = None if mean_64 is None else torch.as_tensor(mean_64, dtype=dtype, device=device)
             k_matrix = None if k_64 is None else torch.as_tensor(k_64, dtype=dtype, device=device)
         else:
-            # Neither centering nor whitening: the data go to the device
-            # as they are, in a buffer the solver owns (rotated in place).
-            x1 = torch.as_tensor(x, dtype=dtype).to(device, copy=True).contiguous()
-            x_mean = None
-            k_matrix = None
+            # Center (solver.rs:77-82) + whiten (solver.rs:85-93) on the
+            # device. NumPy input is cast on the host and then moved; a
+            # tensor is cast on its own device. x1 is a buffer the solver
+            # owns (ensure_owned): the caller's data are never written.
+            if isinstance(x, torch.Tensor):
+                x_dev = x.to(dtype=dtype).to(device)
+            else:
+                np_dtype = np.float32 if dtype == torch.float32 else np.float64
+                x_dev = torch.from_numpy(np.ascontiguousarray(x, np_dtype)).to(device)
+            x1, x_mean, k_matrix = center_whiten(
+                x_dev.contiguous(), n_components, config.centering, config.whiten,
+                ensure_owned=True,
+            )
+            del x_dev
         x = x_host = None  # noqa: F841  (the input is not read again)
         actual_components = x1.shape[0]
 

@@ -1,7 +1,19 @@
-"""Seeded synthetic ICA fixtures (pure NumPy).
+"""Seeded synthetic ICA data (NumPy, and torch on a device).
 
-Copy of the NumPy generators of ``picard_ica_tpu/utils/datagen.py``;
-importing that module would pull in ``jax``.
+The NumPy generators copy those of ``picard_ica_tpu/utils/datagen.py``
+bit for bit (importing that module would pull in ``jax``):
+
+  * ``generate_bench_data`` reproduces the reference benchmark generator
+    in the integer domain (benches/benchmarks.rs:8-35): an LCG
+    (``state * 6364136223846793005 + 1`` on wrapping u64), Laplace
+    sources by inverse CDF, uniform(-0.5, 0.5) mixing;
+  * ``reference_mixing_matrix`` is that mixing block alone, reached by
+    jumping the LCG past the n*t source draws;
+  * ``generate_test_data`` / ``generate_mixed_kurtosis_data`` are the
+    seeded test fixtures.
+
+``generate_bench_data_device`` makes the bench mixture on a torch
+device.
 """
 
 from __future__ import annotations
@@ -9,6 +21,120 @@ from __future__ import annotations
 from typing import Tuple
 
 import numpy as np
+import torch
+
+_LCG_MUL = np.uint64(6364136223846793005)
+_LCG_INC = np.uint64(1)
+
+
+def _lcg_stream(state: int, count: int) -> Tuple[np.ndarray, int]:
+    """Generate ``count`` u64 LCG states starting after ``state``.
+
+    Vectorized closed form: s_k = A^k s_0 + (1 + A + ... + A^{k-1})
+    mod 2^64, using numpy's wrapping uint64 arithmetic — bit-identical
+    to the scalar recurrence but O(count) vector work.
+    """
+    s0 = np.uint64(state)
+    with np.errstate(over="ignore"):
+        pows = np.multiply.accumulate(np.full(count, _LCG_MUL, dtype=np.uint64))
+        geo = np.cumsum(
+            np.concatenate([np.ones(1, np.uint64), pows[:-1]]), dtype=np.uint64
+        )
+        states = pows * s0 + geo
+    return states, int(states[-1])
+
+
+def _lcg_uniform(states: np.ndarray) -> np.ndarray:
+    """Map LCG states to [0, 1) doubles exactly as benchmarks.rs:16
+    (31 retained bits over 2^31)."""
+    return (states >> np.uint64(33)).astype(np.float64) / float(1 << 31)
+
+
+def generate_bench_data(n_features: int, n_samples: int, seed: int = 42) -> np.ndarray:
+    """Mixed Laplace data identical to the reference benchmark harness
+    (the vectorized NumPy closed form; f64)."""
+    states, state = _lcg_stream(seed, n_features * n_samples)
+    u = _lcg_uniform(states)
+    data = np.where(u < 0.5, np.log(np.maximum(2.0 * u, 1e-300)), -np.log(np.maximum(2.0 * (1.0 - u), 1e-300)))
+    data = data.reshape(n_features, n_samples)
+
+    states, _ = _lcg_stream(state, n_features * n_features)
+    mixing = _lcg_uniform(states).reshape(n_features, n_features) - 0.5
+
+    return mixing @ data
+
+
+def _lcg_jump(state: int, count: int) -> int:
+    """LCG state after ``count`` steps, in O(log count) host work: binary
+    composition of the affine map f(s) = A*s + 1 mod 2^64, bit-identical
+    to ``_lcg_stream(state, count)[1]`` without materializing the
+    stream."""
+    m = 1 << 64
+    a, c = int(_LCG_MUL), int(_LCG_INC)
+    acc_a, acc_c = 1, 0
+    k = count
+    while k:
+        if k & 1:
+            acc_a, acc_c = (acc_a * a) % m, (acc_c * a + c) % m
+        a, c = (a * a) % m, (a * c + c) % m
+        k >>= 1
+    return (acc_a * state + acc_c) % m
+
+
+def reference_mixing_matrix(n_features: int, n_samples: int, seed: int = 42) -> np.ndarray:
+    """The reference harness's uniform(-0.5, 0.5) mixing matrix,
+    bit-exact: the LCG is jumped past the n*t source draws in closed
+    form, then the n*n mixing block is drawn from the exact stream
+    position the Rust harness uses (benches/benchmarks.rs:27-31)."""
+    state = _lcg_jump(seed, n_features * n_samples)
+    states, _ = _lcg_stream(state, n_features * n_features)
+    return _lcg_uniform(states).reshape(n_features, n_features) - 0.5
+
+
+# Column block of the in-place Laplace transform (a few block-sized
+# temporaries beside the one data buffer).
+_GEN_BLOCK_T = 1 << 20
+
+
+def laplace_sources_device(n: int, t: int, seed: int, device) -> torch.Tensor:
+    """(n, t) f32 standard Laplace sources made on ``device`` from a
+    ``torch.Generator`` seeded with ``seed``.
+
+    ``u ~ U(-1 + epsneg, 1)`` then ``sign(u) * log1p(-|u|)``, the form
+    of ``jax.random.laplace``, written over the one data buffer a column
+    block at a time. The values are not the JAX package's (its device
+    generator draws from the ``rbg`` stream); the law is the same.
+    """
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    x = torch.empty((n, t), dtype=torch.float32, device=device)
+    x.uniform_(-1.0 + float(np.finfo(np.float32).epsneg), 1.0, generator=gen)
+    below_one = float(np.nextafter(np.float32(1.0), np.float32(0.0)))
+    for start in range(0, t, _GEN_BLOCK_T):
+        u = x[:, start: start + _GEN_BLOCK_T]
+        u.copy_(torch.sign(u) * torch.log1p(-u.abs().clamp_(max=below_one)))
+    return x
+
+
+def generate_bench_data_device(n_features: int, n_samples: int, seed: int = 42,
+                               device="cuda") -> torch.Tensor:
+    """The bench mixture made on ``device``, f32 (n_features, n_samples).
+
+    Standard Laplace sources (:func:`laplace_sources_device`, the law of
+    the reference's inverse-CDF construction, benchmarks.rs:18-24) mixed
+    by the bit-exact reference mixing matrix
+    (:func:`reference_mixing_matrix`) through the in-place blockwise
+    rotation, so generation peaks at one data buffer. The sources come
+    from a ``torch.Generator``, not from the JAX package's ``rbg``
+    stream, so the values differ from its ``generate_bench_data_device``
+    while the mixing matrix is the same.
+    """
+    from ..ops.linalg import rotate_rows_inplace
+
+    x = laplace_sources_device(n_features, n_samples, seed, device)
+    mixing = torch.as_tensor(reference_mixing_matrix(n_features, n_samples, seed),
+                             dtype=torch.float32, device=device)
+    return rotate_rows_inplace(mixing, x)
 
 
 def generate_test_data(n: int, t: int, seed: int) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:

@@ -129,3 +129,103 @@ def test_fit_kernels_match_torch_path(dev, n):
     w_t = r_t.full_unmixing().double().cpu().numpy()
     assert amari_distance(w_k, np.linalg.inv(w_t)) < 1e-4
     assert amari_distance(w_k, a) < 5e-3
+
+
+# ---- device whitening -------------------------------------------------------
+
+# N of the whitening kernels: one output tile, one full tile, and the
+# grouped hand-off (N > 512) with a ragged last tile. T is ragged too.
+STATS_SHAPES = [(4, 5001), (64, 4097), (513, 2500), (600, 3001)]
+
+
+def _stats_inputs(dev, n, t, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.laplace(size=(n, t)) + 1.5
+    mean = x.mean(axis=1)
+    return (torch.from_numpy(x.astype(np.float32)).to(dev),
+            torch.from_numpy(mean.astype(np.float32)).to(dev))
+
+
+@pytest.mark.parametrize("n,t", STATS_SHAPES)
+def test_row_sums_matches_plain(dev, n, t):
+    x, _ = _stats_inputs(dev, n, t)
+    before = K.row_sums.launches
+    out = K.row_sums(x)
+    assert K.row_sums.launches == before + 1
+    _close([out], [K.row_sums_plain(x)])
+
+
+@pytest.mark.parametrize("centered", [False, True], ids=["plain", "centered"])
+@pytest.mark.parametrize("n,t", STATS_SHAPES)
+def test_covariance_matches_plain(dev, n, t, centered):
+    """The covariance wrappers: per-chunk kernels up to N = 512, the
+    grouped kernel above."""
+    x, mean = _stats_inputs(dev, n, t, seed=1)
+    m = mean if centered else None
+    grouped = n > K.COV_RESIDENT_MAX_N
+    counter = (K._grouped_covariance if grouped else
+               K.centered_covariance_sums if centered else K.covariance_sums)
+    before = counter.launches
+    out = K.centered_covariance_sums(x, mean) if centered else K.covariance_sums(x)
+    assert counter.launches == before + 1
+    if grouped:
+        ref = K.grouped_covariance_plain(x, m)
+    elif centered:
+        ref = K.centered_covariance_sums_plain(x, mean)
+    else:
+        ref = K.covariance_sums_plain(x)
+    assert torch.equal(out, out.T)
+    _close([out], [ref])
+
+
+@pytest.mark.parametrize("centered", [False, True], ids=["plain", "centered"])
+@pytest.mark.parametrize("n", [4, 64, 600])
+def test_grouped_covariance_matches_plain(dev, n, centered):
+    """Across group boundaries: 70,001 columns are 35 chunks, 3 groups."""
+    x, mean = _stats_inputs(dev, n, 70_001, seed=2)
+    m = mean if centered else None
+    out = K._grouped_covariance(x, m)
+    assert torch.equal(out, out.T)
+    _close([out], [K.grouped_covariance_plain(x, m)])
+
+
+def test_whitening_wrappers_reject_what_the_kernels_do_not_take(dev):
+    x, mean = _stats_inputs(dev, 8, 3000)
+    with pytest.raises(TypeError):
+        K.row_sums(x.double())
+    with pytest.raises(TypeError):
+        K.covariance_sums(x.double())
+    with pytest.raises(ValueError):
+        K.row_sums(x[:, ::2])
+    with pytest.raises(ValueError):
+        K.centered_covariance_sums(x[:, ::2], mean)
+    with pytest.raises(ValueError):
+        K.centered_covariance_sums(x, mean[:4])
+    with pytest.raises(ValueError):
+        K._grouped_covariance(x, mean[:, None])
+
+
+def test_fit_cuda_tensor_through_device_whitening(dev):
+    """An f32 tensor on the card: whitened by the kernels, fitted, the
+    caller's tensor untouched, and the same unmixing as the CPU fit of
+    the same data."""
+    from picard_ica_tpu_torch import Picard, PicardConfig
+    from picard_ica_tpu_torch.utils import amari_distance, generate_mixed_kurtosis_data
+
+    _, a, x = generate_mixed_kurtosis_data(8, 60_000, 5)
+    x32 = torch.from_numpy(x.astype(np.float32))
+    x_dev = x32.to(dev)
+    before = x_dev.clone()
+    K.reset_launch_counts()
+    r_g = Picard.fit(x_dev, PicardConfig(random_state=0))
+    for k in (K.row_sums, K.centered_covariance_sums, K.covariance_sums,
+              K.rotated_fused_sums, K.rotated_moments_sums):
+        assert k.launches > 0, k.__name__
+    assert torch.equal(x_dev, before)
+    r_c = Picard.fit(x32, PicardConfig(random_state=0))
+    assert r_g.converged and r_c.converged
+    assert r_g.sources.device.type == "cuda" and r_c.sources.device.type == "cpu"
+    w_g = r_g.full_unmixing().double().cpu().numpy()
+    w_c = r_c.full_unmixing().double().numpy()
+    assert amari_distance(w_g, np.linalg.inv(w_c)) < 1e-4
+    assert amari_distance(w_g, a) < 5e-3

@@ -1,15 +1,18 @@
 """The port's ``Picard`` facade against the JAX package's, on the CPU.
 
 End to end on an 8 x 20,000 mixed sub/super-Gaussian mixture (float64
-NumPy input, host-f64 whitening):
-  * f64 (``dtype=torch.float64`` vs the JAX facade under x64): the same
-    iteration count and the same unmixing to 1e-9 (the same f64
-    algorithm; BLAS summation orders differ);
-  * f32 (the default vs the JAX facade with ``dtype=float32``): both
-    converge and the full unmixings agree to Amari < 1e-5 (two f32
-    trajectories to tol 1e-7 from one f64 whitening).
-Plus the typed errors, the parts not ported yet, the device rule and
-the package's independence from JAX.
+NumPy input):
+  * f64 (``dtype=torch.float64`` vs the JAX facade under x64, both
+    whitened on the device in f64): the same iteration count and the
+    same unmixing to 1e-9 (the same f64 algorithm; BLAS summation orders
+    differ);
+  * f32 (the default vs the JAX facade with ``dtype=float32``, both
+    whitened on the host in f64): both converge and the full unmixings
+    agree to Amari < 1e-5 (two f32 trajectories to tol 1e-7 from one f64
+    whitening).
+Plus the routing between host and device whitening, the typed errors,
+the parts not ported yet, the device rule and the package's
+independence from JAX.
 """
 
 import os
@@ -23,7 +26,8 @@ import torch
 
 import picard_ica_tpu as J
 import picard_ica_tpu_torch as P
-from picard_ica_tpu_torch import convert
+from picard_ica_tpu_torch import convert, solver
+from picard_ica_tpu_torch.ops.whitening import preprocess_f64
 from picard_ica_tpu_torch.utils import amari_distance, generate_mixed_kurtosis_data
 
 torch.set_num_threads(2)
@@ -130,16 +134,60 @@ def test_typed_errors():
 
 def test_parts_not_ported_raise_not_implemented():
     x = np.random.default_rng(0).standard_normal((3, 200))
-    for cfg in (P.PicardConfig(jade_it=3), P.PicardConfig(fastica_it=3),
-                P.PicardConfig(whiten_precision="device")):
+    for cfg in (P.PicardConfig(jade_it=3), P.PicardConfig(fastica_it=3)):
         with pytest.raises(NotImplementedError):
             P.Picard.fit(x, cfg, device="cpu")
-    with pytest.raises(NotImplementedError):  # f32 input: device whitening
-        P.Picard.fit(x.astype(np.float32), device="cpu")
-    with pytest.raises(NotImplementedError):  # tensor input: device whitening
-        P.Picard.fit(torch.from_numpy(x))
     with pytest.raises(NotImplementedError):
         P.Picard.fit_with_config(x, P.PicardConfig(), device="cpu", mesh=object())
+
+
+def _no_host_f64(monkeypatch):
+    def refuse(*args, **kwargs):
+        raise AssertionError("took the host-f64 preprocessing")
+
+    monkeypatch.setattr(solver, "preprocess_f64", refuse)
+
+
+@pytest.mark.parametrize("kind", ["f32", "tensor", "device", "oversized-f64"])
+def test_device_whitening_inputs_fit(mixture, monkeypatch, kind):
+    """f32 NumPy input, a tensor, whiten_precision='device' and f64 input
+    above the host limit are centered and whitened on the device."""
+    a, x = mixture
+    _no_host_f64(monkeypatch)
+    cfg = P.PicardConfig(random_state=0)
+    if kind == "f32":
+        x = x.astype(np.float32)
+    elif kind == "tensor":
+        x = torch.from_numpy(x)
+    elif kind == "device":
+        cfg = cfg.replace(whiten_precision="device")
+    else:
+        monkeypatch.setattr(solver, "_HOST_F64_MAX_ELEMENTS", x.size - 1)
+    r = P.Picard.fit(x, cfg, device="cpu")
+    assert r.converged and r.unmixing.dtype == torch.float32
+    assert r.whitening.shape == (8, 8) and r.mean.shape == (8,)
+    assert amari_distance(r.full_unmixing().double().numpy(), a) < 5e-3
+
+
+def test_auto_f64_core_whitens_on_the_device_as_jax(mixture, monkeypatch):
+    """'auto' keeps the host-f64 pass for an f32 core only (the JAX
+    package's rule): an f64 fit of f64 NumPy input takes the device path
+    in both packages and they agree to 1e-9."""
+    a, x = mixture
+    calls = []
+    monkeypatch.setattr(solver, "preprocess_f64",
+                        lambda *args: calls.append(1) or preprocess_f64(*args))
+    P.Picard.fit(x, P.PicardConfig(random_state=0, max_iter=2), device="cpu")
+    assert calls == [1]  # f32 core: host f64
+
+    _no_host_f64(monkeypatch)
+    rj = J.Picard.fit(x, J.PicardConfig(random_state=0))
+    rt = P.Picard.fit(x, P.PicardConfig(random_state=0, dtype=torch.float64), device="cpu")
+    assert rt.converged and rt.n_iterations == rj.n_iterations
+    np.testing.assert_allclose(rt.full_unmixing().numpy(), np.asarray(rj.full_unmixing()),
+                               rtol=1e-9, atol=1e-9)
+    np.testing.assert_allclose(rt.whitening.numpy(), np.asarray(rj.whitening),
+                               rtol=1e-12, atol=1e-12)
 
 
 def test_fit_needs_cuda_or_an_explicit_device(monkeypatch):
