@@ -28,13 +28,29 @@ prints no result line):
      whitening and core kernel launched in that fit, the caller's tensor
      unchanged;
   4b. ``center_whiten`` of a 600 x 1,000,000 f32 mixture on the card,
-     through ``_grouped_covariance``, with the same whiteness bounds.
+     through ``_grouped_covariance``, with the same whiteness bounds;
+  5. the large-N slice at BASELINE config 5's width: a 256 x 2,000,000
+     mixed sub/super-Gaussian mixture as an f32 CUDA tensor, fitted with
+     ``use_kernels=True`` through the streaming kernels at tol 1e-7 in
+     the exact f32 tier, then on the torch path: convergence, Amari to
+     the mixing, agreement, launch counts (streaming > 0, resident core
+     kernels 0, whitening kernels > 0) and the caller's tensor unchanged;
+  5b. the JAX package's large-N exhibit (benchmarks/suite.py:597-627):
+     1024 x 200,000 bench mixture made on the card, 10 iterations at tol
+     1e-4 on both paths at the default staged schedule, so the bf16 tier
+     runs through the streaming kernels (the grouped covariance whitens
+     it).
+
+Phase 2 also holds the streaming kernels against their plain versions:
+``streaming_fused_sums`` at 256 x 2,000,000 (every mode and tier the
+path runs), 306 x 1,000,003 and 1024 x 200,000, ``streaming_loglik_sums``
+at 256 x 2,000,000 and 1024 x 200,000.
 
 The line before the last is a JSON object describing every kernel
-(launches on its path — phase 3 for the core kernels, phase 4 for the
-whitening kernels, 4b for the grouped one — error against the plain
-version, times); the
-last line is ``{"ok": true, "device": {...}}``. Needs one CUDA card.
+(launches on its path — phase 3 for the resident core kernels, phase 4
+for the whitening kernels, 4b for the grouped one, 5 for the streaming
+kernels — error against the plain version, times); the last line is
+``{"ok": true, "device": {...}}``. Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -64,6 +80,12 @@ N4B, T4B = 600, 1_000_000
 # emitted data, and of K against the f64 covariance of the same input.
 SELF_WHITE_MAX = 1e-4
 K_RESIDUAL_MAX = 1e-3
+# The large-N slice (BASELINE config 5's width on one card), the MEG
+# channel count (Neuromag/MEGIN, 306) with a ragged T, and the JAX
+# package's large-N exhibit.
+N5, T5 = 256, 2_000_000
+N_MEG, T_MEG = 306, 1_000_003
+N5B, T5B, SEED5B = 1024, 200_000, 42
 
 
 def _log(msg):
@@ -169,39 +191,120 @@ def phase2_kernels():
     }
     rows = {}
     for kern, label, tier, make, xx in cases:
-        name = kern.__name__
-        plain = plain_of[kern]
-        args = make(m_new, m_old, xx)
-        out_k = kern(*args)
-        torch.cuda.synchronize()
-        out_p = plain(*args)
-        if tier == "f32":
-            args64 = make(m_new.double(), m_old.double(), xx.double())
-            out_64 = plain(*args64)
-            err_k = _max_abs(out_k, out_64)
-            err_p = _max_abs(out_p, out_64)
-            bound = F32_ERR_FACTOR * err_p + F32_FLOOR_PER_COL * T
-            ok = err_k <= bound
-            detail = f"err vs f64 {err_k:.4g} (plain f32 {err_p:.4g}, bound {bound:.4g})"
-            del out_64
-        else:
-            err_k = _max_abs(out_k, out_p)
-            scale = max(float(v.abs().max()) for v in out_p)
-            bound = BF16_RTOL * scale
-            ok = err_k <= bound
-            detail = f"err vs plain {tier} {err_k:.4g} (bound {bound:.4g})"
-        finite = all(bool(torch.isfinite(v).all()) for v in out_k)
-        ms = _time_ms(lambda: kern(*args))
-        plain_ms = _time_ms(lambda: plain(*args))
-        _log(f"{name} [{label}]: {detail}, finite={finite}, "
-             f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-        if not (ok and finite):
-            raise AssertionError(f"{name} [{label}] disagrees with its plain version")
-        row = rows.setdefault(name, {"max_abs_err": 0.0, "cases": []})
-        row["max_abs_err"] = max(row["max_abs_err"], err_k)
-        row["cases"].append({"case": label, "ms": ms, "plain_ms": plain_ms,
-                             "max_abs_err": err_k})
-        del out_k, out_p
+        _hold(rows, kern, plain_of[kern], label, tier, make, m_new, m_old, xx)
+    return rows
+
+
+def _hold(rows, kern, plain, label, tier, make, m_new, m_old, xx):
+    """Hold one kernel call against its plain version: f32 tiers against
+    an f64 evaluation of the same sums (the kernel's error may be
+    F32_ERR_FACTOR x the plain f32 version's plus F32_FLOOR_PER_COL per
+    summed column), bf16 tiers against the plain version of the same
+    tier at BF16_RTOL of scale. Times both; adds the case to ``rows``."""
+    import torch
+
+    name = kern.__name__
+    n, t = xx.shape
+    args = make(m_new, m_old, xx)
+    out_k = kern(*args)
+    torch.cuda.synchronize()
+    out_p = plain(*args)
+    if tier == "f32":
+        args64 = make(m_new.double(), m_old.double(), xx.double())
+        out_64 = plain(*args64)
+        del args64
+        err_k = _max_abs(out_k, out_64)
+        err_p = _max_abs(out_p, out_64)
+        bound = F32_ERR_FACTOR * err_p + F32_FLOOR_PER_COL * t
+        ok = err_k <= bound
+        detail = f"err vs f64 {err_k:.4g} (plain f32 {err_p:.4g}, bound {bound:.4g})"
+        del out_64
+    else:
+        err_k = _max_abs(out_k, out_p)
+        scale = max(float(v.abs().max()) for v in out_p)
+        bound = BF16_RTOL * scale
+        ok = err_k <= bound
+        detail = f"err vs plain {tier} {err_k:.4g} (bound {bound:.4g})"
+    finite = all(bool(torch.isfinite(v).all()) for v in out_k)
+    del out_k, out_p
+    torch.cuda.empty_cache()
+    ms = _time_ms(lambda: kern(*args))
+    plain_ms = _time_ms(lambda: plain(*args))
+    _log(f"{name} [{label}] {n} x {t}: {detail}, finite={finite}, "
+         f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+    if not (ok and finite):
+        raise AssertionError(f"{name} [{label}] disagrees with its plain version")
+    row = rows.setdefault(name, {"max_abs_err": 0.0, "cases": []})
+    row["max_abs_err"] = max(row["max_abs_err"], err_k)
+    row["cases"].append({"case": f"{label}, {n} x {t}", "ms": ms,
+                         "plain_ms": plain_ms, "max_abs_err": err_k})
+
+
+def _stream_inputs(n, t, seed):
+    """Unit-variance Laplace X made on the card, and weights near the
+    identity whose rows keep unit scale at any N."""
+    import numpy as np
+    import torch
+
+    from picard_ica_tpu_torch.utils.datagen import laplace_sources_device
+
+    rng = np.random.default_rng(seed)
+    x = laplace_sources_device(n, t, seed, "cuda").mul_(float(1.0 / np.sqrt(2.0)))
+    s = 0.8 / np.sqrt(n)
+    m_old = torch.from_numpy(np.eye(n) + s * rng.standard_normal((n, n))).float().cuda()
+    m_new = m_old + torch.from_numpy(0.1 * s * rng.standard_normal((n, n))).float().cuda()
+    return x, m_old, m_new
+
+
+def phase2_streaming_kernels():
+    """The streaming kernels against their plain versions at the large-N
+    shapes: every mode and tier of the 256-component fit, the MEG width
+    with ragged N and T, and 1024 components."""
+    import torch
+
+    from picard_ica_tpu_torch.ops import kernels as K
+    from picard_ica_tpu_torch.ops.densities import Tanh
+
+    d = Tanh()
+    fused, loglik = K.streaming_fused_sums, K.streaming_loglik_sums
+    plain_of = {fused: K.streaming_fused_sums_plain, loglik: K.streaming_loglik_sums_plain}
+
+    def f(precision, absolute_ll, flags=False):
+        return lambda m1, m0, xx: (m1, m0, xx, d, flags, flags, precision, absolute_ll)
+
+    def ll(need_ysq):
+        return lambda m1, m0, xx: (m0, xx, d, need_ysq)
+
+    # (kernel, label, tier, args, bf16 X) — the main path's modes first.
+    plans = [
+        ((N5, T5, 5), [
+            (fused, "delta f32", "f32", f("f32", False), False),
+            (fused, "delta bf16x3", "bf16x3", f("bf16x3", False), False),
+            (fused, "plain bf16, bf16 X", "bf16", f("bf16", True), True),
+            (fused, "plain f32 (moments)", "f32", f("f32", True), False),
+            (fused, "delta f32, H+ysq", "f32", f("f32", False, True), False),
+            (loglik, "f32", "f32", ll(False), False),
+            (loglik, "f32, ysq", "f32", ll(True), False),
+            (loglik, "bf16 X", "bf16", ll(False), True),
+        ]),
+        ((N_MEG, T_MEG, 6), [
+            (fused, "delta f32", "f32", f("f32", False), False),
+        ]),
+        ((N5B, T5B, 7), [
+            (fused, "delta f32", "f32", f("f32", False), False),
+            (fused, "plain bf16, bf16 X", "bf16", f("bf16", True), True),
+            (loglik, "f32", "f32", ll(False), False),
+        ]),
+    ]
+    rows = {}
+    for (n, t, seed), cases in plans:
+        x, m_old, m_new = _stream_inputs(n, t, seed)
+        x16 = x.to(torch.bfloat16)
+        for kern, label, tier, make, bf16_x in cases:
+            _hold(rows, kern, plain_of[kern], label, tier, make, m_new, m_old,
+                  x16 if bf16_x else x)
+        del x, x16
+        torch.cuda.empty_cache()
     return rows
 
 
@@ -279,14 +382,14 @@ def phase2_whitening_kernels():
     return rows
 
 
-def _fit(x, use_kernels):
+def _fit(x, use_kernels, **config):
     import torch
 
     from picard_ica_tpu_torch import Picard, PicardConfig
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    r = Picard.fit(x, PicardConfig(random_state=0, use_kernels=use_kernels))
+    r = Picard.fit(x, PicardConfig(random_state=0, use_kernels=use_kernels, **config))
     torch.cuda.synchronize()
     return r, time.perf_counter() - t0
 
@@ -464,8 +567,120 @@ def phase4b_grouped():
     return launches
 
 
+_STREAM_KERNELS = ("streaming_fused_sums", "streaming_loglik_sums")
+_WHITENING_KERNELS = ("row_sums", "centered_covariance_sums", "covariance_sums")
+
+
+def _report_fit(label, r, wall, t):
+    _log(f"{label}: converged={r.converged} n_iterations={r.n_iterations} "
+         f"stage_exits={r.stage_exits} ls_calls={r.ls_calls} "
+         f"gradient_norm={r.gradient_norm:.3e}")
+    _log(f"{label}: fit {wall:.3f} s, core {r.core_seconds:.4f} s, "
+         f"{t * r.n_iterations / r.core_seconds:.4e} samples*iter/s (core)")
+
+
+def phase5_large_n():
+    """BASELINE config 5's width on one card through the streaming
+    kernels: 256 x 2,000,000, extended + ortho, tol 1e-7.
+
+    Both fits run the exact f32 tier. Under the default staged schedule
+    this seed's kernel fit leaves the bf16 tier with one extended sign
+    wrong and then cycles between sign sets for all 500 iterations, while
+    the torch path, whose bf16 sums are ordered differently, converges;
+    other seeds converge on both paths (PERF.md, Findings). On this card the
+    bf16 tiers save no time at this width (phase 2's times), and phase
+    5b runs them."""
+    import numpy as np
+    import torch
+
+    from picard_ica_tpu_torch.ops import kernels as K
+    from picard_ica_tpu_torch.utils.datagen import generate_mixed_kurtosis_data
+    from picard_ica_tpu_torch.utils.metrics import amari_distance
+
+    torch.cuda.empty_cache()  # phase 2's f64 check buffers are gone
+    # Sub- and super-Gaussian sources, so extended sign flips run the
+    # loglik kernel (the all-Laplace bench mixture never flips a sign).
+    _, a, x_np = generate_mixed_kurtosis_data(N5, T5, SEED)
+    x = torch.from_numpy(x_np.astype(np.float32)).cuda()
+    del x_np
+    before = _checksum(x)
+    _, whiten_s = _whiten_checked(x, f"large-N slice {N5} x {T5}")
+
+    K.reset_launch_counts()
+    r, wall = _fit(x, True, kernel_precision="f32")
+    launches = _launches()
+    w_k = r.full_unmixing().double().cpu().numpy()
+    amari = amari_distance(w_k, a)
+    _report_fit("large-N slice (kernels)", r, wall, T5)
+    _log(f"large-N slice: whitening {whiten_s:.4f} s, amari {amari:.3e}, "
+         f"launches {launches}")
+    if not r.converged:
+        raise AssertionError("the streaming-kernel fit did not converge at tol 1e-7")
+    if not amari < 5e-3:
+        raise AssertionError(f"amari {amari} >= 5e-3")
+    if tuple(r.sources.shape) != (N5, T5) or not bool(r.sources.isfinite().all()):
+        raise AssertionError("sources are not finite (N, T)")
+    missing = [k for k in _STREAM_KERNELS + _WHITENING_KERNELS if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched in the large-N fit: {missing}")
+    resident = {k: launches[k] for k in _CORE_KERNELS if launches[k]}
+    if resident:
+        raise AssertionError(f"resident core kernels ran at N = {N5}: {resident}")
+    del r
+    torch.cuda.empty_cache()
+
+    r_t, wall_t = _fit(x, False, kernel_precision="f32")
+    w_t = r_t.full_unmixing().double().cpu().numpy()
+    agree = amari_distance(w_k, np.linalg.inv(w_t))
+    _report_fit("large-N slice (torch path)", r_t, wall_t, T5)
+    _log(f"amari(W_kernels, inv(W_torch)) = {agree:.3e}")
+    if not r_t.converged:
+        raise AssertionError("the torch-path fit did not converge at tol 1e-7")
+    if not agree < 1e-3:
+        raise AssertionError(f"kernel and torch fits disagree: amari {agree}")
+    if _checksum(x) != before:
+        raise AssertionError("the fit wrote the caller's tensor")
+    return launches
+
+
+def phase5b_exhibit():
+    """The JAX package's large-N exhibit: 1024 x 200,000, 10 iterations
+    at tol 1e-4 on both paths (the suite's caps)."""
+    import numpy as np
+    import torch
+
+    from picard_ica_tpu_torch.ops import kernels as K
+    from picard_ica_tpu_torch.utils.datagen import generate_bench_data_device
+    from picard_ica_tpu_torch.utils.metrics import amari_distance
+
+    x = generate_bench_data_device(N5B, T5B, SEED5B, "cuda")
+    caps = {"tol": 1e-4, "max_iter": 10}
+    K.reset_launch_counts()
+    r, wall = _fit(x, True, **caps)
+    launches = _launches()
+    _report_fit(f"exhibit {N5B} x {T5B} (kernels)", r, wall, T5B)
+    _log(f"launches: {launches}")
+    r_t, wall_t = _fit(x, False, **caps)
+    _report_fit(f"exhibit {N5B} x {T5B} (torch path)", r_t, wall_t, T5B)
+    w_k = r.full_unmixing().double().cpu().numpy()
+    w_t = r_t.full_unmixing().double().cpu().numpy()
+    finite = all(bool(torch.isfinite(v).all()) for v in
+                 (r.unmixing, r.sources, r_t.unmixing, r_t.sources))
+    agree = amari_distance(w_k, np.linalg.inv(w_t)) if finite else float("nan")
+    _log(f"exhibit: amari(W_kernels, inv(W_torch)) = {agree:.3e}")
+    if not finite:
+        raise AssertionError("the 1024-component fits are not finite")
+    if r.n_iterations != r_t.n_iterations:
+        raise AssertionError(f"iterations differ: {r.n_iterations} vs {r_t.n_iterations}")
+    missing = [k for k in ("streaming_fused_sums", "_grouped_covariance") if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched at N = {N5B}: {missing}")
+    return launches
+
+
 _CORE_SOURCE = "picard_ica_tpu_torch/csrc/rotated_sums.cu"
 _STATS_SOURCE = "picard_ica_tpu_torch/csrc/covariance_sums.cu"
+_STREAM_SOURCE = "picard_ica_tpu_torch/csrc/streaming_sums.cu"
 _PALLAS = "picard_ica_tpu/ops/pallas_kernels.py"
 # name -> (source, pallas_call line of the TPU kernel it replaces)
 _KERNELS = {
@@ -476,6 +691,8 @@ _KERNELS = {
     "centered_covariance_sums": (_STATS_SOURCE, 635),
     "covariance_sums": (_STATS_SOURCE, 598),
     "_grouped_covariance": (_STATS_SOURCE, 531),
+    "streaming_fused_sums": (_STREAM_SOURCE, 1149),
+    "streaming_loglik_sums": (_STREAM_SOURCE, 1247),
 }
 
 
@@ -486,13 +703,16 @@ def main():
     phase1_build()
     rows = phase2_kernels()
     rows.update(phase2_whitening_kernels())
+    rows.update(phase2_streaming_kernels())
     by_path = {"phase3": phase3_slice(), "phase4": phase4_device_slice(),
-               "phase4b": phase4b_grouped()}
+               "phase4b": phase4b_grouped(), "phase5": phase5_large_n(),
+               "phase5b": phase5b_exhibit()}
     kernels = []
     for name, (source, line) in _KERNELS.items():
         row = rows[name]
         main_case = row["cases"][0]
         path = ("phase3" if name in _CORE_KERNELS else
+                "phase5" if name in _STREAM_KERNELS else
                 "phase4b" if name == "_grouped_covariance" else "phase4")
         kernels.append({
             "name": name, "route": "cuda", "source": source,

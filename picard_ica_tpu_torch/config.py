@@ -45,8 +45,10 @@ class PicardConfig:
     dtype: Optional[Any] = None
     # Use the CUDA kernels of ops/kernels.py for the data passes.
     # None = auto: on for an f32 fit on a CUDA device with
-    # n_components <= ops.kernels.KERNEL_MAX_N. On the CPU the kernel
-    # wrappers run their plain PyTorch versions.
+    # n_components <= ops.kernels.KERNEL_MAX_N (the resident kernels).
+    # True also takes the streaming kernels above that, up to
+    # ops.kernels.STREAM_MAX_N. On the CPU the kernel wrappers run their
+    # plain PyTorch versions.
     use_kernels: Optional[bool] = None
     # Escalate non-convergence to NotConvergedError instead of the
     # reference's warn-and-return (solver.rs:171-177 semantics stay the

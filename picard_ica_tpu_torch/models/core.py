@@ -20,7 +20,11 @@ the same state and the same semantics:
 ``CoreOptions.use_kernels`` selects the data passes: the CUDA kernels
 of ``ops/kernels.py`` (their plain PyTorch versions for CPU tensors),
 or the torch path — the JAX package's non-Pallas formulation
-(core.py:394-440 there).
+(core.py:394-440 there). The kernel wrappers pick the resident kernels
+up to N = 64 and the streaming kernels above (``streaming_fused_sums``
+for the tries and the moments, ``streaming_loglik_sums`` for the loss
+re-baselines, the bf16 copy of X included), so this loop is the same at
+every N.
 """
 
 from __future__ import annotations

@@ -6,6 +6,7 @@ plain C interface, loaded with ``ctypes``. The library is built at
 first use into ``picard_ica_tpu_torch/_build/`` (listed in
 ``.gitignore``) under a name keyed by a hash of the sources and the
 flags, so an edited source is rebuilt and a current build is reused.
+The headers the sources include (``HEADERS``) are hashed with them.
 """
 
 from __future__ import annotations
@@ -23,7 +24,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("rotated_sums.cu", "covariance_sums.cu")
+SOURCES = ("rotated_sums.cu", "covariance_sums.cu", "streaming_sums.cu")
+HEADERS = ("density.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
@@ -52,6 +54,15 @@ _SIGNATURES = {
     "picard_cov_chunk": [],
     "picard_row_sums": [_I, _LL, _P, _P, _I, _P],
     "picard_covariance_sums": [_I, _LL, _P, _P, _I, _P, _I, _P],
+    "picard_stream_max_n": [],
+    "picard_stream_tile": [_I],
+    "picard_streaming_fused_sums": [
+        _I, _I, _I, _I, _I, _I, _D, _I, _LL, _I, _I,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P,
+    ],
+    "picard_streaming_loglik_sums": [
+        _I, _I, _I, _D, _I, _LL, _I, _I, _P, _P, _P, _P, _I, _P,
+    ],
 }
 
 
@@ -76,7 +87,7 @@ def find_nvcc() -> str:
 def library_path() -> Path:
     """Where the library for the current sources and flags lives."""
     h = hashlib.sha256()
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())

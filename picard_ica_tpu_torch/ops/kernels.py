@@ -1,7 +1,8 @@
 """The data passes of a fit: CUDA kernels and plain versions.
 
-Counterpart of ``picard_ica_tpu/ops/pallas_kernels.py`` for the kernels
-the Picard-O main path runs. The core loop (``csrc/rotated_sums.cu``):
+Counterpart of ``picard_ica_tpu/ops/pallas_kernels.py``: every kernel
+the JAX package writes in Pallas. The core loop up to N = 64
+(``csrc/rotated_sums.cu``):
 
   * :func:`rotated_fused_sums`   — one line-search try in one read of X
     (replaces ``rotated_fused_sums``, pallas_kernels.py:838-955);
@@ -9,6 +10,23 @@ the Picard-O main path runs. The core loop (``csrc/rotated_sums.cu``):
     boundaries (replaces ``rotated_moments_sums``, :306-395);
   * :func:`rotated_loglik_sums`  — loss re-baselines (replaces
     ``rotated_loglik_sums``, :674-719).
+
+The core loop above N = 64 (``csrc/streaming_sums.cu``), where W no
+longer fits whole in shared memory:
+
+  * :func:`streaming_fused_sums` — kernel 1's outputs with W in row
+    blocks and a contraction phase over the parked Y tile (replaces
+    ``streaming_fused_sums``, :1061-1183);
+  * :func:`streaming_loglik_sums` — kernel 3's outputs for large N
+    (replaces ``streaming_loglik_sums``, :1205-1274).
+
+The three ``rotated_*`` wrappers hand off to the streaming ones, on
+every device, when N > :data:`KERNEL_MAX_N` or when their per-block
+(N, N) partials would pass :data:`RESIDENT_PARTIALS_MAX` — the JAX
+package's rule (:330-342, :685-688, :868-875) with the port's own
+resident capacity. The moments take the fused kernel's plain mode with
+``m_old = w`` and keep its last four outputs. Counters count the kernel
+that ran: a streamed call raises ``streaming_*.launches``.
 
 Device whitening (``csrc/covariance_sums.cu``):
 
@@ -56,6 +74,8 @@ from .densities import Cube, Exp, Tanh
 from .moments import fold_pairwise
 from .precision import _bf16, _dot_bf16x3_presplit, _kernel_dot, _split_bf16
 
+_pad = torch.nn.functional.pad
+
 # The kernels' capacity in components: W and dm are staged whole in
 # shared memory and each thread's register tiles are sized for N <= 64
 # (csrc/rotated_sums.cu NMAX). A capacity, not a speed crossover.
@@ -76,6 +96,25 @@ COV_GROUP = 16
 COV_RESIDENT_MAX_N = 512
 RESIDENT_PARTIALS_MAX = 2 * 1024**3
 
+# The streaming kernels (csrc/streaming_sums.cu). Their capacity in
+# components: the largest N whose (ceil(N/64)*64, 32) Y tile and staging
+# fit the 227 KB of shared memory a block may use (picard_stream_max_n).
+STREAM_MAX_N = 1344
+# Height of the zero-padded W row blocks of the plain versions (the JAX
+# package's _STREAM_NB).
+STREAM_ROWS = 128
+# Tiles of X per G/H partial (the JAX package's _STREAM_GROUP).
+STREAM_GROUP = 16
+# More tiles go to a partial when the (n_groups, N, N) f32 partials of
+# one call would pass this many bytes (1024 x 200,000: 25 tiles).
+STREAM_PARTIALS_MAX = 1024**3
+# Columns per tile of the loglik kernel, which parks no Y tile.
+STREAM_LOGLIK_TILE = 128
+# The fused kernel's shared-memory model (csrc/streaming_sums.cu:
+# SMEM_MAX, KC, PASS_ELEMS, CB).
+_STREAM_SMEM_MAX = 232448
+_STREAM_KC, _STREAM_PASS, _STREAM_CB = 16, 8192, 64
+
 _TIERS = {"f32": 0, "bf16x3": 1, "bf16": 2}
 
 
@@ -86,6 +125,14 @@ def work_dtype(x):
 
 def _zeros(shape, x):
     return torch.zeros(shape, dtype=work_dtype(x), device=x.device)
+
+
+def _tiers(x, precision: str):
+    """(contraction tier, rotation tier): with bf16 X a requested f32
+    becomes bf16 and the rotation runs at the bf16 tier."""
+    if x.dtype == torch.bfloat16:
+        return ("bf16" if precision == "f32" else precision), "bf16"
+    return precision, precision
 
 
 def _weights(x, *mats):
@@ -143,10 +190,7 @@ def rotated_fused_sums_plain(m_new, m_old, x, density, need_h: bool,
     """
     n = x.shape[0]
     acc = work_dtype(x)
-    bf16_x = x.dtype == torch.bfloat16
-    if bf16_x and precision == "f32":
-        precision = "bf16"
-    rot = "bf16" if bf16_x else precision
+    precision, rot = _tiers(x, precision)
 
     def tdot(a, b, tier):
         return _kernel_dot(a, b, acc, tier)
@@ -246,6 +290,151 @@ def grouped_covariance_plain(x, mean=None):
     return fold_pairwise(acc)
 
 
+def stream_tile(n: int) -> int:
+    """Columns of X per tile of the streaming fused kernel: the largest of
+    128, 64 and 32 whose Y tile and staging fit in shared memory (N <= 256
+    -> 128, <= 704 -> 64, <= 1344 -> 32; csrc/streaming_sums.cu
+    choose_bt)."""
+    ny = -(-n // _STREAM_CB) * _STREAM_CB
+    for bt in (128, 64, 32):
+        rot = 2 * (_STREAM_PASS // bt) * _STREAM_KC + _STREAM_KC * bt
+        con = 2 * _STREAM_CB * (bt + 4)
+        if 4 * (ny * (bt + 4) + max(rot, con)) <= _STREAM_SMEM_MAX:
+            return bt
+    raise ValueError(f"N={n} exceeds the streaming kernels' capacity "
+                     f"STREAM_MAX_N={STREAM_MAX_N}")
+
+
+def stream_group(n_tiles: int, n: int, n_mats: int) -> int:
+    """Tiles per partial: :data:`STREAM_GROUP`, or more when ``n_mats``
+    (N, N) partials per group would pass :data:`STREAM_PARTIALS_MAX`."""
+    group = min(STREAM_GROUP, n_tiles)
+    if n_mats:
+        max_groups = max(1, STREAM_PARTIALS_MAX // (n_mats * n * n * 4))
+        group = max(group, _n_chunks(n_tiles, max_groups))
+    return group
+
+
+def _tile_row_sums(v, bt: int, n_tiles: int):
+    """(rows, >= n_tiles * bt) -> (n_tiles, rows) row sums of each tile."""
+    return v[:, : n_tiles * bt].reshape(v.shape[0], n_tiles, bt).sum(dim=2).T
+
+
+def _grouped_tile_products(a, b, bt: int, group: int, tier: str, acc):
+    """``sum over tiles of a_tile b_tile^T`` at the tier: added in order
+    within groups of ``group`` tiles, the groups folded pairwise. The
+    column count of ``a`` and ``b`` is a whole number of groups."""
+    n_groups = a.shape[1] // (group * bt)
+    a4 = a.reshape(a.shape[0], n_groups, group, bt)
+    b4 = b.reshape(b.shape[0], n_groups, group, bt)
+    total = None
+    for k in range(group):
+        p = _kernel_dot(a4[:, :, k].transpose(0, 1), b4[:, :, k].permute(1, 2, 0),
+                        acc, tier)
+        total = p if total is None else total + p
+    return fold_pairwise(total)
+
+
+def _row_blocks(mats, n: int):
+    """The weights zero-padded to whole :data:`STREAM_ROWS`-row blocks,
+    as a list of row blocks per matrix."""
+    npad = _n_chunks(n, STREAM_ROWS) * STREAM_ROWS
+    padded = [_pad(m, (0, 0, 0, npad - n)) for m in mats]
+    return [[m[r: r + STREAM_ROWS] for m in padded]
+            for r in range(0, npad, STREAM_ROWS)]
+
+
+def streaming_fused_sums_plain(m_new, m_old, x, density, need_h: bool,
+                               need_ysq: bool, precision: str = "f32",
+                               absolute_ll: bool = False):
+    """:func:`rotated_fused_sums_plain`'s outputs in the streaming
+    formulation (pallas_kernels.py:958-1183): W zero-padded to 128-row
+    blocks; per block, the rotation, the density and the per-tile row
+    statistics (dll, dysq, pm, ysq), folded pairwise over tiles; then psi
+    and psi' recomputed from the assembled Y, and G (H) summed in order
+    within groups of :func:`stream_group` tiles of :func:`stream_tile`
+    columns, the groups folded pairwise. Everything is sliced back to N."""
+    n, t = x.shape
+    acc = work_dtype(x)
+    precision, rot = _tiers(x, precision)
+    bt = stream_tile(n)
+    n_tiles = _n_chunks(t, bt)
+    group = stream_group(n_tiles, n, 1 + need_h)
+    tpad = _n_chunks(n_tiles, group) * group * bt
+    xf, mats = _weights(x, m_new) if absolute_ll else _weights(x, m_new, m_old)
+    xf = _pad(xf, (0, tpad - t))  # masked columns: X = 0, so Y = 0
+    valid = torch.arange(tpad, device=x.device) < t
+    # One shared hi/lo split of X feeds every rotation (:1012-1018).
+    x_pair = _split_bf16(xf) if rot == "bf16x3" and acc != torch.float64 else None
+
+    def rotate(m):
+        if x_pair is not None:
+            return _dot_bf16x3_presplit(_split_bf16(m), x_pair, acc)
+        return _kernel_dot(m, xf, acc, rot)
+
+    ys, stats = [], []
+    for blk in _row_blocks(mats, n):
+        if absolute_ll:
+            y = rotate(blk[0])
+            _, psi_d, ll = density.score_der_loglik(y)
+            ll = torch.where(valid, ll, 0.0)  # log_lik(0) != 0
+            dysq = y * y
+        else:
+            y_old = rotate(blk[1])
+            dy = rotate(blk[0] - blk[1])
+            y = y_old + dy
+            _, psi_d, ll = density.score_der_loglik_delta(y_old, dy)
+            dysq = (2.0 * y_old + dy) * dy
+            del y_old, dy
+        psi_d = torch.where(valid, psi_d, 0.0)  # psi'(0) != 0
+        stats.append([_tile_row_sums(v, bt, n_tiles)
+                      for v in (ll, dysq, psi_d, y * y)])
+        ys.append(y)
+        del psi_d, ll, dysq
+    dll, dysq, pm, ysq = (fold_pairwise(torch.cat(parts, dim=1))[:n]
+                          for parts in zip(*stats))
+    # The padded rows of Y only reach the entries sliced away, so the
+    # contraction reads rows [:n]; psi(0) = 0 and Y^2 = 0 at the padded
+    # columns.
+    y = torch.cat(ys)[:n]
+    del ys, xf, x_pair
+    psi, psi_d = density.score_and_der(y)
+    g = _grouped_tile_products(psi, y, bt, group, precision, acc)
+    del psi
+    if need_h:
+        h = _grouped_tile_products(psi_d, y * y, bt, group, precision, acc)
+    else:
+        h = _zeros((n, n), x)
+    if not need_ysq:
+        dysq = ysq = _zeros((n,), x)
+    return dll, dysq, g, pm, h, ysq
+
+
+def streaming_loglik_sums_plain(m, x, density, need_ysq: bool):
+    """:func:`rotated_loglik_sums_plain`'s outputs in the streaming
+    formulation (pallas_kernels.py:1186-1274): M zero-padded to 128-row
+    blocks, per-tile row sums of :data:`STREAM_LOGLIK_TILE` columns
+    folded pairwise, sliced back to N."""
+    n, t = x.shape
+    acc = work_dtype(x)
+    bt = STREAM_LOGLIK_TILE
+    n_tiles = _n_chunks(t, bt)
+    xf, mats = _weights(x, m)
+    xf = _pad(xf, (0, n_tiles * bt - t))
+    valid = torch.arange(n_tiles * bt, device=x.device) < t
+    rot = "bf16" if x.dtype == torch.bfloat16 else "f32"
+    ll_parts, ysq_parts = [], []
+    for (mb,) in _row_blocks(mats, n):
+        y = _kernel_dot(mb, xf, acc, rot)
+        ll_parts.append(_tile_row_sums(torch.where(valid, density.log_lik(y), 0.0),
+                                       bt, n_tiles))
+        ysq_parts.append(_tile_row_sums(y * y, bt, n_tiles))
+    ll = fold_pairwise(torch.cat(ll_parts, dim=1))[:n]
+    ysq = (fold_pairwise(torch.cat(ysq_parts, dim=1))[:n] if need_ysq
+           else _zeros((n,), x))
+    return ll, ysq
+
+
 # ---------------------------------------------------------------------------
 # CUDA wrappers.
 # ---------------------------------------------------------------------------
@@ -257,9 +446,12 @@ def _lib():
     lib = _build.load()
     if (lib.picard_max_n() != KERNEL_MAX_N
             or lib.picard_cols_per_block() != COLS_PER_BLOCK
-            or lib.picard_cov_chunk() != COV_CHUNK):
+            or lib.picard_cov_chunk() != COV_CHUNK
+            or lib.picard_stream_max_n() != STREAM_MAX_N
+            or any(lib.picard_stream_tile(n) != stream_tile(n)
+                   for n in (65, 256, 257, 704, 705, STREAM_MAX_N))):
         raise RuntimeError("csrc/ and ops/kernels.py disagree on NMAX / "
-                           "COLS_PER_BLOCK / CHUNK")
+                           "COLS_PER_BLOCK / CHUNK / the streaming tiles")
     return lib
 
 
@@ -275,8 +467,10 @@ def _density_code(density):
     )
 
 
-def _check_cuda(x, *mats):
-    """Validate a CUDA launch's inputs; returns (n, t, n_blocks)."""
+def _check_cuda(x, *mats, cap=KERNEL_MAX_N):
+    """Validate a CUDA launch's inputs against a kernel capacity of
+    ``cap`` components; returns (n, t, n_blocks of the resident
+    kernels)."""
     if x.dim() != 2:
         raise ValueError(f"x must be 2-D (N, T), got shape {tuple(x.shape)}")
     if x.dtype not in (torch.float32, torch.bfloat16):
@@ -287,10 +481,8 @@ def _check_cuda(x, *mats):
     if not x.is_contiguous():
         raise ValueError("x must be contiguous")
     n, t = x.shape
-    if n > KERNEL_MAX_N:
-        raise ValueError(
-            f"N={n} exceeds the kernels' capacity KERNEL_MAX_N={KERNEL_MAX_N}"
-        )
+    if n > cap:
+        raise ValueError(f"N={n} exceeds the kernels' capacity of {cap} components")
     for m in mats:
         if tuple(m.shape) != (n, n):
             raise ValueError(f"weights must be ({n}, {n}), got {tuple(m.shape)}")
@@ -325,18 +517,14 @@ def _fold(p, flag, shape, x):
     return fold_pairwise(p) if flag else _zeros(shape, x)
 
 
-def rotated_fused_sums(m_new, m_old, x, density, need_h: bool, need_ysq: bool,
-                       precision: str = "f32", absolute_ll: bool = False):
-    """Unnormalized ``(dll, dysq, g, pm, h, ysq)`` of one line-search try
-    (see :func:`rotated_fused_sums_plain` for the semantics)."""
-    if x.device.type == "cpu":
-        return rotated_fused_sums_plain(m_new, m_old, x, density, need_h,
-                                        need_ysq, precision, absolute_ll)
-    n, t, nb = _check_cuda(x, m_new) if absolute_ll else _check_cuda(x, m_new, m_old)
-    bf16_x = x.dtype == torch.bfloat16
-    if bf16_x and precision == "f32":
-        precision = "bf16"
-    rot = "bf16" if bf16_x else precision
+def _fused_launch(entry, group_args, n_parts, m_new, m_old, x, density,
+                  need_h, need_ysq, precision, absolute_ll):
+    """Launch a fused kernel (``entry``) with ``n_parts`` partials per
+    output and fold them: the weights of the mode (delta mode takes
+    dm = M_new - M_old in f32), the tiers of X's dtype, and the six
+    outputs, zeros where a flag is off."""
+    n, t = x.shape
+    precision, rot = _tiers(x, precision)
     code, alpha = _density_code(density)
     _, (mn,) = _weights(x, m_new)
     if absolute_ll:
@@ -344,31 +532,40 @@ def rotated_fused_sums(m_new, m_old, x, density, need_h: bool, need_ysq: bool,
     else:
         _, (mo,) = _weights(x, m_old)
         w, dm = mo.contiguous(), (mn - mo).contiguous()
-    dll = _partials(nb, n, True, x)
-    dysq = _partials(nb, n, need_ysq, x)
-    g = _partials(nb, n, True, x, square=True)
-    pm = _partials(nb, n, True, x)
-    h = _partials(nb, n, need_h, x, square=True)
-    ysq = _partials(nb, n, need_ysq, x)
-    _run(_lib().picard_rotated_fused_sums,
-         int(not absolute_ll), _TIERS[rot], _TIERS[precision], code,
-         int(need_h), int(need_ysq), alpha, n, t, int(bf16_x),
-         w.data_ptr(), _ptr(dm), x.data_ptr(),
-         dll.data_ptr(), _ptr(dysq), g.data_ptr(), pm.data_ptr(), _ptr(h),
-         _ptr(ysq), nb, device=x.device)
+    flags = (True, need_ysq, True, True, need_h, need_ysq)
+    square = (False, False, True, False, True, False)
+    parts = [_partials(n_parts, n, f, x, sq) for f, sq in zip(flags, square)]
+    _run(entry, int(not absolute_ll), _TIERS[rot], _TIERS[precision], code,
+         int(need_h), int(need_ysq), alpha, n, t, int(x.dtype == torch.bfloat16),
+         *group_args, w.data_ptr(), _ptr(dm), x.data_ptr(), *map(_ptr, parts),
+         n_parts, device=x.device)
+    return tuple(_fold(p, f, (n, n) if sq else (n,), x)
+                 for p, f, sq in zip(parts, flags, square))
+
+
+def rotated_fused_sums(m_new, m_old, x, density, need_h: bool, need_ysq: bool,
+                       precision: str = "f32", absolute_ll: bool = False):
+    """Unnormalized ``(dll, dysq, g, pm, h, ysq)`` of one line-search try
+    (see :func:`rotated_fused_sums_plain` for the semantics)."""
+    if _streams(x, 1 + need_h):
+        return streaming_fused_sums(m_new, m_old, x, density, need_h, need_ysq,
+                                    precision, absolute_ll)
+    if x.device.type == "cpu":
+        return rotated_fused_sums_plain(m_new, m_old, x, density, need_h,
+                                        need_ysq, precision, absolute_ll)
+    _, _, nb = _check_cuda(x, m_new) if absolute_ll else _check_cuda(x, m_new, m_old)
+    out = _fused_launch(_lib().picard_rotated_fused_sums, (), nb, m_new, m_old,
+                        x, density, need_h, need_ysq, precision, absolute_ll)
     rotated_fused_sums.launches += 1
-    return (
-        fold_pairwise(dll),
-        _fold(dysq, need_ysq, (n,), x),
-        fold_pairwise(g),
-        fold_pairwise(pm),
-        _fold(h, need_h, (n, n), x),
-        _fold(ysq, need_ysq, (n,), x),
-    )
+    return out
 
 
 def rotated_moments_sums(w, x, density, need_h: bool, need_ysq: bool):
     """Unnormalized ``(G_sum, pm_sum, H_sum, ysq_sum)`` of Y = W X."""
+    if _streams(x, 1 + need_h):
+        # The fused kernel's plain mode computes the same moment set.
+        return streaming_fused_sums(w, w, x, density, need_h, need_ysq,
+                                    absolute_ll=True)[2:]
     if x.device.type == "cpu":
         return rotated_moments_sums_plain(w, x, density, need_h, need_ysq)
     n, t, nb = _check_cuda(x, w)
@@ -396,6 +593,8 @@ def rotated_moments_sums(w, x, density, need_h: bool, need_ysq: bool):
 
 def rotated_loglik_sums(m, x, density, need_ysq: bool):
     """Unnormalized ``(loglik_rowsums, ysq_rowsums)`` of Y = M X."""
+    if _streams(x, 0):
+        return streaming_loglik_sums(m, x, density, need_ysq)
     if x.device.type == "cpu":
         return rotated_loglik_sums_plain(m, x, density, need_ysq)
     n, t, nb = _check_cuda(x, m)
@@ -410,6 +609,64 @@ def rotated_loglik_sums(m, x, density, need_ysq: bool):
          t, int(bf16_x), mf.data_ptr(), x.data_ptr(), ll.data_ptr(),
          _ptr(ysq), nb, device=x.device)
     rotated_loglik_sums.launches += 1
+    return fold_pairwise(ll), _fold(ysq, need_ysq, (n,), x)
+
+
+def _streams(x, n_mats: int) -> bool:
+    """The JAX package's hand-off from the resident core kernels to the
+    streaming ones: N beyond :data:`KERNEL_MAX_N`, or ``n_mats`` per-block
+    (N, N) partials past :data:`RESIDENT_PARTIALS_MAX`."""
+    n, t = x.shape[0], x.shape[-1]
+    return (n > KERNEL_MAX_N
+            or _n_chunks(t, COLS_PER_BLOCK) * n * n * 4 * n_mats > RESIDENT_PARTIALS_MAX)
+
+
+def _stream_cap(x):
+    if x.shape[0] > STREAM_MAX_N:
+        raise ValueError(f"N={x.shape[0]} exceeds the streaming kernels' "
+                         f"capacity STREAM_MAX_N={STREAM_MAX_N}")
+
+
+def streaming_fused_sums(m_new, m_old, x, density, need_h: bool,
+                         need_ysq: bool, precision: str = "f32",
+                         absolute_ll: bool = False):
+    """:func:`rotated_fused_sums` for N up to :data:`STREAM_MAX_N` (see
+    :func:`streaming_fused_sums_plain`); the same return tuple."""
+    _stream_cap(x)
+    if x.device.type == "cpu":
+        return streaming_fused_sums_plain(m_new, m_old, x, density, need_h,
+                                          need_ysq, precision, absolute_ll)
+    mats = (m_new,) if absolute_ll else (m_new, m_old)
+    n, t, _ = _check_cuda(x, *mats, cap=STREAM_MAX_N)
+    n_tiles = _n_chunks(t, stream_tile(n))
+    group = stream_group(n_tiles, n, 1 + need_h)
+    out = _fused_launch(_lib().picard_streaming_fused_sums, (group,),
+                        _n_chunks(n_tiles, group), m_new, m_old, x, density,
+                        need_h, need_ysq, precision, absolute_ll)
+    streaming_fused_sums.launches += 1
+    return out
+
+
+def streaming_loglik_sums(m, x, density, need_ysq: bool):
+    """:func:`rotated_loglik_sums` for N up to :data:`STREAM_MAX_N`."""
+    _stream_cap(x)
+    if x.device.type == "cpu":
+        return streaming_loglik_sums_plain(m, x, density, need_ysq)
+    n, t, _ = _check_cuda(x, m, cap=STREAM_MAX_N)
+    bf16_x = x.dtype == torch.bfloat16
+    code, alpha = _density_code(density)
+    n_tiles = _n_chunks(t, STREAM_LOGLIK_TILE)
+    group = stream_group(n_tiles, n, 0)
+    ng = _n_chunks(n_tiles, group)
+    _, (mf,) = _weights(x, m)
+    mf = mf.contiguous()
+    ll = _partials(ng, n, True, x)
+    ysq = _partials(ng, n, need_ysq, x)
+    _run(_lib().picard_streaming_loglik_sums,
+         _TIERS["bf16" if bf16_x else "f32"], code, int(need_ysq), alpha, n,
+         t, int(bf16_x), group, mf.data_ptr(), x.data_ptr(), ll.data_ptr(),
+         _ptr(ysq), ng, device=x.device)
+    streaming_loglik_sums.launches += 1
     return fold_pairwise(ll), _fold(ysq, need_ysq, (n,), x)
 
 
@@ -496,7 +753,7 @@ def _grouped_covariance(x, mean):
 
 KERNELS = (rotated_fused_sums, rotated_moments_sums, rotated_loglik_sums,
            row_sums, centered_covariance_sums, covariance_sums,
-           _grouped_covariance)
+           _grouped_covariance, streaming_fused_sums, streaming_loglik_sums)
 
 
 def reset_launch_counts() -> None:

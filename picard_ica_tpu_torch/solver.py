@@ -26,7 +26,7 @@ from .config import PicardConfig
 from .errors import InvalidConfigError, InvalidDimensionsError, SingularMatrixError
 from .models.core import CoreOptions, _precision_stages, run_core
 from .ops.densities import Tanh
-from .ops.kernels import KERNEL_MAX_N
+from .ops.kernels import KERNEL_MAX_N, STREAM_MAX_N
 from .ops.linalg import _SYM_DECORR_MIN_EIG, rotate_rows_inplace, sym_decorrelation_with_mineig
 from .ops.whitening import _HOST_F64_MAX_ELEMENTS, center_whiten, preprocess_f64
 from .results import PicardResult
@@ -198,20 +198,22 @@ class Picard:
         on_cuda = device.type == "cuda"
         use_kernels = config.use_kernels
         if use_kernels is None:
-            # The kernels take an f32 fit on the card up to their
-            # capacity; everything else runs the torch path.
+            # Auto: the resident kernels take an f32 fit on the card up to
+            # their capacity; everything else runs the torch path. Above
+            # it the streaming kernels run on request only, as the JAX
+            # package's streaming kernels do (use_pallas=True).
             use_kernels = (on_cuda and dtype == torch.float32
                            and actual_components <= KERNEL_MAX_N)
-        elif use_kernels and on_cuda:
-            if dtype != torch.float32:
+        elif use_kernels:
+            if on_cuda and dtype != torch.float32:
                 raise InvalidConfigError(
                     "use_kernels", "the CUDA kernels run f32; f64 takes the torch path"
                 )
-            if actual_components > KERNEL_MAX_N:
+            if actual_components > STREAM_MAX_N:
                 raise InvalidConfigError(
                     "use_kernels",
-                    f"n_components={actual_components} exceeds the kernels' "
-                    f"capacity ({KERNEL_MAX_N})",
+                    f"n_components={actual_components} exceeds the streaming "
+                    f"kernels' capacity ({STREAM_MAX_N})",
                 )
 
         opts = CoreOptions(

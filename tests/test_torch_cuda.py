@@ -8,7 +8,8 @@ machine without it:
 
 Tolerances: the kernel and the plain version of the same tier differ
 only in the order of f32 sums (products of bf16 values are exact in
-f32), so outputs agree to RTOL relative to each output's largest entry.
+f32), so outputs agree to RTOL relative to each output's largest entry;
+the streaming kernels' bf16 contraction tier to RTOL_BF16 (see there).
 """
 
 import numpy as np
@@ -25,6 +26,12 @@ pytestmark = pytest.mark.cuda
 # f32 sums over a few thousand columns, reordered: ~1e-6 of the largest
 # entry; bf16-rounded operands can flip a rounding of psi at a few ulps.
 RTOL = 2e-5
+# The bf16 contraction tier rounds psi and Y to bf16 after the rotation:
+# a reordered f32 rotation sum over N terms flips some of those roundings,
+# each moving a term by up to 2^-8 of itself. Reordering the plain
+# version's own rotation (f64 sums rounded to f32) moves G by up to
+# 2.7e-4 of its largest entry at N = 1024, T = 1,500 on the CPU.
+RTOL_BF16 = 1e-3
 
 DENSITIES = [Tanh(), Exp(0.5), Cube()]
 
@@ -46,13 +53,13 @@ def _inputs(dev, n, t, seed=0):
     return x, m_old, m_new
 
 
-def _close(out_k, out_p):
+def _close(out_k, out_p, rtol=RTOL):
     for a, b in zip(out_k, out_p):
         assert a.dtype == torch.float32 and a.device.type == "cuda"
         assert bool(torch.isfinite(a).all())
         scale = max(float(b.abs().max()), 1e-30)
         err = float((a - b).abs().max())
-        assert err <= RTOL * scale, (err, scale)
+        assert err <= rtol * scale, (err, scale)
 
 
 @pytest.mark.parametrize("density", DENSITIES, ids=str)
@@ -105,10 +112,13 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         K.rotated_moments_sums(m_old.double(), x.double(), Tanh(), False, False)
     with pytest.raises(ValueError):
         K.rotated_loglik_sums(m_old, x[:, ::2], Tanh(), False)
-    big = torch.zeros((K.KERNEL_MAX_N + 1, 300), device=dev)
+    # Above KERNEL_MAX_N the wrappers stream; above STREAM_MAX_N they raise.
+    big = torch.zeros((K.STREAM_MAX_N + 1, 300), device=dev)
+    eye = torch.eye(K.STREAM_MAX_N + 1, device=dev)
     with pytest.raises(ValueError):
-        K.rotated_loglik_sums(torch.eye(K.KERNEL_MAX_N + 1, device=dev), big,
-                              Tanh(), False)
+        K.rotated_loglik_sums(eye, big, Tanh(), False)
+    with pytest.raises(ValueError):
+        K.rotated_fused_sums(eye, eye, big, Tanh(), False, False)
 
 
 @pytest.mark.parametrize("n", [8, 33])
@@ -225,6 +235,104 @@ def test_fit_cuda_tensor_through_device_whitening(dev):
     r_c = Picard.fit(x32, PicardConfig(random_state=0))
     assert r_g.converged and r_c.converged
     assert r_g.sources.device.type == "cuda" and r_c.sources.device.type == "cpu"
+    w_g = r_g.full_unmixing().double().cpu().numpy()
+    w_c = r_c.full_unmixing().double().numpy()
+    assert amari_distance(w_g, np.linalg.inv(w_c)) < 1e-4
+    assert amari_distance(w_g, a) < 5e-3
+
+
+# ---- the core loop above KERNEL_MAX_N: the streaming kernels ----------------
+
+# One and two 64-row contraction blocks, the three tile widths (128, 64,
+# 32 columns), N not a multiple of 64, and ragged T. 1,500 columns at
+# N = 1024 are 47 tiles in 3 partials.
+STREAM_SHAPES = [(65, 2049), (130, 5001), (306, 3001), (1024, 1500)]
+
+
+@pytest.mark.parametrize("density", DENSITIES, ids=str)
+@pytest.mark.parametrize("precision", ["f32", "bf16x3", "bf16"])
+@pytest.mark.parametrize("absolute_ll", [False, True], ids=["delta", "plain"])
+@pytest.mark.parametrize("flags", [(False, False), (True, True)], ids=["min", "h+ysq"])
+@pytest.mark.parametrize("n,t", STREAM_SHAPES)
+def test_streaming_fused_matches_plain(dev, n, t, density, precision, absolute_ll, flags):
+    x, m_old, m_new = _inputs(dev, n, t, seed=4)
+    args = (m_new, m_old, x, density, *flags, precision, absolute_ll)
+    before = K.streaming_fused_sums.launches
+    out_k = K.streaming_fused_sums(*args)
+    assert K.streaming_fused_sums.launches == before + 1
+    _close(out_k, K.streaming_fused_sums_plain(*args),
+           RTOL_BF16 if precision == "bf16" else RTOL)
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16x3", "bf16"])
+@pytest.mark.parametrize("absolute_ll", [False, True], ids=["delta", "plain"])
+@pytest.mark.parametrize("n,t", [(130, 4097), (306, 3001)])
+def test_streaming_fused_bf16_x_matches_plain(dev, n, t, precision, absolute_ll):
+    x, m_old, m_new = _inputs(dev, n, t, seed=5)
+    args = (m_new, m_old, x.to(torch.bfloat16), Tanh(), True, True,
+            precision, absolute_ll)
+    # bf16 X: an f32 request runs the bf16 tier.
+    _close(K.streaming_fused_sums(*args), K.streaming_fused_sums_plain(*args),
+           RTOL if precision == "bf16x3" else RTOL_BF16)
+
+
+@pytest.mark.parametrize("group", [2, 16])
+@pytest.mark.parametrize("n", [72, 1024])
+def test_streaming_fused_across_group_boundaries(dev, monkeypatch, n, group):
+    """70,001 columns: 547 tiles of 128 at N = 72 in groups of ``group``
+    tiles; 2,188 tiles of 32 at N = 1024, where the G and H partials
+    budget (STREAM_PARTIALS_MAX) sets groups of 18."""
+    monkeypatch.setattr(K, "STREAM_GROUP", group)
+    x, m_old, m_new = _inputs(dev, n, 70_001, seed=6)
+    args = (m_new, m_old, x, Tanh(), True, True, "f32", False)
+    _close(K.streaming_fused_sums(*args), K.streaming_fused_sums_plain(*args))
+
+
+@pytest.mark.parametrize("density", DENSITIES, ids=str)
+@pytest.mark.parametrize("need_ysq", [False, True])
+@pytest.mark.parametrize("bf16_x", [False, True], ids=["f32x", "bf16x"])
+@pytest.mark.parametrize("n,t", [(65, 255), (306, 3001), (1024, 40_001)])
+def test_streaming_loglik_matches_plain(dev, n, t, density, need_ysq, bf16_x):
+    x, m_old, _ = _inputs(dev, n, t, seed=7)
+    if bf16_x:
+        x = x.to(torch.bfloat16)
+    args = (m_old, x, density, need_ysq)
+    before = K.streaming_loglik_sums.launches
+    out_k = K.streaming_loglik_sums(*args)
+    assert K.streaming_loglik_sums.launches == before + 1
+    _close(out_k, K.streaming_loglik_sums_plain(*args))
+
+
+def test_resident_wrappers_hand_off_above_kernel_max_n(dev):
+    """At N = 80 the rotated_* wrappers launch the streaming kernels and
+    count there; the moments are the fused kernel's plain mode."""
+    x, m_old, m_new = _inputs(dev, 80, 3001, seed=8)
+    K.reset_launch_counts()
+    out = K.rotated_fused_sums(m_new, m_old, x, Tanh(), True, True)
+    _close(out, K.streaming_fused_sums_plain(m_new, m_old, x, Tanh(), True, True))
+    mom = K.rotated_moments_sums(m_old, x, Tanh(), True, True)
+    _close(mom, K.rotated_moments_sums_plain(m_old, x, Tanh(), True, True))
+    ll = K.rotated_loglik_sums(m_old, x, Tanh(), True)
+    _close(ll, K.rotated_loglik_sums_plain(m_old, x, Tanh(), True))
+    assert K.streaming_fused_sums.launches == 2 and K.streaming_loglik_sums.launches == 1
+    assert (K.rotated_fused_sums.launches, K.rotated_moments_sums.launches,
+            K.rotated_loglik_sums.launches) == (0, 0, 0)
+
+
+def test_fit_streaming_kernels_match_cpu(dev):
+    """N = 80 with use_kernels=True: the card's fit runs the streaming
+    kernels and lands on the CPU fit's unmixing (plain versions)."""
+    from picard_ica_tpu_torch import Picard, PicardConfig
+    from picard_ica_tpu_torch.utils import amari_distance, generate_mixed_kurtosis_data
+
+    _, a, x = generate_mixed_kurtosis_data(80, 60_000, 5)
+    cfg = PicardConfig(random_state=0, use_kernels=True)
+    K.reset_launch_counts()
+    r_g = Picard.fit(x, cfg)
+    assert K.streaming_fused_sums.launches > 0
+    assert K.rotated_fused_sums.launches == 0 and K.rotated_moments_sums.launches == 0
+    r_c = Picard.fit(x, cfg, device="cpu")
+    assert r_g.converged and r_c.converged
     w_g = r_g.full_unmixing().double().cpu().numpy()
     w_c = r_c.full_unmixing().double().numpy()
     assert amari_distance(w_g, np.linalg.inv(w_c)) < 1e-4

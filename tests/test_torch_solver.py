@@ -97,6 +97,29 @@ def test_w_init_and_config_carried_from_jax(mixture):
     np.testing.assert_array_equal(convert.w_init_from_array(w0).numpy(), w0)
 
 
+def test_use_pallas_carries_to_the_streaming_kernels(monkeypatch):
+    """A JAX config with use_pallas=True converts to use_kernels=True, and
+    a port fit at N = 72 with it takes the streaming kernels' route."""
+    from picard_ica_tpu_torch.ops import kernels as K
+
+    jcfg = J.PicardConfig(use_pallas=True, random_state=0, max_iter=3)
+    fields = {f: getattr(jcfg, f) for f in jcfg.__dataclass_fields__ if f != "density"}
+    fields["density"] = {"name": type(jcfg.density).__name__, "alpha": jcfg.density.alpha}
+    tcfg = convert.config_from_fields(fields)
+    assert tcfg.use_kernels is True
+    calls = []
+    real = K.streaming_fused_sums
+
+    def spy(*args, **kwargs):
+        calls.append(1)
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(K, "streaming_fused_sums", spy)
+    _, _, x = generate_mixed_kurtosis_data(72, 3000, 4)
+    r = P.Picard.fit(x, tcfg, device="cpu")
+    assert calls and r.n_iterations == 3
+
+
 def test_no_preprocessing_takes_tensor_input():
     _, _, x = generate_mixed_kurtosis_data(4, 5000, 2)
     xw = np.linalg.qr(np.random.default_rng(0).standard_normal((4, 4)))[0] @ (
