@@ -11,11 +11,15 @@ prints no result line):
   2. hold each kernel against its plain PyTorch version on the card at
      N = 64, T = 2,000,000, for every mode and tier the main path runs
      plus one case with the H / Y^2 outputs on per kernel, and time both
-     with CUDA events (median of 10 runs after warm-up);
+     with CUDA events (one call at a time, median of 10 after warm-up;
+     the kernel also 10 calls back to back);
      The whitening kernels are held the same way: ``row_sums``,
      ``centered_covariance_sums`` and ``covariance_sums`` at 64 x
      4,000,000, ``_grouped_covariance`` (centered and not) at 600 x
-     1,000,000;
+     1,000,000, each timed in turns with the one PyTorch call that
+     computes the same function (``x.sum(dim=1)``, ``torch.cov``,
+     ``x @ x.T``; a yardstick the port never calls), and the fold of
+     their partials on the card against ``fold_pairwise``, bit for bit;
   3. fit a 64 x 2,000,000 mixed sub/super-Gaussian mixture (float64
      NumPy input, made from a seed: host-f64 whitening) with
      ``Picard.fit`` at the default config, through the kernels, then
@@ -46,11 +50,21 @@ Phase 2 also holds the streaming kernels against their plain versions:
 path runs), 306 x 1,000,003 and 1024 x 200,000, ``streaming_loglik_sums``
 at 256 x 2,000,000 and 1024 x 200,000.
 
-The line before the last is a JSON object describing every kernel
-(launches on its path — phase 3 for the resident core kernels, phase 4
+The line before the last is a JSON object describing every kernel:
+launches on its path (phase 3 for the resident core kernels, phase 4
 for the whitening kernels, 4b for the grouped one, 5 for the streaming
-kernels — error against the plain version, times); the last line is
-``{"ok": true, "device": {...}}``. Needs one CUDA card.
+kernels), error against the plain version, and the numbers of its
+headline case (``_KERNELS``): ``ms`` and ``plain_ms`` (CUDA events, one
+synchronised call at a time, median of 10), ``ms_stream`` (10 calls back
+to back between two events, over the count, median of 5: the device time
+without the host's launch gaps), ``bound_ms`` (the larger of X's bytes
+over the HBM rate and the FMAs over the peak rate of their type,
+``bound_by`` saying which), ``share`` = bound / ms and ``share_stream`` =
+bound / ms_stream, and ``library_ms`` / ``library_ms_stream``, the
+one-call yardstick's times taken the same two ways, or null where no
+single PyTorch call computes the function; ``cases`` holds the same for
+every case. The last line is ``{"ok": true, "device": {...}}``.
+Needs one CUDA card.
 """
 
 from __future__ import annotations
@@ -86,6 +100,13 @@ K_RESIDUAL_MAX = 1e-3
 N5, T5 = 256, 2_000_000
 N_MEG, T_MEG = 306, 1_000_003
 N5B, T5B, SEED5B = 1024, 200_000, 42
+# Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): HBM
+# bytes/s, scalar FP32 FMA/s outside the tensor cores (67 TFLOP/s), and
+# dense bf16 tensor-core FMA/s (989 TFLOP/s) for the products of the bf16
+# and bf16x3 tiers, which are exact bf16 products.
+HBM_BYTES_S = 3.35e12
+F32_FMA_S = 33.5e12
+BF16_FMA_S = 494.5e12
 
 
 def _log(msg):
@@ -138,8 +159,90 @@ def _time_ms(fn, reps=10, warmup=2):
     return statistics.median(times)
 
 
+def _time_stream_ms(fn, count=10, reps=5, warmup=2):
+    """Device time of one call: ``count`` calls back to back between two
+    CUDA events, over the count (median of ``reps``), so the host's time
+    to launch a call hides behind the device's work on the one before."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(count):
+            fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / count)
+    return statistics.median(times)
+
+
 def _max_abs(a, b):
     return max(float((u.double() - v.double()).abs().max()) for u, v in zip(a, b))
+
+
+def _bytes(tensors):
+    import torch
+
+    return sum(v.numel() * v.element_size() for v in tensors
+               if isinstance(v, torch.Tensor))
+
+
+def _core_fmas(name, args):
+    """(f32 FMAs, bf16 products) a core kernel's call needs: N^2 per
+    column for each rotation and each contraction it computes, tripled
+    at the bf16x3 tier. The density's elementwise work is not counted."""
+    import torch
+
+    if name.endswith("fused_sums"):
+        _, _, x, _, need_h, _, precision, absolute_ll = args
+        if x.dtype == torch.bfloat16:
+            rot, con = "bf16", ("bf16" if precision == "f32" else precision)
+        else:
+            rot = con = precision
+        work = [(rot, 1 if absolute_ll else 2), (con, 1 + need_h)]
+    elif name == "rotated_moments_sums":
+        _, x, _, need_h, _ = args
+        work = [("bf16" if x.dtype == torch.bfloat16 else "f32", 1), ("f32", 1 + need_h)]
+    else:  # the loglik kernels: one rotation
+        x = args[1]
+        work = [("bf16" if x.dtype == torch.bfloat16 else "f32", 1)]
+    n, t = x.shape
+    f32 = sum(k for tier, k in work if tier == "f32") * n * n * t
+    bf16 = sum(k * (3 if tier == "bf16x3" else 1) for tier, k in work
+               if tier != "f32") * n * n * t
+    return f32, bf16
+
+
+def _bound(n_bytes, f32_fmas, bf16_fmas=0):
+    """(bound ms, "bytes" or "operations"): the larger of the bytes over
+    the HBM rate and the FMAs over the peak rate of their type."""
+    mem = n_bytes / HBM_BYTES_S * 1e3
+    ops = (f32_fmas / F32_FMA_S + bf16_fmas / BF16_FMA_S) * 1e3
+    return (mem, "bytes") if mem >= ops else (ops, "operations")
+
+
+def _time_both(fn):
+    """(one synchronised call at a time, back to back) ms of a call."""
+    return _time_ms(fn), _time_stream_ms(fn)
+
+
+def _time_turns(kern, library):
+    """The kernel and its one-call yardstick in turns (kernel, call,
+    call, kernel), each timed both ways; returns ((kernel ms, back to
+    back), (call ms, back to back), every turn's pair)."""
+    turns = [_time_both(fn) for fn in (kern, library, library, kern)]
+    k = tuple((a + b) / 2 for a, b in zip(turns[0], turns[3]))
+    lib = tuple((a + b) / 2 for a, b in zip(turns[1], turns[2]))
+    return k, lib, turns
+
+
+def _fmt_pair(pair):
+    return f"{pair[0]:.3f} ms ({pair[1]:.3f} back to back)"
 
 
 def phase2_kernels():
@@ -226,18 +329,25 @@ def _hold(rows, kern, plain, label, tier, make, m_new, m_old, xx):
         ok = err_k <= bound
         detail = f"err vs plain {tier} {err_k:.4g} (bound {bound:.4g})"
     finite = all(bool(torch.isfinite(v).all()) for v in out_k)
+    bound_ms, bound_by = _bound(_bytes(args) + _bytes(out_k), *_core_fmas(name, args))
     del out_k, out_p
     torch.cuda.empty_cache()
-    ms = _time_ms(lambda: kern(*args))
+    ms, ms_stream = _time_both(lambda: kern(*args))
     plain_ms = _time_ms(lambda: plain(*args))
     _log(f"{name} [{label}] {n} x {t}: {detail}, finite={finite}, "
-         f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+         f"kernel {_fmt_pair((ms, ms_stream))}, plain {plain_ms:.3f} ms, "
+         f"bound {bound_ms:.3f} ms ({bound_by}), share {bound_ms / ms:.3f} "
+         f"({bound_ms / ms_stream:.3f} back to back)")
     if not (ok and finite):
         raise AssertionError(f"{name} [{label}] disagrees with its plain version")
     row = rows.setdefault(name, {"max_abs_err": 0.0, "cases": []})
     row["max_abs_err"] = max(row["max_abs_err"], err_k)
-    row["cases"].append({"case": f"{label}, {n} x {t}", "ms": ms,
-                         "plain_ms": plain_ms, "max_abs_err": err_k})
+    row["cases"].append({"label": label, "case": f"{label}, {n} x {t}", "ms": ms,
+                         "ms_stream": ms_stream, "plain_ms": plain_ms,
+                         "bound_ms": bound_ms, "bound_by": bound_by,
+                         "share": bound_ms / ms, "share_stream": bound_ms / ms_stream,
+                         "library_ms": None, "library_ms_stream": None,
+                         "max_abs_err": err_k})
 
 
 def _stream_inputs(n, t, seed):
@@ -308,12 +418,17 @@ def phase2_streaming_kernels():
     return rows
 
 
-def _f32_check(name, label, n, t, run, plain, run64):
-    """Hold a kernel's f32 output against an f64 evaluation of the same
-    sums: its error may be F32_ERR_FACTOR x the plain f32 version's plus
-    F32_FLOOR_PER_COL per summed column. Returns the row of the case."""
+def _f32_check(name, label, x, fmas, run, plain, run64, library):
+    """Hold a whitening kernel's f32 output against an f64 evaluation of
+    the same sums: its error may be F32_ERR_FACTOR x the plain f32
+    version's plus F32_FLOOR_PER_COL per summed column. Times the kernel
+    in turns with ``library``, the one PyTorch call that computes the
+    same function (a yardstick only: the port never calls it), both ways
+    as phase 2 times every kernel, and the plain version. Returns the row
+    of the case."""
     import torch
 
+    n, t = x.shape
     out_k = run()
     torch.cuda.synchronize()
     out_p = plain()
@@ -323,15 +438,25 @@ def _f32_check(name, label, n, t, run, plain, run64):
     del out_p, out_64
     bound = F32_ERR_FACTOR * err_p + F32_FLOOR_PER_COL * t
     finite = bool(torch.isfinite(out_k).all())
+    bound_ms, bound_by = _bound(_bytes([x]) + _bytes([out_k]), fmas)
     del out_k
-    ms = _time_ms(run)
+    (ms, ms_stream), (library_ms, library_ms_stream), turns = _time_turns(run, library)
     plain_ms = _time_ms(plain)
     _log(f"{name} [{label}] {n} x {t}: err vs f64 {err_k:.4g} (plain f32 "
-         f"{err_p:.4g}, bound {bound:.4g}), finite={finite}, kernel {ms:.3f} ms, "
-         f"plain {plain_ms:.3f} ms")
+         f"{err_p:.4g}, bound {bound:.4g}), finite={finite}, "
+         f"kernel {_fmt_pair((ms, ms_stream))}, "
+         f"library {_fmt_pair((library_ms, library_ms_stream))} (turns "
+         f"{', '.join(_fmt_pair(v) for v in turns)}), plain {plain_ms:.3f} ms, "
+         f"bound {bound_ms:.3f} ms ({bound_by}), share {bound_ms / ms:.3f} "
+         f"({bound_ms / ms_stream:.3f} back to back)")
     if not (err_k <= bound and finite):
         raise AssertionError(f"{name} [{label}] disagrees with its plain version")
-    return {"case": label, "ms": ms, "plain_ms": plain_ms, "max_abs_err": err_k}
+    return {"label": label, "case": f"{label}, {n} x {t}", "ms": ms,
+            "ms_stream": ms_stream, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "share": bound_ms / ms,
+            "share_stream": bound_ms / ms_stream, "library_ms": library_ms,
+            "library_ms_stream": library_ms_stream, "turns_ms": turns,
+            "max_abs_err": err_k}
 
 
 def phase2_whitening_kernels():
@@ -348,36 +473,69 @@ def phase2_whitening_kernels():
         entry["max_abs_err"] = max(entry["max_abs_err"], row["max_abs_err"])
         entry["cases"].append(row)
 
+    # The whitening kernels fold their partials on the card; the fold must
+    # equal fold_pairwise bit for bit at the partial counts of the path
+    # (64 x 4M: 1,954 chunks; 600 x 1M grouped: 31 groups).
+    from picard_ica_tpu_torch.ops.moments import fold_pairwise
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    for shape in [(1954, N4), (1954, N4, N4), (31, N4B, N4B)]:
+        p = torch.randn(shape, generator=gen, device="cuda").mul_(1e3)
+        same = torch.equal(K.fold_partials(p.clone()), fold_pairwise(p.clone()))
+        scratch = p.clone()
+        fold_ms = _time_both(lambda: K.fold_partials(scratch))
+        _log(f"fold {shape}: bitwise equal to fold_pairwise: {same}, "
+             f"{fold_ms[0]:.4f} ms ({fold_ms[1]:.4f} back to back)")
+        if not same:
+            raise AssertionError(f"the fold kernel differs from fold_pairwise at {shape}")
+        del p, scratch
+
+    def tri(x):  # the covariance's FMAs: the upper triangle, once per column
+        n, t = x.shape
+        return n * (n + 1) // 2 * t
+
+    # The yardsticks: one PyTorch call each, exact f32 (TF32 is off).
+    def cov(x):
+        return torch.cov(x, correction=0)
+
+    def gram(x):
+        return x @ x.T
+
     # Laplace rows around a mean of 1.5: centering matters.
     x = laplace_sources_device(N4, T4, SEED, "cuda").add_(1.5)
     x64 = x.double()
     mean = (x64.mean(dim=1)).float()
     add("row_sums", _f32_check(
-        "row_sums", "f32", N4, T4, lambda: K.row_sums(x),
-        lambda: K.row_sums_plain(x), lambda: K.row_sums_plain(x64)))
+        "row_sums", "f32", x, x.numel(), lambda: K.row_sums(x),
+        lambda: K.row_sums_plain(x), lambda: K.row_sums_plain(x64),
+        lambda: x.sum(dim=1)))
     add("centered_covariance_sums", _f32_check(
-        "centered_covariance_sums", "f32", N4, T4,
+        "centered_covariance_sums", "f32", x, tri(x),
         lambda: K.centered_covariance_sums(x, mean),
         lambda: K.centered_covariance_sums_plain(x, mean),
-        lambda: K.centered_covariance_sums_plain(x64, mean.double())))
+        lambda: K.centered_covariance_sums_plain(x64, mean.double()),
+        lambda: cov(x)))
     add("covariance_sums", _f32_check(
-        "covariance_sums", "f32", N4, T4, lambda: K.covariance_sums(x),
-        lambda: K.covariance_sums_plain(x), lambda: K.covariance_sums_plain(x64)))
+        "covariance_sums", "f32", x, tri(x), lambda: K.covariance_sums(x),
+        lambda: K.covariance_sums_plain(x), lambda: K.covariance_sums_plain(x64),
+        lambda: gram(x)))
     del x, x64
 
     x = laplace_sources_device(N4B, T4B, SEED, "cuda").add_(1.5)
     x64 = x.double()
     mean = (x64.mean(dim=1)).float()
     add("_grouped_covariance", _f32_check(
-        "_grouped_covariance", "centered", N4B, T4B,
+        "_grouped_covariance", "centered", x, tri(x),
         lambda: K._grouped_covariance(x, mean),
         lambda: K.grouped_covariance_plain(x, mean),
-        lambda: K.grouped_covariance_plain(x64, mean.double())))
+        lambda: K.grouped_covariance_plain(x64, mean.double()),
+        lambda: cov(x)))
     add("_grouped_covariance", _f32_check(
-        "_grouped_covariance", "uncentered", N4B, T4B,
+        "_grouped_covariance", "uncentered", x, tri(x),
         lambda: K._grouped_covariance(x, None),
         lambda: K.grouped_covariance_plain(x, None),
-        lambda: K.grouped_covariance_plain(x64, None)))
+        lambda: K.grouped_covariance_plain(x64, None),
+        lambda: gram(x)))
     del x, x64
     return rows
 
@@ -682,17 +840,18 @@ _CORE_SOURCE = "picard_ica_tpu_torch/csrc/rotated_sums.cu"
 _STATS_SOURCE = "picard_ica_tpu_torch/csrc/covariance_sums.cu"
 _STREAM_SOURCE = "picard_ica_tpu_torch/csrc/streaming_sums.cu"
 _PALLAS = "picard_ica_tpu/ops/pallas_kernels.py"
-# name -> (source, pallas_call line of the TPU kernel it replaces)
+# name -> (source, pallas_call line of the TPU kernel it replaces, the
+# phase-2 case whose numbers head the kernel's entry)
 _KERNELS = {
-    "rotated_fused_sums": (_CORE_SOURCE, 922),
-    "rotated_moments_sums": (_CORE_SOURCE, 366),
-    "rotated_loglik_sums": (_CORE_SOURCE, 702),
-    "row_sums": (_STATS_SOURCE, 422),
-    "centered_covariance_sums": (_STATS_SOURCE, 635),
-    "covariance_sums": (_STATS_SOURCE, 598),
-    "_grouped_covariance": (_STATS_SOURCE, 531),
-    "streaming_fused_sums": (_STREAM_SOURCE, 1149),
-    "streaming_loglik_sums": (_STREAM_SOURCE, 1247),
+    "rotated_fused_sums": (_CORE_SOURCE, 922, "delta f32"),
+    "rotated_moments_sums": (_CORE_SOURCE, 366, "f32"),
+    "rotated_loglik_sums": (_CORE_SOURCE, 702, "f32"),
+    "row_sums": (_STATS_SOURCE, 422, "f32"),
+    "centered_covariance_sums": (_STATS_SOURCE, 635, "f32"),
+    "covariance_sums": (_STATS_SOURCE, 598, "f32"),
+    "_grouped_covariance": (_STATS_SOURCE, 531, "centered"),
+    "streaming_fused_sums": (_STREAM_SOURCE, 1149, "delta f32"),
+    "streaming_loglik_sums": (_STREAM_SOURCE, 1247, "f32"),
 }
 
 
@@ -708,17 +867,20 @@ def main():
                "phase4b": phase4b_grouped(), "phase5": phase5_large_n(),
                "phase5b": phase5b_exhibit()}
     kernels = []
-    for name, (source, line) in _KERNELS.items():
+    for name, (source, line, headline) in _KERNELS.items():
         row = rows[name]
-        main_case = row["cases"][0]
+        main_case = next(c for c in row["cases"] if c["label"] == headline)
         path = ("phase3" if name in _CORE_KERNELS else
                 "phase5" if name in _STREAM_KERNELS else
                 "phase4b" if name == "_grouped_covariance" else "phase4")
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": f"{_PALLAS}:{line}", "launches": by_path[path][name],
-            "max_abs_err": row["max_abs_err"], "ms": main_case["ms"],
-            "plain_ms": main_case["plain_ms"], "cases": row["cases"],
+            "max_abs_err": row["max_abs_err"], "case": main_case["case"],
+            **{k: main_case[k] for k in ("ms", "ms_stream", "plain_ms", "bound_ms",
+                                         "bound_by", "share", "share_stream",
+                                         "library_ms", "library_ms_stream")},
+            "cases": row["cases"],
             "launches_by_path": {p: c.get(name, 0) for p, c in by_path.items()},
         })
     print(json.dumps({"kernels": kernels}))

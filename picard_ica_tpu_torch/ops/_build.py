@@ -52,8 +52,9 @@ _SIGNATURES = {
         _I, _I, _I, _D, _I, _LL, _I, _P, _P, _P, _P, _I, _P,
     ],
     "picard_cov_chunk": [],
-    "picard_row_sums": [_I, _LL, _P, _P, _I, _P],
-    "picard_covariance_sums": [_I, _LL, _P, _P, _I, _P, _I, _P],
+    "picard_row_sums": [_I, _LL, _P, _P, _I, _P, _P],
+    "picard_covariance_sums": [_I, _LL, _P, _P, _I, _P, _I, _P, _P],
+    "picard_fold_pairwise": [_I, _LL, _P, _P, _P],
     "picard_stream_max_n": [],
     "picard_stream_tile": [_I],
     "picard_streaming_fused_sums": [

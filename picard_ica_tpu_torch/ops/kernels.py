@@ -33,7 +33,7 @@ Device whitening (``csrc/covariance_sums.cu``):
   * :func:`row_sums` — per-row sums, the mean's numerator (replaces
     ``row_sums``, :398-434);
   * :func:`centered_covariance_sums` — (X - mean)(X - mean)^T with the
-    centering in the tile load (replaces ``centered_covariance_sums``,
+    centering on chip (replaces ``centered_covariance_sums``,
     :555-648);
   * :func:`covariance_sums` — X X^T (replaces ``covariance_sums``,
     :544-610);
@@ -53,8 +53,11 @@ reduce across devices first). For each there is:
     tests and ``chip_smoke.py`` hold the kernels against it;
   * a launch counter, ``<wrapper>.launches``, raised by one at each
     kernel launch and nowhere else;
-  * the fold of the kernel's per-block partials
-    (:func:`ops.moments.fold_pairwise`).
+  * the fold of the kernel's per-block partials in
+    :func:`ops.moments.fold_pairwise`'s order: torch adds for the core
+    kernels, the fold kernel on the card for the whitening kernels (one
+    more launch inside the same C entry, bitwise equal to
+    ``fold_pairwise``; :func:`fold_partials`).
 
 Semantics kept from the TPU kernels: padded columns contribute nothing
 (psi'(0) != 0 and log_lik(0) != 0); with bf16 X the weights are rounded
@@ -66,6 +69,7 @@ nothing.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -440,7 +444,11 @@ def streaming_loglik_sums_plain(m, x, density, need_ysq: bool):
 # ---------------------------------------------------------------------------
 
 
+@functools.cache
 def _lib():
+    """The kernels' library, checked once against this module's
+    constants (every launch asks for it: the check's ctypes calls would
+    otherwise sit inside each kernel's time on the card)."""
     from . import _build
 
     lib = _build.load()
@@ -697,13 +705,30 @@ def _use_grouped(n: int, t: int) -> bool:
             or _n_chunks(t, COV_CHUNK) * n * n * 4 > RESIDENT_PARTIALS_MAX)
 
 
+def fold_partials(buf):
+    """Fold (n_parts, ...) f32 partials in ``fold_pairwise``'s order, bit
+    for bit; the buffer is scratch and may be overwritten. For a CUDA
+    tensor one launch of the fold kernel, which runs the rounds in place
+    (the whitening kernels' entries run it themselves); on the CPU its
+    plain version, ``fold_pairwise``."""
+    if buf.device.type == "cpu":
+        return fold_pairwise(buf)
+    if buf.dtype != torch.float32 or not buf.is_contiguous() or buf.dim() < 1:
+        raise ValueError("the fold kernel takes contiguous f32 partials")
+    out = torch.empty(buf.shape[1:], dtype=torch.float32, device=buf.device)
+    _run(_lib().picard_fold_pairwise, buf.shape[0], out.numel(), buf.data_ptr(),
+         out.data_ptr(), device=buf.device)
+    return out
+
+
 def _covariance_launch(x, mean, group: int):
     n, t, mean = _check_stats(x, mean)
     n_parts = _n_chunks(_n_chunks(t, COV_CHUNK), group)
-    out = torch.empty((n_parts, n, n), dtype=torch.float32, device=x.device)
+    parts = torch.empty((n_parts, n, n), dtype=torch.float32, device=x.device)
+    out = torch.empty((n, n), dtype=torch.float32, device=x.device)
     _run(_lib().picard_covariance_sums, n, t, x.data_ptr(), _ptr(mean), group,
-         out.data_ptr(), n_parts, device=x.device)
-    return fold_pairwise(out)
+         parts.data_ptr(), n_parts, out.data_ptr(), device=x.device)
+    return out
 
 
 def row_sums(x):
@@ -712,11 +737,12 @@ def row_sums(x):
         return row_sums_plain(x)
     n, t, _ = _check_stats(x)
     n_parts = _n_chunks(t, COV_CHUNK)
-    out = torch.empty((n_parts, n), dtype=torch.float32, device=x.device)
-    _run(_lib().picard_row_sums, n, t, x.data_ptr(), out.data_ptr(), n_parts,
-         device=x.device)
+    parts = torch.empty((n_parts, n), dtype=torch.float32, device=x.device)
+    out = torch.empty((n,), dtype=torch.float32, device=x.device)
+    _run(_lib().picard_row_sums, n, t, x.data_ptr(), parts.data_ptr(), n_parts,
+         out.data_ptr(), device=x.device)
     row_sums.launches += 1
-    return fold_pairwise(out)
+    return out
 
 
 def covariance_sums(x):

@@ -33,11 +33,12 @@ from .results import PicardResult
 
 
 def _resolve_device(x, device) -> torch.device:
-    """The fit's device: ``device`` if given, else the input tensor's,
-    else CUDA — never a silent fall back to the CPU."""
+    """The fit's device: ``device`` if given, else a CUDA tensor's own
+    card, else CUDA (a CPU tensor is copied there) — the CPU only when
+    the caller asks for it, never as a silent fall back."""
     if device is not None:
         return torch.device(device)
-    if isinstance(x, torch.Tensor):
+    if isinstance(x, torch.Tensor) and x.device.type == "cuda":
         return x.device
     if not torch.cuda.is_available():
         raise RuntimeError(

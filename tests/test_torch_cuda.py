@@ -12,6 +12,8 @@ f32), so outputs agree to RTOL relative to each output's largest entry;
 the streaming kernels' bf16 contraction tier to RTOL_BF16 (see there).
 """
 
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -199,6 +201,80 @@ def test_grouped_covariance_matches_plain(dev, n, centered):
     _close([out], [K.grouped_covariance_plain(x, m)])
 
 
+def _layout(dev, n, t, layout, seed):
+    """X (n, t) in one of the layouts the load paths split on: rows
+    16-byte aligned (T % 4 == 0), a row view ``x[1:]`` of odd T, T % 4 != 0
+    contiguous, and T % 4 == 0 at a base 4 bytes past alignment."""
+    rng = np.random.default_rng(seed)
+    if layout == "aligned":
+        t -= t % 4
+        x = torch.from_numpy(rng.laplace(size=(n, t)).astype(np.float32) + 1.5).to(dev)
+    elif layout == "row-view":
+        t += 1 - t % 2
+        x = torch.from_numpy(rng.laplace(size=(n + 1, t)).astype(np.float32) + 1.5).to(dev)[1:]
+    elif layout == "ragged":
+        t += 2 - t % 4 if t % 4 in (0, 1) else 0
+        x = torch.from_numpy(rng.laplace(size=(n, t)).astype(np.float32) + 1.5).to(dev)
+    else:  # offset
+        t -= t % 4
+        flat = torch.from_numpy(rng.laplace(size=n * t + 1).astype(np.float32) + 1.5).to(dev)
+        x = flat[1:].view(n, t)
+    # Only the aligned layout takes the 16-byte loads (csrc vec_ok).
+    assert x.is_contiguous()
+    assert (t % 4 == 0 and x.data_ptr() % 16 == 0) == (layout == "aligned")
+    return x, x.double().mean(dim=1).float()
+
+
+LAYOUTS = ["aligned", "row-view", "ragged", "offset"]
+STATS_N = [1, 4, 63, 64, 65, 130, 600]
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("n", STATS_N)
+def test_row_sums_load_paths(dev, n, layout):
+    """Both load paths at the N and T edges: 2 full chunks and a tail."""
+    x, _ = _layout(dev, n, 5000, layout, seed=n)
+    before = K.row_sums.launches
+    out = K.row_sums(x)
+    assert K.row_sums.launches == before + 1 and out.shape == (n,)
+    _close([out], [K.row_sums_plain(x)])
+
+
+@pytest.mark.parametrize("group", [1, K.COV_GROUP], ids=["per-chunk", "grouped"])
+@pytest.mark.parametrize("centered", [False, True], ids=["plain", "centered"])
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("n", STATS_N)
+def test_covariance_kernel_load_paths(dev, n, layout, centered, group):
+    """The covariance kernel (diagonal tiles alone up to N = 64, with the
+    off-diagonal pairs above) per chunk and grouped, on both load paths,
+    against the plain version of the same partition; symmetric bit for
+    bit."""
+    x, mean = _layout(dev, n, 5000, layout, seed=100 + n)
+    m = mean if centered else None
+    out = K._covariance_launch(x, m, group)
+    if group == 1:
+        ref = (K.centered_covariance_sums_plain(x, mean) if centered
+               else K.covariance_sums_plain(x))
+    else:
+        ref = K.grouped_covariance_plain(x, m)
+    assert out.shape == (n, n) and torch.equal(out, out.T)
+    _close([out], [ref])
+
+
+@pytest.mark.parametrize("shape", [(64,), (64, 64), (7, 5), (600, 600)], ids=str)
+@pytest.mark.parametrize("n_parts", [1, 2, 3, 5, 7, 31, 1954])
+def test_fold_kernel_bitwise_equals_fold_pairwise(dev, n_parts, shape):
+    from picard_ica_tpu_torch.ops.moments import fold_pairwise
+
+    if n_parts * math.prod(shape) > 2e7:
+        n_parts = 33
+    g = torch.Generator(device=dev).manual_seed(n_parts)
+    parts = torch.randn((n_parts, *shape), generator=g, device=dev) * 1e3
+    want = fold_pairwise(parts.clone())
+    got = K.fold_partials(parts.clone())
+    assert got.shape == want.shape and torch.equal(got, want)
+
+
 def test_whitening_wrappers_reject_what_the_kernels_do_not_take(dev):
     x, mean = _stats_inputs(dev, 8, 3000)
     with pytest.raises(TypeError):
@@ -213,6 +289,10 @@ def test_whitening_wrappers_reject_what_the_kernels_do_not_take(dev):
         K.centered_covariance_sums(x, mean[:4])
     with pytest.raises(ValueError):
         K._grouped_covariance(x, mean[:, None])
+    with pytest.raises(ValueError):
+        K.fold_partials(torch.zeros((3, 4), dtype=torch.float64, device=dev))
+    with pytest.raises(ValueError):
+        K.fold_partials(torch.zeros((3, 4), device=dev)[:, ::2])
 
 
 def test_fit_cuda_tensor_through_device_whitening(dev):
@@ -232,13 +312,29 @@ def test_fit_cuda_tensor_through_device_whitening(dev):
               K.rotated_fused_sums, K.rotated_moments_sums):
         assert k.launches > 0, k.__name__
     assert torch.equal(x_dev, before)
-    r_c = Picard.fit(x32, PicardConfig(random_state=0))
+    r_c = Picard.fit(x32, PicardConfig(random_state=0), device="cpu")
     assert r_g.converged and r_c.converged
     assert r_g.sources.device.type == "cuda" and r_c.sources.device.type == "cpu"
     w_g = r_g.full_unmixing().double().cpu().numpy()
     w_c = r_c.full_unmixing().double().numpy()
     assert amari_distance(w_g, np.linalg.inv(w_c)) < 1e-4
     assert amari_distance(w_g, a) < 5e-3
+
+
+def test_cpu_tensor_without_device_fits_on_the_card(dev):
+    """A CPU tensor without ``device=`` is copied to the card and fitted
+    there through the kernels; the caller's tensor is unchanged."""
+    from picard_ica_tpu_torch import Picard, PicardConfig
+    from picard_ica_tpu_torch.utils import generate_mixed_kurtosis_data
+
+    _, _, x = generate_mixed_kurtosis_data(8, 60_000, 5)
+    x32 = torch.from_numpy(x.astype(np.float32))
+    before = x32.clone()
+    K.reset_launch_counts()
+    r = Picard.fit(x32, PicardConfig(random_state=0))
+    assert r.converged and r.sources.device.type == "cuda"
+    assert K.row_sums.launches == 1 and K.rotated_fused_sums.launches > 0
+    assert x32.device.type == "cpu" and torch.equal(x32, before)
 
 
 # ---- the core loop above KERNEL_MAX_N: the streaming kernels ----------------

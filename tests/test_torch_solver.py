@@ -126,7 +126,7 @@ def test_no_preprocessing_takes_tensor_input():
         x / x.std(axis=1, keepdims=True))
     xt = torch.from_numpy(xw - xw.mean(axis=1, keepdims=True))
     cfg = P.PicardConfig(random_state=0, centering=False, whiten=False, dtype=torch.float64)
-    r = P.Picard.fit(xt, cfg)
+    r = P.Picard.fit(xt, cfg, device="cpu")
     assert r.sources.device == xt.device and r.whitening is None and r.mean is None
     assert r.n_iterations >= 1
     assert not torch.equal(xt, r.sources)  # the input buffer is not overwritten
@@ -147,7 +147,8 @@ def test_typed_errors():
     with pytest.raises(P.InvalidDimensionsError):
         P.Picard.fit(x, P.PicardConfig(w_init=np.eye(2)), device="cpu")
     with pytest.raises(P.InvalidDimensionsError):
-        P.Picard.fit(torch.from_numpy(x), P.PicardConfig(whiten_precision="f64"))
+        P.Picard.fit(torch.from_numpy(x), P.PicardConfig(whiten_precision="f64"),
+                     device="cpu")
     with pytest.raises(P.SingularMatrixError):
         P.Picard.fit(np.ones((3, 200)), device="cpu")
     with pytest.raises(P.NotConvergedError):
@@ -218,6 +219,29 @@ def test_fit_needs_cuda_or_an_explicit_device(monkeypatch):
     x = np.random.default_rng(0).standard_normal((3, 200))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         P.Picard.fit(x)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_cpu_tensor_without_device_needs_cuda(monkeypatch, dtype):
+    """A CPU tensor does not pick the CPU: without ``device=`` the fit
+    goes to the card, and without one it raises as NumPy input does."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    x = torch.from_numpy(np.random.default_rng(0).standard_normal((3, 200))).to(dtype)
+    before = x.clone()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        P.Picard.fit(x, P.PicardConfig(random_state=0))
+    assert torch.equal(x, before)
+
+
+def test_device_rule(monkeypatch):
+    """``device`` wins; else a CUDA tensor's own card; else "cuda"."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    x = torch.zeros((3, 10))
+    assert solver._resolve_device(x, None) == torch.device("cuda")
+    assert solver._resolve_device(x.numpy(), None) == torch.device("cuda")
+    assert solver._resolve_device(x, "cpu") == torch.device("cpu")
+    meta = torch.empty((3, 10), device="meta")
+    assert solver._resolve_device(meta, None) == torch.device("cuda")
 
 
 def test_import_leaves_jax_out():

@@ -86,15 +86,47 @@ PLAIN_VS_PALLAS = {
 }
 
 
+# (N, T): the ragged and alignment edges the kernels' load paths split on
+# (T % 4 in {0, 1, 2, 3}; one column, one chunk less or more than 2,048,
+# two chunks and a tail) at one row, 6 rows and one row past a 64-row
+# output tile.
+PLAIN_SHAPES = [(6, 255), (6, 1000), (6, 5000), (6, 1), (6, 3), (6, 2047), (6, 2049),
+                (6, 4097), (6, 4098), (1, 1), (1, 2049), (1, 4098), (65, 3), (65, 2047),
+                (65, 4097)]
+
+
 @pytest.mark.parametrize("dtype", list(DTYPES))
-@pytest.mark.parametrize("t", [255, 1000, 5000])
+@pytest.mark.parametrize("n,t", PLAIN_SHAPES)
 @pytest.mark.parametrize("kernel", list(PLAIN_VS_PALLAS))
-def test_plain_versions_match_pallas(kernel, t, dtype):
-    x, mean = _data(6, t, 3, DTYPES[dtype])
+def test_plain_versions_match_pallas(kernel, n, t, dtype):
+    x, mean = _data(n, t, 3, DTYPES[dtype])
     ours, theirs = PLAIN_VS_PALLAS[kernel]
     out = ours(torch.from_numpy(x), torch.from_numpy(mean))
     assert out.dtype == torch.from_numpy(x).dtype
     _close_to_scale(out, theirs(jnp.asarray(x), jnp.asarray(mean)), TOL[dtype])
+
+
+# Partial counts: a single one, every parity of the rounds, the 31 groups
+# of the 600 x 1M grouped covariance and the 1,954 chunks of 4M columns.
+FOLD_PARTS = [1, 2, 3, 4, 5, 7, 8, 31, 33, 1954]
+
+
+@pytest.mark.parametrize("shape", [(5,), (3, 3)], ids=str)
+@pytest.mark.parametrize("n_parts", FOLD_PARTS)
+def test_fold_order_matches_fold_pairwise_and_jax(n_parts, shape):
+    """The fold of the whitening kernels' partials (on the CPU its plain
+    version, fold_pairwise, whose order the fold kernel keeps bit for
+    bit) adds in the JAX package's _reduce_partials order on f32
+    partials."""
+    from picard_ica_tpu_torch.ops.moments import fold_pairwise
+
+    p = np.random.default_rng(n_parts).standard_normal((n_parts, *shape)).astype(np.float32)
+    p *= np.float32(1e3)
+    want = fold_pairwise(torch.from_numpy(p.copy()))
+    got = K.fold_partials(torch.from_numpy(p.copy()))
+    assert got.shape == shape and torch.equal(got, want)
+    theirs = np.asarray(pk._reduce_partials(jnp.asarray(p), jnp.float32))
+    np.testing.assert_array_equal(got.numpy(), theirs)
 
 
 def test_cpu_whitening_wrappers_run_plain_and_count_nothing():
