@@ -7,12 +7,13 @@ prints no result line):
 
   0. the card's name and power limit, torch / CUDA versions, TF32 flags;
   1. build the CUDA kernels from ``picard_ica_tpu_torch/csrc`` (nvcc,
-     sm_90a) and time the build;
+     sm_90a), time the build and print ptxas's registers and spills;
   2. hold each kernel against its plain PyTorch version on the card at
      N = 64, T = 2,000,000, for every mode and tier the main path runs
      plus one case with the H / Y^2 outputs on per kernel, and time both
      with CUDA events (one call at a time, median of 10 after warm-up;
-     the kernel also 10 calls back to back);
+     the kernel also 10 calls back to back); the fused pass's tensor-core
+     tiers also at ragged shapes (N = 17 and 63, T = 1,000,003);
      The whitening kernels are held the same way: ``row_sums``,
      ``centered_covariance_sums`` and ``covariance_sums`` at 64 x
      4,000,000, ``_grouped_covariance`` (centered and not) at 600 x
@@ -24,13 +25,15 @@ prints no result line):
      NumPy input, made from a seed: host-f64 whitening) with
      ``Picard.fit`` at the default config, through the kernels, then
      again on the torch path, and check convergence, separation,
-     agreement and the kernels' launch counts;
+     agreement and the kernels' launch counts (the fused pass's by tier);
   4. the device-whitening slice: the bench configuration (64 x 4,000,000
      f32 made on the card, ``generate_bench_data_device``, seed 42):
      ``center_whiten`` and its whiteness, then ``Picard.fit`` on the
      CUDA tensor — converged at tol 1e-7, Amari to the mixing, every
-     whitening and core kernel launched in that fit, the caller's tensor
-     unchanged;
+     whitening and core kernel launched in that fit (the fused pass in
+     every tier), the caller's tensor unchanged; then the same fit in the
+     exact f32 tier alone (``kernel_precision="f32"``), to weigh the
+     staged schedule;
   4b. ``center_whiten`` of a 600 x 1,000,000 f32 mixture on the card,
      through ``_grouped_covariance``, with the same whiteness bounds;
   5. the large-N slice at BASELINE config 5's width: a 256 x 2,000,000
@@ -53,9 +56,11 @@ at 256 x 2,000,000 and 1024 x 200,000.
 The line before the last is a JSON object describing every kernel:
 launches on its path (phase 3 for the resident core kernels, phase 4
 for the whitening kernels, 4b for the grouped one, 5 for the streaming
-kernels), error against the plain version, and the numbers of its
-headline case (``_KERNELS``): ``ms`` and ``plain_ms`` (CUDA events, one
-synchronised call at a time, median of 10), ``ms_stream`` (10 calls back
+kernels; the fused pass's two kernels count their tiers' launches in
+phase 4, ``launches_by_tier``), error against the plain version, and
+the numbers of its headline case (``_KERNELS``): ``ms`` and ``plain_ms``
+(CUDA events, one synchronised call at a time, median of 10),
+``ms_stream`` (10 calls back
 to back between two events, over the count, median of 5: the device time
 without the host's launch gaps), ``bound_ms`` (the larger of X's bytes
 over the HBM rate and the FMAs over the peak rate of their type,
@@ -100,6 +105,8 @@ K_RESIDUAL_MAX = 1e-3
 N5, T5 = 256, 2_000_000
 N_MEG, T_MEG = 306, 1_000_003
 N5B, T5B, SEED5B = 1024, 200_000, 42
+# Ragged columns for the tensor-core kernel's phase-2 cases.
+T_RAGGED = 1_000_003
 # Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): HBM
 # bytes/s, scalar FP32 FMA/s outside the tensor cores (67 TFLOP/s), and
 # dense bf16 tensor-core FMA/s (989 TFLOP/s) for the products of the bf16
@@ -138,6 +145,16 @@ def phase1_build():
     path, seconds = _build.build()
     _build.load()
     _log(f"build: {path.name} in {seconds:.1f} s")
+    # ptxas's registers and spills: every kernel of a source in one line,
+    # the tensor-core kernels one line each.
+    for src, kernels in _build.resource_report().items():
+        regs = [k[1] for k in kernels]
+        spills = sum(k[2] + k[3] for k in kernels)
+        _log(f"ptxas {src}: {len(kernels)} kernels, registers {min(regs)}-{max(regs)}, "
+             f"spill bytes {spills}")
+        if src == "rotated_fused_tc.cu":
+            for name, r, st, ld in kernels:
+                _log(f"  {name}: {r} registers, spill stores {st} B, loads {ld} B")
     return seconds
 
 
@@ -251,7 +268,7 @@ def phase2_kernels():
     import torch
 
     from picard_ica_tpu_torch.ops import kernels as K
-    from picard_ica_tpu_torch.ops.densities import Tanh
+    from picard_ica_tpu_torch.ops.densities import Cube, Tanh
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(SEED)
@@ -271,6 +288,13 @@ def phase2_kernels():
          lambda m1, m0, xx: (m1, m0, xx, d, True, True, "bf16", True), x16),
         (fused, "delta bf16x3", "bf16x3",
          lambda m1, m0, xx: (m1, m0, xx, d, False, False, "bf16x3", False), x),
+        # The tensor-core cases with the cube density (a few FP32 ops an
+        # element, against tanh's exp / log1p / divides): their difference
+        # is the density's share of the kernel.
+        (fused, "plain bf16, bf16 X, cube", "bf16",
+         lambda m1, m0, xx: (m1, m0, xx, Cube(), False, False, "bf16", True), x16),
+        (fused, "delta bf16x3, cube", "bf16x3",
+         lambda m1, m0, xx: (m1, m0, xx, Cube(), False, False, "bf16x3", False), x),
         (fused, "delta f32", "f32",
          lambda m1, m0, xx: (m1, m0, xx, d, False, False, "f32", False), x),
         (fused, "delta f32, H+ysq", "f32",
@@ -295,7 +319,36 @@ def phase2_kernels():
     rows = {}
     for kern, label, tier, make, xx in cases:
         _hold(rows, kern, plain_of[kern], label, tier, make, m_new, m_old, xx)
+    del x, x16
+    torch.cuda.empty_cache()
+
+    # The tensor-core kernel's four tier pairs at ragged shapes: N past
+    # and short of a 16-row tile, T past a 64-column sub-tile, rows not
+    # 16-byte aligned.
+    def f(precision, absolute_ll, flags=False):
+        return lambda m1, m0, xx: (m1, m0, xx, d, flags, flags, precision, absolute_ll)
+
+    for n in (17, 63):
+        xr, m_old_r, m_new_r = _stream_inputs(n, T_RAGGED, n)
+        xr16 = xr.to(torch.bfloat16)
+        for label, tier, make, xx in [
+            ("plain bf16, bf16 X", "bf16", f("bf16", True), xr16),
+            ("delta bf16x3", "bf16x3", f("bf16x3", False), xr),
+            ("delta bf16x3, bf16 X, H+ysq", "bf16x3", f("bf16x3", False, True), xr16),
+            ("delta bf16, f32 X", "bf16", f("bf16", False), xr),
+        ]:
+            _hold(rows, fused, K.rotated_fused_sums_plain, label, tier, make, m_new_r,
+                  m_old_r, xx)
+        del xr, xr16
+        torch.cuda.empty_cache()
     return rows
+
+
+def _row_name(kern, tier):
+    """The kernel that serves a call: the fused pass's bf16 and bf16x3
+    tiers run the tensor-core kernel (csrc/rotated_fused_tc.cu)."""
+    name = kern.__name__
+    return TC_ROW if name == "rotated_fused_sums" and tier != "f32" else name
 
 
 def _hold(rows, kern, plain, label, tier, make, m_new, m_old, xx):
@@ -340,7 +393,7 @@ def _hold(rows, kern, plain, label, tier, make, m_new, m_old, xx):
          f"({bound_ms / ms_stream:.3f} back to back)")
     if not (ok and finite):
         raise AssertionError(f"{name} [{label}] disagrees with its plain version")
-    row = rows.setdefault(name, {"max_abs_err": 0.0, "cases": []})
+    row = rows.setdefault(_row_name(kern, tier), {"max_abs_err": 0.0, "cases": []})
     row["max_abs_err"] = max(row["max_abs_err"], err_k)
     row["cases"].append({"label": label, "case": f"{label}, {n} x {t}", "ms": ms,
                          "ms_stream": ms_stream, "plain_ms": plain_ms,
@@ -553,6 +606,18 @@ def _fit(x, use_kernels, **config):
 
 
 _CORE_KERNELS = ("rotated_fused_sums", "rotated_moments_sums", "rotated_loglik_sums")
+# The fused pass's two kernels and the tiers each serves: the scalar
+# template (csrc/rotated_sums.cu) the exact f32 tier, the tensor-core
+# kernel (csrc/rotated_fused_tc.cu) the bf16 and bf16x3 tiers.
+TC_ROW = "rotated_fused_sums, bf16 tiers"
+TIER_ROWS = {"rotated_fused_sums": ("f32",), TC_ROW: ("bf16", "bf16x3")}
+
+
+def _count(name, launches):
+    """A kernel's launches in one phase's counts (``_launches``)."""
+    if name in TIER_ROWS:
+        return sum(launches["by_tier"][t] for t in TIER_ROWS[name])
+    return launches.get(name, 0)
 _PHASE4_KERNELS = ("row_sums", "centered_covariance_sums", "covariance_sums",
                    "rotated_fused_sums", "rotated_moments_sums")
 
@@ -586,8 +651,9 @@ def phase3_slice():
         raise AssertionError("the result does not lie on the card")
     if tuple(r.sources.shape) != (N, T) or not bool(torch.isfinite(r.sources).all()):
         raise AssertionError("sources are not finite (N, T)")
-    # Host-f64 whitening: this path runs the three core kernels.
-    missing = [k for k in _CORE_KERNELS if launches[k] == 0]
+    # Host-f64 whitening: this path runs the three core kernels, the fused
+    # pass on the tensor cores and on the scalar pipes.
+    missing = [k for k in _CORE_KERNELS + tuple(TIER_ROWS) if _count(k, launches) == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
     del r
@@ -608,9 +674,12 @@ def phase3_slice():
 
 
 def _launches():
+    """Every kernel's launches, and the fused pass's by tier."""
     from picard_ica_tpu_torch.ops import kernels as K
 
-    return {k.__name__: k.launches for k in K.KERNELS}
+    counts = {k.__name__: k.launches for k in K.KERNELS}
+    counts["by_tier"] = dict(K.rotated_fused_sums.launches_by_tier)
+    return counts
 
 
 def _checksum(x):
@@ -679,29 +748,34 @@ def phase4_device_slice():
 
     from picard_ica_tpu_torch.ops import kernels as K
 
-    K.reset_launch_counts()
-    r, wall = _fit(x, None)
-    launches = _launches()
-    amari = amari_distance(r.full_unmixing().double().cpu().numpy(), a)
-    _log(f"device slice: converged={r.converged} n_iterations={r.n_iterations} "
-         f"stage_exits={r.stage_exits} ls_calls={r.ls_calls} "
-         f"gradient_norm={r.gradient_norm:.3e} amari={amari:.3e}")
-    _log(f"device slice: whitening {whiten_s:.4f} s, fit {wall:.3f} s, core "
-         f"{r.core_seconds:.4f} s, {T4 * r.n_iterations / r.core_seconds:.4e} "
-         f"samples*iter/s (core)")
-    _log(f"launches: {launches}")
-    if not r.converged:
-        raise AssertionError("the device-whitened fit did not converge at tol 1e-7")
-    if not amari < 5e-3:
-        raise AssertionError(f"amari {amari} >= 5e-3")
-    if tuple(r.sources.shape) != (N4, T4) or not bool(r.sources.isfinite().all()):
-        raise AssertionError("sources are not finite (N, T)")
+    launches = None
+    for precision in ("auto", "f32"):
+        # The default staged schedule, then the exact f32 tier alone.
+        K.reset_launch_counts()
+        r, wall = _fit(x, None, kernel_precision=precision)
+        counts = _launches()
+        amari = amari_distance(r.full_unmixing().double().cpu().numpy(), a)
+        label = f"device slice ({precision})"
+        _report_fit(label, r, wall, T4)
+        _log(f"{label}: whitening {whiten_s:.4f} s, amari={amari:.3e}, launches: {counts}")
+        if not r.converged:
+            raise AssertionError(f"{label} did not converge at tol 1e-7")
+        if not amari < 5e-3:
+            raise AssertionError(f"amari {amari} >= 5e-3")
+        if tuple(r.sources.shape) != (N4, T4) or not bool(r.sources.isfinite().all()):
+            raise AssertionError("sources are not finite (N, T)")
+        if launches is None:
+            launches = counts
+            staged = r
     # The loglik kernel re-baselines the loss at extended sign changes;
     # the bench sources are all Laplace, so no sign flips and the kernel
     # is not on this path (phase 3's mixed-kurtosis fit runs it).
-    missing = [k for k in _PHASE4_KERNELS if launches[k] == 0]
+    missing = [k for k in _PHASE4_KERNELS + tuple(TIER_ROWS) if _count(k, launches) == 0]
     if missing:
         raise AssertionError(f"kernels never launched in the device-whitened fit: {missing}")
+    _log(f"staged against exact f32: core {staged.core_seconds:.4f} s for "
+         f"{staged.n_iterations} iterations (exits {staged.stage_exits}) against "
+         f"{r.core_seconds:.4f} s for {r.n_iterations}")
     if _checksum(x) != before:
         raise AssertionError("the fit wrote the caller's tensor")
     return launches
@@ -837,6 +911,7 @@ def phase5b_exhibit():
 
 
 _CORE_SOURCE = "picard_ica_tpu_torch/csrc/rotated_sums.cu"
+_TC_SOURCE = "picard_ica_tpu_torch/csrc/rotated_fused_tc.cu"
 _STATS_SOURCE = "picard_ica_tpu_torch/csrc/covariance_sums.cu"
 _STREAM_SOURCE = "picard_ica_tpu_torch/csrc/streaming_sums.cu"
 _PALLAS = "picard_ica_tpu/ops/pallas_kernels.py"
@@ -844,6 +919,7 @@ _PALLAS = "picard_ica_tpu/ops/pallas_kernels.py"
 # phase-2 case whose numbers head the kernel's entry)
 _KERNELS = {
     "rotated_fused_sums": (_CORE_SOURCE, 922, "delta f32"),
+    TC_ROW: (_TC_SOURCE, 922, "delta bf16x3"),
     "rotated_moments_sums": (_CORE_SOURCE, 366, "f32"),
     "rotated_loglik_sums": (_CORE_SOURCE, 702, "f32"),
     "row_sums": (_STATS_SOURCE, 422, "f32"),
@@ -870,19 +946,24 @@ def main():
     for name, (source, line, headline) in _KERNELS.items():
         row = rows[name]
         main_case = next(c for c in row["cases"] if c["label"] == headline)
-        path = ("phase3" if name in _CORE_KERNELS else
+        path = ("phase4" if name in TIER_ROWS else
+                "phase3" if name in _CORE_KERNELS else
                 "phase5" if name in _STREAM_KERNELS else
                 "phase4b" if name == "_grouped_covariance" else "phase4")
-        kernels.append({
+        entry = {
             "name": name, "route": "cuda", "source": source,
-            "replaces": f"{_PALLAS}:{line}", "launches": by_path[path][name],
+            "replaces": f"{_PALLAS}:{line}", "launches": _count(name, by_path[path]),
             "max_abs_err": row["max_abs_err"], "case": main_case["case"],
             **{k: main_case[k] for k in ("ms", "ms_stream", "plain_ms", "bound_ms",
                                          "bound_by", "share", "share_stream",
                                          "library_ms", "library_ms_stream")},
             "cases": row["cases"],
-            "launches_by_path": {p: c.get(name, 0) for p, c in by_path.items()},
-        })
+            "launches_by_path": {p: _count(name, c) for p, c in by_path.items()},
+        }
+        if name in TIER_ROWS:
+            entry["launches_by_tier"] = {t: by_path["phase4"]["by_tier"][t]
+                                         for t in TIER_ROWS[name]}
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

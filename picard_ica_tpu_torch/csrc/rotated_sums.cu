@@ -16,32 +16,33 @@
 // What bounds them on the card, at N = 64 (4096 FMAs per 64 x 64
 // product per column of X; the H100's scalar-FP32 peak of 33.5 T FMA/s
 // against 3.35 TB/s of HBM puts the line at 10 FMA per byte):
-//   fused, delta f32 / bf16x3: 2 rotations + 1-2 contractions = 12-16 K
-//     FMAs (x3 products at bf16x3) per 256 bytes of f32 X: 48-64 FMA/B;
-//   fused, plain bf16 on bf16 X: 1 rotation + 1-2 contractions = 8-12 K
-//     FMAs per 128 bytes: 64-96 FMA/B;
+//   fused, delta f32: 2 rotations + 1-2 contractions = 12-16 K FMAs per
+//     256 bytes of f32 X: 48-64 FMA/B;
 //   moments: 8-12 K FMAs per 256 bytes: 32-48 FMA/B;
 //   loglik: 4 K FMAs (+ 64 exp/log1p) per 256 bytes: 16 FMA/B.
-// All three are bound by the FP32 pipes (scalar FMA here; tensor cores
-// are later work), with shared-memory load bandwidth the second limit.
+// All three are bound by the FP32 pipes (scalar FMA), with shared-memory
+// load bandwidth the second limit. The fused pass's bf16 and bf16x3 tiers
+// run on the tensor cores instead (rotated_fused_tc.cu): the C entry below
+// sends every tier pair but (F32, F32) there.
 //
 // What the design does about it.
 //   * X is read from HBM exactly once per call; Y, psi(Y), psi'(Y) never
 //     leave the SM (shared-memory tiles of BT columns).
 //   * W (and dm = M_new - M_old in delta mode) sit in shared memory,
-//     pre-split at the block's start into the bf16 hi/lo halves of the
-//     dot tier, so the inner loops issue only FMAs and broadcast float4
-//     loads of W.
+//     rounded at the block's start to the rotation tier (bf16 for bf16
+//     X), so the inner loops issue only FMAs and broadcast float4 loads
+//     of W.
 //   * Each thread owns an 8 x 4 register tile of the rotation and a 4 x 4
 //     register tile of G and H; the tiles have a padded row stride
 //     (BT + 1) so both access patterns are free of bank conflicts.
 //   * Reductions: every block walks SUBTILES consecutive sub-tiles (a
 //     sequential depth of at most 16, the grouped-partials trade-off of
-//     pallas_kernels.py:145-174) and writes one partial per output; the
-//     partials are folded pairwise by the caller. No float atomics.
+//     pallas_kernels.py:145-174) and writes one partial per output at
+//     out + block * stride (the outputs side by side in one buffer); the
+//     caller folds them pairwise. No float atomics.
 //
-// Tiers (F32, BF16X3, BF16) and the density formulas live in
-// density.cuh, shared with streaming_sums.cu.
+// Tiers (F32, BF16) and the density formulas live in density.cuh, shared
+// with streaming_sums.cu; the contractions here are exact f32.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
 //        -shared -Xcompiler -fPIC (picard_ica_tpu_torch/ops/_build.py).
@@ -68,13 +69,15 @@ constexpr int CT_DIM = NMAX / 16;   // i = ca + 16 u, j = cb + 16 v
 
 enum Mode { MOMENTS = 0, LOGLIK = 1, FUSED_PLAIN = 2, FUSED_DELTA = 3 };
 
+// Block b's partial of each output starts at out + b * stride.
 struct Outs {
-  float* ll;    // (nb, n) log-lik (delta) row sums
-  float* dysq;  // (nb, n) sum (2 y_old + dy) dy, or sum y^2 in plain mode
-  float* g;     // (nb, n, n) psi(Y) Y^T
-  float* pm;    // (nb, n) sum psi'(Y)
-  float* h;     // (nb, n, n) psi'(Y) (Y^2)^T
-  float* ysq;   // (nb, n) sum Y^2
+  float* ll;    // (n) log-lik (delta) row sums
+  float* dysq;  // (n) sum (2 y_old + dy) dy, or sum y^2 in plain mode
+  float* g;     // (n, n) psi(Y) Y^T
+  float* pm;    // (n) sum psi'(Y)
+  float* h;     // (n, n) psi'(Y) (Y^2)^T
+  float* ysq;   // (n) sum Y^2
+  long long stride;
 };
 
 struct Params {
@@ -93,30 +96,28 @@ struct Params {
 
 // ---- shared-memory layout ----
 
-template <int MODE, int ROT, bool NEED_H>
+template <int MODE, bool NEED_H>
 struct Layout {
   static constexpr bool DELTA = MODE == FUSED_DELTA;
   static constexpr bool CONTRACT = MODE != LOGLIK;
-  static constexpr bool SPLIT = ROT == BF16X3;
-  static constexpr int W_MATS = (1 + (DELTA ? 1 : 0)) * (SPLIT ? 2 : 1);
+  static constexpr int W_MATS = 1 + (DELTA ? 1 : 0);
   static constexpr int TILES = 1 + (CONTRACT ? 1 : 0) + (NEED_H ? 1 : 0);
   static constexpr size_t BYTES =
       sizeof(float) * ((size_t)W_MATS * NMAX * NMAX + (size_t)TILES * NMAX * TS);
 };
 
-template <int MODE, int ROT, int CT, int D, bool NEED_H>
+// ROT: the rotation tier, F32 or BF16 (bf16 X).
+template <int MODE, int ROT, int D, bool NEED_H>
 __global__ void __launch_bounds__(THREADS, 1) rotated_sums_kernel(Params p) {
-  using L = Layout<MODE, ROT, NEED_H>;
+  using L = Layout<MODE, NEED_H>;
   constexpr bool DELTA = L::DELTA;
   constexpr bool CONTRACT = L::CONTRACT;
-  constexpr bool SPLIT = L::SPLIT;
+  static_assert(ROT == F32 || ROT == BF16, "bf16x3 runs in rotated_fused_tc.cu");
 
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
-  float* w_hi = smem;
-  float* w_lo = w_hi + NMAX * NMAX;                       // SPLIT only
-  float* d_hi = w_hi + (SPLIT ? 2 : 1) * NMAX * NMAX;     // DELTA only
-  float* d_lo = d_hi + NMAX * NMAX;                       // DELTA && SPLIT
+  float* w_s = smem;
+  float* d_s = w_s + NMAX * NMAX;              // DELTA only
   float* xy = smem + L::W_MATS * NMAX * NMAX;  // X tile, then Y tile
   float* psi_t = xy + NMAX * TS;               // CONTRACT only
   float* psid_t = psi_t + NMAX * TS;           // NEED_H only
@@ -125,19 +126,13 @@ __global__ void __launch_bounds__(THREADS, 1) rotated_sums_kernel(Params p) {
   const int n = p.n;
   const long long t_len = p.t;
 
-  // Stage W (and dm) once per block, split at the rotation tier; rows and
-  // columns beyond n are zero, so padded rows rotate to Y = 0.
+  // Stage W (and dm) once per block, rounded to the rotation tier; rows
+  // and columns beyond n are zero, so padded rows rotate to Y = 0.
   for (int idx = tid; idx < NMAX * NMAX; idx += THREADS) {
     const int i = idx / NMAX, k = idx % NMAX;
     const bool in = i < n && k < n;
-    Sp s = split<ROT>(in ? p.w[i * n + k] : 0.f);
-    w_hi[idx] = s.hi;
-    if (SPLIT) w_lo[idx] = s.lo;
-    if (DELTA) {
-      Sp sd = split<ROT>(in ? p.dm[i * n + k] : 0.f);
-      d_hi[idx] = sd.hi;
-      if (SPLIT) d_lo[idx] = sd.lo;
-    }
+    w_s[idx] = split<ROT>(in ? p.w[i * n + k] : 0.f).hi;
+    if (DELTA) d_s[idx] = split<ROT>(in ? p.dm[i * n + k] : 0.f).hi;
   }
 
   const int tx = tid & 31, ty = tid >> 5;
@@ -203,22 +198,16 @@ __global__ void __launch_bounds__(THREADS, 1) rotated_sums_kernel(Params p) {
 #pragma unroll
       for (int r = 0; r < RT_ROWS; ++r) {
         const int i = ty + 8 * r;
-        const float4 wh = *reinterpret_cast<const float4*>(&w_hi[i * NMAX + k0]);
-        const float4 wl = SPLIT
-            ? *reinterpret_cast<const float4*>(&w_lo[i * NMAX + k0])
-            : make_float4(0.f, 0.f, 0.f, 0.f);
-        const Sp w4[4] = {{wh.x, wl.x}, {wh.y, wl.y}, {wh.z, wl.z}, {wh.w, wl.w}};
+        const float4 wh = *reinterpret_cast<const float4*>(&w_s[i * NMAX + k0]);
+        const Sp w4[4] = {{wh.x, 0.f}, {wh.y, 0.f}, {wh.z, 0.f}, {wh.w, 0.f}};
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
           for (int q = 0; q < RT_COLS; ++q)
             acc[r][q] = mac<ROT>(w4[kk], xs[kk][q], acc[r][q]);
         if (DELTA) {
-          const float4 dh = *reinterpret_cast<const float4*>(&d_hi[i * NMAX + k0]);
-          const float4 dl = SPLIT
-              ? *reinterpret_cast<const float4*>(&d_lo[i * NMAX + k0])
-              : make_float4(0.f, 0.f, 0.f, 0.f);
-          const Sp d4[4] = {{dh.x, dl.x}, {dh.y, dl.y}, {dh.z, dl.z}, {dh.w, dl.w}};
+          const float4 dh = *reinterpret_cast<const float4*>(&d_s[i * NMAX + k0]);
+          const Sp d4[4] = {{dh.x, 0.f}, {dh.y, 0.f}, {dh.z, 0.f}, {dh.w, 0.f}};
 #pragma unroll
           for (int kk = 0; kk < 4; ++kk)
 #pragma unroll
@@ -271,27 +260,27 @@ __global__ void __launch_bounds__(THREADS, 1) rotated_sums_kernel(Params p) {
 
     if (CONTRACT) {
       __syncthreads();
-      // G += psi Y^T, H += psi' (Y^2)^T over the sub-tile's columns.
+      // G += psi Y^T, H += psi' (Y^2)^T over the sub-tile's columns, in
+      // exact f32.
 #pragma unroll 4
       for (int c = 0; c < BT; ++c) {
-        Sp ps[CT_DIM], pd[CT_DIM], yv[CT_DIM], y2[CT_DIM];
+        float ps[CT_DIM], pd[CT_DIM], yv[CT_DIM], y2[CT_DIM];
 #pragma unroll
         for (int u = 0; u < CT_DIM; ++u) {
-          ps[u] = split<CT>(psi_t[(ca + 16 * u) * TS + c]);
-          if (NEED_H) pd[u] = split<CT>(psid_t[(ca + 16 * u) * TS + c]);
+          ps[u] = psi_t[(ca + 16 * u) * TS + c];
+          if (NEED_H) pd[u] = psid_t[(ca + 16 * u) * TS + c];
         }
 #pragma unroll
         for (int v = 0; v < CT_DIM; ++v) {
-          const float yy = xy[(cb + 16 * v) * TS + c];
-          yv[v] = split<CT>(yy);
-          if (NEED_H) y2[v] = split<CT>(yy * yy);
+          yv[v] = xy[(cb + 16 * v) * TS + c];
+          if (NEED_H) y2[v] = yv[v] * yv[v];
         }
 #pragma unroll
         for (int u = 0; u < CT_DIM; ++u)
 #pragma unroll
           for (int v = 0; v < CT_DIM; ++v) {
-            g_acc[u][v] = mac<CT>(ps[u], yv[v], g_acc[u][v]);
-            if (NEED_H) h_acc[u][v] = mac<CT>(pd[u], y2[v], h_acc[u][v]);
+            g_acc[u][v] = fmaf(ps[u], yv[v], g_acc[u][v]);
+            if (NEED_H) h_acc[u][v] = fmaf(pd[u], y2[v], h_acc[u][v]);
           }
       }
     }
@@ -311,7 +300,7 @@ __global__ void __launch_bounds__(THREADS, 1) rotated_sums_kernel(Params p) {
     }
     const int i = ty + 8 * r;
     if (tx == 0 && i < n) {
-      const long long o = blk * n + i;
+      const long long o = blk * p.out.stride + i;
       if (MODE != MOMENTS) p.out.ll[o] = v_ll;
       if (MODE != LOGLIK) p.out.pm[o] = v_pm;
       if (p.need_ysq) {
@@ -328,7 +317,7 @@ __global__ void __launch_bounds__(THREADS, 1) rotated_sums_kernel(Params p) {
       for (int v = 0; v < CT_DIM; ++v) {
         const int i = ca + 16 * u, j = cb + 16 * v;
         if (i < n && j < n) {
-          const long long o = (blk * n + i) * n + j;
+          const long long o = blk * p.out.stride + i * n + j;
           p.out.g[o] = g_acc[u][v];
           if (NEED_H) p.out.h[o] = h_acc[u][v];
         }
@@ -336,10 +325,10 @@ __global__ void __launch_bounds__(THREADS, 1) rotated_sums_kernel(Params p) {
   }
 }
 
-template <int MODE, int ROT, int CT, int D, bool NEED_H>
+template <int MODE, int ROT, int D, bool NEED_H>
 cudaError_t launch(const Params& p, int nb, cudaStream_t stream) {
-  constexpr size_t smem = Layout<MODE, ROT, NEED_H>::BYTES;
-  auto kern = rotated_sums_kernel<MODE, ROT, CT, D, NEED_H>;
+  constexpr size_t smem = Layout<MODE, NEED_H>::BYTES;
+  auto kern = rotated_sums_kernel<MODE, ROT, D, NEED_H>;
   // Above 48 KB dynamic shared memory must be opted into, on the current
   // device; a refused launch never runs and only cudaGetLastError
   // reports it.
@@ -350,37 +339,25 @@ cudaError_t launch(const Params& p, int nb, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <int MODE, int ROT, int CT, bool NEED_H>
+template <int MODE, int ROT, bool NEED_H>
 cudaError_t by_density_h(int dens, const Params& p, int nb, cudaStream_t st) {
   switch (dens) {
-    case TANH: return launch<MODE, ROT, CT, TANH, NEED_H>(p, nb, st);
-    case EXP: return launch<MODE, ROT, CT, EXP, NEED_H>(p, nb, st);
-    case CUBE: return launch<MODE, ROT, CT, CUBE, NEED_H>(p, nb, st);
+    case TANH: return launch<MODE, ROT, TANH, NEED_H>(p, nb, st);
+    case EXP: return launch<MODE, ROT, EXP, NEED_H>(p, nb, st);
+    case CUBE: return launch<MODE, ROT, CUBE, NEED_H>(p, nb, st);
   }
   return cudaErrorInvalidValue;
 }
 
-template <int MODE, int ROT, int CT>
+template <int MODE, int ROT>
 cudaError_t by_density(int dens, int need_h, const Params& p, int nb,
                        cudaStream_t st) {
-  return need_h ? by_density_h<MODE, ROT, CT, true>(dens, p, nb, st)
-                : by_density_h<MODE, ROT, CT, false>(dens, p, nb, st);
-}
-
-template <int MODE>
-cudaError_t by_fused_tiers(int rot, int ct, int dens, int need_h,
-                           const Params& p, int nb, cudaStream_t st) {
-  if (rot == F32 && ct == F32) return by_density<MODE, F32, F32>(dens, need_h, p, nb, st);
-  if (rot == BF16X3 && ct == BF16X3)
-    return by_density<MODE, BF16X3, BF16X3>(dens, need_h, p, nb, st);
-  if (rot == BF16 && ct == BF16) return by_density<MODE, BF16, BF16>(dens, need_h, p, nb, st);
-  if (rot == BF16 && ct == BF16X3)  // bf16 X at the bf16x3 tier
-    return by_density<MODE, BF16, BF16X3>(dens, need_h, p, nb, st);
-  return cudaErrorInvalidValue;
+  return need_h ? by_density_h<MODE, ROT, true>(dens, p, nb, st)
+                : by_density_h<MODE, ROT, false>(dens, p, nb, st);
 }
 
 Params make_params(int n, long long t, int need_ysq, int x_bf16, double alpha,
-                   const float* w, const float* dm, const void* x) {
+                   const float* w, const float* dm, const void* x, long long stride) {
   Params p;
   p.n = n;
   p.t = t;
@@ -392,16 +369,23 @@ Params make_params(int n, long long t, int need_ysq, int x_bf16, double alpha,
   p.w = w;
   p.dm = dm;
   p.x = x;
-  p.out = Outs{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr};
+  p.out = Outs{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, stride};
   return p;
 }
 
-bool bad_shape(int n, long long t, int nb) {
-  return n < 1 || n > NMAX || t < 1 ||
+bool bad_shape(int n, long long t, int nb, long long stride) {
+  return n < 1 || n > NMAX || t < 1 || stride < 1 ||
          (long long)nb != (t + COLS_PER_BLOCK - 1) / COLS_PER_BLOCK;
 }
 
 }  // namespace
+
+// The bf16 and bf16x3 tiers of the fused pass (rotated_fused_tc.cu).
+int rotated_fused_tc(int delta, int rot_tier, int ct_tier, int density, int need_h,
+                     int need_ysq, double alpha, int n, long long t, int x_bf16,
+                     const float* w, const float* dm, const void* x, float* dll,
+                     float* dysq, float* g, float* pm, float* h, float* ysq,
+                     long long stride, int nb, void* stream);
 
 extern "C" {
 
@@ -417,19 +401,25 @@ const char* picard_error_string(int code) {
 // log_lik(M_old x)] (analytic form), dysq = sum (2 y_old + dy) dy, with w
 // = M_old and dm = M_new - M_old. delta = 0 (plain): dll = sum
 // log_lik(M_new x), dysq = sum (M_new x)^2, with w = M_new (dm unused).
+// Block b writes its partials at out + b * stride. The exact (F32, F32)
+// pair runs the scalar template; every other pair the tensor-core kernel.
 int picard_rotated_fused_sums(int delta, int rot_tier, int ct_tier,
                               int density, int need_h, int need_ysq,
                               double alpha, int n, long long t, int x_bf16,
                               const float* w, const float* dm, const void* x,
                               float* dll, float* dysq, float* g, float* pm,
-                              float* h, float* ysq, int nb, void* stream) {
-  if (bad_shape(n, t, nb)) return (int)cudaErrorInvalidValue;
-  Params p = make_params(n, t, need_ysq, x_bf16, alpha, w, dm, x);
-  p.out = Outs{dll, dysq, g, pm, h, ysq};
+                              float* h, float* ysq, long long stride, int nb,
+                              void* stream) {
+  if (bad_shape(n, t, nb, stride)) return (int)cudaErrorInvalidValue;
+  if (rot_tier != F32 || ct_tier != F32)
+    return rotated_fused_tc(delta, rot_tier, ct_tier, density, need_h, need_ysq, alpha, n,
+                            t, x_bf16, w, dm, x, dll, dysq, g, pm, h, ysq, stride, nb,
+                            stream);
+  Params p = make_params(n, t, need_ysq, x_bf16, alpha, w, dm, x, stride);
+  p.out = Outs{dll, dysq, g, pm, h, ysq, stride};
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  cudaError_t e = delta
-      ? by_fused_tiers<FUSED_DELTA>(rot_tier, ct_tier, density, need_h, p, nb, st)
-      : by_fused_tiers<FUSED_PLAIN>(rot_tier, ct_tier, density, need_h, p, nb, st);
+  cudaError_t e = delta ? by_density<FUSED_DELTA, F32>(density, need_h, p, nb, st)
+                        : by_density<FUSED_PLAIN, F32>(density, need_h, p, nb, st);
   return (int)e;
 }
 
@@ -439,16 +429,16 @@ int picard_rotated_moments_sums(int rot_tier, int density, int need_h,
                                 int need_ysq, double alpha, int n, long long t,
                                 int x_bf16, const float* w, const void* x,
                                 float* g, float* pm, float* h, float* ysq,
-                                int nb, void* stream) {
-  if (bad_shape(n, t, nb)) return (int)cudaErrorInvalidValue;
-  Params p = make_params(n, t, need_ysq, x_bf16, alpha, w, nullptr, x);
-  p.out = Outs{nullptr, nullptr, g, pm, h, ysq};
+                                long long stride, int nb, void* stream) {
+  if (bad_shape(n, t, nb, stride)) return (int)cudaErrorInvalidValue;
+  Params p = make_params(n, t, need_ysq, x_bf16, alpha, w, nullptr, x, stride);
+  p.out = Outs{nullptr, nullptr, g, pm, h, ysq, stride};
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (rot_tier == F32)
-    e = by_density<MOMENTS, F32, F32>(density, need_h, p, nb, st);
+    e = by_density<MOMENTS, F32>(density, need_h, p, nb, st);
   else if (rot_tier == BF16)
-    e = by_density<MOMENTS, BF16, F32>(density, need_h, p, nb, st);
+    e = by_density<MOMENTS, BF16>(density, need_h, p, nb, st);
   else
     e = cudaErrorInvalidValue;
   return (int)e;
@@ -458,16 +448,16 @@ int picard_rotated_moments_sums(int rot_tier, int density, int need_h,
 int picard_rotated_loglik_sums(int rot_tier, int density, int need_ysq,
                                double alpha, int n, long long t, int x_bf16,
                                const float* m, const void* x, float* ll,
-                               float* ysq, int nb, void* stream) {
-  if (bad_shape(n, t, nb)) return (int)cudaErrorInvalidValue;
-  Params p = make_params(n, t, need_ysq, x_bf16, alpha, m, nullptr, x);
-  p.out = Outs{ll, nullptr, nullptr, nullptr, nullptr, ysq};
+                               float* ysq, long long stride, int nb, void* stream) {
+  if (bad_shape(n, t, nb, stride)) return (int)cudaErrorInvalidValue;
+  Params p = make_params(n, t, need_ysq, x_bf16, alpha, m, nullptr, x, stride);
+  p.out = Outs{ll, nullptr, nullptr, nullptr, nullptr, ysq, stride};
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (rot_tier == F32)
-    e = by_density_h<LOGLIK, F32, F32, false>(density, p, nb, st);
+    e = by_density_h<LOGLIK, F32, false>(density, p, nb, st);
   else if (rot_tier == BF16)
-    e = by_density_h<LOGLIK, BF16, F32, false>(density, p, nb, st);
+    e = by_density_h<LOGLIK, BF16, false>(density, p, nb, st);
   else
     e = cudaErrorInvalidValue;
   return (int)e;

@@ -108,12 +108,14 @@ struct SParams {
   const void* x;    // (n, t) f32 or bf16, row-major
   int n_tiles;
   int group;        // tiles per block (and per partial)
-  float* ll;    // (n_groups, n) log-lik (delta) row sums
-  float* dysq;  // (n_groups, n) sum (2 y_old + dy) dy, or sum y^2 (plain)
-  float* g;     // (n_groups, n, n) psi(Y) Y^T
-  float* pm;    // (n_groups, n) sum psi'(Y)
-  float* h;     // (n_groups, n, n) psi'(Y) (Y^2)^T
-  float* ysq;   // (n_groups, n) sum Y^2
+  // Group b's partial of each output starts at out + b * stride.
+  float* ll;    // (n) log-lik (delta) row sums
+  float* dysq;  // (n) sum (2 y_old + dy) dy, or sum y^2 (plain)
+  float* g;     // (n, n) psi(Y) Y^T
+  float* pm;    // (n) sum psi'(Y)
+  float* h;     // (n, n) psi'(Y) (Y^2)^T
+  float* ysq;   // (n) sum Y^2
+  long long stride;
 };
 
 constexpr long long smem_floats(int mode, int n, int bt) {
@@ -357,7 +359,7 @@ __global__ void __launch_bounds__(THREADS, 1) streaming_kernel(SParams p) {
           s_ysq += __shfl_xor_sync(0xffffffffu, s_ysq, off);
         }
         if (lane == 0 && row < n) {
-          const long long o = grp * n + row;
+          const long long o = grp * p.stride + row;
           row_update(p.ll, o, first, s_ll);
           if (MODE != S_LOGLIK) row_update(p.pm, o, first, s_pm);
           if (p.need_ysq) {
@@ -392,7 +394,7 @@ __global__ void __launch_bounds__(THREADS, 1) streaming_kernel(SParams p) {
 #pragma unroll
           for (int v = 0; v < 4; ++v) {
             const int i = ib * CB + ti + 16 * u, j = jb * CB + tj + 16 * v;
-            const long long o = (grp * n + i) * n + j;
+            const long long o = grp * p.stride + i * n + j;
             const bool in = !first && i < n && j < n;
             go[u][v] = in ? p.g[o] : 0.f;
             ho[u][v] = (NEED_H && in) ? p.h[o] : 0.f;
@@ -442,7 +444,7 @@ __global__ void __launch_bounds__(THREADS, 1) streaming_kernel(SParams p) {
           for (int v = 0; v < 4; ++v) {
             const int i = ib * CB + ti + 16 * u, j = jb * CB + tj + 16 * v;
             if (i < n && j < n) {
-              const long long o = (grp * n + i) * n + j;
+              const long long o = grp * p.stride + i * n + j;
               p.g[o] = first ? ga[u][v] : go[u][v] + ga[u][v];
               if (NEED_H) p.h[o] = first ? ha[u][v] : ho[u][v] + ha[u][v];
             }
@@ -496,7 +498,7 @@ cudaError_t by_tiers(int rot, int ct, int need_h, int bt, const SParams& p,
 
 SParams make_params(int n, long long t, int need_ysq, int x_bf16, int dens,
                     double alpha, const float* w, const float* dm,
-                    const void* x, int bt, int group) {
+                    const void* x, int bt, int group, long long stride) {
   SParams p;
   p.n = n;
   p.t = t;
@@ -512,12 +514,14 @@ SParams make_params(int n, long long t, int need_ysq, int x_bf16, int dens,
   p.n_tiles = (int)((t + bt - 1) / bt);
   p.group = group;
   p.ll = p.dysq = p.g = p.pm = p.h = p.ysq = nullptr;
+  p.stride = stride;
   return p;
 }
 
-bool bad_grid(int n, long long t, int dens, int bt, int group, int n_groups) {
+bool bad_grid(int n, long long t, int dens, int bt, int group, int n_groups,
+              long long stride) {
   if (n < 1 || n > STREAM_MAX_N || t < 1 || group < 1 || dens < TANH ||
-      dens > CUBE)
+      dens > CUBE || stride < 1)
     return true;
   const long long n_tiles = (t + bt - 1) / bt;
   return n_tiles > 0x7fffffffLL ||
@@ -538,20 +542,20 @@ int picard_stream_tile(int n) { return n < 1 ? 0 : choose_bt(n); }
 // - log_lik(M_old x)] (analytic form), dysq = sum (2 y_old + dy) dy, with
 // w = M_old and dm = M_new - M_old. delta = 0 (plain): dll = sum
 // log_lik(M_new x), dysq = sum (M_new x)^2, with w = M_new (dm unused).
-// One (n_groups, ...) partial per output; `group` tiles of
-// picard_stream_tile(n) columns per partial.
+// One partial per output and group, at out + group index * stride;
+// `group` tiles of picard_stream_tile(n) columns per partial.
 int picard_streaming_fused_sums(int delta, int rot_tier, int ct_tier,
                                 int density, int need_h, int need_ysq,
                                 double alpha, int n, long long t, int x_bf16,
                                 int group, const float* w, const float* dm,
                                 const void* x, float* dll, float* dysq,
                                 float* g, float* pm, float* h, float* ysq,
-                                int n_groups, void* stream) {
+                                long long stride, int n_groups, void* stream) {
   const int bt = n < 1 ? 0 : choose_bt(n);
-  if (bt == 0 || bad_grid(n, t, density, bt, group, n_groups))
+  if (bt == 0 || bad_grid(n, t, density, bt, group, n_groups, stride))
     return (int)cudaErrorInvalidValue;
   SParams p = make_params(n, t, need_ysq, x_bf16, density, alpha, w, dm, x,
-                          bt, group);
+                          bt, group, stride);
   p.ll = dll;
   p.dysq = dysq;
   p.g = g;
@@ -566,16 +570,17 @@ int picard_streaming_fused_sums(int delta, int rot_tier, int ct_tier,
 }
 
 // Row sums of log_lik(M x) and (optionally) (M x)^2 at large N, one
-// (n_groups, n) partial each; `group` tiles of LOGLIK_BT columns each.
+// partial each per group at out + group index * stride; `group` tiles of
+// LOGLIK_BT columns each.
 int picard_streaming_loglik_sums(int rot_tier, int density, int need_ysq,
                                  double alpha, int n, long long t, int x_bf16,
                                  int group, const float* m, const void* x,
-                                 float* ll, float* ysq, int n_groups,
-                                 void* stream) {
-  if (bad_grid(n, t, density, LOGLIK_BT, group, n_groups))
+                                 float* ll, float* ysq, long long stride,
+                                 int n_groups, void* stream) {
+  if (bad_grid(n, t, density, LOGLIK_BT, group, n_groups, stride))
     return (int)cudaErrorInvalidValue;
   SParams p = make_params(n, t, need_ysq, x_bf16, density, alpha, m, nullptr,
-                          x, LOGLIK_BT, group);
+                          x, LOGLIK_BT, group, stride);
   p.ll = ll;
   p.ysq = ysq;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);

@@ -7,6 +7,9 @@ first use into ``picard_ica_tpu_torch/_build/`` (listed in
 ``.gitignore``) under a name keyed by a hash of the sources and the
 flags, so an edited source is rebuilt and a current build is reused.
 The headers the sources include (``HEADERS``) are hashed with them.
+ptxas reports each kernel's registers, spills and shared memory
+(``-Xptxas -v``); the report is kept beside the library
+(:func:`resource_report`).
 """
 
 from __future__ import annotations
@@ -24,11 +27,12 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("rotated_sums.cu", "covariance_sums.cu", "streaming_sums.cu")
-HEADERS = ("density.cuh",)
+SOURCES = ("rotated_sums.cu", "rotated_fused_tc.cu", "covariance_sums.cu",
+           "streaming_sums.cu")
+HEADERS = ("density.cuh", "mma_tiers.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _P = ctypes.c_void_p
@@ -43,13 +47,13 @@ _SIGNATURES = {
     "picard_error_string": [_I],
     "picard_rotated_fused_sums": [
         _I, _I, _I, _I, _I, _I, _D, _I, _LL, _I,
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _P,
     ],
     "picard_rotated_moments_sums": [
-        _I, _I, _I, _I, _D, _I, _LL, _I, _P, _P, _P, _P, _P, _P, _I, _P,
+        _I, _I, _I, _I, _D, _I, _LL, _I, _P, _P, _P, _P, _P, _P, _LL, _I, _P,
     ],
     "picard_rotated_loglik_sums": [
-        _I, _I, _I, _D, _I, _LL, _I, _P, _P, _P, _P, _I, _P,
+        _I, _I, _I, _D, _I, _LL, _I, _P, _P, _P, _P, _LL, _I, _P,
     ],
     "picard_cov_chunk": [],
     "picard_row_sums": [_I, _LL, _P, _P, _I, _P, _P],
@@ -59,10 +63,10 @@ _SIGNATURES = {
     "picard_stream_tile": [_I],
     "picard_streaming_fused_sums": [
         _I, _I, _I, _I, _I, _I, _D, _I, _LL, _I, _I,
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _P,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _P,
     ],
     "picard_streaming_loglik_sums": [
-        _I, _I, _I, _D, _I, _LL, _I, _I, _P, _P, _P, _P, _I, _P,
+        _I, _I, _I, _D, _I, _LL, _I, _I, _P, _P, _P, _P, _LL, _I, _P,
     ],
 }
 
@@ -119,9 +123,12 @@ def build() -> tuple:
                 for s, o in zip(SOURCES, objs)]
         procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                                   text=True) for c in cmds]
+        report = []
         try:
-            for cmd, proc in zip(cmds, procs):
-                _check(cmd, proc, *proc.communicate())
+            for src, cmd, proc in zip(SOURCES, cmds, procs):
+                out, err = proc.communicate()
+                _check(cmd, proc, out, err)
+                report.append(f"== {src}\n{err}")
         finally:
             for proc in procs:  # a failed build leaves no compiler running
                 if proc.poll() is None:
@@ -131,8 +138,35 @@ def build() -> tuple:
         cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", lib, *objs]
         proc = subprocess.run(cmd, capture_output=True, text=True)
         _check(cmd, proc, proc.stdout, proc.stderr)
+        _report_path(path).write_text("".join(report))
         os.replace(lib, path)
     return path, time.perf_counter() - t0
+
+
+def _report_path(path: Path) -> Path:
+    return path.with_suffix(".ptxas.txt")
+
+
+def resource_report() -> dict:
+    """ptxas's report of the current build, per source: a list of
+    ``(kernel, registers, spill store bytes, spill load bytes)``, kernel
+    names as mangled."""
+    text = _report_path(library_path()).read_text()
+    usage, src, kernel, spills = {}, None, None, (0, 0)
+    for line in text.splitlines():
+        if line.startswith("== "):
+            src = line[3:]
+            usage[src] = []
+        elif "Function properties for" in line:
+            kernel = line.rsplit(" ", 1)[-1]
+        elif "spill stores" in line:
+            nums = [int(w) for w in line.replace(",", " ").split() if w.isdigit()]
+            spills = (nums[1], nums[2])
+        elif "Used" in line and "registers" in line and kernel:
+            words = line.split()
+            usage[src].append((kernel, int(words[words.index("Used") + 1]), *spills))
+            kernel, spills = None, (0, 0)
+    return usage
 
 
 @functools.cache

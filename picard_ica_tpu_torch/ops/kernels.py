@@ -5,7 +5,10 @@ the JAX package writes in Pallas. The core loop up to N = 64
 (``csrc/rotated_sums.cu``):
 
   * :func:`rotated_fused_sums`   — one line-search try in one read of X
-    (replaces ``rotated_fused_sums``, pallas_kernels.py:838-955);
+    (replaces ``rotated_fused_sums``, pallas_kernels.py:838-955); its
+    bf16 and bf16x3 tiers run on the tensor cores
+    (``csrc/rotated_fused_tc.cu``), the exact f32 tier on the scalar
+    FP32 pipes;
   * :func:`rotated_moments_sums` — moments of Y = W X at stage
     boundaries (replaces ``rotated_moments_sums``, :306-395);
   * :func:`rotated_loglik_sums`  — loss re-baselines (replaces
@@ -52,12 +55,14 @@ reduce across devices first). For each there is:
     kernel with an explicit bf16 split for the bf16x3 tier; the CPU
     tests and ``chip_smoke.py`` hold the kernels against it;
   * a launch counter, ``<wrapper>.launches``, raised by one at each
-    kernel launch and nowhere else;
-  * the fold of the kernel's per-block partials in
-    :func:`ops.moments.fold_pairwise`'s order: torch adds for the core
-    kernels, the fold kernel on the card for the whitening kernels (one
-    more launch inside the same C entry, bitwise equal to
-    ``fold_pairwise``; :func:`fold_partials`).
+    kernel launch and nowhere else (``rotated_fused_sums`` also counts
+    by tier, ``launches_by_tier``);
+  * the fold of the kernel's per-block partials on the card, in
+    :func:`ops.moments.fold_pairwise`'s order and bitwise equal to it:
+    the core kernels write all their outputs side by side into one
+    packed (n_parts, L) buffer (:func:`packed_offsets`) that one launch
+    of the fold kernel folds (:func:`fold_partials`); the whitening C
+    entries launch the fold kernel themselves.
 
 Semantics kept from the TPU kernels: padded columns contribute nothing
 (psi'(0) != 0 and log_lik(0) != 0); with bf16 X the weights are rounded
@@ -139,14 +144,18 @@ def _tiers(x, precision: str):
     return precision, precision
 
 
-def _weights(x, *mats):
-    """X and the weights in the working dtype: with bf16 X the weights
-    are rounded to bf16 (the TPU kernel's ``m.astype(x.dtype)``) and X
-    is widened exactly."""
-    acc = work_dtype(x)
+def _mats(x, *mats):
+    """The weights in X's working dtype: with bf16 X rounded to bf16 (the
+    TPU kernel's ``m.astype(x.dtype)``)."""
     if x.dtype == torch.bfloat16:
-        return x.to(torch.float32), [_bf16(m.to(torch.float32)) for m in mats]
-    return x, [m.to(acc) for m in mats]
+        return [_bf16(m.to(torch.float32)) for m in mats]
+    return [m.to(x.dtype) for m in mats]
+
+
+def _weights(x, *mats):
+    """X and the weights in the working dtype (:func:`_mats`); bf16 X is
+    widened exactly."""
+    return x.to(work_dtype(x)), _mats(x, *mats)
 
 
 # ---------------------------------------------------------------------------
@@ -514,15 +523,36 @@ def _run(entry, *args, device):
         )
 
 
-def _partials(nb, n, flag, x, square=False):
-    if not flag:
-        return None
-    shape = (nb, n, n) if square else (nb, n)
-    return torch.empty(shape, dtype=torch.float32, device=x.device)
+def packed_offsets(outputs):
+    """``(offsets, L)``: where each output starts in one row of L floats
+    of a packed (n_parts, L) partial buffer. ``outputs`` holds ``(shape,
+    flag)`` per output; those whose flag is on sit side by side in order,
+    and an output whose flag is off takes no room (offset None)."""
+    offsets, size = [], 0
+    for shape, flag in outputs:
+        offsets.append(size if flag else None)
+        if flag:
+            size += math.prod(shape)
+    return offsets, size
 
 
-def _fold(p, flag, shape, x):
-    return fold_pairwise(p) if flag else _zeros(shape, x)
+def unpack_folded(folded, outputs, offsets, like):
+    """The outputs as views of the folded (L,) row; zeros (in the working
+    dtype of ``like``) where a flag is off."""
+    return tuple(folded[o: o + math.prod(shape)].view(shape) if o is not None
+                 else _zeros(shape, like)
+                 for (shape, _), o in zip(outputs, offsets))
+
+
+def _fold_outputs(n_parts, outputs, x, launch):
+    """Run ``launch(pointers, L)`` into one packed (n_parts, L) f32
+    partial buffer and fold it on the card in one launch: ``pointers``
+    holds each output's base address (None where its flag is off) and
+    partial p of an output lies at base + p * L."""
+    offsets, size = packed_offsets(outputs)
+    buf = torch.empty((n_parts, size), dtype=torch.float32, device=x.device)
+    launch([None if o is None else buf.data_ptr() + 4 * o for o in offsets], size)
+    return unpack_folded(fold_partials(buf), outputs, offsets, x)
 
 
 def _fused_launch(entry, group_args, n_parts, m_new, m_old, x, density,
@@ -534,21 +564,23 @@ def _fused_launch(entry, group_args, n_parts, m_new, m_old, x, density,
     n, t = x.shape
     precision, rot = _tiers(x, precision)
     code, alpha = _density_code(density)
-    _, (mn,) = _weights(x, m_new)
+    (mn,) = _mats(x, m_new)
     if absolute_ll:
         w, dm = mn.contiguous(), None
     else:
-        _, (mo,) = _weights(x, m_old)
+        (mo,) = _mats(x, m_old)
         w, dm = mo.contiguous(), (mn - mo).contiguous()
-    flags = (True, need_ysq, True, True, need_h, need_ysq)
-    square = (False, False, True, False, True, False)
-    parts = [_partials(n_parts, n, f, x, sq) for f, sq in zip(flags, square)]
-    _run(entry, int(not absolute_ll), _TIERS[rot], _TIERS[precision], code,
-         int(need_h), int(need_ysq), alpha, n, t, int(x.dtype == torch.bfloat16),
-         *group_args, w.data_ptr(), _ptr(dm), x.data_ptr(), *map(_ptr, parts),
-         n_parts, device=x.device)
-    return tuple(_fold(p, f, (n, n) if sq else (n,), x)
-                 for p, f, sq in zip(parts, flags, square))
+    vec, mat = (n,), (n, n)
+    outputs = [(vec, True), (vec, need_ysq), (mat, True), (vec, True), (mat, need_h),
+               (vec, need_ysq)]
+
+    def launch(ptrs, stride):
+        _run(entry, int(not absolute_ll), _TIERS[rot], _TIERS[precision], code,
+             int(need_h), int(need_ysq), alpha, n, t, int(x.dtype == torch.bfloat16),
+             *group_args, w.data_ptr(), _ptr(dm), x.data_ptr(), *ptrs, stride,
+             n_parts, device=x.device)
+
+    return _fold_outputs(n_parts, outputs, x, launch)
 
 
 def rotated_fused_sums(m_new, m_old, x, density, need_h: bool, need_ysq: bool,
@@ -565,6 +597,7 @@ def rotated_fused_sums(m_new, m_old, x, density, need_h: bool, need_ysq: bool,
     out = _fused_launch(_lib().picard_rotated_fused_sums, (), nb, m_new, m_old,
                         x, density, need_h, need_ysq, precision, absolute_ll)
     rotated_fused_sums.launches += 1
+    rotated_fused_sums.launches_by_tier[_tiers(x, precision)[0]] += 1
     return out
 
 
@@ -579,24 +612,18 @@ def rotated_moments_sums(w, x, density, need_h: bool, need_ysq: bool):
     n, t, nb = _check_cuda(x, w)
     bf16_x = x.dtype == torch.bfloat16
     code, alpha = _density_code(density)
-    _, (wf,) = _weights(x, w)
-    wf = wf.contiguous()
-    g = _partials(nb, n, True, x, square=True)
-    pm = _partials(nb, n, True, x)
-    h = _partials(nb, n, need_h, x, square=True)
-    ysq = _partials(nb, n, need_ysq, x)
-    _run(_lib().picard_rotated_moments_sums,
-         _TIERS["bf16" if bf16_x else "f32"], code, int(need_h),
-         int(need_ysq), alpha, n, t, int(bf16_x), wf.data_ptr(),
-         x.data_ptr(), g.data_ptr(), pm.data_ptr(), _ptr(h), _ptr(ysq), nb,
-         device=x.device)
+    wf = _mats(x, w)[0].contiguous()
+    outputs = [((n, n), True), ((n,), True), ((n, n), need_h), ((n,), need_ysq)]
+
+    def launch(ptrs, stride):
+        _run(_lib().picard_rotated_moments_sums,
+             _TIERS["bf16" if bf16_x else "f32"], code, int(need_h),
+             int(need_ysq), alpha, n, t, int(bf16_x), wf.data_ptr(),
+             x.data_ptr(), *ptrs, stride, nb, device=x.device)
+
+    out = _fold_outputs(nb, outputs, x, launch)
     rotated_moments_sums.launches += 1
-    return (
-        fold_pairwise(g),
-        fold_pairwise(pm),
-        _fold(h, need_h, (n, n), x),
-        _fold(ysq, need_ysq, (n,), x),
-    )
+    return out
 
 
 def rotated_loglik_sums(m, x, density, need_ysq: bool):
@@ -605,19 +632,27 @@ def rotated_loglik_sums(m, x, density, need_ysq: bool):
         return streaming_loglik_sums(m, x, density, need_ysq)
     if x.device.type == "cpu":
         return rotated_loglik_sums_plain(m, x, density, need_ysq)
-    n, t, nb = _check_cuda(x, m)
+    _, _, nb = _check_cuda(x, m)
+    out = _loglik_launch(_lib().picard_rotated_loglik_sums, (), nb, m, x,
+                         density, need_ysq)
+    rotated_loglik_sums.launches += 1
+    return out
+
+
+def _loglik_launch(entry, group_args, n_parts, m, x, density, need_ysq):
+    """Launch a loglik kernel (``entry``) with ``n_parts`` partials per
+    output and fold them; the ysq row sums are zeros when not asked for."""
+    n, t = x.shape
     bf16_x = x.dtype == torch.bfloat16
     code, alpha = _density_code(density)
-    _, (mf,) = _weights(x, m)
-    mf = mf.contiguous()
-    ll = _partials(nb, n, True, x)
-    ysq = _partials(nb, n, need_ysq, x)
-    _run(_lib().picard_rotated_loglik_sums,
-         _TIERS["bf16" if bf16_x else "f32"], code, int(need_ysq), alpha, n,
-         t, int(bf16_x), mf.data_ptr(), x.data_ptr(), ll.data_ptr(),
-         _ptr(ysq), nb, device=x.device)
-    rotated_loglik_sums.launches += 1
-    return fold_pairwise(ll), _fold(ysq, need_ysq, (n,), x)
+    mf = _mats(x, m)[0].contiguous()
+
+    def launch(ptrs, stride):
+        _run(entry, _TIERS["bf16" if bf16_x else "f32"], code, int(need_ysq), alpha,
+             n, t, int(bf16_x), *group_args, mf.data_ptr(), x.data_ptr(), *ptrs,
+             stride, n_parts, device=x.device)
+
+    return _fold_outputs(n_parts, [((n,), True), ((n,), need_ysq)], x, launch)
 
 
 def _streams(x, n_mats: int) -> bool:
@@ -661,21 +696,12 @@ def streaming_loglik_sums(m, x, density, need_ysq: bool):
     if x.device.type == "cpu":
         return streaming_loglik_sums_plain(m, x, density, need_ysq)
     n, t, _ = _check_cuda(x, m, cap=STREAM_MAX_N)
-    bf16_x = x.dtype == torch.bfloat16
-    code, alpha = _density_code(density)
     n_tiles = _n_chunks(t, STREAM_LOGLIK_TILE)
     group = stream_group(n_tiles, n, 0)
-    ng = _n_chunks(n_tiles, group)
-    _, (mf,) = _weights(x, m)
-    mf = mf.contiguous()
-    ll = _partials(ng, n, True, x)
-    ysq = _partials(ng, n, need_ysq, x)
-    _run(_lib().picard_streaming_loglik_sums,
-         _TIERS["bf16" if bf16_x else "f32"], code, int(need_ysq), alpha, n,
-         t, int(bf16_x), group, mf.data_ptr(), x.data_ptr(), ll.data_ptr(),
-         _ptr(ysq), ng, device=x.device)
+    out = _loglik_launch(_lib().picard_streaming_loglik_sums, (group,),
+                         _n_chunks(n_tiles, group), m, x, density, need_ysq)
     streaming_loglik_sums.launches += 1
-    return fold_pairwise(ll), _fold(ysq, need_ysq, (n,), x)
+    return out
 
 
 def _check_stats(x, mean=None):
@@ -783,9 +809,11 @@ KERNELS = (rotated_fused_sums, rotated_moments_sums, rotated_loglik_sums,
 
 
 def reset_launch_counts() -> None:
-    """Set every kernel's launch counter to 0."""
+    """Set every kernel's launch counter, and ``rotated_fused_sums``'s
+    counts by tier (keyed by the tier of its contractions), to 0."""
     for k in KERNELS:
         k.launches = 0
+    rotated_fused_sums.launches_by_tier = dict.fromkeys(_TIERS, 0)
 
 
 reset_launch_counts()

@@ -9,7 +9,8 @@ machine without it:
 Tolerances: the kernel and the plain version of the same tier differ
 only in the order of f32 sums (products of bf16 values are exact in
 f32), so outputs agree to RTOL relative to each output's largest entry;
-the streaming kernels' bf16 contraction tier to RTOL_BF16 (see there).
+the bf16 contraction tier of the streaming kernels and of the
+tensor-core kernel's tier and shape tests to RTOL_BF16 (see there).
 """
 
 import math
@@ -28,11 +29,13 @@ pytestmark = pytest.mark.cuda
 # f32 sums over a few thousand columns, reordered: ~1e-6 of the largest
 # entry; bf16-rounded operands can flip a rounding of psi at a few ulps.
 RTOL = 2e-5
-# The bf16 contraction tier rounds psi and Y to bf16 after the rotation:
-# a reordered f32 rotation sum over N terms flips some of those roundings,
-# each moving a term by up to 2^-8 of itself. Reordering the plain
-# version's own rotation (f64 sums rounded to f32) moves G by up to
-# 2.7e-4 of its largest entry at N = 1024, T = 1,500 on the CPU.
+# The bf16 contraction tier rounds psi and Y (and Y^2) to bf16 after the
+# rotation: a reordered f32 rotation sum over N terms flips some of those
+# roundings, each moving a term by up to 2^-8 of itself. Reordering the
+# plain version's own rotation (f64 sums rounded to f32) moves G by up to
+# 2.7e-4 of its largest entry at N = 1024, T = 1,500 on the CPU; the
+# tensor-core kernel's H moved by 2.5e-5 of its largest entry at N = 33,
+# T = 2,056 (two flipped Y^2 roundings).
 RTOL_BF16 = 1e-3
 
 DENSITIES = [Tanh(), Exp(0.5), Cube()]
@@ -86,6 +89,110 @@ def test_fused_bf16_x_matches_plain(dev, precision, absolute_ll):
     _close(K.rotated_fused_sums(*args), K.rotated_fused_sums_plain(*args))
 
 
+# The tensor-core kernel's tier pairs (csrc/rotated_fused_tc.cu), as
+# (precision, bf16 X): (bf16, bf16) on f32 and on bf16 X, (bf16x3, bf16x3)
+# on f32 X, and bf16 X at the bf16x3 tier (bf16, bf16x3).
+TC_PAIRS = [("bf16", False), ("bf16", True), ("bf16x3", False), ("bf16x3", True)]
+
+
+def _tc_x(dev, n, t, aligned, bf16_x, seed):
+    """X (n, t) whose rows are 16-byte aligned (T rounded up to a multiple
+    of 8) or not (T odd), in f32 or bf16; the weights of _inputs."""
+    if aligned:
+        t += -t % 8
+    x, m_old, m_new = _inputs(dev, n, t, seed=seed)
+    if bf16_x:
+        x = x.to(torch.bfloat16)
+    row_bytes = t * x.element_size()
+    assert (row_bytes % 16 == 0 and x.data_ptr() % 16 == 0) == aligned
+    return x, m_old, m_new
+
+
+@pytest.mark.parametrize("density", DENSITIES, ids=str)
+@pytest.mark.parametrize("flags", [(False, False), (True, True)], ids=["min", "h+ysq"])
+@pytest.mark.parametrize("absolute_ll", [False, True], ids=["delta", "plain"])
+@pytest.mark.parametrize("precision,bf16_x", TC_PAIRS, ids=["bf16", "bf16-bf16x", "bf16x3",
+                                                             "bf16x3-bf16x"])
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "unaligned"])
+def test_fused_tc_tiers_match_plain(dev, aligned, precision, bf16_x, absolute_ll, flags,
+                                    density):
+    """Every tier pair, mode, density and flag set of the tensor-core
+    kernel, at N = 33 (a live 16-row tile with one row) over two partials;
+    the bf16 contraction tier to RTOL_BF16, as the streaming kernels'."""
+    x, m_old, m_new = _tc_x(dev, 33, 2049, aligned, bf16_x, seed=9)
+    args = (m_new, m_old, x, density, *flags, precision, absolute_ll)
+    K.reset_launch_counts()
+    out_k = K.rotated_fused_sums(*args)
+    assert K.rotated_fused_sums.launches_by_tier[precision] == 1
+    _close(out_k, K.rotated_fused_sums_plain(*args),
+           RTOL_BF16 if precision == "bf16" else RTOL)
+
+
+@pytest.mark.parametrize("case", ["delta bf16x3", "plain bf16, bf16 X"])
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "unaligned"])
+@pytest.mark.parametrize("t", [1, 15, 2047, 2049, 100_003])
+@pytest.mark.parametrize("n", [1, 8, 15, 16, 17, 33, 63, 64])
+def test_fused_tc_shapes_match_plain(dev, n, t, aligned, case):
+    """The main path's two tensor-core cases at the edges of the 16-row
+    tiles, the 64-column sub-tiles and the 2,048-column partials."""
+    delta = case == "delta bf16x3"
+    x, m_old, m_new = _tc_x(dev, n, t, aligned, not delta, seed=n + t)
+    args = (m_new, m_old, x, Tanh(), False, False, "bf16x3" if delta else "bf16", not delta)
+    _close(K.rotated_fused_sums(*args), K.rotated_fused_sums_plain(*args),
+           RTOL if delta else RTOL_BF16)
+
+
+def _core_calls(dev):
+    """One call per core wrapper (all outputs on), over several partials;
+    the fused wrapper in its f32 (scalar) and both tensor-core tiers, and
+    at N = 80 the streaming kernels."""
+    x, m_old, m_new = _inputs(dev, 40, 10_001, seed=10)
+    xs, ms_old, ms_new = _inputs(dev, 80, 10_001, seed=11)
+    d = Tanh()
+    return {
+        "fused f32": lambda: K.rotated_fused_sums(m_new, m_old, x, d, True, True, "f32"),
+        "fused bf16x3": lambda: K.rotated_fused_sums(m_new, m_old, x, d, True, True, "bf16x3"),
+        "fused bf16, bf16 X": lambda: K.rotated_fused_sums(
+            m_new, m_old, x.to(torch.bfloat16), d, True, True, "bf16", True),
+        "moments": lambda: K.rotated_moments_sums(m_old, x, d, True, True),
+        "loglik": lambda: K.rotated_loglik_sums(m_old, x, d, True),
+        "streaming fused": lambda: K.streaming_fused_sums(ms_new, ms_old, xs, d, True, True),
+        "streaming loglik": lambda: K.streaming_loglik_sums(ms_old, xs, d, True),
+    }
+
+
+@pytest.mark.parametrize("call", ["fused f32", "fused bf16x3", "fused bf16, bf16 X", "moments",
+                                  "loglik", "streaming fused", "streaming loglik"])
+def test_core_wrappers_fold_on_the_card_bitwise(dev, monkeypatch, call):
+    """Each core wrapper folds its packed partials in one launch of the fold
+    kernel, bit for bit fold_pairwise of the same partials; the outputs
+    are the folded row in order."""
+    from picard_ica_tpu_torch.ops.moments import fold_pairwise
+
+    seen = []
+    fold = K.fold_partials
+
+    def spy(buf):
+        seen.append(buf.clone())
+        return fold(buf)
+
+    monkeypatch.setattr(K, "fold_partials", spy)
+    out = _core_calls(dev)[call]()
+    assert len(seen) == 1 and seen[0].shape[0] > 1
+    assert torch.equal(torch.cat([v.flatten() for v in out]), fold_pairwise(seen[0]))
+
+
+def test_fused_launches_by_tier(dev):
+    x, m_old, m_new = _inputs(dev, 16, 3000)
+    K.reset_launch_counts()
+    for precision in ("f32", "bf16x3", "bf16x3", "bf16"):
+        K.rotated_fused_sums(m_new, m_old, x, Tanh(), False, False, precision)
+    # bf16 X: an f32 request runs (and counts as) the bf16 tier.
+    K.rotated_fused_sums(m_new, m_old, x.to(torch.bfloat16), Tanh(), False, False, "f32", True)
+    assert K.rotated_fused_sums.launches_by_tier == {"f32": 1, "bf16x3": 2, "bf16": 2}
+    assert K.rotated_fused_sums.launches == 5
+
+
 @pytest.mark.parametrize("density", DENSITIES, ids=str)
 @pytest.mark.parametrize("flags", [(False, False), (True, True)], ids=["min", "h+ysq"])
 @pytest.mark.parametrize("bf16_x", [False, True], ids=["f32x", "bf16x"])
@@ -123,10 +230,11 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
         K.rotated_fused_sums(eye, eye, big, Tanh(), False, False)
 
 
-@pytest.mark.parametrize("n", [8, 33])
+@pytest.mark.parametrize("n", [8, 33, 64])
 def test_fit_kernels_match_torch_path(dev, n):
     """End to end on the card: N=8 keeps f32 X in the bf16 tier, N=33
-    takes the bf16 copy. Both paths converge to the same unmixing."""
+    and N=64 (the kernels' full width) take the bf16 copy. Both paths
+    converge to the same unmixing."""
     from picard_ica_tpu_torch import Picard, PicardConfig
     from picard_ica_tpu_torch.utils import amari_distance, generate_mixed_kurtosis_data
 
