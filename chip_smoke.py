@@ -12,8 +12,12 @@ prints no result line):
      N = 64, T = 2,000,000, for every mode and tier the main path runs
      plus one case with the H / Y^2 outputs on per kernel, and time both
      with CUDA events (one call at a time, median of 10 after warm-up;
-     the kernel also 10 calls back to back); the fused pass's tensor-core
-     tiers also at ragged shapes (N = 17 and 63, T = 1,000,003);
+     the kernel also 10 calls back to back); the fused pass's tiers, all
+     on the tensor cores, also at ragged shapes (N = 17 and 63, T =
+     1,000,003). An f32 case is held to an f64 evaluation of the same
+     sums as well, and prints both errors against f64, the kernel's and
+     the exact-f32 plain version's, beside the error against the plain
+     version;
      The whitening kernels are held the same way: ``row_sums``,
      ``centered_covariance_sums`` and ``covariance_sums`` at 64 x
      4,000,000, ``_grouped_covariance`` (centered and not) at 600 x
@@ -56,8 +60,9 @@ at 256 x 2,000,000 and 1024 x 200,000.
 The line before the last is a JSON object describing every kernel:
 launches on its path (phase 3 for the resident core kernels, phase 4
 for the whitening kernels, 4b for the grouped one, 5 for the streaming
-kernels; the fused pass's two kernels count their tiers' launches in
-phase 4, ``launches_by_tier``), error against the plain version, and
+kernels; the fused pass's tensor-core kernel counts the launches of its
+three tiers in phase 4, ``launches_by_tier``), error against the plain
+version (and, for the fused kernel's f32 tier, against f64), and
 the numbers of its headline case (``_KERNELS``): ``ms`` and ``plain_ms``
 (CUDA events, one synchronised call at a time, median of 10),
 ``ms_stream`` (10 calls back
@@ -109,8 +114,8 @@ N5B, T5B, SEED5B = 1024, 200_000, 42
 T_RAGGED = 1_000_003
 # Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): HBM
 # bytes/s, scalar FP32 FMA/s outside the tensor cores (67 TFLOP/s), and
-# dense bf16 tensor-core FMA/s (989 TFLOP/s) for the products of the bf16
-# and bf16x3 tiers, which are exact bf16 products.
+# dense bf16 tensor-core FMA/s (989 TFLOP/s) for the products of the
+# tensor-core kernel's tiers, which are exact bf16 products.
 HBM_BYTES_S = 3.35e12
 F32_FMA_S = 33.5e12
 BF16_FMA_S = 494.5e12
@@ -209,10 +214,17 @@ def _bytes(tensors):
                if isinstance(v, torch.Tensor))
 
 
-def _core_fmas(name, args):
+# bf16 products per N^2 a column at each tier of the tensor-core kernel.
+_BF16_PASSES = {"bf16": 1, "bf16x3": 3, "bf16x6": 6}
+
+
+def _core_fmas(name, args, tensor_cores=True):
     """(f32 FMAs, bf16 products) a core kernel's call needs: N^2 per
     column for each rotation and each contraction it computes, tripled
-    at the bf16x3 tier. The density's elementwise work is not counted."""
+    at the bf16x3 tier. The fused pass runs every tier on the tensor
+    cores, its f32 tier as six bf16 products ("bf16x6"); with
+    ``tensor_cores=False`` that tier counts as f32 FMAs, the scalar
+    kernel's work. The density's elementwise work is not counted."""
     import torch
 
     if name.endswith("fused_sums"):
@@ -222,6 +234,8 @@ def _core_fmas(name, args):
         else:
             rot = con = precision
         work = [(rot, 1 if absolute_ll else 2), (con, 1 + need_h)]
+        if name == "rotated_fused_sums" and tensor_cores:
+            work = [("bf16x6" if tier == "f32" else tier, k) for tier, k in work]
     elif name == "rotated_moments_sums":
         _, x, _, need_h, _ = args
         work = [("bf16" if x.dtype == torch.bfloat16 else "f32", 1), ("f32", 1 + need_h)]
@@ -230,8 +244,7 @@ def _core_fmas(name, args):
         work = [("bf16" if x.dtype == torch.bfloat16 else "f32", 1)]
     n, t = x.shape
     f32 = sum(k for tier, k in work if tier == "f32") * n * n * t
-    bf16 = sum(k * (3 if tier == "bf16x3" else 1) for tier, k in work
-               if tier != "f32") * n * n * t
+    bf16 = sum(k * _BF16_PASSES[tier] for tier, k in work if tier != "f32") * n * n * t
     return f32, bf16
 
 
@@ -299,6 +312,10 @@ def phase2_kernels():
          lambda m1, m0, xx: (m1, m0, xx, d, False, False, "f32", False), x),
         (fused, "delta f32, H+ysq", "f32",
          lambda m1, m0, xx: (m1, m0, xx, d, True, True, "f32", False), x),
+        (fused, "plain f32, H+ysq", "f32",
+         lambda m1, m0, xx: (m1, m0, xx, d, True, True, "f32", True), x),
+        (fused, "delta f32, cube", "f32",
+         lambda m1, m0, xx: (m1, m0, xx, Cube(), False, False, "f32", False), x),
         (moments, "f32", "f32",
          lambda m1, m0, xx: (m1, xx, d, False, False), x),
         (moments, "f32, H+ysq", "f32",
@@ -322,7 +339,7 @@ def phase2_kernels():
     del x, x16
     torch.cuda.empty_cache()
 
-    # The tensor-core kernel's four tier pairs at ragged shapes: N past
+    # The tensor-core kernel's five tier pairs at ragged shapes: N past
     # and short of a 16-row tile, T past a 64-column sub-tile, rows not
     # 16-byte aligned.
     def f(precision, absolute_ll, flags=False):
@@ -336,6 +353,8 @@ def phase2_kernels():
             ("delta bf16x3", "bf16x3", f("bf16x3", False), xr),
             ("delta bf16x3, bf16 X, H+ysq", "bf16x3", f("bf16x3", False, True), xr16),
             ("delta bf16, f32 X", "bf16", f("bf16", False), xr),
+            ("delta f32", "f32", f("f32", False), xr),
+            ("delta f32, H+ysq", "f32", f("f32", False, True), xr),
         ]:
             _hold(rows, fused, K.rotated_fused_sums_plain, label, tier, make, m_new_r,
                   m_old_r, xx)
@@ -344,19 +363,14 @@ def phase2_kernels():
     return rows
 
 
-def _row_name(kern, tier):
-    """The kernel that serves a call: the fused pass's bf16 and bf16x3
-    tiers run the tensor-core kernel (csrc/rotated_fused_tc.cu)."""
-    name = kern.__name__
-    return TC_ROW if name == "rotated_fused_sums" and tier != "f32" else name
-
-
 def _hold(rows, kern, plain, label, tier, make, m_new, m_old, xx):
     """Hold one kernel call against its plain version: f32 tiers against
     an f64 evaluation of the same sums (the kernel's error may be
     F32_ERR_FACTOR x the plain f32 version's plus F32_FLOOR_PER_COL per
     summed column), bf16 tiers against the plain version of the same
-    tier at BF16_RTOL of scale. Times both; adds the case to ``rows``."""
+    tier at BF16_RTOL of scale. ``max_abs_err`` is the error against the
+    plain version; an f32 case also keeps both errors against f64. Times
+    both; adds the case to ``rows``."""
     import torch
 
     name = kern.__name__
@@ -365,24 +379,32 @@ def _hold(rows, kern, plain, label, tier, make, m_new, m_old, xx):
     out_k = kern(*args)
     torch.cuda.synchronize()
     out_p = plain(*args)
+    err_k = _max_abs(out_k, out_p)
+    extra = {}
     if tier == "f32":
         args64 = make(m_new.double(), m_old.double(), xx.double())
         out_64 = plain(*args64)
         del args64
-        err_k = _max_abs(out_k, out_64)
-        err_p = _max_abs(out_p, out_64)
-        bound = F32_ERR_FACTOR * err_p + F32_FLOOR_PER_COL * t
-        ok = err_k <= bound
-        detail = f"err vs f64 {err_k:.4g} (plain f32 {err_p:.4g}, bound {bound:.4g})"
+        err_k64 = _max_abs(out_k, out_64)
+        err_p64 = _max_abs(out_p, out_64)
+        bound = F32_ERR_FACTOR * err_p64 + F32_FLOOR_PER_COL * t
+        ok = err_k64 <= bound
+        detail = (f"err vs plain f32 {err_k:.4g}, vs f64 {err_k64:.4g} (plain f32 "
+                  f"{err_p64:.4g}, bound {bound:.4g})")
+        extra = {"err_vs_f64": err_k64, "plain_err_vs_f64": err_p64}
         del out_64
     else:
-        err_k = _max_abs(out_k, out_p)
         scale = max(float(v.abs().max()) for v in out_p)
         bound = BF16_RTOL * scale
         ok = err_k <= bound
         detail = f"err vs plain {tier} {err_k:.4g} (bound {bound:.4g})"
     finite = all(bool(torch.isfinite(v).all()) for v in out_k)
-    bound_ms, bound_by = _bound(_bytes(args) + _bytes(out_k), *_core_fmas(name, args))
+    n_bytes = _bytes(args) + _bytes(out_k)
+    bound_ms, bound_by = _bound(n_bytes, *_core_fmas(name, args))
+    if name == "rotated_fused_sums" and tier == "f32":
+        # The scalar FP32 kernel's bound for the same work, kept beside.
+        extra["bound_fp32_ms"] = _bound(n_bytes, *_core_fmas(name, args, False))[0]
+        detail += f", FP32 bound {extra['bound_fp32_ms']:.3f} ms"
     del out_k, out_p
     torch.cuda.empty_cache()
     ms, ms_stream = _time_both(lambda: kern(*args))
@@ -393,14 +415,16 @@ def _hold(rows, kern, plain, label, tier, make, m_new, m_old, xx):
          f"({bound_ms / ms_stream:.3f} back to back)")
     if not (ok and finite):
         raise AssertionError(f"{name} [{label}] disagrees with its plain version")
-    row = rows.setdefault(_row_name(kern, tier), {"max_abs_err": 0.0, "cases": []})
+    row = rows.setdefault(name, {"max_abs_err": 0.0, "cases": []})
     row["max_abs_err"] = max(row["max_abs_err"], err_k)
+    if "err_vs_f64" in extra:
+        row["f32_err_vs_f64"] = max(row.get("f32_err_vs_f64", 0.0), extra["err_vs_f64"])
     row["cases"].append({"label": label, "case": f"{label}, {n} x {t}", "ms": ms,
                          "ms_stream": ms_stream, "plain_ms": plain_ms,
                          "bound_ms": bound_ms, "bound_by": bound_by,
                          "share": bound_ms / ms, "share_stream": bound_ms / ms_stream,
                          "library_ms": None, "library_ms_stream": None,
-                         "max_abs_err": err_k})
+                         "max_abs_err": err_k, **extra})
 
 
 def _stream_inputs(n, t, seed):
@@ -606,11 +630,9 @@ def _fit(x, use_kernels, **config):
 
 
 _CORE_KERNELS = ("rotated_fused_sums", "rotated_moments_sums", "rotated_loglik_sums")
-# The fused pass's two kernels and the tiers each serves: the scalar
-# template (csrc/rotated_sums.cu) the exact f32 tier, the tensor-core
-# kernel (csrc/rotated_fused_tc.cu) the bf16 and bf16x3 tiers.
-TC_ROW = "rotated_fused_sums, bf16 tiers"
-TIER_ROWS = {"rotated_fused_sums": ("f32",), TC_ROW: ("bf16", "bf16x3")}
+# The fused pass's kernel and the tiers it serves: the tensor-core kernel
+# (csrc/rotated_fused_tc.cu) runs all three.
+TIER_ROWS = {"rotated_fused_sums": ("bf16", "bf16x3", "f32")}
 
 
 def _count(name, launches):
@@ -652,7 +674,7 @@ def phase3_slice():
     if tuple(r.sources.shape) != (N, T) or not bool(torch.isfinite(r.sources).all()):
         raise AssertionError("sources are not finite (N, T)")
     # Host-f64 whitening: this path runs the three core kernels, the fused
-    # pass on the tensor cores and on the scalar pipes.
+    # pass in every tier.
     missing = [k for k in _CORE_KERNELS + tuple(TIER_ROWS) if _count(k, launches) == 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
@@ -918,8 +940,7 @@ _PALLAS = "picard_ica_tpu/ops/pallas_kernels.py"
 # name -> (source, pallas_call line of the TPU kernel it replaces, the
 # phase-2 case whose numbers head the kernel's entry)
 _KERNELS = {
-    "rotated_fused_sums": (_CORE_SOURCE, 922, "delta f32"),
-    TC_ROW: (_TC_SOURCE, 922, "delta bf16x3"),
+    "rotated_fused_sums": (_TC_SOURCE, 922, "delta f32"),
     "rotated_moments_sums": (_CORE_SOURCE, 366, "f32"),
     "rotated_loglik_sums": (_CORE_SOURCE, 702, "f32"),
     "row_sums": (_STATS_SOURCE, 422, "f32"),
@@ -954,6 +975,7 @@ def main():
             "name": name, "route": "cuda", "source": source,
             "replaces": f"{_PALLAS}:{line}", "launches": _count(name, by_path[path]),
             "max_abs_err": row["max_abs_err"], "case": main_case["case"],
+            **({"f32_err_vs_f64": row["f32_err_vs_f64"]} if "f32_err_vs_f64" in row else {}),
             **{k: main_case[k] for k in ("ms", "ms_stream", "plain_ms", "bound_ms",
                                          "bound_by", "share", "share_stream",
                                          "library_ms", "library_ms_stream")},

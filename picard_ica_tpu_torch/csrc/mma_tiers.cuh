@@ -1,28 +1,31 @@
-// Tensor-core building blocks for the bf16 and bf16x3 tiers of the core
-// kernels (rotated_fused_tc.cu; the streaming kernel's bf16 tiers are to
-// take them next).
+// Tensor-core building blocks for the three tiers of the fused core
+// kernel (rotated_fused_tc.cu; the streaming kernel's tiers are to take
+// them next).
 //
 // The tiers of density.cuh, on mma.sync: BF16 = one product of bf16
 // operands with f32 accumulation; BF16X3 = the hi/lo bf16 split of both
 // operands (hi = bf16(v), lo = bf16(v - hi), round to nearest even) and
-// three products hi*hi, lo*hi, hi*lo into one f32 accumulator. Products of
-// bf16 values are exact in f32, so only the order of the f32 sums differs
-// from the scalar kernels and the plain PyTorch versions.
+// three products hi*hi, lo*hi, hi*lo into one f32 accumulator; F32 = the
+// three-way split hi / mid / lo of both operands and the six products
+// whose terms are at least 2^-16 of hi*hi (the TPU's Precision.HIGHEST,
+// "exact f32"). Products of bf16 values are exact in f32, so only the
+// order and rounding of the f32 sums differ from the scalar kernels and
+// the plain PyTorch versions.
 //
-// Fragments of mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 (PTX
-// ISA, "Matrix Fragments for mma.m16n8k16"), lane = 4 g + q:
-//   A (16 x 16, row-major) a[0..3]: rows g, g + 8, g, g + 8; columns
-//     2q, 2q + 1 (a[0], a[1]) and 2q + 8, 2q + 9 (a[2], a[3]);
-//   B (16 x 8, k x n) b[0..1]: column g, rows 2q, 2q + 1 and 2q + 8, 2q + 9;
-//   C (16 x 8) c[0..3]: row g columns 2q, 2q + 1, then row g + 8.
-// Each 32-bit register holds two bf16, the lower column (or k) in the low
-// half. ldmatrix loads them from shared memory: A from a row-major tile,
-// B from an [n][k] tile (non-transposed) or a [k][n] tile (.trans).
-
+// The tensor cores add an MMA's products to its accumulator with the
+// result rounded toward zero, not to nearest, so a long chain of MMAs
+// into one accumulator drifts toward zero by up to an ulp a link. The
+// F32 tier keeps its sums out of such chains: its hi*hi products go
+// either to an accumulator whose sums are exact (the rotation's
+// fixed-point grids, rotated_fused_tc.cu) or to a fresh one per 16-deep
+// step, which the caller adds in f32 to nearest.
+//
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cstdint>
+
+#include "density.cuh"
 
 namespace {
 
@@ -46,6 +49,30 @@ __device__ __forceinline__ float bf16_hi_f32(uint32_t v) {
 __device__ __forceinline__ void split_pair(float a, float b, uint32_t& hi, uint32_t& lo) {
   hi = pack_bf16(a, b);
   lo = pack_bf16(a - bf16_lo_f32(hi), b - bf16_hi_f32(hi));
+}
+
+// The three-way split of a pair: hi = bf16(v), mid = bf16(v - hi), lo =
+// bf16(v - hi - mid); hi + mid + lo == v exactly (each difference is
+// exact in f32, and v's 24 bits fit three 8-bit significands).
+__device__ __forceinline__ void split3_pair(float a, float b, uint32_t& hi, uint32_t& mid,
+                                            uint32_t& lo) {
+  hi = pack_bf16(a, b);
+  split_pair(a - bf16_lo_f32(hi), b - bf16_hi_f32(hi), mid, lo);
+}
+
+// The fixed-point grid of a row or column whose largest magnitude is m =
+// 2^e * 1.f: sigma = 1.5 * 2^(e + 16), and (v + sigma) - sigma rounds any
+// |v| <= m to a multiple of 2^(e - 7) of at most 2^8 units, a bf16 value.
+// Zero and subnormal m take the grid of 2^-126. Magnitudes from 2^111 up
+// (far outside whitened data) are not on a grid.
+__device__ __forceinline__ float grid_sigma(float m) {
+  int e = (__float_as_int(m) >> 23) & 0xff;  // biased exponent of m >= 0
+  e = e < 1 ? 1 : (e > 238 ? 238 : e);
+  return __int_as_float(((e + 16) << 23) | 0x400000);
+}
+
+__device__ __forceinline__ float grid_round(float v, float sigma) {
+  return __fsub_rn(__fadd_rn(v, sigma), sigma);
 }
 
 // ---- shared memory ----
@@ -95,15 +122,33 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// d += A B at the tier: hi*hi, then (BF16X3) lo*hi and hi*lo.
-template <bool X3>
-__device__ __forceinline__ void mma_tier(float (&d)[4], const uint32_t (&a_hi)[4],
-                                         const uint32_t (&a_lo)[4], uint32_t b0_hi,
-                                         uint32_t b1_hi, uint32_t b0_lo, uint32_t b1_lo) {
-  mma_bf16(d, a_hi, b0_hi, b1_hi);
-  if (X3) {
-    mma_bf16(d, a_lo, b0_hi, b1_hi);
-    mma_bf16(d, a_hi, b0_lo, b1_lo);
+// bf16 parts an operand splits into at the tier.
+__host__ __device__ constexpr int parts(int tier) {
+  return tier == BF16 ? 1 : tier == BF16X3 ? 2 : 3;
+}
+
+// d += A B at the tier, from the fragments of each part of A (a[p]) and
+// of B (b[p] = b0, b1): p = 0 hi, then lo (BF16X3) or mid, lo (F32).
+//   BF16:   hi*hi into d;
+//   BF16X3: hi*hi, lo*hi, hi*lo into d;
+//   F32:    lo*hi, mid*mid, hi*lo, mid*hi, hi*mid into `small`, then hi*hi
+//           into d: the small products first. With d and small the same
+//           accumulator, one chain that ends with hi*hi.
+template <int TIER>
+__device__ __forceinline__ void mma_tier(float (&d)[4], float (&small)[4],
+                                         const uint32_t (&a)[parts(TIER)][4],
+                                         const uint32_t (&b)[parts(TIER)][2]) {
+  if constexpr (TIER == F32) {
+    mma_bf16(small, a[2], b[0][0], b[0][1]);
+    mma_bf16(small, a[1], b[1][0], b[1][1]);
+    mma_bf16(small, a[0], b[2][0], b[2][1]);
+    mma_bf16(small, a[1], b[0][0], b[0][1]);
+    mma_bf16(small, a[0], b[1][0], b[1][1]);
+  }
+  mma_bf16(d, a[0], b[0][0], b[0][1]);
+  if constexpr (TIER == BF16X3) {
+    mma_bf16(d, a[1], b[0][0], b[0][1]);
+    mma_bf16(d, a[0], b[1][0], b[1][1]);
   }
 }
 

@@ -1,42 +1,63 @@
-// Hand-written Hopper (sm_90a) kernel for the bf16 and bf16x3 tiers of
-// picard_rotated_fused_sums (rotated_sums.cu routes every tier pair but
-// (F32, F32) here). It replaces, for those tiers,
-// picard_ica_tpu/ops/pallas_kernels.py rotated_fused_sums /
-// _rotated_fused_kernel, which runs them on the TPU's matrix unit: one
-// line-search try (the loss delta or absolute log-lik of M_new X, and the
-// candidate's G, sum psi', H, sum Y^2) in ONE read of X.
+// Hand-written Hopper (sm_90a) kernel for every tier of
+// picard_rotated_fused_sums (rotated_sums.cu checks the shape and hands
+// over). It replaces picard_ica_tpu/ops/pallas_kernels.py
+// rotated_fused_sums / _rotated_fused_kernel, which runs its tiers on the
+// TPU's matrix unit: one line-search try (the loss delta or absolute
+// log-lik of M_new X, and the candidate's G, sum psi', H, sum Y^2) in ONE
+// read of X.
 //
 // What bounds it on the card, at N = 64 and 2M columns: the tiers are
 // exact bf16 products with f32 sums, so the products belong on the tensor
-// cores (494.5 T bf16 FMA/s dense). Delta bf16x3: 2 rotations + 1
-// contraction at 3 products each, 49 K FMAs a column (0.20 ms), against
-// 256 bytes of f32 X a column (0.15 ms of HBM): at the ridge. Plain bf16
-// on bf16 X: 8 K FMAs against 128 bytes (0.03 / 0.08 ms): bytes. Beside
-// both, 1.3e8 density evaluations (tanh / exp / log1p on the FP32 pipes
-// and the SFU) that no tensor core lifts.
+// cores (494.5 T bf16 FMA/s dense). Delta f32, the TPU's HIGHEST: 2
+// rotations + 1 contraction at 6 products each, 74 K FMAs a column (0.30
+// ms), against 256 bytes of f32 X a column (0.15 ms of HBM): products.
+// Delta bf16x3: 3 products each, 37 K FMAs (0.15 ms): at the ridge. Plain
+// bf16 on bf16 X: 8 K FMAs against 128 bytes (0.03 / 0.08 ms): bytes.
+// Beside them, 1.3e8 density evaluations (tanh / exp / log1p on the FP32
+// pipes and the SFU) that no tensor core lifts.
 //
 // What the design does about it.
 //   * Rotation and contraction on mma.sync m16n8k16 bf16 (mma_tiers.cuh):
-//     bf16x3 is three products into one f32 accumulator. W (and dm in
-//     delta mode) are split into bf16 hi/lo tiles once per block and read
+//     bf16x3 is three products into one f32 accumulator, f32 six. W (and
+//     dm in delta mode) are split into bf16 tiles once per block and read
 //     with ldmatrix.
+//   * The f32 tier's sums. The tensor cores round each MMA's sum toward
+//     zero, so a chain of MMAs drifts by up to an ulp a link, always the
+//     same way, and a row sum over 2M columns of Y^2 would carry it.
+//     The rotation therefore puts hi on a fixed-point grid per row of W
+//     (dm) and per column of X (2^-7 of its largest magnitude, mma_tiers.cuh
+//     grid_sigma), so every hi*hi sum over the 64 rows is exact; mid and
+//     lo split the rest elementwise, and their five products go to an
+//     accumulator of their own, added last to nearest. The contraction
+//     splits psi and Y elementwise and sums each 16-column step's six
+//     products (small first, hi*hi last) in a fresh accumulator that is
+//     added to G in f32, to nearest.
 //   * X comes through a 2-stage cp.async ring (16-byte copies where every
 //     row is 16-byte aligned, else 4-byte ones; bf16 X with unaligned rows
 //     takes plain loads), zero-filled past N and T, so the next sub-tile
 //     lands while the current one is used; 3 and 4 stages measured no
-//     faster. f32 X is split into bf16 hi/lo as a warp loads its B
-//     fragments; each element is split by the two warps that share its
-//     column, not by eight.
+//     faster. The f32 tier splits each landed sub-tile of X once, all
+//     threads together, into three part tiles in psi's space (free until
+//     the density), which the warps read with ldmatrix; the bf16 tiers
+//     split f32 X as a warp loads its B fragments, each element by the two
+//     warps that share its column.
 //   * The density runs on the rotation's accumulator fragments in
 //     registers, and the row sums stay there. Y, psi (and psi', Y^2 for H)
-//     go to shared memory as bf16 hi/lo tiles, Y into the ring stage whose
+//     go to shared memory as bf16 part tiles, Y into the ring stage whose
 //     X was just consumed; the contraction G += psi Y^T reads them with
 //     ldmatrix, and each warp holds its 16 x 32 share of G (and H) in
 //     registers across the block's columns.
 //   * 8 warps a block, 2 blocks an SM (1 with H at bf16x3, whose tiles
-//     take 96 KB besides the ring); three barriers a 64-column sub-tile.
+//     take 96 KB besides the ring, and at f32, 198 KB). The f32 tier
+//     without H (the main path's final stage) takes 32-column sub-tiles
+//     with 16 rows a warp in the rotation: its three tiles an operand then
+//     take 103 KB and 128 registers, so two blocks, 16 warps, share an SM
+//     and one's density runs while another's products do. Three barriers
+//     a sub-tile (five at the f32 tier, whose split of X takes two).
 //   * Tiles of 16 rows past N are skipped; padded rows and columns are
 //     zeros, and psi', log_lik (nonzero at 0) are masked at padded columns.
+//     The f32 tier runs all 64 rows, so that its loops unroll and its
+//     independent MMA chains interleave.
 //
 // One partial per COLS columns (as the scalar kernels), written at
 // out + block * stride, so the caller can fold all outputs in one pass.
@@ -51,21 +72,40 @@
 namespace {
 
 constexpr int NMAX = 64;
-constexpr int BT = 64;            // columns per sub-tile
 constexpr int COLS = 2048;        // columns per partial (COLS_PER_BLOCK)
-constexpr int THREADS = 256;
-constexpr int LDB = 72;           // row stride (elements) of every bf16 tile: 144 B
-constexpr int LDX = 68;           // row stride (floats) of an f32 X stage
-constexpr int TILE = NMAX * LDB;  // elements of one bf16 tile
-constexpr int TILE_BYTES = TILE * 2;
-constexpr int RED_FLOATS = 4 * 4 * NMAX;  // row sums: type x column group x row
+constexpr int WARPS = 8;
+constexpr int THREADS = 32 * WARPS;
+constexpr int LDB = 72;           // row stride (elements) of a W tile: 144 B
+constexpr int TILE_W = NMAX * LDB;  // elements of one W tile
 constexpr int STAGES = 2;                 // X sub-tiles in the cp.async ring
 constexpr int SM_SMEM = 233472;           // shared memory of an SM for its blocks
 constexpr int BLOCK_RESERVED = 1024;      // kept by the system per block
-static_assert(COLS % BT == 0, "");
 
-// Blocks an SM: 2, but 1 with H at bf16x3 (three pairs of hi/lo tiles).
-constexpr int blocks_per_sm(bool need_h, bool ct_x3) { return need_h && ct_x3 ? 1 : 2; }
+// The rotation's warp shape: RG row groups of 64 / RG rows (MI 16-row
+// m-tiles) x CGS column groups of 16 columns. 2 row groups over 64-column
+// sub-tiles; the f32 tier without H takes 4 row groups over 32-column
+// sub-tiles, whose tiles are half as wide, so that two blocks (16 warps)
+// share an SM.
+template <int CT, bool NEED_H>
+struct Shape {
+  static constexpr int RG = CT == F32 && !NEED_H ? 4 : 2;
+  static constexpr int MI = NMAX / RG / 16;
+  static constexpr int CGS = WARPS / RG;
+  static constexpr int BT = 16 * CGS;           // columns per sub-tile
+  static constexpr int LDT = BT + 8;            // row stride (elements) of a Y / psi tile
+  static constexpr int TILE = NMAX * LDT;       // elements of one Y / psi tile
+  static constexpr int LDX = BT + 4;            // row stride (floats) of an f32 X stage
+  static constexpr int RED_FLOATS = 4 * CGS * NMAX;  // row sums: type x column group x row
+  static_assert(COLS % BT == 0, "");
+  static_assert(RED_FLOATS >= 2 * NMAX && RED_FLOATS >= WARPS * BT,
+                "the row grids of W and dm, and the column maxima of X, fit the row-sum space");
+};
+
+// Blocks an SM: 2, but 1 with H at the f32 tier and at bf16x3 (three
+// tiles, or pairs of tiles, for each of psi, psi', Y, Y^2).
+constexpr int blocks_per_sm(bool need_h, int ct) {
+  return need_h && ct != BF16 ? 1 : 2;
+}
 
 struct TcParams {
   int n, nr;  // components; live rows (n rounded up to 16)
@@ -79,99 +119,186 @@ struct TcParams {
   long long stride;
 };
 
-template <bool DELTA, bool ROT_X3, bool CT_X3, bool XB, bool NEED_H>
+// ROT, CT: the tiers (density.cuh) of the rotation and the contraction;
+// an operand at a tier is parts(tier) bf16 tiles.
+template <bool DELTA, int ROT, int CT, bool XB, bool NEED_H>
 struct TcLayout {
-  static_assert(!(XB && ROT_X3), "bf16 X rotates at the bf16 tier");
-  static constexpr int W_TILES = (DELTA ? 2 : 1) * (ROT_X3 ? 2 : 1);
-  static constexpr int CT_TILES = CT_X3 ? 2 : 1;
-  static constexpr int X_BYTES = XB ? TILE_BYTES : NMAX * LDX * 4;
-  static constexpr int Y_BYTES = CT_TILES * TILE_BYTES;
+  using Sh = Shape<CT, NEED_H>;
+  static_assert(!(XB && ROT != BF16), "bf16 X rotates at the bf16 tier");
+  static constexpr int W_TILES = (DELTA ? 2 : 1) * parts(ROT);
+  static constexpr int CT_TILES = parts(CT);
+  static constexpr int T_BYTES = Sh::TILE * 2;
+  static constexpr int X_BYTES = XB ? T_BYTES : NMAX * Sh::LDX * 4;
+  static constexpr int Y_BYTES = CT_TILES * T_BYTES;
   static constexpr int STAGE = X_BYTES > Y_BYTES ? X_BYTES : Y_BYTES;
-  static constexpr int RING = W_TILES * TILE_BYTES;
+  static constexpr int RING = W_TILES * TILE_W * 2;
   static constexpr int PSI = RING + STAGES * STAGE;
-  static constexpr int RED = PSI + (NEED_H ? 3 : 1) * CT_TILES * TILE_BYTES;
-  static constexpr int BYTES = RED + RED_FLOATS * 4;
-  static_assert(blocks_per_sm(NEED_H, CT_X3) * (BYTES + BLOCK_RESERVED) <= SM_SMEM,
+  static constexpr int RED = PSI + (NEED_H ? 3 : 1) * CT_TILES * T_BYTES;
+  static constexpr int BYTES = RED + Sh::RED_FLOATS * 4;
+  static_assert(blocks_per_sm(NEED_H, CT) * (BYTES + BLOCK_RESERVED) <= SM_SMEM,
                 "the blocks an SM fit its shared memory");
 };
 
 // Issue the copies of X columns [c0, c0 + BT), rows [0, nr), into `dst`;
 // entries outside [0, n) x [0, t) are zero-filled. The caller commits.
-template <bool XB>
-__device__ __forceinline__ void load_x(unsigned char* dst, const TcParams& p, long long c0) {
+template <class Sh, bool XB>
+__device__ __forceinline__ void load_x(unsigned char* dst, const TcParams& p, int nr,
+                                       long long c0) {
+  constexpr int BT = Sh::BT;
   const int tid = threadIdx.x;
   if (XB) {
     const __nv_bfloat16* x = reinterpret_cast<const __nv_bfloat16*>(p.x);
     __nv_bfloat16* s = reinterpret_cast<__nv_bfloat16*>(dst);
     if (p.vec) {  // t % 8 == 0: an 8-element chunk is all in or all out
-      for (int u = tid; u < p.nr * (BT / 8); u += THREADS) {
+      for (int u = tid; u < nr * (BT / 8); u += THREADS) {
         const int r = u / (BT / 8), c = (u % (BT / 8)) * 8;
         const bool in = r < p.n && c0 + c < p.t;
-        cp_async16_zfill(s + r * LDB + c, in ? x + r * p.t + c0 + c : x, in);
+        cp_async16_zfill(s + r * Sh::LDT + c, in ? x + r * p.t + c0 + c : x, in);
       }
     } else {  // rows not 4-byte aligned: plain loads
-      for (int u = tid; u < p.nr * BT; u += THREADS) {
+      for (int u = tid; u < nr * BT; u += THREADS) {
         const int r = u / BT, c = u % BT;
         const bool in = r < p.n && c0 + c < p.t;
-        s[r * LDB + c] = in ? x[r * p.t + c0 + c] : __float2bfloat16_rn(0.f);
+        s[r * Sh::LDT + c] = in ? x[r * p.t + c0 + c] : __float2bfloat16_rn(0.f);
       }
     }
   } else {
     const float* x = reinterpret_cast<const float*>(p.x);
     float* s = reinterpret_cast<float*>(dst);
     if (p.vec) {  // t % 4 == 0
-      for (int u = tid; u < p.nr * (BT / 4); u += THREADS) {
+      for (int u = tid; u < nr * (BT / 4); u += THREADS) {
         const int r = u / (BT / 4), c = (u % (BT / 4)) * 4;
         const bool in = r < p.n && c0 + c < p.t;
-        cp_async16_zfill(s + r * LDX + c, in ? x + r * p.t + c0 + c : x, in);
+        cp_async16_zfill(s + r * Sh::LDX + c, in ? x + r * p.t + c0 + c : x, in);
       }
     } else {
-      for (int u = tid; u < p.nr * BT; u += THREADS) {
+      for (int u = tid; u < nr * BT; u += THREADS) {
         const int r = u / BT, c = u % BT;
         const bool in = r < p.n && c0 + c < p.t;
-        cp_async4_zfill(s + r * LDX + c, in ? x + r * p.t + c0 + c : x, in);
+        cp_async4_zfill(s + r * Sh::LDX + c, in ? x + r * p.t + c0 + c : x, in);
       }
     }
   }
 }
 
-// Two values as bf16 tiers into tile(s) at element offset `off`: hi (and
-// lo when X3).
-template <bool X3>
-__device__ __forceinline__ void store_pair(__nv_bfloat16* hi_tile, int off, float a, float b) {
-  uint32_t hi, lo;
-  if (X3) {
-    split_pair(a, b, hi, lo);
-    *reinterpret_cast<uint32_t*>(hi_tile + TILE + off) = lo;
+// Two values as the bf16x2 registers of their parts at the tier, split
+// elementwise.
+template <int TIER>
+__device__ __forceinline__ void split_parts(float a, float b, uint32_t (&v)[parts(TIER)]) {
+  if constexpr (TIER == BF16) {
+    v[0] = pack_bf16(a, b);
+  } else if constexpr (TIER == BF16X3) {
+    split_pair(a, b, v[0], v[1]);
   } else {
-    hi = pack_bf16(a, b);
+    split3_pair(a, b, v[0], v[1], v[2]);
   }
-  *reinterpret_cast<uint32_t*>(hi_tile + off) = hi;
 }
 
-// Warps: in the rotation, warp w owns rows 32 (w / 4) .. + 31 (two 16-row
-// m-tiles) and sub-tile columns 16 (w % 4) .. + 15 (two 8-column n-tiles);
-// in the contraction, rows 16 (w % 4) .. + 15 of G and columns 32 (w / 4)
-// .. + 31 (four n-tiles).
-template <bool DELTA, bool ROT_X3, bool CT_X3, bool XB, int D, bool NEED_H>
-__global__ void __launch_bounds__(THREADS, blocks_per_sm(NEED_H, CT_X3))
+// Two values as their parts' tiles at element offset `off` (part q at
+// + q * TILE).
+template <int TIER, int TILE>
+__device__ __forceinline__ void store_pair(__nv_bfloat16* tile, int off, float a, float b) {
+  uint32_t v[parts(TIER)];
+  split_parts<TIER>(a, b, v);
+#pragma unroll
+  for (int q = 0; q < parts(TIER); ++q)
+    *reinterpret_cast<uint32_t*>(tile + q * TILE + off) = v[q];
+}
+
+// One weight into its parts' tiles at `dst` (part q at + q * TILE_W); at
+// the f32 tier hi lies on its row's grid `sigma`.
+template <int TIER>
+__device__ __forceinline__ void split_weight(float v, float sigma, __nv_bfloat16* dst) {
+  float r[3] = {};
+  if constexpr (TIER == F32) {
+    r[0] = grid_round(v, sigma);
+    r[1] = bf16_round(v - r[0]);
+    r[2] = bf16_round(v - r[0] - r[1]);
+  } else {
+    const Sp s = split<TIER>(v);
+    r[0] = s.hi;
+    r[1] = s.lo;
+  }
+#pragma unroll
+  for (int q = 0; q < parts(TIER); ++q) dst[q * TILE_W] = __float2bfloat16_rn(r[q]);
+}
+
+// The f32 tier's rotation operand: the X sub-tile at `xs` (f32, row
+// stride LDX) split once into its three bf16 part tiles at `xp` (part u at
+// + u * TILE, [k][n] with row stride LDT), hi on the grid of its column's
+// largest magnitude. Each thread takes a column pair over NMAX / GROUPS
+// rows; the column maxima meet through `part_max` (WARPS x BT floats).
+// Ends with the parts written by this thread; the caller syncs.
+template <class Sh>
+__device__ __forceinline__ void split_x_parts(const float* xs, __nv_bfloat16* xp,
+                                              float* part_max) {
+  constexpr int BT = Sh::BT, PAIRS = BT / 2, GROUPS = THREADS / PAIRS;
+  constexpr int ROWS = NMAX / GROUPS;
+  static_assert(NMAX % GROUPS == 0 && 32 % PAIRS == 0, "");
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int c = 2 * (tid % PAIRS), r0 = (tid / PAIRS) * ROWS;
+  float2 v[ROWS];
+  float m0 = 0.f, m1 = 0.f;
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) {
+    v[r] = *reinterpret_cast<const float2*>(xs + (r0 + r) * Sh::LDX + c);
+    m0 = fmaxf(m0, fabsf(v[r].x));
+    m1 = fmaxf(m1, fabsf(v[r].y));
+  }
+#pragma unroll
+  for (int o = PAIRS; o < 32; o *= 2) {  // the warp's row groups
+    m0 = fmaxf(m0, __shfl_xor_sync(0xffffffffu, m0, o));
+    m1 = fmaxf(m1, __shfl_xor_sync(0xffffffffu, m1, o));
+  }
+  if (lane < PAIRS) {
+    part_max[warp * BT + c] = m0;
+    part_max[warp * BT + c + 1] = m1;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int w = 0; w < WARPS; ++w) {
+    m0 = fmaxf(m0, part_max[w * BT + c]);
+    m1 = fmaxf(m1, part_max[w * BT + c + 1]);
+  }
+  const float s0 = grid_sigma(m0), s1 = grid_sigma(m1);
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) {
+    const float h0 = grid_round(v[r].x, s0), h1 = grid_round(v[r].y, s1);
+    uint32_t u[3];
+    u[0] = pack_bf16(h0, h1);  // exact
+    split_pair(v[r].x - h0, v[r].y - h1, u[1], u[2]);
+    __nv_bfloat16* dst = xp + (r0 + r) * Sh::LDT + c;
+#pragma unroll
+    for (int q = 0; q < 3; ++q) *reinterpret_cast<uint32_t*>(dst + q * Sh::TILE) = u[q];
+  }
+}
+
+// Warps: in the rotation, warp w owns rows 16 MI (w / CGS) .. + 16 MI - 1
+// (MI 16-row m-tiles) and sub-tile columns 16 (w % CGS) .. + 15 (two
+// 8-column n-tiles); in the contraction, rows 16 (w % 4) .. + 15 of G and
+// columns 32 (w / 4) .. + 31 (four n-tiles).
+template <bool DELTA, int ROT, int CT, bool XB, int D, bool NEED_H>
+__global__ void __launch_bounds__(THREADS, blocks_per_sm(NEED_H, CT))
     rotated_fused_tc_kernel(TcParams p) {
-  using L = TcLayout<DELTA, ROT_X3, CT_X3, XB, NEED_H>;
-  constexpr int S = STAGES;
+  using L = TcLayout<DELTA, ROT, CT, XB, NEED_H>;
+  using Sh = Shape<CT, NEED_H>;
+  constexpr int S = STAGES, BT = Sh::BT, CGS = Sh::CGS, MI = Sh::MI;
+  constexpr int LDT = Sh::LDT, TILE = Sh::TILE, LDX = Sh::LDX;
+  constexpr int RP = parts(ROT), CP = parts(CT);
   extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* w_hi = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* w_lo = w_hi + (ROT_X3 ? TILE : 0);
-  __nv_bfloat16* d_hi = w_hi + (ROT_X3 ? 2 : 1) * TILE;  // DELTA
-  __nv_bfloat16* d_lo = d_hi + (ROT_X3 ? TILE : 0);
+  __nv_bfloat16* w_s = reinterpret_cast<__nv_bfloat16*>(smem);  // RP tiles
+  __nv_bfloat16* d_s = w_s + RP * TILE_W;                        // DELTA: RP tiles
   unsigned char* ring = smem + L::RING;
   __nv_bfloat16* psi_s = reinterpret_cast<__nv_bfloat16*>(smem + L::PSI);
-  __nv_bfloat16* psid_s = psi_s + L::CT_TILES * TILE;  // NEED_H
-  __nv_bfloat16* y2_s = psid_s + L::CT_TILES * TILE;   // NEED_H
+  __nv_bfloat16* psid_s = psi_s + CP * TILE;  // NEED_H
+  __nv_bfloat16* y2_s = psid_s + CP * TILE;   // NEED_H
   float* red = reinterpret_cast<float*>(smem + L::RED);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, q = lane & 3;
-  const int n = p.n, nr = p.nr;
+  // The f32 tier runs all 64 rows: with no tile skipped, its loops unroll
+  // and the independent MMA chains interleave.
+  const int n = p.n, nr = ROT == F32 ? NMAX : p.nr;
   const long long c_begin = (long long)blockIdx.x * COLS;
   const long long c_end = c_begin + COLS < p.t ? c_begin + COLS : p.t;
   const int n_sub = (int)((c_end - c_begin + BT - 1) / BT);
@@ -180,8 +307,23 @@ __global__ void __launch_bounds__(THREADS, blocks_per_sm(NEED_H, CT_X3))
   // commit group per sub-tile (empty past the block's last).
 #pragma unroll
   for (int i = 0; i < S - 1; ++i) {
-    if (i < n_sub) load_x<XB>(ring + i * L::STAGE, p, c_begin + (long long)i * BT);
+    if (i < n_sub) load_x<Sh, XB>(ring + i * L::STAGE, p, nr, c_begin + (long long)i * BT);
     cp_async_commit_group();
+  }
+
+  // The f32 tier's row grids of W and dm (in the row-sum space, which the
+  // epilogue takes over after the last barrier of the main loop).
+  float* w_sig = red;
+  if constexpr (ROT == F32) {
+    if (tid < (DELTA ? 2 : 1) * NMAX) {
+      const int i = tid % NMAX;
+      const float* m = tid < NMAX ? p.w : p.dm;
+      float mx = 0.f;
+      if (i < n)
+        for (int k = 0; k < n; ++k) mx = fmaxf(mx, fabsf(m[i * n + k]));
+      w_sig[tid] = grid_sigma(mx);
+    }
+    __syncthreads();
   }
 
   // W (and dm) split once; zeros outside [0, n)^2, so rows past n rotate
@@ -189,45 +331,53 @@ __global__ void __launch_bounds__(THREADS, blocks_per_sm(NEED_H, CT_X3))
   for (int idx = tid; idx < NMAX * NMAX; idx += THREADS) {
     const int i = idx / NMAX, k = idx % NMAX;
     const bool in = i < n && k < n;
-    const Sp s = split<ROT_X3 ? BF16X3 : BF16>(in ? p.w[i * n + k] : 0.f);
-    w_hi[i * LDB + k] = __float2bfloat16_rn(s.hi);
-    if (ROT_X3) w_lo[i * LDB + k] = __float2bfloat16_rn(s.lo);
-    if (DELTA) {
-      const Sp sd = split<ROT_X3 ? BF16X3 : BF16>(in ? p.dm[i * n + k] : 0.f);
-      d_hi[i * LDB + k] = __float2bfloat16_rn(sd.hi);
-      if (ROT_X3) d_lo[i * LDB + k] = __float2bfloat16_rn(sd.lo);
-    }
+    split_weight<ROT>(in ? p.w[i * n + k] : 0.f, w_sig[i], w_s + i * LDB + k);
+    if (DELTA) split_weight<ROT>(in ? p.dm[i * n + k] : 0.f, w_sig[NMAX + i], d_s + i * LDB + k);
   }
 
-  const int rh = warp >> 2, cg = warp & 3;  // rotation: row half, column group
-  const int cm = warp & 3, cj = warp >> 2;  // contraction: m-tile, column half
-  const bool live[2] = {32 * rh < nr, 32 * rh + 16 < nr};
+  const int rh = warp / CGS, cg = warp % CGS;  // rotation: row group, column group
+  const int cm = warp & 3, cj = warp >> 2;     // contraction: m-tile, column half
+  bool live[MI];  // the warp's m-tiles that hold rows below nr
+#pragma unroll
+  for (int mi = 0; mi < MI; ++mi) live[mi] = 16 * (MI * rh + mi) < nr;
   const int k_steps = nr / 16;
 
   // Row sums over the block's columns: [m-tile][row g / g + 8].
-  float rs_ll[2][2] = {}, rs_pm[2][2] = {}, rs_ysq[2][2] = {}, rs_dysq[2][2] = {};
+  float rs_ll[MI][2] = {}, rs_pm[MI][2] = {}, rs_ysq[MI][2] = {}, rs_dysq[MI][2] = {};
   float g_acc[4][4] = {}, h_acc[4][4] = {};
 
   for (int s = 0; s < n_sub; ++s) {
     cp_async_wait<S - 2>();
     __syncthreads();  // sub-tile s landed everywhere; stage (s - 1) % S is free
     const int ahead = s + S - 1;
-    if (ahead < n_sub) load_x<XB>(ring + (ahead % S) * L::STAGE, p, c_begin + (long long)ahead * BT);
+    if (ahead < n_sub)
+      load_x<Sh, XB>(ring + (ahead % S) * L::STAGE, p, nr, c_begin + (long long)ahead * BT);
     cp_async_commit_group();
     unsigned char* stage = ring + (s % S) * L::STAGE;
     const long long c0 = c_begin + (long long)s * BT;
+    // The f32 tier splits X once into part tiles in psi's space, which is
+    // free until the density (the previous contraction ended before the
+    // barrier above), with the column maxima in the row-sum space.
+    __nv_bfloat16* x_parts = psi_s;
+    if constexpr (ROT == F32) {
+      split_x_parts<Sh>(reinterpret_cast<const float*>(stage), x_parts, red);
+      __syncthreads();
+    }
 
-    // Rotation: acc = M x (accd = dm x) over this warp's 32 x 16 block.
-    float acc[2][2][4] = {}, accd[2][2][4] = {};
+    // Rotation: acc = M x (accd = dm x) over this warp's 16 MI x 16 block;
+    // the f32 tier's small products in accs (accds), added last.
+    float acc[MI][2][4] = {}, accd[MI][2][4] = {}, accs[MI][2][4] = {}, accds[MI][2][4] = {};
     if (live[0]) {
       for (int ks = 0; ks < k_steps; ++ks) {
-        uint32_t bh[2][2], bl[2][2];
-        if (XB) {
-          uint32_t r[4];
-          const __nv_bfloat16* xs = reinterpret_cast<const __nv_bfloat16*>(stage);
-          ldmatrix_x4_trans(r, ldm_a_addr(xs + 16 * ks * LDB + 16 * cg, LDB, lane));
-          bh[0][0] = r[0], bh[0][1] = r[1], bh[1][0] = r[2], bh[1][1] = r[3];
-          bl[0][0] = bl[0][1] = bl[1][0] = bl[1][1] = 0u;
+        uint32_t b[2][RP][2];  // [n-tile][part][b0 / b1]
+        if constexpr (XB || ROT == F32) {
+          const __nv_bfloat16* xs = XB ? reinterpret_cast<const __nv_bfloat16*>(stage) : x_parts;
+#pragma unroll
+          for (int u = 0; u < RP; ++u) {
+            uint32_t r[4];
+            ldmatrix_x4_trans(r, ldm_a_addr(xs + u * TILE + 16 * ks * LDT + 16 * cg, LDT, lane));
+            b[0][u][0] = r[0], b[0][u][1] = r[1], b[1][u][0] = r[2], b[1][u][1] = r[3];
+          }
         } else {
           const float* xs = reinterpret_cast<const float*>(stage) + (16 * ks + 2 * q) * LDX;
 #pragma unroll
@@ -235,32 +385,27 @@ __global__ void __launch_bounds__(THREADS, blocks_per_sm(NEED_H, CT_X3))
             const float* col = xs + 16 * cg + 8 * nt + g;
 #pragma unroll
             for (int kh = 0; kh < 2; ++kh) {
-              const float v0 = col[(8 * kh) * LDX], v1 = col[(8 * kh + 1) * LDX];
-              if (ROT_X3) {
-                split_pair(v0, v1, bh[nt][kh], bl[nt][kh]);
-              } else {
-                bh[nt][kh] = pack_bf16(v0, v1);
-                bl[nt][kh] = 0u;
-              }
+              uint32_t v[RP];
+              split_parts<ROT>(col[(8 * kh) * LDX], col[(8 * kh + 1) * LDX], v);
+#pragma unroll
+              for (int u = 0; u < RP; ++u) b[nt][u][kh] = v[u];
             }
           }
         }
 #pragma unroll
-        for (int mi = 0; mi < 2; ++mi) {
+        for (int mi = 0; mi < MI; ++mi) {
           if (!live[mi]) continue;
-          const int a_off = (32 * rh + 16 * mi) * LDB + 16 * ks;
-          uint32_t ah[4], al[4] = {};
-          ldmatrix_x4(ah, ldm_a_addr(w_hi + a_off, LDB, lane));
-          if (ROT_X3) ldmatrix_x4(al, ldm_a_addr(w_lo + a_off, LDB, lane));
+          const int a_off = 16 * (MI * rh + mi) * LDB + 16 * ks;
+          uint32_t a[RP][4];
 #pragma unroll
-          for (int nt = 0; nt < 2; ++nt)
-            mma_tier<ROT_X3>(acc[mi][nt], ah, al, bh[nt][0], bh[nt][1], bl[nt][0], bl[nt][1]);
+          for (int u = 0; u < RP; ++u) ldmatrix_x4(a[u], ldm_a_addr(w_s + u * TILE_W + a_off, LDB, lane));
+#pragma unroll
+          for (int nt = 0; nt < 2; ++nt) mma_tier<ROT>(acc[mi][nt], accs[mi][nt], a, b[nt]);
           if (DELTA) {
-            ldmatrix_x4(ah, ldm_a_addr(d_hi + a_off, LDB, lane));
-            if (ROT_X3) ldmatrix_x4(al, ldm_a_addr(d_lo + a_off, LDB, lane));
 #pragma unroll
-            for (int nt = 0; nt < 2; ++nt)
-              mma_tier<ROT_X3>(accd[mi][nt], ah, al, bh[nt][0], bh[nt][1], bl[nt][0], bl[nt][1]);
+            for (int u = 0; u < RP; ++u) ldmatrix_x4(a[u], ldm_a_addr(d_s + u * TILE_W + a_off, LDB, lane));
+#pragma unroll
+            for (int nt = 0; nt < 2; ++nt) mma_tier<ROT>(accd[mi][nt], accds[mi][nt], a, b[nt]);
           }
         }
       }
@@ -271,26 +416,29 @@ __global__ void __launch_bounds__(THREADS, blocks_per_sm(NEED_H, CT_X3))
     // into this stage, psi (psi', Y^2) into theirs.
     __nv_bfloat16* y_s = reinterpret_cast<__nv_bfloat16*>(stage);
 #pragma unroll
-    for (int mi = 0; mi < 2; ++mi) {
+    for (int mi = 0; mi < MI; ++mi) {
       if (!live[mi]) continue;
 #pragma unroll
       for (int nt = 0; nt < 2; ++nt) {
         const int col = 16 * cg + 8 * nt + 2 * q;
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh) {
-          const int row = 32 * rh + 16 * mi + g + 8 * hh;
+          const int row = 16 * (MI * rh + mi) + g + 8 * hh;
           float yv[2], ps[2], pd[2];
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
+            const int f = 2 * hh + e;
             const bool valid = c0 + col + e < p.t;
             float y, psi, psid, ll, dysq = 0.f;
+            // The f32 tier: the small products' sum, then hi*hi's.
+            const float y0 = ROT == F32 ? accs[mi][nt][f] + acc[mi][nt][f] : acc[mi][nt][f];
             if (DELTA) {
-              const float y_old = acc[mi][nt][2 * hh + e], dy = accd[mi][nt][2 * hh + e];
-              y = y_old + dy;
-              score_der_loglik_delta<D>(p, y_old, dy, psi, psid, ll);
-              dysq = (2.f * y_old + dy) * dy;
+              const float dy = ROT == F32 ? accds[mi][nt][f] + accd[mi][nt][f] : accd[mi][nt][f];
+              y = y0 + dy;
+              score_der_loglik_delta<D>(p, y0, dy, psi, psid, ll);
+              dysq = (2.f * y0 + dy) * dy;
             } else {
-              y = acc[mi][nt][2 * hh + e];
+              y = y0;
               score_der_loglik<D>(p, y, psi, psid, ll);
             }
             if (valid) {
@@ -305,45 +453,64 @@ __global__ void __launch_bounds__(THREADS, blocks_per_sm(NEED_H, CT_X3))
             ps[e] = psi;  // psi(0) == 0 at padded columns
             pd[e] = valid ? psid : 0.f;
           }
-          const int off = row * LDB + col;
-          store_pair<CT_X3>(y_s, off, yv[0], yv[1]);
-          store_pair<CT_X3>(psi_s, off, ps[0], ps[1]);
+          const int off = row * LDT + col;
+          store_pair<CT, TILE>(y_s, off, yv[0], yv[1]);
+          store_pair<CT, TILE>(psi_s, off, ps[0], ps[1]);
           if (NEED_H) {
-            store_pair<CT_X3>(psid_s, off, pd[0], pd[1]);
-            store_pair<CT_X3>(y2_s, off, yv[0] * yv[0], yv[1] * yv[1]);
+            store_pair<CT, TILE>(psid_s, off, pd[0], pd[1]);
+            store_pair<CT, TILE>(y2_s, off, yv[0] * yv[0], yv[1] * yv[1]);
           }
         }
       }
     }
     __syncthreads();  // the tiles are complete
 
-    // Contraction: G += psi Y^T (H += psi' (Y^2)^T) over the sub-tile.
+    // Contraction: G += psi Y^T (H += psi' (Y^2)^T) over the sub-tile. The
+    // f32 tier sums each 16-column step's six products in a fresh
+    // accumulator and adds it to G in f32, to nearest.
     if (16 * cm < nr) {
 #pragma unroll
       for (int ks = 0; ks < BT / 16; ++ks) {
-        const int a_off = 16 * cm * LDB + 16 * ks;
-        uint32_t ah[4], al[4] = {}, dh[4], dl[4] = {};
-        ldmatrix_x4(ah, ldm_a_addr(psi_s + a_off, LDB, lane));
-        if (CT_X3) ldmatrix_x4(al, ldm_a_addr(psi_s + TILE + a_off, LDB, lane));
-        if (NEED_H) {
-          ldmatrix_x4(dh, ldm_a_addr(psid_s + a_off, LDB, lane));
-          if (CT_X3) ldmatrix_x4(dl, ldm_a_addr(psid_s + TILE + a_off, LDB, lane));
+        const int a_off = 16 * cm * LDT + 16 * ks;
+        uint32_t a[CP][4], ad[CP][4];
+#pragma unroll
+        for (int u = 0; u < CP; ++u) {
+          ldmatrix_x4(a[u], ldm_a_addr(psi_s + u * TILE + a_off, LDT, lane));
+          if (NEED_H) ldmatrix_x4(ad[u], ldm_a_addr(psid_s + u * TILE + a_off, LDT, lane));
         }
 #pragma unroll
         for (int np = 0; np < 2; ++np) {
           const int j0 = 32 * cj + 16 * np;
           if (j0 >= nr) continue;
-          const int b_off = j0 * LDB + 16 * ks;
-          uint32_t bh[4], bl[4] = {};
-          ldmatrix_x4(bh, ldm_b_addr(y_s + b_off, LDB, lane));
-          if (CT_X3) ldmatrix_x4(bl, ldm_b_addr(y_s + TILE + b_off, LDB, lane));
-          mma_tier<CT_X3>(g_acc[2 * np], ah, al, bh[0], bh[1], bl[0], bl[1]);
-          mma_tier<CT_X3>(g_acc[2 * np + 1], ah, al, bh[2], bh[3], bl[2], bl[3]);
+          const int b_off = j0 * LDT + 16 * ks;
+          uint32_t b[2][CP][2];  // [n-tile][part][b0 / b1]
+          auto load_b = [&](const __nv_bfloat16* tile) {
+#pragma unroll
+            for (int u = 0; u < CP; ++u) {
+              uint32_t r[4];
+              ldmatrix_x4(r, ldm_b_addr(tile + u * TILE + b_off, LDT, lane));
+              b[0][u][0] = r[0], b[0][u][1] = r[1], b[1][u][0] = r[2], b[1][u][1] = r[3];
+            }
+          };
+          auto contract = [&](float (&dst)[4][4], const uint32_t (&af)[CP][4]) {
+#pragma unroll
+            for (int nt = 0; nt < 2; ++nt) {
+              float(&d)[4] = dst[2 * np + nt];
+              if constexpr (CT == F32) {
+                float t[4] = {};
+                mma_tier<CT>(t, t, af, b[nt]);
+#pragma unroll
+                for (int e = 0; e < 4; ++e) d[e] += t[e];
+              } else {
+                mma_tier<CT>(d, d, af, b[nt]);
+              }
+            }
+          };
+          load_b(y_s);
+          contract(g_acc, a);
           if (NEED_H) {
-            ldmatrix_x4(bh, ldm_b_addr(y2_s + b_off, LDB, lane));
-            if (CT_X3) ldmatrix_x4(bl, ldm_b_addr(y2_s + TILE + b_off, LDB, lane));
-            mma_tier<CT_X3>(h_acc[2 * np], dh, dl, bh[0], bh[1], bl[0], bl[1]);
-            mma_tier<CT_X3>(h_acc[2 * np + 1], dh, dl, bh[2], bh[3], bl[2], bl[3]);
+            load_b(y2_s);
+            contract(h_acc, ad);
           }
         }
       }
@@ -351,10 +518,10 @@ __global__ void __launch_bounds__(THREADS, blocks_per_sm(NEED_H, CT_X3))
   }
 
   // Epilogue: the block's partial. Row sums: the quad's lanes, then the
-  // four column groups in order, through shared memory.
+  // column groups in order, through shared memory.
   const long long base = (long long)blockIdx.x * p.stride;
 #pragma unroll
-  for (int mi = 0; mi < 2; ++mi) {
+  for (int mi = 0; mi < MI; ++mi) {
     if (!live[mi]) continue;
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
@@ -365,9 +532,9 @@ __global__ void __launch_bounds__(THREADS, blocks_per_sm(NEED_H, CT_X3))
         v[k] += __shfl_xor_sync(0xffffffffu, v[k], 2);
       }
       if (q == 0) {
-        const int row = 32 * rh + 16 * mi + g + 8 * hh;
+        const int row = 16 * (MI * rh + mi) + g + 8 * hh;
 #pragma unroll
-        for (int k = 0; k < 4; ++k) red[(k * 4 + cg) * NMAX + row] = v[k];
+        for (int k = 0; k < 4; ++k) red[(k * CGS + cg) * NMAX + row] = v[k];
       }
     }
   }
@@ -376,8 +543,10 @@ __global__ void __launch_bounds__(THREADS, blocks_per_sm(NEED_H, CT_X3))
     float v[4];
 #pragma unroll
     for (int k = 0; k < 4; ++k) {
-      const float* r = red + k * 4 * NMAX + tid;
-      v[k] = ((r[0] + r[NMAX]) + r[2 * NMAX]) + r[3 * NMAX];
+      const float* r = red + k * CGS * NMAX + tid;
+      v[k] = r[0];
+#pragma unroll
+      for (int c = 1; c < CGS; ++c) v[k] += r[c * NMAX];
     }
     p.ll[base + tid] = v[0];
     p.pm[base + tid] = v[1];
@@ -403,10 +572,10 @@ __global__ void __launch_bounds__(THREADS, blocks_per_sm(NEED_H, CT_X3))
 
 constexpr int MAX_DEVICES = 64;
 
-template <bool DELTA, bool ROT_X3, bool CT_X3, bool XB, int D, bool NEED_H>
+template <bool DELTA, int ROT, int CT, bool XB, int D, bool NEED_H>
 cudaError_t launch_tc(const TcParams& p, int nb, cudaStream_t st) {
-  constexpr int smem = TcLayout<DELTA, ROT_X3, CT_X3, XB, NEED_H>::BYTES;
-  auto kernel = rotated_fused_tc_kernel<DELTA, ROT_X3, CT_X3, XB, D, NEED_H>;
+  constexpr int smem = TcLayout<DELTA, ROT, CT, XB, NEED_H>::BYTES;
+  auto kernel = rotated_fused_tc_kernel<DELTA, ROT, CT, XB, D, NEED_H>;
   // The shared-memory opt-in, once per device.
   static bool opted_in[MAX_DEVICES] = {};
   int device = 0;
@@ -421,41 +590,43 @@ cudaError_t launch_tc(const TcParams& p, int nb, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-template <bool DELTA, bool ROT_X3, bool CT_X3, bool XB, bool NEED_H>
+template <bool DELTA, int ROT, int CT, bool XB, bool NEED_H>
 cudaError_t by_density(int dens, const TcParams& p, int nb, cudaStream_t st) {
   switch (dens) {
-    case TANH: return launch_tc<DELTA, ROT_X3, CT_X3, XB, TANH, NEED_H>(p, nb, st);
-    case EXP: return launch_tc<DELTA, ROT_X3, CT_X3, XB, EXP, NEED_H>(p, nb, st);
-    case CUBE: return launch_tc<DELTA, ROT_X3, CT_X3, XB, CUBE, NEED_H>(p, nb, st);
+    case TANH: return launch_tc<DELTA, ROT, CT, XB, TANH, NEED_H>(p, nb, st);
+    case EXP: return launch_tc<DELTA, ROT, CT, XB, EXP, NEED_H>(p, nb, st);
+    case CUBE: return launch_tc<DELTA, ROT, CT, XB, CUBE, NEED_H>(p, nb, st);
   }
   return cudaErrorInvalidValue;
 }
 
-template <bool DELTA, bool ROT_X3, bool CT_X3, bool XB>
+template <bool DELTA, int ROT, int CT, bool XB>
 cudaError_t by_h(int need_h, int dens, const TcParams& p, int nb, cudaStream_t st) {
-  return need_h ? by_density<DELTA, ROT_X3, CT_X3, XB, true>(dens, p, nb, st)
-                : by_density<DELTA, ROT_X3, CT_X3, XB, false>(dens, p, nb, st);
+  return need_h ? by_density<DELTA, ROT, CT, XB, true>(dens, p, nb, st)
+                : by_density<DELTA, ROT, CT, XB, false>(dens, p, nb, st);
 }
 
 // The tier pairs the wrapper sends: (BF16, BF16) on f32 or bf16 X,
-// (BF16X3, BF16X3) on f32 X, (BF16, BF16X3) on bf16 X.
+// (BF16X3, BF16X3) and (F32, F32) on f32 X, (BF16, BF16X3) on bf16 X.
 template <bool DELTA>
 cudaError_t by_tiers(int rot, int ct, int x_bf16, int need_h, int dens, const TcParams& p,
                      int nb, cudaStream_t st) {
   if (rot == BF16 && ct == BF16)
-    return x_bf16 ? by_h<DELTA, false, false, true>(need_h, dens, p, nb, st)
-                  : by_h<DELTA, false, false, false>(need_h, dens, p, nb, st);
+    return x_bf16 ? by_h<DELTA, BF16, BF16, true>(need_h, dens, p, nb, st)
+                  : by_h<DELTA, BF16, BF16, false>(need_h, dens, p, nb, st);
   if (rot == BF16X3 && ct == BF16X3 && !x_bf16)
-    return by_h<DELTA, true, true, false>(need_h, dens, p, nb, st);
+    return by_h<DELTA, BF16X3, BF16X3, false>(need_h, dens, p, nb, st);
+  if (rot == F32 && ct == F32 && !x_bf16)
+    return by_h<DELTA, F32, F32, false>(need_h, dens, p, nb, st);
   if (rot == BF16 && ct == BF16X3 && x_bf16)
-    return by_h<DELTA, false, true, true>(need_h, dens, p, nb, st);
+    return by_h<DELTA, BF16, BF16X3, true>(need_h, dens, p, nb, st);
   return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
 // Called by picard_rotated_fused_sums (rotated_sums.cu) for every tier
-// pair but (F32, F32); its arguments, already checked there.
+// pair; its arguments, already checked there.
 int rotated_fused_tc(int delta, int rot_tier, int ct_tier, int density, int need_h,
                      int need_ysq, double alpha, int n, long long t, int x_bf16,
                      const float* w, const float* dm, const void* x, float* dll,

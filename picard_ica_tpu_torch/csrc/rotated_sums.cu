@@ -1,37 +1,34 @@
-// Hand-written Hopper (sm_90a) kernels for the three data passes of the
-// Picard-O core loop. One templated kernel body serves all three:
+// Hand-written Hopper (sm_90a) kernels for two data passes of the
+// Picard-O core loop, and the C entries of all three. One templated
+// kernel body serves both:
 //
-//   picard_rotated_fused_sums   replaces picard_ica_tpu/ops/pallas_kernels.py
-//                               rotated_fused_sums / _rotated_fused_kernel
-//                               (one line-search try: loss delta or absolute
-//                               log-lik of M_new X, plus the candidate's
-//                               G, sum psi', H, sum Y^2 in ONE read of X);
-//   picard_rotated_moments_sums replaces rotated_moments_sums /
+//   picard_rotated_moments_sums replaces picard_ica_tpu/ops/pallas_kernels.py
+//                               rotated_moments_sums /
 //                               _rotated_moments_kernel (G, sum psi', H,
 //                               sum Y^2 of Y = W X);
 //   picard_rotated_loglik_sums  replaces rotated_loglik_sums /
 //                               _rotated_loglik_kernel (sum log_lik(M X),
 //                               sum (M X)^2 per row).
 //
+// The third, picard_rotated_fused_sums (rotated_fused_sums /
+// _rotated_fused_kernel: one line-search try in one read of X), runs
+// every tier on the tensor cores (rotated_fused_tc.cu); its entry below
+// checks the shape and hands over.
+//
 // What bounds them on the card, at N = 64 (4096 FMAs per 64 x 64
 // product per column of X; the H100's scalar-FP32 peak of 33.5 T FMA/s
 // against 3.35 TB/s of HBM puts the line at 10 FMA per byte):
-//   fused, delta f32: 2 rotations + 1-2 contractions = 12-16 K FMAs per
-//     256 bytes of f32 X: 48-64 FMA/B;
-//   moments: 8-12 K FMAs per 256 bytes: 32-48 FMA/B;
+//   moments: 8-12 K FMAs per 256 bytes of f32 X: 32-48 FMA/B;
 //   loglik: 4 K FMAs (+ 64 exp/log1p) per 256 bytes: 16 FMA/B.
-// All three are bound by the FP32 pipes (scalar FMA), with shared-memory
-// load bandwidth the second limit. The fused pass's bf16 and bf16x3 tiers
-// run on the tensor cores instead (rotated_fused_tc.cu): the C entry below
-// sends every tier pair but (F32, F32) there.
+// Both are bound by the FP32 pipes (scalar FMA), with shared-memory
+// load bandwidth the second limit.
 //
 // What the design does about it.
 //   * X is read from HBM exactly once per call; Y, psi(Y), psi'(Y) never
 //     leave the SM (shared-memory tiles of BT columns).
-//   * W (and dm = M_new - M_old in delta mode) sit in shared memory,
-//     rounded at the block's start to the rotation tier (bf16 for bf16
-//     X), so the inner loops issue only FMAs and broadcast float4 loads
-//     of W.
+//   * W sits in shared memory, rounded at the block's start to the
+//     rotation tier (bf16 for bf16 X), so the inner loops issue only FMAs
+//     and broadcast float4 loads of W.
 //   * Each thread owns an 8 x 4 register tile of the rotation and a 4 x 4
 //     register tile of G and H; the tiles have a padded row stride
 //     (BT + 1) so both access patterns are free of bank conflicts.
@@ -67,12 +64,11 @@ constexpr int RT_COLS = BT / 32;    // columns per thread (c = tx + 32 q)
 // Contraction phase: threads as 16 x 16 over the N x N outputs.
 constexpr int CT_DIM = NMAX / 16;   // i = ca + 16 u, j = cb + 16 v
 
-enum Mode { MOMENTS = 0, LOGLIK = 1, FUSED_PLAIN = 2, FUSED_DELTA = 3 };
+enum Mode { MOMENTS = 0, LOGLIK = 1 };
 
 // Block b's partial of each output starts at out + b * stride.
 struct Outs {
-  float* ll;    // (n) log-lik (delta) row sums
-  float* dysq;  // (n) sum (2 y_old + dy) dy, or sum y^2 in plain mode
+  float* ll;    // (n) log-lik row sums
   float* g;     // (n, n) psi(Y) Y^T
   float* pm;    // (n) sum psi'(Y)
   float* h;     // (n, n) psi'(Y) (Y^2)^T
@@ -88,8 +84,7 @@ struct Params {
   float a;    // alpha
   float m2a;  // f32(-2 alpha), as densities.py rounds its constants
   float mha;  // f32(-alpha / 2)
-  const float* w;   // (n, n): M (W) of the rotation; M_old in delta mode
-  const float* dm;  // (n, n): M_new - M_old (delta mode only)
+  const float* w;   // (n, n): M (W) of the rotation
   const void* x;    // (n, t) f32 or bf16, row-major
   Outs out;
 };
@@ -98,27 +93,23 @@ struct Params {
 
 template <int MODE, bool NEED_H>
 struct Layout {
-  static constexpr bool DELTA = MODE == FUSED_DELTA;
-  static constexpr bool CONTRACT = MODE != LOGLIK;
-  static constexpr int W_MATS = 1 + (DELTA ? 1 : 0);
+  static constexpr bool CONTRACT = MODE == MOMENTS;
   static constexpr int TILES = 1 + (CONTRACT ? 1 : 0) + (NEED_H ? 1 : 0);
   static constexpr size_t BYTES =
-      sizeof(float) * ((size_t)W_MATS * NMAX * NMAX + (size_t)TILES * NMAX * TS);
+      sizeof(float) * ((size_t)NMAX * NMAX + (size_t)TILES * NMAX * TS);
 };
 
 // ROT: the rotation tier, F32 or BF16 (bf16 X).
 template <int MODE, int ROT, int D, bool NEED_H>
 __global__ void __launch_bounds__(THREADS, 1) rotated_sums_kernel(Params p) {
   using L = Layout<MODE, NEED_H>;
-  constexpr bool DELTA = L::DELTA;
   constexpr bool CONTRACT = L::CONTRACT;
-  static_assert(ROT == F32 || ROT == BF16, "bf16x3 runs in rotated_fused_tc.cu");
+  static_assert(ROT == F32 || ROT == BF16, "the fused pass runs in rotated_fused_tc.cu");
 
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   float* w_s = smem;
-  float* d_s = w_s + NMAX * NMAX;              // DELTA only
-  float* xy = smem + L::W_MATS * NMAX * NMAX;  // X tile, then Y tile
+  float* xy = smem + NMAX * NMAX;              // X tile, then Y tile
   float* psi_t = xy + NMAX * TS;               // CONTRACT only
   float* psid_t = psi_t + NMAX * TS;           // NEED_H only
 
@@ -126,23 +117,21 @@ __global__ void __launch_bounds__(THREADS, 1) rotated_sums_kernel(Params p) {
   const int n = p.n;
   const long long t_len = p.t;
 
-  // Stage W (and dm) once per block, rounded to the rotation tier; rows
-  // and columns beyond n are zero, so padded rows rotate to Y = 0.
+  // Stage W once per block, rounded to the rotation tier; rows and
+  // columns beyond n are zero, so padded rows rotate to Y = 0.
   for (int idx = tid; idx < NMAX * NMAX; idx += THREADS) {
     const int i = idx / NMAX, k = idx % NMAX;
     const bool in = i < n && k < n;
     w_s[idx] = split<ROT>(in ? p.w[i * n + k] : 0.f).hi;
-    if (DELTA) d_s[idx] = split<ROT>(in ? p.dm[i * n + k] : 0.f).hi;
   }
 
   const int tx = tid & 31, ty = tid >> 5;
   const int cb = tid & 15, ca = tid >> 4;
 
-  float rs_ll[RT_ROWS], rs_dysq[RT_ROWS], rs_pm[RT_ROWS], rs_ysq[RT_ROWS];
+  float rs_ll[RT_ROWS], rs_pm[RT_ROWS], rs_ysq[RT_ROWS];
 #pragma unroll
   for (int r = 0; r < RT_ROWS; ++r) {
     rs_ll[r] = 0.f;
-    rs_dysq[r] = 0.f;
     rs_pm[r] = 0.f;
     rs_ysq[r] = 0.f;
   }
@@ -177,16 +166,12 @@ __global__ void __launch_bounds__(THREADS, 1) rotated_sums_kernel(Params p) {
     }
     __syncthreads();
 
-    // Rotation: acc = M x (and accd = dm x in delta mode).
+    // Rotation: acc = M x.
     float acc[RT_ROWS][RT_COLS];
-    float accd[RT_ROWS][RT_COLS];
 #pragma unroll
     for (int r = 0; r < RT_ROWS; ++r)
 #pragma unroll
-      for (int q = 0; q < RT_COLS; ++q) {
-        acc[r][q] = 0.f;
-        accd[r][q] = 0.f;
-      }
+      for (int q = 0; q < RT_COLS; ++q) acc[r][q] = 0.f;
 #pragma unroll 2
     for (int k0 = 0; k0 < NMAX; k0 += 4) {
       Sp xs[4][RT_COLS];
@@ -205,15 +190,6 @@ __global__ void __launch_bounds__(THREADS, 1) rotated_sums_kernel(Params p) {
 #pragma unroll
           for (int q = 0; q < RT_COLS; ++q)
             acc[r][q] = mac<ROT>(w4[kk], xs[kk][q], acc[r][q]);
-        if (DELTA) {
-          const float4 dh = *reinterpret_cast<const float4*>(&d_s[i * NMAX + k0]);
-          const Sp d4[4] = {{dh.x, 0.f}, {dh.y, 0.f}, {dh.z, 0.f}, {dh.w, 0.f}};
-#pragma unroll
-          for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-            for (int q = 0; q < RT_COLS; ++q)
-              accd[r][q] = mac<ROT>(d4[kk], xs[kk][q], accd[r][q]);
-        }
       }
     }
     if (CONTRACT) __syncthreads();  // every thread is done reading X
@@ -226,29 +202,16 @@ __global__ void __launch_bounds__(THREADS, 1) rotated_sums_kernel(Params p) {
       for (int q = 0; q < RT_COLS; ++q) {
         const int c = tx + 32 * q;
         const bool valid = c0 + c < t_len;
-        float y, psi = 0.f, psid = 0.f, ll = 0.f, dysq = 0.f;
-        if (MODE == MOMENTS) {
-          y = acc[r][q];
+        const float y = acc[r][q];
+        float psi = 0.f, psid = 0.f, ll = 0.f;
+        if (MODE == MOMENTS)
           score_der<D>(p, y, psi, psid);
-        } else if (MODE == LOGLIK) {
-          y = acc[r][q];
+        else
           ll = log_lik<D>(p, y);
-        } else if (MODE == FUSED_PLAIN) {
-          y = acc[r][q];
-          score_der_loglik<D>(p, y, psi, psid, ll);
-        } else {
-          const float y_old = acc[r][q], dy = accd[r][q];
-          y = y_old + dy;
-          score_der_loglik_delta<D>(p, y_old, dy, psi, psid, ll);
-          dysq = (2.f * y_old + dy) * dy;
-        }
         if (valid) {
-          if (MODE != MOMENTS) rs_ll[r] += ll;
-          if (MODE != LOGLIK) rs_pm[r] += psid;
-          if (p.need_ysq) {
-            rs_ysq[r] += y * y;
-            if (DELTA) rs_dysq[r] += dysq;
-          }
+          if (MODE == LOGLIK) rs_ll[r] += ll;
+          if (MODE == MOMENTS) rs_pm[r] += psid;
+          if (p.need_ysq) rs_ysq[r] += y * y;
         }
         if (CONTRACT) {
           xy[i * TS + c] = y;
@@ -290,24 +253,19 @@ __global__ void __launch_bounds__(THREADS, 1) rotated_sums_kernel(Params p) {
   const long long blk = blockIdx.x;
 #pragma unroll
   for (int r = 0; r < RT_ROWS; ++r) {
-    float v_ll = rs_ll[r], v_dysq = rs_dysq[r], v_pm = rs_pm[r], v_ysq = rs_ysq[r];
+    float v_ll = rs_ll[r], v_pm = rs_pm[r], v_ysq = rs_ysq[r];
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1) {
       v_ll += __shfl_xor_sync(0xffffffffu, v_ll, off);
-      v_dysq += __shfl_xor_sync(0xffffffffu, v_dysq, off);
       v_pm += __shfl_xor_sync(0xffffffffu, v_pm, off);
       v_ysq += __shfl_xor_sync(0xffffffffu, v_ysq, off);
     }
     const int i = ty + 8 * r;
     if (tx == 0 && i < n) {
       const long long o = blk * p.out.stride + i;
-      if (MODE != MOMENTS) p.out.ll[o] = v_ll;
-      if (MODE != LOGLIK) p.out.pm[o] = v_pm;
-      if (p.need_ysq) {
-        p.out.ysq[o] = v_ysq;
-        if (MODE == FUSED_DELTA) p.out.dysq[o] = v_dysq;
-        if (MODE == FUSED_PLAIN) p.out.dysq[o] = v_ysq;
-      }
+      if (MODE == LOGLIK) p.out.ll[o] = v_ll;
+      if (MODE == MOMENTS) p.out.pm[o] = v_pm;
+      if (p.need_ysq) p.out.ysq[o] = v_ysq;
     }
   }
   if (CONTRACT) {
@@ -357,7 +315,7 @@ cudaError_t by_density(int dens, int need_h, const Params& p, int nb,
 }
 
 Params make_params(int n, long long t, int need_ysq, int x_bf16, double alpha,
-                   const float* w, const float* dm, const void* x, long long stride) {
+                   const float* w, const void* x, long long stride) {
   Params p;
   p.n = n;
   p.t = t;
@@ -367,9 +325,8 @@ Params make_params(int n, long long t, int need_ysq, int x_bf16, double alpha,
   p.m2a = (float)(-2.0 * alpha);
   p.mha = (float)(-alpha / 2.0);
   p.w = w;
-  p.dm = dm;
   p.x = x;
-  p.out = Outs{nullptr, nullptr, nullptr, nullptr, nullptr, nullptr, stride};
+  p.out = Outs{nullptr, nullptr, nullptr, nullptr, nullptr, stride};
   return p;
 }
 
@@ -380,7 +337,7 @@ bool bad_shape(int n, long long t, int nb, long long stride) {
 
 }  // namespace
 
-// The bf16 and bf16x3 tiers of the fused pass (rotated_fused_tc.cu).
+// The fused pass, every tier (rotated_fused_tc.cu).
 int rotated_fused_tc(int delta, int rot_tier, int ct_tier, int density, int need_h,
                      int need_ysq, double alpha, int n, long long t, int x_bf16,
                      const float* w, const float* dm, const void* x, float* dll,
@@ -401,8 +358,8 @@ const char* picard_error_string(int code) {
 // log_lik(M_old x)] (analytic form), dysq = sum (2 y_old + dy) dy, with w
 // = M_old and dm = M_new - M_old. delta = 0 (plain): dll = sum
 // log_lik(M_new x), dysq = sum (M_new x)^2, with w = M_new (dm unused).
-// Block b writes its partials at out + b * stride. The exact (F32, F32)
-// pair runs the scalar template; every other pair the tensor-core kernel.
+// Block b writes its partials at out + b * stride. Every tier pair runs
+// the tensor-core kernel.
 int picard_rotated_fused_sums(int delta, int rot_tier, int ct_tier,
                               int density, int need_h, int need_ysq,
                               double alpha, int n, long long t, int x_bf16,
@@ -411,16 +368,8 @@ int picard_rotated_fused_sums(int delta, int rot_tier, int ct_tier,
                               float* h, float* ysq, long long stride, int nb,
                               void* stream) {
   if (bad_shape(n, t, nb, stride)) return (int)cudaErrorInvalidValue;
-  if (rot_tier != F32 || ct_tier != F32)
-    return rotated_fused_tc(delta, rot_tier, ct_tier, density, need_h, need_ysq, alpha, n,
-                            t, x_bf16, w, dm, x, dll, dysq, g, pm, h, ysq, stride, nb,
-                            stream);
-  Params p = make_params(n, t, need_ysq, x_bf16, alpha, w, dm, x, stride);
-  p.out = Outs{dll, dysq, g, pm, h, ysq, stride};
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  cudaError_t e = delta ? by_density<FUSED_DELTA, F32>(density, need_h, p, nb, st)
-                        : by_density<FUSED_PLAIN, F32>(density, need_h, p, nb, st);
-  return (int)e;
+  return rotated_fused_tc(delta, rot_tier, ct_tier, density, need_h, need_ysq, alpha, n, t,
+                          x_bf16, w, dm, x, dll, dysq, g, pm, h, ysq, stride, nb, stream);
 }
 
 // Moments of Y = W x: rotation at rot_tier (F32, or BF16 for bf16 X),
@@ -431,8 +380,8 @@ int picard_rotated_moments_sums(int rot_tier, int density, int need_h,
                                 float* g, float* pm, float* h, float* ysq,
                                 long long stride, int nb, void* stream) {
   if (bad_shape(n, t, nb, stride)) return (int)cudaErrorInvalidValue;
-  Params p = make_params(n, t, need_ysq, x_bf16, alpha, w, nullptr, x, stride);
-  p.out = Outs{nullptr, nullptr, g, pm, h, ysq, stride};
+  Params p = make_params(n, t, need_ysq, x_bf16, alpha, w, x, stride);
+  p.out = Outs{nullptr, g, pm, h, ysq, stride};
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (rot_tier == F32)
@@ -450,8 +399,8 @@ int picard_rotated_loglik_sums(int rot_tier, int density, int need_ysq,
                                const float* m, const void* x, float* ll,
                                float* ysq, long long stride, int nb, void* stream) {
   if (bad_shape(n, t, nb, stride)) return (int)cudaErrorInvalidValue;
-  Params p = make_params(n, t, need_ysq, x_bf16, alpha, m, nullptr, x, stride);
-  p.out = Outs{ll, nullptr, nullptr, nullptr, nullptr, ysq, stride};
+  Params p = make_params(n, t, need_ysq, x_bf16, alpha, m, x, stride);
+  p.out = Outs{ll, nullptr, nullptr, nullptr, ysq, stride};
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (rot_tier == F32)

@@ -2,13 +2,13 @@
 
 Counterpart of ``picard_ica_tpu/ops/pallas_kernels.py``: every kernel
 the JAX package writes in Pallas. The core loop up to N = 64
-(``csrc/rotated_sums.cu``):
+(``csrc/rotated_fused_tc.cu`` and ``csrc/rotated_sums.cu``):
 
   * :func:`rotated_fused_sums`   — one line-search try in one read of X
-    (replaces ``rotated_fused_sums``, pallas_kernels.py:838-955); its
-    bf16 and bf16x3 tiers run on the tensor cores
-    (``csrc/rotated_fused_tc.cu``), the exact f32 tier on the scalar
-    FP32 pipes;
+    (replaces ``rotated_fused_sums``, pallas_kernels.py:838-955), every
+    tier on the tensor cores (``csrc/rotated_fused_tc.cu``): the f32
+    tier as the TPU's ``Precision.HIGHEST``, six bf16 products of
+    three-way splits, against the plain version's exact f32 products;
   * :func:`rotated_moments_sums` — moments of Y = W X at stage
     boundaries (replaces ``rotated_moments_sums``, :306-395);
   * :func:`rotated_loglik_sums`  — loss re-baselines (replaces

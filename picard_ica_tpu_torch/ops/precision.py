@@ -11,7 +11,10 @@ passes for mantissa bits:
 Every tier is exact at f64, where bf16 splitting would lose precision.
 A bf16-rounded value multiplied by another is exact in f32, so each
 tier is written as f32 matrix products of rounded operands; "exact
-f32" assumes TF32 is off (the solver sets that at fit entry).
+f32" assumes TF32 is off (the solver turns it off for the duration of
+``fit`` and ``transform``). The fused kernel computes its f32 tier as
+six bf16 products of three-way splits (``csrc/rotated_fused_tc.cu``);
+its plain version keeps these exact f32 products.
 """
 
 from __future__ import annotations

@@ -14,6 +14,7 @@ starts (``jade_it``, ``fastica_it``) and sample-sharded fits (``mesh``).
 
 from __future__ import annotations
 
+import contextlib
 import sys
 import time
 import warnings
@@ -55,6 +56,22 @@ def _resolve_dtype(config: PicardConfig) -> torch.dtype:
     return dtype
 
 
+@contextlib.contextmanager
+def _exact_f32():
+    """"f32" is exact f32: TF32 off in matmuls and convolutions for the
+    duration of a call, and the caller's flags restored after it, also
+    when it raises (the JAX package asks each product for HIGHEST and
+    changes no global state)."""
+    matmul = torch.backends.cuda.matmul
+    cudnn = torch.backends.cudnn
+    saved = (matmul.allow_tf32, cudnn.allow_tf32)
+    matmul.allow_tf32 = cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        matmul.allow_tf32, cudnn.allow_tf32 = saved
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -69,6 +86,7 @@ class Picard:
         return Picard.fit_with_config(x, config or PicardConfig(), device=device)
 
     @staticmethod
+    @_exact_f32()
     def fit_with_config(x, config: PicardConfig, device=None, mesh=None) -> PicardResult:
         config.validate()
         if mesh is not None:
@@ -80,10 +98,6 @@ class Picard:
                 "the JADE and FastICA warm starts are not ported yet "
                 "(ROADMAP.md queue 1)"
             )
-        # "f32" is exact f32: no TF32 in matmuls or convolutions.
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
-
         device = _resolve_device(x, device)
         dtype = _resolve_dtype(config)
 
@@ -282,8 +296,10 @@ class Picard:
         )
 
     @staticmethod
+    @_exact_f32()
     def transform(x, result: PicardResult) -> torch.Tensor:
-        """Apply a fitted model to new data (solver.rs:199-214)."""
+        """Apply a fitted model to new data (solver.rs:199-214), in exact
+        f32 whatever the caller's TF32 flags."""
         u = result.unmixing
         if not isinstance(x, torch.Tensor):
             x = np.asarray(x)

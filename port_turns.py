@@ -11,7 +11,9 @@ after, before; each turn measures, with ``chip_smoke.py``'s helpers:
   * ``rotated_fused_sums`` at 64 x 2,000,000 (Laplace X, seed 0) in the
     three cases of the default fit's stages: plain bf16 on bf16 X, delta
     bf16x3, delta f32 (H and Y^2 off), each one synchronised call at a
-    time (median of 10) and 10 calls back to back (median of 5);
+    time (median of 10) and 10 calls back to back (median of 5); and
+    delta f32 at ``chip_smoke.py``'s ragged shapes (17 and 63 rows,
+    1,000,003 columns);
   * ``chip_smoke.py``'s phase-3 fit (64 x 2,000,000 mixed mixture, f64
     NumPy input) and phase-4 fits (the bench 64 x 4,000,000 made on the
     card) at the default staged schedule and in the exact f32 tier: core
@@ -40,6 +42,7 @@ CASES = [  # (label, precision, absolute_ll, bf16 X)
     ("delta bf16x3", "bf16x3", False, False),
     ("delta f32", "f32", False, False),
 ]
+RAGGED_F32_ROWS = (17, 63)
 
 
 def _smoke():
@@ -101,6 +104,15 @@ def one_turn(tree: str) -> dict:
         sm._log(f"[{tree}] rotated_fused_sums [{label}] {sm.N} x {sm.T}: "
                 f"{sm._fmt_pair((ms, ms_stream))}")
     del x, x16
+    torch.cuda.empty_cache()
+    for n in RAGGED_F32_ROWS:
+        xr, mr_old, mr_new = sm._stream_inputs(n, sm.T_RAGGED, n)
+        label = f"delta f32, {n} x {sm.T_RAGGED}"
+        ms, ms_stream = sm._time_both(lambda: K.rotated_fused_sums(
+            mr_new, mr_old, xr, Tanh(), False, False, "f32", False))
+        turn["kernel"][label] = {"ms": ms, "ms_stream": ms_stream}
+        sm._log(f"[{tree}] rotated_fused_sums [{label}]: {sm._fmt_pair((ms, ms_stream))}")
+        del xr
     torch.cuda.empty_cache()
 
     by_tier = _count_tiers(core, K)

@@ -10,7 +10,10 @@ Tolerances: the kernel and the plain version of the same tier differ
 only in the order of f32 sums (products of bf16 values are exact in
 f32), so outputs agree to RTOL relative to each output's largest entry;
 the bf16 contraction tier of the streaming kernels and of the
-tensor-core kernel's tier and shape tests to RTOL_BF16 (see there).
+tensor-core kernel's tier and shape tests to RTOL_BF16 (see there). The
+fused kernel's f32 tier, six bf16 products on the tensor cores, holds
+the exact-f32 plain version to RTOL, and at the main path's width its
+error against f64 to F32_ERR_FACTOR times the plain version's.
 """
 
 import math
@@ -39,6 +42,12 @@ RTOL = 2e-5
 RTOL_BF16 = 1e-3
 
 DENSITIES = [Tanh(), Exp(0.5), Cube()]
+# The f32 tier's error against an f64 evaluation may be this many times
+# the exact-f32 plain version's, plus F32_SCALE_FLOOR of the output's
+# largest entry (an ulp or so, where the plain version's error happens to
+# be near zero).
+F32_ERR_FACTOR = 2.0
+F32_SCALE_FLOOR = 1e-7
 
 
 @pytest.fixture
@@ -142,10 +151,44 @@ def test_fused_tc_shapes_match_plain(dev, n, t, aligned, case):
            RTOL if delta else RTOL_BF16)
 
 
+@pytest.mark.parametrize("flags", [(False, False), (True, True)], ids=["min", "h+ysq"])
+@pytest.mark.parametrize("absolute_ll", [False, True], ids=["delta", "plain"])
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "unaligned"])
+@pytest.mark.parametrize("t", [1, 15, 2047, 2049, 100_003])
+@pytest.mark.parametrize("n", [1, 8, 15, 16, 17, 33, 63, 64])
+def test_fused_f32_tier_shapes_match_plain(dev, n, t, aligned, absolute_ll, flags):
+    """The f32 tier (six bf16 products on the tensor cores) at the edges of
+    the 16-row tiles, the 64-column sub-tiles and the 2,048-column
+    partials, with and without H, against exact f32."""
+    x, m_old, m_new = _tc_x(dev, n, t, aligned, False, seed=n + t)
+    args = (m_new, m_old, x, Tanh(), *flags, "f32", absolute_ll)
+    K.reset_launch_counts()
+    out_k = K.rotated_fused_sums(*args)
+    assert K.rotated_fused_sums.launches_by_tier["f32"] == 1
+    _close(out_k, K.rotated_fused_sums_plain(*args))
+
+
+@pytest.mark.parametrize("absolute_ll", [False, True], ids=["delta", "plain"])
+def test_fused_f32_tier_error_against_f64(dev, absolute_ll):
+    """At the main path's width, 64 x 2,000,000, every output of the f32
+    tier (H and Y^2 on) is as close to an f64 evaluation as the exact-f32
+    plain version, within F32_ERR_FACTOR and F32_SCALE_FLOOR."""
+    x, m_old, m_new = _inputs(dev, 64, 2_000_000, seed=12)
+    args = (m_new, m_old, x, Tanh(), True, True, "f32", absolute_ll)
+    out_k = K.rotated_fused_sums(*args)
+    out_p = K.rotated_fused_sums_plain(*args)
+    out_64 = K.rotated_fused_sums_plain(m_new.double(), m_old.double(), x.double(), Tanh(),
+                                        True, True, "f32", absolute_ll)
+    for k, p, r in zip(out_k, out_p, out_64):
+        err_k = float((k.double() - r).abs().max())
+        err_p = float((p.double() - r).abs().max())
+        bound = F32_ERR_FACTOR * err_p + F32_SCALE_FLOOR * float(r.abs().max())
+        assert err_k <= bound, (err_k, err_p, bound)
+
+
 def _core_calls(dev):
     """One call per core wrapper (all outputs on), over several partials;
-    the fused wrapper in its f32 (scalar) and both tensor-core tiers, and
-    at N = 80 the streaming kernels."""
+    the fused wrapper in each tier, and at N = 80 the streaming kernels."""
     x, m_old, m_new = _inputs(dev, 40, 10_001, seed=10)
     xs, ms_old, ms_new = _inputs(dev, 80, 10_001, seed=11)
     d = Tanh()

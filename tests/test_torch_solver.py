@@ -262,3 +262,66 @@ def test_public_names_match_jax_package():
     assert slice_names <= set(P.__all__)
     for name in P.__all__:
         assert hasattr(P, name)
+
+
+def _tf32_flags():
+    return (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+
+
+@pytest.fixture
+def tf32_on():
+    """Both TF32 flags on, as a caller may set them; the test's own
+    values are put back after it."""
+    saved = _tf32_flags()
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    yield
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+
+
+def _record_fused_flags(monkeypatch):
+    """Record the TF32 flags at every fused-pass call of the core loop."""
+    from picard_ica_tpu_torch.models import core
+
+    seen = []
+    real = core.rotated_fused_sums
+
+    def spy(*args, **kwargs):
+        seen.append(_tf32_flags())
+        return real(*args, **kwargs)
+
+    monkeypatch.setattr(core, "rotated_fused_sums", spy)
+    return seen
+
+
+def test_fit_and_transform_keep_the_callers_tf32_flags(mixture, monkeypatch, tf32_on):
+    """Inside the fit both flags are off (exact f32); after the fit and
+    after transform they hold the caller's values again."""
+    _, x = mixture
+    seen = _record_fused_flags(monkeypatch)
+    r = P.Picard.fit(x, P.PicardConfig(random_state=0, use_kernels=True), device="cpu")
+    assert r.converged and seen and set(seen) == {(False, False)}
+    assert _tf32_flags() == (True, True)
+    inside = []
+    real_full = P.PicardResult.full_unmixing
+    monkeypatch.setattr(P.PicardResult, "full_unmixing",
+                        lambda self: inside.append(_tf32_flags()) or real_full(self))
+    y = P.Picard.transform(x[:, :300], r)
+    assert inside == [(False, False)] and y.shape == (8, 300)
+    assert _tf32_flags() == (True, True)
+
+
+def test_fit_restores_the_tf32_flags_when_it_raises(mixture, monkeypatch, tf32_on):
+    from picard_ica_tpu_torch.models import core
+
+    _, x = mixture
+    seen = []
+
+    def fail(*args, **kwargs):
+        seen.append(_tf32_flags())
+        raise RuntimeError("refused launch")
+
+    monkeypatch.setattr(core, "rotated_fused_sums", fail)
+    with pytest.raises(RuntimeError, match="refused launch"):
+        P.Picard.fit(x, P.PicardConfig(random_state=0, use_kernels=True), device="cpu")
+    assert seen == [(False, False)]
+    assert _tf32_flags() == (True, True)
