@@ -50,12 +50,15 @@ prints no result line):
      1024 x 200,000 bench mixture made on the card, 10 iterations at tol
      1e-4 on both paths at the default staged schedule, so the bf16 tier
      runs through the streaming kernels (the grouped covariance whitens
-     it).
+     it): its plain bf16 passes on bf16 X through the tensor-core route
+     (``csrc/streaming_fused_tc.cu``), which must launch there.
 
 Phase 2 also holds the streaming kernels against their plain versions:
 ``streaming_fused_sums`` at 256 x 2,000,000 (every mode and tier the
 path runs), 306 x 1,000,003 and 1024 x 200,000, ``streaming_loglik_sums``
-at 256 x 2,000,000 and 1024 x 200,000.
+at 256 x 2,000,000 and 1024 x 200,000. Its plain bf16 cases on bf16 X
+run the tensor-core route and make a row of their own in the ``kernels``
+line (``streaming_fused_sums/tc``, launches counted in phase 5b).
 
 The line before the last is a JSON object describing every kernel:
 launches on its path (phase 3 for the resident core kernels, phase 4
@@ -157,7 +160,7 @@ def phase1_build():
         spills = sum(k[2] + k[3] for k in kernels)
         _log(f"ptxas {src}: {len(kernels)} kernels, registers {min(regs)}-{max(regs)}, "
              f"spill bytes {spills}")
-        if src == "rotated_fused_tc.cu":
+        if src in ("rotated_fused_tc.cu", "streaming_fused_tc.cu"):
             for name, r, st, ld in kernels:
                 _log(f"  {name}: {r} registers, spill stores {st} B, loads {ld} B")
     return seconds
@@ -363,14 +366,14 @@ def phase2_kernels():
     return rows
 
 
-def _hold(rows, kern, plain, label, tier, make, m_new, m_old, xx):
+def _hold(rows, kern, plain, label, tier, make, m_new, m_old, xx, key=None):
     """Hold one kernel call against its plain version: f32 tiers against
     an f64 evaluation of the same sums (the kernel's error may be
     F32_ERR_FACTOR x the plain f32 version's plus F32_FLOOR_PER_COL per
     summed column), bf16 tiers against the plain version of the same
     tier at BF16_RTOL of scale. ``max_abs_err`` is the error against the
     plain version; an f32 case also keeps both errors against f64. Times
-    both; adds the case to ``rows``."""
+    both; adds the case to ``rows[key]`` (default: the kernel's name)."""
     import torch
 
     name = kern.__name__
@@ -415,7 +418,7 @@ def _hold(rows, kern, plain, label, tier, make, m_new, m_old, xx):
          f"({bound_ms / ms_stream:.3f} back to back)")
     if not (ok and finite):
         raise AssertionError(f"{name} [{label}] disagrees with its plain version")
-    row = rows.setdefault(name, {"max_abs_err": 0.0, "cases": []})
+    row = rows.setdefault(key or name, {"max_abs_err": 0.0, "cases": []})
     row["max_abs_err"] = max(row["max_abs_err"], err_k)
     if "err_vs_f64" in extra:
         row["f32_err_vs_f64"] = max(row.get("f32_err_vs_f64", 0.0), extra["err_vs_f64"])
@@ -463,11 +466,13 @@ def phase2_streaming_kernels():
         return lambda m1, m0, xx: (m0, xx, d, need_ysq)
 
     # (kernel, label, tier, args, bf16 X) — the main path's modes first.
+    # The plain bf16 cases on bf16 X run the tensor-core route (TC_LABEL).
     plans = [
         ((N5, T5, 5), [
             (fused, "delta f32", "f32", f("f32", False), False),
             (fused, "delta bf16x3", "bf16x3", f("bf16x3", False), False),
-            (fused, "plain bf16, bf16 X", "bf16", f("bf16", True), True),
+            (fused, TC_LABEL, "bf16", f("bf16", True), True),
+            (fused, TC_LABEL + ", H+ysq", "bf16", f("bf16", True, True), True),
             (fused, "plain f32 (moments)", "f32", f("f32", True), False),
             (fused, "delta f32, H+ysq", "f32", f("f32", False, True), False),
             (loglik, "f32", "f32", ll(False), False),
@@ -479,7 +484,7 @@ def phase2_streaming_kernels():
         ]),
         ((N5B, T5B, 7), [
             (fused, "delta f32", "f32", f("f32", False), False),
-            (fused, "plain bf16, bf16 X", "bf16", f("bf16", True), True),
+            (fused, TC_LABEL, "bf16", f("bf16", True), True),
             (loglik, "f32", "f32", ll(False), False),
         ]),
     ]
@@ -488,8 +493,12 @@ def phase2_streaming_kernels():
         x, m_old, m_new = _stream_inputs(n, t, seed)
         x16 = x.to(torch.bfloat16)
         for kern, label, tier, make, bf16_x in cases:
+            tc = label.startswith(TC_LABEL)
+            before = dict(K.streaming_fused_sums.launches_by_route)
             _hold(rows, kern, plain_of[kern], label, tier, make, m_new, m_old,
-                  x16 if bf16_x else x)
+                  x16 if bf16_x else x, key=TC_ROW if tc else None)
+            if tc and K.streaming_fused_sums.launches_by_route["tc"] == before["tc"]:
+                raise AssertionError(f"[{label}] did not run the tensor-core route")
         del x, x16
         torch.cuda.empty_cache()
     return rows
@@ -630,6 +639,10 @@ def _fit(x, use_kernels, **config):
 
 
 _CORE_KERNELS = ("rotated_fused_sums", "rotated_moments_sums", "rotated_loglik_sums")
+# The tensor-core route of the streaming fused kernel (plain mode, bf16
+# tier, bf16 X): its phase-2 label and its row in the kernels line.
+TC_LABEL = "plain bf16, bf16 X"
+TC_ROW = "streaming_fused_sums/tc"
 # The fused pass's kernel and the tiers it serves: the tensor-core kernel
 # (csrc/rotated_fused_tc.cu) runs all three.
 TIER_ROWS = {"rotated_fused_sums": ("bf16", "bf16x3", "f32")}
@@ -639,6 +652,8 @@ def _count(name, launches):
     """A kernel's launches in one phase's counts (``_launches``)."""
     if name in TIER_ROWS:
         return sum(launches["by_tier"][t] for t in TIER_ROWS[name])
+    if name == "streaming_fused_sums":  # its scalar kernel; the tensor-core route is TC_ROW
+        return launches["stream_by_route"]["scalar"]
     return launches.get(name, 0)
 _PHASE4_KERNELS = ("row_sums", "centered_covariance_sums", "covariance_sums",
                    "rotated_fused_sums", "rotated_moments_sums")
@@ -696,11 +711,14 @@ def phase3_slice():
 
 
 def _launches():
-    """Every kernel's launches, and the fused pass's by tier."""
+    """Every kernel's launches, the fused pass's by tier and the
+    streaming fused kernel's by route."""
     from picard_ica_tpu_torch.ops import kernels as K
 
     counts = {k.__name__: k.launches for k in K.KERNELS}
     counts["by_tier"] = dict(K.rotated_fused_sums.launches_by_tier)
+    counts["stream_by_route"] = dict(K.streaming_fused_sums.launches_by_route)
+    counts[TC_ROW] = counts["stream_by_route"]["tc"]
     return counts
 
 
@@ -926,9 +944,13 @@ def phase5b_exhibit():
         raise AssertionError("the 1024-component fits are not finite")
     if r.n_iterations != r_t.n_iterations:
         raise AssertionError(f"iterations differ: {r.n_iterations} vs {r_t.n_iterations}")
-    missing = [k for k in ("streaming_fused_sums", "_grouped_covariance") if launches[k] == 0]
+    missing = [k for k in ("streaming_fused_sums", TC_ROW, "_grouped_covariance")
+               if launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched at N = {N5B}: {missing}")
+    _log(f"exhibit: kernel core {r.core_seconds:.4f} s against the torch path's "
+         f"{r_t.core_seconds:.4f} s; streaming fused launches by route "
+         f"{launches['stream_by_route']}")
     return launches
 
 
@@ -936,9 +958,10 @@ _CORE_SOURCE = "picard_ica_tpu_torch/csrc/rotated_sums.cu"
 _TC_SOURCE = "picard_ica_tpu_torch/csrc/rotated_fused_tc.cu"
 _STATS_SOURCE = "picard_ica_tpu_torch/csrc/covariance_sums.cu"
 _STREAM_SOURCE = "picard_ica_tpu_torch/csrc/streaming_sums.cu"
+_STREAM_TC_SOURCE = "picard_ica_tpu_torch/csrc/streaming_fused_tc.cu"
 _PALLAS = "picard_ica_tpu/ops/pallas_kernels.py"
 # name -> (source, pallas_call line of the TPU kernel it replaces, the
-# phase-2 case whose numbers head the kernel's entry)
+# phase-2 case (label, or label and shape) whose numbers head the entry)
 _KERNELS = {
     "rotated_fused_sums": (_TC_SOURCE, 922, "delta f32"),
     "rotated_moments_sums": (_CORE_SOURCE, 366, "f32"),
@@ -948,8 +971,13 @@ _KERNELS = {
     "covariance_sums": (_STATS_SOURCE, 598, "f32"),
     "_grouped_covariance": (_STATS_SOURCE, 531, "centered"),
     "streaming_fused_sums": (_STREAM_SOURCE, 1149, "delta f32"),
+    TC_ROW: (_STREAM_TC_SOURCE, 1149, f"{TC_LABEL}, {N5B} x {T5B}"),
     "streaming_loglik_sums": (_STREAM_SOURCE, 1247, "f32"),
 }
+# The fit whose launches each row reports.
+_PATH_OF = {**dict.fromkeys(_CORE_KERNELS, "phase3"), **dict.fromkeys(TIER_ROWS, "phase4"),
+            **dict.fromkeys(_STREAM_KERNELS, "phase5"), "_grouped_covariance": "phase4b",
+            TC_ROW: "phase5b"}
 
 
 def main():
@@ -966,11 +994,8 @@ def main():
     kernels = []
     for name, (source, line, headline) in _KERNELS.items():
         row = rows[name]
-        main_case = next(c for c in row["cases"] if c["label"] == headline)
-        path = ("phase4" if name in TIER_ROWS else
-                "phase3" if name in _CORE_KERNELS else
-                "phase5" if name in _STREAM_KERNELS else
-                "phase4b" if name == "_grouped_covariance" else "phase4")
+        main_case = next(c for c in row["cases"] if headline in (c["label"], c["case"]))
+        path = _PATH_OF.get(name, "phase4")
         entry = {
             "name": name, "route": "cuda", "source": source,
             "replaces": f"{_PALLAS}:{line}", "launches": _count(name, by_path[path]),

@@ -1,6 +1,6 @@
 // Tensor-core building blocks for the three tiers of the fused core
-// kernel (rotated_fused_tc.cu; the streaming kernel's tiers are to take
-// them next).
+// kernel (rotated_fused_tc.cu) and for the streaming kernel's plain bf16
+// tier (streaming_fused_tc.cu).
 //
 // The tiers of density.cuh, on mma.sync: BF16 = one product of bf16
 // operands with f32 accumulation; BF16X3 = the hi/lo bf16 split of both

@@ -28,7 +28,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("rotated_sums.cu", "rotated_fused_tc.cu", "covariance_sums.cu",
-           "streaming_sums.cu")
+           "streaming_sums.cu", "streaming_fused_tc.cu")
 HEADERS = ("density.cuh", "mma_tiers.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -67,6 +67,12 @@ _SIGNATURES = {
     ],
     "picard_streaming_loglik_sums": [
         _I, _I, _I, _D, _I, _LL, _I, _I, _P, _P, _P, _P, _LL, _I, _P,
+    ],
+    "picard_stream_tc_tile": [],
+    "picard_stream_tc_kc": [],
+    "picard_streaming_fused_tc": [
+        _I, _I, _I, _D, _I, _LL, _I, _I, _I,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _P,
     ],
 }
 

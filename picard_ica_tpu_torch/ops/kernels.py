@@ -19,7 +19,11 @@ longer fits whole in shared memory:
 
   * :func:`streaming_fused_sums` — kernel 1's outputs with W in row
     blocks and a contraction phase over the parked Y tile (replaces
-    ``streaming_fused_sums``, :1061-1183);
+    ``streaming_fused_sums``, :1061-1183); its plain mode at the bf16
+    tier on bf16 X runs as two GEMM-shaped tensor-core launches instead
+    (``csrc/streaming_fused_tc.cu``, planned by :func:`stream_tc_plan`):
+    the rotation with the density and row sums into a bf16 psi / Y
+    workspace, then G (H) over it;
   * :func:`streaming_loglik_sums` — kernel 3's outputs for large N
     (replaces ``streaming_loglik_sums``, :1205-1274).
 
@@ -76,6 +80,7 @@ from __future__ import annotations
 
 import functools
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -119,6 +124,21 @@ STREAM_GROUP = 16
 STREAM_PARTIALS_MAX = 1024**3
 # Columns per tile of the loglik kernel, which parks no Y tile.
 STREAM_LOGLIK_TILE = 128
+# The tensor-core route of the fused kernel (csrc/streaming_fused_tc.cu:
+# TILE, A_KC): W row blocks and the contraction's output tiles are
+# STREAM_TC_TILE wide, groups are whole STREAM_TC_TILE-column tiles, and
+# W is zero-padded along k to a multiple of STREAM_TC_KC.
+STREAM_TC_TILE = 128
+STREAM_TC_KC = 64
+# Columns per partial (group) of the route, at least: a group is the
+# contraction's K, so its (N, N) partial is written once per this many
+# columns.
+STREAM_TC_GROUP_COLS = 4096
+# The route's bf16 psi and Y (psi', Y^2 with H) of a call are kept under
+# this many bytes; a larger call runs in chunks of whole groups.
+STREAM_TC_WORKSPACE_MAX = 2 * 1024**3
+# Groups one launch may take (a CUDA grid's y extent).
+_MAX_GRID_Y = 65535
 # The fused kernel's shared-memory model (csrc/streaming_sums.cu:
 # SMEM_MAX, KC, PASS_ELEMS, CB).
 _STREAM_SMEM_MAX = 232448
@@ -328,6 +348,39 @@ def stream_group(n_tiles: int, n: int, n_mats: int) -> int:
     return group
 
 
+class StreamTcPlan(NamedTuple):
+    """How the tensor-core route cuts one call (:func:`stream_tc_plan`)."""
+
+    n_pad: int             # N rounded up to whole STREAM_TC_TILE blocks
+    cols_per_group: int    # columns of X per partial, whole tiles
+    n_parts: int           # groups (partials) covering T
+    groups_per_chunk: int  # groups one pair of launches takes
+    ws_bytes: int          # the workspace of one chunk
+
+
+def stream_tc_plan(n: int, t: int, need_h: bool) -> StreamTcPlan:
+    """The tensor-core route's partition of T: groups of at least
+    :data:`STREAM_TC_GROUP_COLS` columns (fewer for a smaller T), more
+    where the (n_parts, N, N) f32 partials would pass
+    :data:`STREAM_PARTIALS_MAX` or a launch would take more than 65,535
+    groups, and fewer where one group's workspace would pass
+    :data:`STREAM_TC_WORKSPACE_MAX`, which wins; then as many whole groups
+    per chunk as the workspace cap holds. The workspace is 2 (4 with H)
+    bf16 matrices of (n_pad, groups_per_chunk * cols_per_group)."""
+    tile = STREAM_TC_TILE
+    n_pad = _n_chunks(n, tile) * tile
+    n_mats = 1 + need_h
+    col_bytes = 2 * n_mats * n_pad * 2
+    max_groups = min(_MAX_GRID_Y, max(1, STREAM_PARTIALS_MAX // (n_mats * n * n * 4)))
+    want = max(STREAM_TC_GROUP_COLS, _n_chunks(t, max_groups))
+    fit = STREAM_TC_WORKSPACE_MAX // (col_bytes * tile) * tile
+    cols = max(tile, min(_n_chunks(want, tile) * tile, _n_chunks(t, tile) * tile, fit))
+    n_parts = _n_chunks(t, cols)
+    per_chunk = max(1, min(n_parts, _MAX_GRID_Y,
+                           STREAM_TC_WORKSPACE_MAX // (cols * col_bytes)))
+    return StreamTcPlan(n_pad, cols, n_parts, per_chunk, per_chunk * cols * col_bytes)
+
+
 def _tile_row_sums(v, bt: int, n_tiles: int):
     """(rows, >= n_tiles * bt) -> (n_tiles, rows) row sums of each tile."""
     return v[:, : n_tiles * bt].reshape(v.shape[0], n_tiles, bt).sum(dim=2).T
@@ -466,7 +519,9 @@ def _lib():
             or lib.picard_cov_chunk() != COV_CHUNK
             or lib.picard_stream_max_n() != STREAM_MAX_N
             or any(lib.picard_stream_tile(n) != stream_tile(n)
-                   for n in (65, 256, 257, 704, 705, STREAM_MAX_N))):
+                   for n in (65, 256, 257, 704, 705, STREAM_MAX_N))
+            or lib.picard_stream_tc_tile() != STREAM_TC_TILE
+            or lib.picard_stream_tc_kc() != STREAM_TC_KC):
         raise RuntimeError("csrc/ and ops/kernels.py disagree on NMAX / "
                            "COLS_PER_BLOCK / CHUNK / the streaming tiles")
     return lib
@@ -555,6 +610,14 @@ def _fold_outputs(n_parts, outputs, x, launch):
     return unpack_folded(fold_partials(buf), outputs, offsets, x)
 
 
+def _fused_outputs(n, need_h, need_ysq):
+    """The fused kernels' six outputs (dll, dysq, G, pm, H, ysq) as
+    ``(shape, flag)``."""
+    vec, mat = (n,), (n, n)
+    return [(vec, True), (vec, need_ysq), (mat, True), (vec, True), (mat, need_h),
+            (vec, need_ysq)]
+
+
 def _fused_launch(entry, group_args, n_parts, m_new, m_old, x, density,
                   need_h, need_ysq, precision, absolute_ll):
     """Launch a fused kernel (``entry``) with ``n_parts`` partials per
@@ -570,9 +633,7 @@ def _fused_launch(entry, group_args, n_parts, m_new, m_old, x, density,
     else:
         (mo,) = _mats(x, m_old)
         w, dm = mo.contiguous(), (mn - mo).contiguous()
-    vec, mat = (n,), (n, n)
-    outputs = [(vec, True), (vec, need_ysq), (mat, True), (vec, True), (mat, need_h),
-               (vec, need_ysq)]
+    outputs = _fused_outputs(n, need_h, need_ysq)
 
     def launch(ptrs, stride):
         _run(entry, int(not absolute_ll), _TIERS[rot], _TIERS[precision], code,
@@ -681,13 +742,40 @@ def streaming_fused_sums(m_new, m_old, x, density, need_h: bool,
                                           need_ysq, precision, absolute_ll)
     mats = (m_new,) if absolute_ll else (m_new, m_old)
     n, t, _ = _check_cuda(x, *mats, cap=STREAM_MAX_N)
-    n_tiles = _n_chunks(t, stream_tile(n))
-    group = stream_group(n_tiles, n, 1 + need_h)
-    out = _fused_launch(_lib().picard_streaming_fused_sums, (group,),
-                        _n_chunks(n_tiles, group), m_new, m_old, x, density,
-                        need_h, need_ysq, precision, absolute_ll)
+    if absolute_ll and _tiers(x, precision) == ("bf16", "bf16") and x.dtype == torch.bfloat16:
+        out = _streaming_fused_tc(m_new, x, density, need_h, need_ysq)
+        route = "tc"
+    else:
+        n_tiles = _n_chunks(t, stream_tile(n))
+        group = stream_group(n_tiles, n, 1 + need_h)
+        out = _fused_launch(_lib().picard_streaming_fused_sums, (group,),
+                            _n_chunks(n_tiles, group), m_new, m_old, x, density,
+                            need_h, need_ysq, precision, absolute_ll)
+        route = "scalar"
     streaming_fused_sums.launches += 1
+    streaming_fused_sums.launches_by_route[route] += 1
     return out
+
+
+def _streaming_fused_tc(m_new, x, density, need_h, need_ysq):
+    """The tensor-core route (plain mode, bf16 tier, bf16 X): M_new as a
+    zero-padded (n_pad, kp) bf16 matrix, one workspace of
+    :func:`stream_tc_plan`'s size, both launches per chunk in one C call,
+    and the packed partials folded as the scalar kernel's."""
+    n, t = x.shape
+    plan = stream_tc_plan(n, t, need_h)
+    code, alpha = _density_code(density)
+    kp = _n_chunks(n, STREAM_TC_KC) * STREAM_TC_KC
+    w = torch.zeros((plan.n_pad, kp), dtype=torch.bfloat16, device=x.device)
+    w[:n, :n] = _mats(x, m_new)[0]  # bf16 values: the conversion is exact
+    ws = torch.empty(plan.ws_bytes, dtype=torch.uint8, device=x.device)
+
+    def launch(ptrs, stride):
+        _run(_lib().picard_streaming_fused_tc, code, int(need_h), int(need_ysq), alpha, n, t,
+             plan.cols_per_group, plan.n_parts, plan.groups_per_chunk, w.data_ptr(),
+             x.data_ptr(), ws.data_ptr(), *ptrs, stride, device=x.device)
+
+    return _fold_outputs(plan.n_parts, _fused_outputs(n, need_h, need_ysq), x, launch)
 
 
 def streaming_loglik_sums(m, x, density, need_ysq: bool):
@@ -809,11 +897,14 @@ KERNELS = (rotated_fused_sums, rotated_moments_sums, rotated_loglik_sums,
 
 
 def reset_launch_counts() -> None:
-    """Set every kernel's launch counter, and ``rotated_fused_sums``'s
-    counts by tier (keyed by the tier of its contractions), to 0."""
+    """Set every kernel's launch counter, ``rotated_fused_sums``'s counts
+    by tier (keyed by the tier of its contractions) and
+    ``streaming_fused_sums``'s by route ("tc": the tensor-core route,
+    "scalar": every other mode and tier) to 0."""
     for k in KERNELS:
         k.launches = 0
     rotated_fused_sums.launches_by_tier = dict.fromkeys(_TIERS, 0)
+    streaming_fused_sums.launches_by_route = dict.fromkeys(("scalar", "tc"), 0)
 
 
 reset_launch_counts()

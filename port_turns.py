@@ -14,16 +14,40 @@ after, before; each turn measures, with ``chip_smoke.py``'s helpers:
     time (median of 10) and 10 calls back to back (median of 5); and
     delta f32 at ``chip_smoke.py``'s ragged shapes (17 and 63 rows,
     1,000,003 columns);
+  * ``streaming_fused_sums`` in plain mode at the bf16 tier on bf16 X
+    (``chip_smoke.py``'s unit-variance Laplace inputs) at 256 x 2,000,000
+    and 1024 x 200,000, timed the same two ways;
   * ``chip_smoke.py``'s phase-3 fit (64 x 2,000,000 mixed mixture, f64
     NumPy input) and phase-4 fits (the bench 64 x 4,000,000 made on the
     card) at the default staged schedule and in the exact f32 tier: core
     seconds, iterations, stage exits, and the fused pass's launches by
     tier (counted here the same way for both trees, by the tier of the
-    contractions), after warm-up fits on a small mixture.
+    contractions), after warm-up fits on a small mixture;
+  * phase 5b's fits (the 1024 x 200,000 bench mixture, 10 iterations at
+    tol 1e-4, default staged schedule) on the kernel path and the torch
+    path: core seconds and iterations.
 
 Every line of output names the tree; the last line is a JSON list of the
 four turns, also written to ``--out`` (default
 ``chiprun_out/turns.json``). Needs one CUDA card and nvcc.
+
+With ``--kernels-only`` the turns time the kernels alone, without the
+fits.
+
+    python3 port_turns.py --profile [TREE]
+
+traces one tree's ``streaming_fused_sums`` plain bf16 calls on bf16 X at
+both shapes, with the tanh and cube densities, in ``torch.profiler`` and
+prints each CUDA kernel's device ms a call (mean of 5 calls).
+
+    python3 port_turns.py --staged-fit [TREE]
+
+fits ``chip_smoke.py``'s phase-5 data (256 x 2,000,000 mixed mixture,
+seed 0, an f32 CUDA tensor) once with ``use_kernels=True`` at the default
+staged schedule with TREE's package (default: this checkout), and prints
+convergence, iterations, stage exits, the number of negative
+(sub-Gaussian) signs, Amari distance to the mixing, and the streaming
+fused kernel's launches.
 """
 
 from __future__ import annotations
@@ -43,6 +67,9 @@ CASES = [  # (label, precision, absolute_ll, bf16 X)
     ("delta f32", "f32", False, False),
 ]
 RAGGED_F32_ROWS = (17, 63)
+# (N, T, seed of chip_smoke._stream_inputs) of the streaming fused
+# kernel's plain bf16 cases on bf16 X.
+STREAM_BF16_SHAPES = ((256, 2_000_000, 5), (1024, 200_000, 7))
 
 
 def _smoke():
@@ -67,7 +94,7 @@ def _count_tiers(core, kernels):
     return by_tier
 
 
-def one_turn(tree: str) -> dict:
+def one_turn(tree: str, kernels_only: bool = False) -> dict:
     import numpy as np
     import torch
 
@@ -114,6 +141,19 @@ def one_turn(tree: str) -> dict:
         sm._log(f"[{tree}] rotated_fused_sums [{label}]: {sm._fmt_pair((ms, ms_stream))}")
         del xr
     torch.cuda.empty_cache()
+    for n, t, seed in STREAM_BF16_SHAPES:
+        xs, ms_old, ms_new = sm._stream_inputs(n, t, seed)
+        xs16 = xs.to(torch.bfloat16)
+        del xs
+        label = f"streaming plain bf16, bf16 X, {n} x {t}"
+        ms, ms_stream = sm._time_both(lambda: K.streaming_fused_sums(
+            ms_new, ms_old, xs16, Tanh(), False, False, "bf16", True))
+        turn["kernel"][label] = {"ms": ms, "ms_stream": ms_stream}
+        sm._log(f"[{tree}] streaming_fused_sums [{label}]: {sm._fmt_pair((ms, ms_stream))}")
+        del xs16
+        torch.cuda.empty_cache()
+    if kernels_only:
+        return turn
 
     by_tier = _count_tiers(core, K)
 
@@ -146,7 +186,89 @@ def one_turn(tree: str) -> dict:
     x4 = generate_bench_data_device(sm.N4, sm.T4, sm.SEED4, "cuda")
     fit("phase 4", x4, sm.T4)
     fit("phase 4, f32", x4, sm.T4, kernel_precision="f32")
+    del x4
+    torch.cuda.empty_cache()
+    x5 = generate_bench_data_device(sm.N5B, sm.T5B, sm.SEED5B, "cuda")
+    for label, use_kernels in (("phase 5b", True), ("phase 5b, torch path", False)):
+        r, wall = sm._fit(x5, use_kernels, tol=1e-4, max_iter=10)
+        sm._report_fit(f"[{tree}] {label}", r, wall, sm.T5B)
+        turn["fits"][label] = {"core_seconds": r.core_seconds, "fit_seconds": wall,
+                               "n_iterations": r.n_iterations,
+                               "stage_exits": list(r.stage_exits or ())}
     return turn
+
+
+def profile(tree: str) -> dict:
+    """Device ms a call of each CUDA kernel in the tensor-core route's
+    calls (torch.profiler over 5 calls after 3 warm-up calls)."""
+    import torch
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as traced
+
+    sm = _smoke()
+    sm.phase0_env()
+    from picard_ica_tpu_torch.ops import kernels as K
+    from picard_ica_tpu_torch.ops.densities import Cube, Tanh
+
+    assert Path(K.__file__).resolve().is_relative_to(Path(tree).resolve()), K.__file__
+    out = {}
+    for n, t, seed in STREAM_BF16_SHAPES:
+        xs, _, ms_new = sm._stream_inputs(n, t, seed)
+        xs16 = xs.to(torch.bfloat16)
+        del xs
+        for density in (Tanh(), Cube()):
+            def call():
+                return K.streaming_fused_sums(ms_new, ms_new, xs16, density, False, False,
+                                              "bf16", True)
+
+            for _ in range(3):
+                call()
+            torch.cuda.synchronize()
+            with traced(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(5):
+                    call()
+                torch.cuda.synchronize()
+            rows = {e.key[:90]: e.device_time_total / 5e3 for e in prof.key_averages()
+                    if e.device_time_total > 0}
+            label = f"{n} x {t}, {type(density).__name__}"
+            out[label] = rows
+            sm._log(f"[{tree}] profile {label}: total {sum(rows.values()):.3f} ms a call; "
+                    + "; ".join(f"{k}: {v:.3f}" for k, v in sorted(rows.items(),
+                                                                 key=lambda kv: -kv[1])))
+        del xs16
+        torch.cuda.empty_cache()
+    return out
+
+
+def staged_fit(tree: str) -> dict:
+    """Phase 5's 256 x 2,000,000 data fitted once at the default staged
+    schedule through the streaming kernels."""
+    import numpy as np
+    import torch
+
+    sm = _smoke()
+    sm.phase0_env()
+    from picard_ica_tpu_torch.ops import kernels as K
+    from picard_ica_tpu_torch.utils.datagen import generate_mixed_kurtosis_data
+    from picard_ica_tpu_torch.utils.metrics import amari_distance
+
+    assert Path(K.__file__).resolve().is_relative_to(Path(tree).resolve()), K.__file__
+    _, a, x_np = generate_mixed_kurtosis_data(sm.N5, sm.T5, sm.SEED)
+    x = torch.from_numpy(x_np.astype(np.float32)).cuda()
+    del x_np
+    K.reset_launch_counts()
+    r, wall = sm._fit(x, True)
+    sm._report_fit(f"[{tree}] staged {sm.N5} x {sm.T5}", r, wall, sm.T5)
+    result = {"converged": r.converged, "n_iterations": r.n_iterations,
+              "stage_exits": list(r.stage_exits or ()), "core_seconds": r.core_seconds,
+              "gradient_norm": r.gradient_norm,
+              "negative_signs": int((r.signs < 0).sum()) if r.signs is not None else None,
+              "amari": amari_distance(r.full_unmixing().double().cpu().numpy(), a),
+              "streaming_fused_launches": K.streaming_fused_sums.launches,
+              "streaming_fused_by_route": getattr(K.streaming_fused_sums,
+                                                  "launches_by_route", None)}
+    sm._log(f"[{tree}] staged fit: {result}")
+    return result
 
 
 def _build_all(trees):
@@ -166,11 +288,21 @@ def main(argv=None):
     ap.add_argument("trees", nargs="*")
     ap.add_argument("--one", help=argparse.SUPPRESS)
     ap.add_argument("--out", default=str(HERE / "chiprun_out" / "turns.json"))
+    ap.add_argument("--staged-fit", action="store_true",
+                    help="fit phase 5's data once at the default staged schedule")
+    ap.add_argument("--profile", action="store_true",
+                    help="trace the streaming tensor-core route's kernels")
+    ap.add_argument("--kernels-only", action="store_true", help="turns without the fits")
     args = ap.parse_args(argv)
+    if args.staged_fit or args.profile:
+        tree = str(Path(args.trees[0] if args.trees else HERE).resolve())
+        sys.path[:] = [tree] + [p for p in sys.path if p and Path(p).resolve() != HERE]
+        print(json.dumps((staged_fit if args.staged_fit else profile)(tree)))
+        return 0
     if args.one:
         # Only the turn's tree provides the package, not this script's.
         sys.path[:] = [args.one] + [p for p in sys.path if p and Path(p).resolve() != HERE]
-        print(json.dumps(one_turn(args.one)))
+        print(json.dumps(one_turn(args.one, args.kernels_only)))
         return 0
     if len(args.trees) != 2:
         ap.error("give the BEFORE and AFTER directories")
@@ -179,7 +311,8 @@ def main(argv=None):
     turns = []
     for tree in (before, after, after, before):
         env = dict(os.environ, PYTHONPATH=tree)
-        proc = subprocess.run([sys.executable, __file__, "--one", tree], env=env,
+        proc = subprocess.run([sys.executable, __file__, "--one", tree]
+                              + ["--kernels-only"] * args.kernels_only, env=env,
                               cwd=tree, capture_output=True, text=True)
         sys.stdout.write(proc.stdout.rsplit("\n", 2)[0] + "\n")
         if proc.returncode != 0:

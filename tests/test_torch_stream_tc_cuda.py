@@ -1,0 +1,194 @@
+"""The tensor-core route of streaming_fused_sums against its plain version.
+
+The route (``csrc/streaming_fused_tc.cu``) serves the plain mode at the
+bf16 tier on bf16 X, 64 < N <= STREAM_MAX_N: a rotation-and-density
+launch into a bf16 workspace, then a contraction launch. Needs an NVIDIA
+GPU (Hopper, sm_90a): every test here is marked ``cuda`` and skips
+without one. Imports no JAX:
+
+    python -m pytest --noconftest tests/test_torch_stream_tc_cuda.py -q
+
+Tolerances: RTOL_BF16 of each output's largest entry, as the scalar
+kernel's bf16 tier (tests/test_torch_cuda.py): psi, Y (psi', Y^2) are
+rounded to bf16 after a rotation whose f32 sums are ordered differently,
+so a few roundings flip by 2^-8. Where T is a few columns, one term is a
+large share of an entry of G or H, and one flipped rounding of it can
+pass that (at 1344 x 31 a flip of one Y^2 near 100 moved H by 0.133
+against 0.116 = 1e-3 of its largest entry): the shape test adds to G and
+H the largest move one flip in each operand can make, 2^-7 of the
+largest |psi| |Y| (|psi'| |Y^2|). G's drift against f64 sums of the same
+bf16 operands may be DRIFT_FACTOR times the plain version's, plus
+DRIFT_FLOOR of G's largest entry.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from picard_ica_tpu_torch.ops import kernels as K
+from picard_ica_tpu_torch.ops.densities import Cube, Exp, Tanh
+
+torch.set_num_threads(2)
+
+pytestmark = pytest.mark.cuda
+
+RTOL_BF16 = 1e-3
+DRIFT_FACTOR = 2.0
+DRIFT_FLOOR = 1e-7
+DENSITIES = [Tanh(), Exp(0.5), Cube()]
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with CUDA")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _inputs(dev, n, t, seed):
+    """Unit-variance Laplace X in bf16 and weights near the identity whose
+    rows keep unit scale at any N."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy((rng.laplace(size=(n, t)) / np.sqrt(2.0)).astype(np.float32))
+    s = 0.8 / np.sqrt(n)
+    m_old = np.eye(n) + s * rng.standard_normal((n, n))
+    m_new = m_old + 0.1 * s * rng.standard_normal((n, n))
+    return (x.to(dev).to(torch.bfloat16), torch.from_numpy(m_old).float().to(dev),
+            torch.from_numpy(m_new).float().to(dev))
+
+
+def _close(out_k, out_p, rtol=RTOL_BF16, flips=(0.0,) * 6):
+    for a, b, flip in zip(out_k, out_p, flips):
+        assert a.dtype == torch.float32 and a.device.type == "cuda"
+        assert bool(torch.isfinite(a).all())
+        scale = max(float(b.abs().max()), 1e-30)
+        err = float((a - b).abs().max())
+        assert err <= rtol * scale + flip, (err, scale, flip)
+
+
+def _flips(m_new, x, density):
+    """Per output, the largest move of one flipped bf16 rounding in each
+    operand of a G or H term (zero for the row sums, which round nothing
+    to bf16)."""
+    y = K._kernel_dot(K._bf16(m_new), x.float(), torch.float32, "bf16")
+    psi, psid = density.score_and_der(y)
+
+    def flip(u, v):
+        return 2.0**-7 * float(u.abs().max()) * float(v.abs().max())
+
+    return 0.0, 0.0, flip(psi, y), 0.0, flip(psid, y * y), 0.0
+
+
+def _run_tc(args):
+    K.reset_launch_counts()
+    out = K.streaming_fused_sums(*args)
+    assert K.streaming_fused_sums.launches_by_route == {"scalar": 0, "tc": 1}
+    assert K.streaming_fused_sums.launches == 1
+    return out
+
+
+@pytest.mark.parametrize("t", [1, 31, 129, 2049])
+@pytest.mark.parametrize("n", [65, 127, 128, 129, 257, 704, 705, 1024, 1344])
+def test_stream_tc_shapes_match_plain(dev, n, t):
+    """At the edges of the 128-row blocks, the tiles and the 64-deep k
+    stages, H and Y^2 on."""
+    x, m_old, m_new = _inputs(dev, n, t, seed=n + t)
+    args = (m_new, m_old, x, Tanh(), True, True, "bf16", True)
+    _close(_run_tc(args), K.streaming_fused_sums_plain(*args),
+           flips=_flips(m_new, x, Tanh()))
+
+
+@pytest.mark.parametrize("n", [65, 257, 1024])
+def test_stream_tc_unaligned_rows_match_plain(dev, n):
+    """1,000,003 columns: bf16 rows that are not 16-byte aligned take the
+    plain loads; 245 groups of 4,096 columns."""
+    x, m_old, m_new = _inputs(dev, n, 1_000_003, seed=n)
+    assert (x.shape[1] * 2) % 16 != 0
+    args = (m_new, m_old, x, Tanh(), False, True, "bf16", True)
+    _close(_run_tc(args), K.streaming_fused_sums_plain(*args))
+
+
+@pytest.mark.parametrize("density", DENSITIES, ids=str)
+@pytest.mark.parametrize("need_ysq", [False, True], ids=["no-ysq", "ysq"])
+@pytest.mark.parametrize("need_h", [False, True], ids=["no-h", "h"])
+def test_stream_tc_flags_and_densities_match_plain(dev, need_h, need_ysq, density):
+    x, m_old, m_new = _inputs(dev, 200, 10_007, seed=3)
+    args = (m_new, m_old, x, density, need_h, need_ysq, "f32", True)
+    out = _run_tc(args)
+    _close(out, K.streaming_fused_sums_plain(*args))
+    if not need_h:
+        assert not out[4].any()
+    if not need_ysq:
+        assert not out[1].any() and not out[5].any()
+
+
+@pytest.mark.parametrize("need_h", [False, True], ids=["no-h", "h"])
+def test_stream_tc_chunks_match_plain(dev, monkeypatch, need_h):
+    """A workspace cap of two groups: 20,001 columns in 20 groups of 1,024
+    run as 10 chunks of both launches."""
+    monkeypatch.setattr(K, "STREAM_TC_GROUP_COLS", 1024)
+    n, t = 257, 20_001
+    col_bytes = 2 * (1 + need_h) * 384 * 2
+    monkeypatch.setattr(K, "STREAM_TC_WORKSPACE_MAX", 2 * 1024 * col_bytes)
+    plan = K.stream_tc_plan(n, t, need_h)
+    assert (plan.cols_per_group, plan.n_parts, plan.groups_per_chunk) == (1024, 20, 2)
+    x, m_old, m_new = _inputs(dev, n, t, seed=4)
+    args = (m_new, m_old, x, Tanh(), need_h, True, "bf16", True)
+    _close(_run_tc(args), K.streaming_fused_sums_plain(*args))
+
+
+def test_moments_hand_off_takes_the_tc_route(dev):
+    """rotated_moments_sums on bf16 X above N = 64 is the fused plain mode
+    at the bf16 tier: the tensor-core route."""
+    x, m_old, _ = _inputs(dev, 130, 5000, seed=5)
+    K.reset_launch_counts()
+    out = K.rotated_moments_sums(m_old, x, Tanh(), True, True)
+    assert K.streaming_fused_sums.launches_by_route == {"scalar": 0, "tc": 1}
+    _close(out, K.rotated_moments_sums_plain(m_old, x, Tanh(), True, True))
+
+
+# Every other (mode, tier, X dtype) stays on the scalar kernel.
+SCALAR_ROUTES = [
+    ("delta bf16, bf16 X", "bf16", False, True),
+    ("delta bf16x3, bf16 X", "bf16x3", False, True),
+    ("plain bf16x3, bf16 X", "bf16x3", True, True),
+    ("plain f32", "f32", True, False),
+    ("plain bf16, f32 X", "bf16", True, False),
+    ("delta bf16x3", "bf16x3", False, False),
+]
+
+
+@pytest.mark.parametrize("label,precision,absolute_ll,bf16_x", SCALAR_ROUTES,
+                         ids=[r[0] for r in SCALAR_ROUTES])
+def test_other_routes_stay_on_the_scalar_kernel(dev, label, precision, absolute_ll, bf16_x):
+    x, m_old, m_new = _inputs(dev, 130, 3001, seed=6)
+    if not bf16_x:
+        x = x.float()
+    args = (m_new, m_old, x, Tanh(), True, True, precision, absolute_ll)
+    K.reset_launch_counts()
+    out = K.streaming_fused_sums(*args)
+    assert K.streaming_fused_sums.launches_by_route == {"scalar": 1, "tc": 0}
+    _close(out, K.streaming_fused_sums_plain(*args),
+           RTOL_BF16 if precision == "bf16" else 2e-5)
+
+
+def test_stream_tc_g_drift_against_f64(dev):
+    """The contraction's sums at 1024 x 200,000: W = I and the cube
+    density, so the kernel's bf16 operands are bit for bit the plain
+    version's, bf16(Y^3) and bf16(Y) with Y = X; G's error against f64
+    sums of those operands within DRIFT_FACTOR of the plain version's."""
+    n, t = 1024, 200_000
+    x, _, _ = _inputs(dev, n, t, seed=7)
+    eye = torch.eye(n, device=dev)
+    args = (eye, eye, x, Cube(), False, False, "bf16", True)
+    g_k = _run_tc(args)[2]
+    g_p = K.streaming_fused_sums_plain(*args)[2]
+    y = x.float()
+    psi = (y * y * y).to(torch.bfloat16)
+    g_64 = psi.double() @ x.double().T
+    err_k = float((g_k.double() - g_64).abs().max())
+    err_p = float((g_p.double() - g_64).abs().max())
+    bound = DRIFT_FACTOR * err_p + DRIFT_FLOOR * float(g_64.abs().max())
+    assert err_k <= bound, (err_k, err_p, bound)
