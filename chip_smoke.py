@@ -51,20 +51,29 @@ prints no result line):
      1e-4 on both paths at the default staged schedule, so the bf16 tier
      runs through the streaming kernels (the grouped covariance whitens
      it): its plain bf16 passes on bf16 X through the tensor-core route
-     (``csrc/streaming_fused_tc.cu``), which must launch there.
+     (``csrc/streaming_fused_tc.cu``), which must launch there;
+  5c. phase 5's 256 x 2,000,000 tensor fitted with ``use_kernels=True`` at
+     the default staged schedule: converged at tol 1e-7, Amari to the
+     mixing and to phase 5's torch-path fit, and the tensor-core route
+     launched at both its tiers (the bf16 stage's plain passes on bf16 X,
+     the bf16x3 stage's delta passes on f32 X); core seconds beside phase
+     5's f32-only kernel fit.
 
 Phase 2 also holds the streaming kernels against their plain versions:
 ``streaming_fused_sums`` at 256 x 2,000,000 (every mode and tier the
 path runs), 306 x 1,000,003 and 1024 x 200,000, ``streaming_loglik_sums``
 at 256 x 2,000,000 and 1024 x 200,000. Its plain bf16 cases on bf16 X
-run the tensor-core route and make a row of their own in the ``kernels``
-line (``streaming_fused_sums/tc``, launches counted in phase 5b).
+and its delta bf16x3 cases on f32 X run the tensor-core route, which
+must launch at that tier, and make a row each of their own in the
+``kernels`` line (``streaming_fused_sums/tc``, launches counted in phase
+5b; ``streaming_fused_sums/tc_bf16x3``, launches counted in phase 5c).
 
 The line before the last is a JSON object describing every kernel:
 launches on its path (phase 3 for the resident core kernels, phase 4
 for the whitening kernels, 4b for the grouped one, 5 for the streaming
-kernels; the fused pass's tensor-core kernel counts the launches of its
-three tiers in phase 4, ``launches_by_tier``), error against the plain
+kernels, 5b and 5c for the streaming tensor-core route's two tiers; the
+fused pass's tensor-core kernel counts the launches of its three tiers
+in phase 4, ``launches_by_tier``), error against the plain
 version (and, for the fused kernel's f32 tier, against f64), and
 the numbers of its headline case (``_KERNELS``): ``ms`` and ``plain_ms``
 (CUDA events, one synchronised call at a time, median of 10),
@@ -466,11 +475,13 @@ def phase2_streaming_kernels():
         return lambda m1, m0, xx: (m0, xx, d, need_ysq)
 
     # (kernel, label, tier, args, bf16 X) — the main path's modes first.
-    # The plain bf16 cases on bf16 X run the tensor-core route (TC_LABEL).
+    # The plain bf16 cases on bf16 X (TC_LABEL) and the delta bf16x3 cases
+    # on f32 X (TC3_LABEL) run the tensor-core route.
     plans = [
         ((N5, T5, 5), [
             (fused, "delta f32", "f32", f("f32", False), False),
-            (fused, "delta bf16x3", "bf16x3", f("bf16x3", False), False),
+            (fused, TC3_LABEL, "bf16x3", f("bf16x3", False), False),
+            (fused, TC3_LABEL + ", H+ysq", "bf16x3", f("bf16x3", False, True), False),
             (fused, TC_LABEL, "bf16", f("bf16", True), True),
             (fused, TC_LABEL + ", H+ysq", "bf16", f("bf16", True, True), True),
             (fused, "plain f32 (moments)", "f32", f("f32", True), False),
@@ -485,6 +496,7 @@ def phase2_streaming_kernels():
         ((N5B, T5B, 7), [
             (fused, "delta f32", "f32", f("f32", False), False),
             (fused, TC_LABEL, "bf16", f("bf16", True), True),
+            (fused, TC3_LABEL, "bf16x3", f("bf16x3", False), False),
             (loglik, "f32", "f32", ll(False), False),
         ]),
     ]
@@ -493,15 +505,23 @@ def phase2_streaming_kernels():
         x, m_old, m_new = _stream_inputs(n, t, seed)
         x16 = x.to(torch.bfloat16)
         for kern, label, tier, make, bf16_x in cases:
-            tc = label.startswith(TC_LABEL)
-            before = dict(K.streaming_fused_sums.launches_by_route)
+            key = next((row for lab, row in ((TC_LABEL, TC_ROW), (TC3_LABEL, TC3_ROW))
+                        if label.startswith(lab)), None)
+            before = _stream_tc_launches(tier)
             _hold(rows, kern, plain_of[kern], label, tier, make, m_new, m_old,
-                  x16 if bf16_x else x, key=TC_ROW if tc else None)
-            if tc and K.streaming_fused_sums.launches_by_route["tc"] == before["tc"]:
-                raise AssertionError(f"[{label}] did not run the tensor-core route")
+                  x16 if bf16_x else x, key=key)
+            if key and _stream_tc_launches(tier) == before:
+                raise AssertionError(f"[{label}] did not run the tensor-core route at {tier}")
         del x, x16
         torch.cuda.empty_cache()
     return rows
+
+
+def _stream_tc_launches(tier):
+    """The streaming fused kernel's tensor-core launches at ``tier``."""
+    from picard_ica_tpu_torch.ops import kernels as K
+
+    return K.streaming_fused_sums.launches_by_tier["tc"][tier]
 
 
 def _f32_check(name, label, x, fmas, run, plain, run64, library):
@@ -639,10 +659,14 @@ def _fit(x, use_kernels, **config):
 
 
 _CORE_KERNELS = ("rotated_fused_sums", "rotated_moments_sums", "rotated_loglik_sums")
-# The tensor-core route of the streaming fused kernel (plain mode, bf16
-# tier, bf16 X): its phase-2 label and its row in the kernels line.
+# The tensor-core route of the streaming fused kernel: its phase-2 labels
+# and its rows in the kernels line, one a tier (plain mode at bf16 on bf16
+# X; delta mode at bf16x3 on f32 X).
 TC_LABEL = "plain bf16, bf16 X"
 TC_ROW = "streaming_fused_sums/tc"
+TC3_LABEL = "delta bf16x3"
+TC3_ROW = "streaming_fused_sums/tc_bf16x3"
+_TC_TIER = {TC_ROW: "bf16", TC3_ROW: "bf16x3"}
 # The fused pass's kernel and the tiers it serves: the tensor-core kernel
 # (csrc/rotated_fused_tc.cu) runs all three.
 TIER_ROWS = {"rotated_fused_sums": ("bf16", "bf16x3", "f32")}
@@ -652,8 +676,10 @@ def _count(name, launches):
     """A kernel's launches in one phase's counts (``_launches``)."""
     if name in TIER_ROWS:
         return sum(launches["by_tier"][t] for t in TIER_ROWS[name])
-    if name == "streaming_fused_sums":  # its scalar kernel; the tensor-core route is TC_ROW
+    if name == "streaming_fused_sums":  # its scalar kernel; the tensor-core route's rows by tier
         return launches["stream_by_route"]["scalar"]
+    if name in _TC_TIER:
+        return launches["stream_by_tier"]["tc"][_TC_TIER[name]]
     return launches.get(name, 0)
 _PHASE4_KERNELS = ("row_sums", "centered_covariance_sums", "covariance_sums",
                    "rotated_fused_sums", "rotated_moments_sums")
@@ -712,13 +738,16 @@ def phase3_slice():
 
 def _launches():
     """Every kernel's launches, the fused pass's by tier and the
-    streaming fused kernel's by route."""
+    streaming fused kernel's by route and by route and tier."""
     from picard_ica_tpu_torch.ops import kernels as K
 
     counts = {k.__name__: k.launches for k in K.KERNELS}
     counts["by_tier"] = dict(K.rotated_fused_sums.launches_by_tier)
     counts["stream_by_route"] = dict(K.streaming_fused_sums.launches_by_route)
-    counts[TC_ROW] = counts["stream_by_route"]["tc"]
+    counts["stream_by_tier"] = {route: dict(tiers) for route, tiers in
+                                K.streaming_fused_sums.launches_by_tier.items()}
+    for row in _TC_TIER:
+        counts[row] = _count(row, counts)
     return counts
 
 
@@ -855,13 +884,11 @@ def phase5_large_n():
     """BASELINE config 5's width on one card through the streaming
     kernels: 256 x 2,000,000, extended + ortho, tol 1e-7.
 
-    Both fits run the exact f32 tier. Under the default staged schedule
-    this seed's kernel fit leaves the bf16 tier with one extended sign
-    wrong and then cycles between sign sets for all 500 iterations, while
-    the torch path, whose bf16 sums are ordered differently, converges;
-    other seeds converge on both paths (PERF.md, Findings). On this card the
-    bf16 tiers save no time at this width (phase 2's times), and phase
-    5b runs them."""
+    Both fits run the exact f32 tier; phase 5c fits the same tensor at the
+    default staged schedule, under which this seed's kernel fit converges
+    too. Returns the launch counts and what phase 5c compares with: the
+    tensor, the mixing, the torch path's unmixing and the kernel fit's
+    core seconds."""
     import numpy as np
     import torch
 
@@ -898,6 +925,7 @@ def phase5_large_n():
     resident = {k: launches[k] for k in _CORE_KERNELS if launches[k]}
     if resident:
         raise AssertionError(f"resident core kernels ran at N = {N5}: {resident}")
+    f32_core = r.core_seconds
     del r
     torch.cuda.empty_cache()
 
@@ -912,6 +940,44 @@ def phase5_large_n():
         raise AssertionError(f"kernel and torch fits disagree: amari {agree}")
     if _checksum(x) != before:
         raise AssertionError("the fit wrote the caller's tensor")
+    return launches, (x, a, w_t, f32_core)
+
+
+def phase5c_staged(x, a, w_torch, f32_core):
+    """Phase 5's tensor at the default staged schedule through the
+    streaming kernels: its bf16 stage's plain passes on bf16 X and its
+    bf16x3 stage's delta passes on f32 X both run the tensor-core route."""
+    import numpy as np
+    import torch
+
+    from picard_ica_tpu_torch.ops import kernels as K
+    from picard_ica_tpu_torch.utils.metrics import amari_distance
+
+    torch.cuda.empty_cache()
+    K.reset_launch_counts()
+    r, wall = _fit(x, True)
+    launches = _launches()
+    w_k = r.full_unmixing().double().cpu().numpy()
+    amari = amari_distance(w_k, a)
+    agree = amari_distance(w_k, np.linalg.inv(w_torch))
+    label = "large-N slice, staged (kernels)"
+    _report_fit(label, r, wall, T5)
+    _log(f"{label}: amari {amari:.3e}, amari(W_staged, inv(W_torch)) = {agree:.3e}, "
+         f"negative signs {int((r.signs < 0).sum()) if r.signs is not None else None}")
+    _log(f"{label}: core {r.core_seconds:.4f} s against the f32-only kernel fit's "
+         f"{f32_core:.4f} s; streaming fused launches by route "
+         f"{launches['stream_by_route']}, by route and tier {launches['stream_by_tier']}")
+    if not r.converged:
+        raise AssertionError("the staged streaming-kernel fit did not converge at tol 1e-7")
+    if not amari < 5e-3:
+        raise AssertionError(f"amari {amari} >= 5e-3")
+    if not agree < 1e-3:
+        raise AssertionError(f"staged kernel and torch fits disagree: amari {agree}")
+    if tuple(r.sources.shape) != (N5, T5) or not bool(r.sources.isfinite().all()):
+        raise AssertionError("sources are not finite (N, T)")
+    missing = [row for row in _TC_TIER if launches[row] == 0]
+    if missing:
+        raise AssertionError(f"the tensor-core route never launched in the staged fit: {missing}")
     return launches
 
 
@@ -972,12 +1038,13 @@ _KERNELS = {
     "_grouped_covariance": (_STATS_SOURCE, 531, "centered"),
     "streaming_fused_sums": (_STREAM_SOURCE, 1149, "delta f32"),
     TC_ROW: (_STREAM_TC_SOURCE, 1149, f"{TC_LABEL}, {N5B} x {T5B}"),
+    TC3_ROW: (_STREAM_TC_SOURCE, 1149, f"{TC3_LABEL}, {N5} x {T5}"),
     "streaming_loglik_sums": (_STREAM_SOURCE, 1247, "f32"),
 }
 # The fit whose launches each row reports.
 _PATH_OF = {**dict.fromkeys(_CORE_KERNELS, "phase3"), **dict.fromkeys(TIER_ROWS, "phase4"),
             **dict.fromkeys(_STREAM_KERNELS, "phase5"), "_grouped_covariance": "phase4b",
-            TC_ROW: "phase5b"}
+            TC_ROW: "phase5b", TC3_ROW: "phase5c"}
 
 
 def main():
@@ -989,8 +1056,11 @@ def main():
     rows.update(phase2_whitening_kernels())
     rows.update(phase2_streaming_kernels())
     by_path = {"phase3": phase3_slice(), "phase4": phase4_device_slice(),
-               "phase4b": phase4b_grouped(), "phase5": phase5_large_n(),
-               "phase5b": phase5b_exhibit()}
+               "phase4b": phase4b_grouped()}
+    by_path["phase5"], large_n = phase5_large_n()
+    by_path["phase5c"] = phase5c_staged(*large_n)
+    del large_n
+    by_path["phase5b"] = phase5b_exhibit()
     kernels = []
     for name, (source, line, headline) in _KERNELS.items():
         row = rows[name]

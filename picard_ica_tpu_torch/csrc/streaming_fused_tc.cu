@@ -1,52 +1,77 @@
-// Hand-written Hopper (sm_90a) kernels for one route of
-// picard_streaming_fused_sums: the plain mode (absolute log-lik) at the
-// bf16 tier on bf16 X, which the default staged schedule runs as its first
-// stage at N > 64 (and the moments hand-off on that stage's X). They
-// replace, for that route, picard_ica_tpu/ops/pallas_kernels.py
+// Hand-written Hopper (sm_90a) kernels for two routes of
+// picard_streaming_fused_sums, the two stages of the default staged
+// schedule at N > 64: the plain mode (absolute log-lik) at the bf16 tier
+// on bf16 X (the first stage, and the moments hand-off on its X), and the
+// delta mode at the bf16x3 tier on f32 X (the second stage). They replace,
+// for those routes, picard_ica_tpu/ops/pallas_kernels.py
 // streaming_fused_sums / _streaming_fused_kernel; every other mode and
 // tier stays on streaming_sums.cu's scalar kernel.
 //
-// What it computes, for Y = bf16(M_new) X with bf16 operands and f32 sums:
-// the row sums dll = sum log_lik(Y), pm = sum psi'(Y) (both masked at
-// columns >= T) and, with need_ysq, ysq = dysq = sum Y^2; G = bf16(psi(Y))
-// bf16(Y)^T and, with need_h, H = bf16(psi'(Y)) bf16(Y^2)^T, f32 sums. The
-// TPU kernel keeps Y in f32 and rounds psi, Y and Y^2 to bf16 only inside
-// its contraction, so storing them as bf16 computes the same function.
+// What they compute, with f32 sums of exact bf16 products:
+//   * plain bf16: Y = bf16(M_new) X on bf16 X; the row sums dll = sum
+//     log_lik(Y), pm = sum psi'(Y) (both masked at columns >= T) and,
+//     with need_ysq, ysq = dysq = sum Y^2; G = bf16(psi(Y)) bf16(Y)^T and,
+//     with need_h, H = bf16(psi'(Y)) bf16(Y^2)^T. The TPU kernel keeps Y in
+//     f32 and rounds psi, Y and Y^2 to bf16 only inside its contraction,
+//     so storing them as bf16 computes the same function.
+//   * delta bf16x3: X split once into hi / lo bf16 (hi = bf16(v), lo =
+//     bf16(v - hi)), shared by Y_old = M_old X and dY = (M_new - M_old) X,
+//     each the three products hi*hi + lo*hi + hi*lo; Y = Y_old + dY in
+//     f32; the row sums of the delta density, dll, pm (masked at columns
+//     >= T) and, with need_ysq, dysq = sum (2 Y_old + dY) dY and ysq = sum
+//     Y^2; G (H) as the three products of the hi / lo splits of psi(Y) and
+//     Y (psi'(Y) and Y^2), psi and psi' those of the f32 Y.
 //
-// What bounds it on the card: 2 N^2 T bf16 FMAs (3 N^2 T with H), one
-// rotation and one contraction (at 256 x 2M 2.6e11, 0.53 ms of the tensor
-// cores' 494.5 T FMA/s), against X's bytes read once (1 GB at 256 x 2M,
-// 0.31 ms of HBM); beside them N T density evaluations on the FP32 pipes
-// and the SFU (5.1e8 at 256 x 2M).
+// What bounds them on the card: bf16 FMAs on the tensor cores, N^2 T a
+// product: 2 N^2 T plain (3 with H), 9 N^2 T delta bf16x3 (12 with H); at
+// 256 x 2M 0.53 and 2.39 ms of the tensor cores' 494.5 T FMA/s, against
+// X's bytes read once (bf16 1 GB, 0.31 ms; f32 2 GB, 0.61 ms); beside
+// them N T density evaluations on the FP32 pipes and the SFU.
 //
 // What the design does about it: two GEMM-shaped launches, each a plain
 // tile loop on mma.sync m16n8k16 (mma_tiers.cuh) fed by a cp.async ring,
 // so that the products run on the tensor cores and the density runs once
 // per element. Both run two blocks of 8 warps an SM, so one block's
-// density or stores overlap another's products, and take 64-deep k
-// stages (four MMA k-steps a barrier); 128-column tiles in A at one block
-// an SM, and 32-deep stages, measured slower (PERF.md).
-//   * Launch A (rotate_density_kernel): one block owns a TILE-row block of
-//     W and one group of `cols` consecutive columns, and walks the group's
-//     A_BT-column tiles in order. Per tile, Y[TILE x A_BT] = W X on the
-//     tensor cores, k over N in A_KC-deep stages (W, copied by the caller
-//     into a zero-padded bf16 (n_pad, kp) matrix, is the A operand; X, (N,
-//     T) row-major, the B operand read with ldmatrix.trans; 16-byte copies
-//     where T % 8 == 0, else plain loads, zero-filled past N and T). The
-//     density runs on the accumulator fragments; the row sums stay in
-//     registers across the group's tiles, so each (group, row) partial is
-//     a sequential f32 sum with no atomics. psi and Y (with H also psi' and
-//     Y^2) go to a bf16 workspace of (n_pad, ws_cols) matrices, exact zeros
-//     at padded rows and columns, so launch B needs no mask and psi'(0) !=
-//     0 never reaches H.
-//   * Launch B (contract_kernel): G = psi Y^T (H = psi' (Y^2)^T) as a
-//     plain NT GEMM whose K is the group's columns; both operands are
-//     K-contiguous and read with ldmatrix. One block per TILE x TILE
-//     output tile and group keeps its tile in registers over the group's
-//     columns and writes it once into the group's partial. The tensor
-//     cores round each MMA's sum toward zero, so each 32 columns are
-//     summed in a fresh accumulator (a chain of two MMAs) and added to the
-//     tile in f32, to nearest.
+// density or stores overlap another's products.
+//   * Launch A, plain (rotate_density_kernel): one block owns a TILE-row
+//     block of W and one group of `cols` consecutive columns, and walks
+//     the group's A_BT-column tiles in order. Per tile, Y[TILE x A_BT] =
+//     W X on the tensor cores, k over N in A_KC-deep stages (W, copied by
+//     the caller into a zero-padded bf16 (n_pad, kp) matrix, is the A
+//     operand; X, (N, T) row-major, the B operand read with
+//     ldmatrix.trans; 16-byte copies where T % 8 == 0, else plain loads,
+//     zero-filled past N and T). The density runs on the accumulator
+//     fragments; the row sums stay in registers across the group's tiles,
+//     so each (group, row) partial is a sequential f32 sum with no
+//     atomics. psi and Y (with H also psi' and Y^2) go to a bf16 workspace
+//     of (n_pad, ws_cols) planes, exact zeros at padded rows and columns,
+//     so launch B needs no mask and psi'(0) != 0 never reaches H. 128 x
+//     128 tiles at one block an SM, and 32-deep stages, measured slower
+//     (PERF.md).
+//   * Launch A, delta bf16x3 (rotate_delta_kernel): the same walk with two
+//     accumulator sets a warp (Y_old, dY). The caller passes M_old and dM
+//     already split, four zero-padded bf16 planes; X comes in as f32, and
+//     each landed D_KC-row stage is split once into hi / lo bf16 tiles in
+//     shared memory that every warp reads with ldmatrix.trans. The tensor
+//     cores round each MMA's sum toward zero, and the rotation's K runs up
+//     to 1344 deep, so each 16-deep k step is summed in a fresh
+//     accumulator (a chain of three MMAs) and added to Y_old or dY in f32,
+//     to nearest. Four W planes and f32 X make a 32-deep stage 1.8 times
+//     the plain mode's 64-deep one, so the ring holds two D_KC = 32-deep
+//     stages; the row sums go to shared memory once per tile, in f64, to
+//     leave the registers to the two accumulator sets. At 128 registers a
+//     thread ptxas still spills ~100 bytes; one block an SM (255
+//     registers, no spills) with four 32-deep or two 64-deep stages
+//     measured slower (PERF.md). The workspace holds the hi / lo planes
+//     of psi and Y (psi' and Y^2 with H).
+//   * Launch B (contract_kernel<TIER>): G = psi Y^T (H = psi' (Y^2)^T) as
+//     a plain NT GEMM whose K is the group's columns; both operands are
+//     K-contiguous and read with ldmatrix, as one (bf16) or two (bf16x3,
+//     hi and lo) planes each. One block per TILE x TILE output tile and
+//     group keeps its tile in registers over the group's columns and
+//     writes it once into the group's partial. Each FRESH columns are
+//     summed in a fresh accumulator (a chain of two MMAs at bf16, three at
+//     bf16x3) and added to the tile in f32, to nearest.
 //   * Both launches cut T into the same n_parts groups, so the caller's
 //     packed partial buffer and its one fold launch (ops/kernels.py
 //     _fold_outputs) are those of the scalar kernel. Where the workspace
@@ -90,22 +115,49 @@ constexpr int A_W_STAGE = TILE * A_LDK;  // elements
 constexpr int A_X_STAGE = A_KC * LDN;
 constexpr int A_RED = A_STAGES * (A_W_STAGE + A_X_STAGE) * 2;
 constexpr int A_BYTES = A_RED + 3 * A_WC * TILE * 4;
-constexpr int BLOCKS = 2;                // blocks an SM, in both launches
+constexpr int BLOCKS = 2;                // blocks an SM, in every launch
 constexpr int SM_SMEM = 233472;          // shared memory of an SM for its blocks
 constexpr int BLOCK_RESERVED = 1024;     // kept by the system per block
 
+// Launch A in delta mode: the same tile and warps; k in D_KC-deep stages
+// of a D_STAGES ring. A stage holds the four W planes (M_old hi, lo, dM
+// hi, lo: [row][k] each) and the f32 X tile ([k][column]); each landed X
+// tile is split into hi / lo bf16 [k][column] tiles (stride LDN). Then
+// the row sums (4 sums x A_WC warps x TILE rows) in f64, added to once a
+// tile, so the group's sums carry no error of their order.
+constexpr int D_KC = 32;
+constexpr int D_STAGES = 2;
+constexpr int D_LDK = D_KC + 8;
+constexpr int LDX = A_BT;                // row stride (floats) of the f32 X stage tile
+constexpr int D_W_PLANE = TILE * D_LDK;  // elements
+constexpr int D_STAGE = 4 * D_W_PLANE * 2 + D_KC * LDX * 4;  // bytes
+constexpr int D_SPLIT = D_STAGES * D_STAGE;
+constexpr int D_RED = D_SPLIT + 2 * D_KC * LDN * 2;
+constexpr int D_BYTES = D_RED + 4 * A_WC * TILE * 8;
+static_assert(D_STAGE % 16 == 0 && (4 * D_W_PLANE * 2) % 16 == 0, "16-byte aligned stages");
+
 // Launch B: a warp's 64 x 32 share of the output tile, 4 m-tiles x 4
-// n-tiles; k in B_KC-deep stages of a B_STAGES ring (two [row][k] tiles a
-// stage), summed 32 columns at a time in a fresh accumulator.
+// n-tiles; k in KC-deep stages of a STAGES ring (a [row][k] tile for each
+// part of both operands a stage), summed FRESH columns at a time in a
+// fresh accumulator.
 constexpr int MI = 4;
-constexpr int B_KC = 64;
-constexpr int B_STAGES = 3;
-constexpr int B_LDK = B_KC + 8;
-constexpr int B_STAGE = TILE * B_LDK;
-constexpr int B_BYTES = B_STAGES * 2 * B_STAGE * 2;
-static_assert(A_KC % 16 == 0 && B_KC % 32 == 0, "stage depths");
+template <int TIER>
+struct BCfg {
+  static constexpr int P = parts(TIER);
+  static constexpr int KC = TIER == BF16 ? 64 : 32;
+  static constexpr int STAGES = TIER == BF16 ? 3 : 2;
+  static constexpr int FRESH = TIER == BF16 ? 32 : 16;
+  static constexpr int LDK = KC + 8;
+  static constexpr int PLANE = TILE * LDK;      // elements of one part's stage tile
+  static constexpr int STAGE = 2 * P * PLANE;  // elements
+  static constexpr int BYTES = STAGES * STAGE * 2;
+  static_assert(KC % FRESH == 0 && FRESH % 16 == 0, "stage depths");
+};
+static_assert(A_KC % 16 == 0 && D_KC % 16 == 0, "stage depths");
 static_assert(BLOCKS * (A_BYTES + BLOCK_RESERVED) <= SM_SMEM &&
-                  BLOCKS * (B_BYTES + BLOCK_RESERVED) <= SM_SMEM,
+                  BLOCKS * (D_BYTES + BLOCK_RESERVED) <= SM_SMEM &&
+                  BLOCKS * (BCfg<BF16>::BYTES + BLOCK_RESERVED) <= SM_SMEM &&
+                  BLOCKS * (BCfg<BF16X3>::BYTES + BLOCK_RESERVED) <= SM_SMEM,
               "two blocks of either launch fit an SM's shared memory");
 
 struct AParams {
@@ -122,10 +174,28 @@ struct AParams {
   long long stride;
 };
 
+struct DParams {
+  int n, kp, n_kc;  // components; k extent of the padded W; D_KC stages of k
+  long long t;
+  int need_ysq, vec;
+  float a, m2a, mha;
+  const __nv_bfloat16* w;  // 4 (n_pad, kp) bf16 planes: M_old hi, lo, dM hi, lo
+  long long w_plane;       // n_pad * kp
+  const float* x;          // (n, t) f32, row-major
+  // workspace: psi hi, lo, Y hi, lo (with H psi' hi, lo, Y^2 hi, lo),
+  // (n_pad, ws_cols) each
+  __nv_bfloat16* ws[8];
+  long long ws_cols;
+  int cols, g0;
+  float *ll, *dysq, *pm, *ysq;
+  long long stride;
+};
+
 struct BParams {
-  const __nv_bfloat16 *psi, *y, *psid, *y2;  // the workspace
-  float *g, *h;
-  int n, edge;  // components; output tiles along a side (n_pad / TILE)
+  // [G or H][left or right operand][part] of the workspace
+  const __nv_bfloat16* src[2][2][2];
+  float* out[2];  // G, H
+  int n, edge;    // components; output tiles along a side (n_pad / TILE)
   long long ws_cols;
   int cols, g0;
   long long stride;
@@ -305,7 +375,224 @@ __global__ void __launch_bounds__(THREADS, BLOCKS) rotate_density_kernel(AParams
   }
 }
 
+// Start delta launch A's copies for ring step `it` (tile it / n_kc,
+// k-stage it % n_kc) into stage `st`; the caller commits.
+__device__ __forceinline__ void load_d(const DParams& p, unsigned char* st, int it,
+                                       long long col0) {
+  const int tid = threadIdx.x;
+  const int tile = it / p.n_kc, k0 = (it % p.n_kc) * D_KC;
+  // W: 4 planes x TILE rows x D_KC in 16-byte pieces, always in bounds.
+  __nv_bfloat16* ws = reinterpret_cast<__nv_bfloat16*>(st);
+  const __nv_bfloat16* w = p.w + (long long)blockIdx.x * TILE * p.kp + k0;
+  for (int u = tid; u < 4 * TILE * (D_KC / 8); u += THREADS) {
+    const int m = u / (TILE * (D_KC / 8)), v = u % (TILE * (D_KC / 8));
+    const int r = v / (D_KC / 8), c = (v % (D_KC / 8)) * 8;
+    cp_async16_zfill(ws + m * D_W_PLANE + r * D_LDK + c, w + m * p.w_plane + (long long)r * p.kp + c,
+                     true);
+  }
+  // X: D_KC rows x A_BT f32 columns, zero past n and t.
+  float* xs = reinterpret_cast<float*>(st + 4 * D_W_PLANE * 2);
+  const long long c0 = col0 + (long long)tile * A_BT;
+  if (p.vec) {  // t % 4 == 0: a 4-column piece is all in or all out
+    for (int u = tid; u < D_KC * (A_BT / 4); u += THREADS) {
+      const int kr = u / (A_BT / 4), c = (u % (A_BT / 4)) * 4;
+      const bool in = k0 + kr < p.n && c0 + c < p.t;
+      cp_async16_zfill(xs + kr * LDX + c, in ? p.x + (long long)(k0 + kr) * p.t + c0 + c : p.x,
+                       in);
+    }
+  } else {  // rows not 16-byte aligned: 4-byte copies
+    for (int u = tid; u < D_KC * A_BT; u += THREADS) {
+      const int kr = u / A_BT, c = u % A_BT;
+      const bool in = k0 + kr < p.n && c0 + c < p.t;
+      cp_async4_zfill(xs + kr * LDX + c, in ? p.x + (long long)(k0 + kr) * p.t + c0 + c : p.x, in);
+    }
+  }
+}
+
+// Delta mode at the bf16x3 tier on f32 X; warps as in launch A's plain
+// mode.
+template <int D, bool NEED_H>
+__global__ void __launch_bounds__(THREADS, BLOCKS) rotate_delta_kernel(DParams p) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __nv_bfloat16* xsplit = reinterpret_cast<__nv_bfloat16*>(smem + D_SPLIT);  // hi, then lo
+  double* red = reinterpret_cast<double*>(smem + D_RED);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, q = lane & 3;
+  const int wr = warp / A_WC, wc = warp % A_WC;
+  const int row0 = blockIdx.x * TILE;
+  const int grp = p.g0 + blockIdx.y;
+  const long long col0 = (long long)grp * p.cols;
+  const long long ws0 = (long long)blockIdx.y * p.cols;
+  const int n_kc = p.n_kc;
+  const int total = (p.cols / A_BT) * n_kc;
+
+  for (int u = tid; u < 4 * A_WC * TILE; u += THREADS) red[u] = 0.0;
+#pragma unroll
+  for (int i = 0; i < D_STAGES - 1; ++i) {
+    if (i < total) load_d(p, smem + i * D_STAGE, i, col0);
+    cp_async_commit_group();
+  }
+
+  float acc[2][A_MI][NI][4] = {};  // Y_old, dY
+
+  for (int it = 0; it < total; ++it) {
+    cp_async_wait<D_STAGES - 2>();
+    __syncthreads();  // step it landed everywhere; the split tiles and stage (it - 1) are free
+    const int ahead = it + D_STAGES - 1;
+    if (ahead < total) load_d(p, smem + (ahead % D_STAGES) * D_STAGE, ahead, col0);
+    cp_async_commit_group();
+
+    const unsigned char* st = smem + (it % D_STAGES) * D_STAGE;
+    const __nv_bfloat16* ws = reinterpret_cast<const __nv_bfloat16*>(st);
+    const float* xs = reinterpret_cast<const float*>(st + 4 * D_W_PLANE * 2);
+    // The X tile's hi / lo split, once for every warp.
+    for (int u = tid; u < D_KC * (A_BT / 2); u += THREADS) {
+      const int kr = u / (A_BT / 2), c = 2 * (u % (A_BT / 2));
+      const float2 v = *reinterpret_cast<const float2*>(xs + kr * LDX + c);
+      uint32_t hi, lo;
+      split_pair(v.x, v.y, hi, lo);
+      *reinterpret_cast<uint32_t*>(xsplit + kr * LDN + c) = hi;
+      *reinterpret_cast<uint32_t*>(xsplit + D_KC * LDN + kr * LDN + c) = lo;
+    }
+    __syncthreads();
+
+#pragma unroll
+    for (int ks = 0; ks < D_KC / 16; ++ks) {
+      uint32_t b[NI][2][2];  // [n-tile][part][b0 / b1]
+#pragma unroll
+      for (int part = 0; part < 2; ++part) {
+#pragma unroll
+        for (int np = 0; np < NI / 2; ++np) {
+          uint32_t r[4];
+          ldmatrix_x4_trans(r, ldm_a_addr(xsplit + part * D_KC * LDN + 16 * ks * LDN + 32 * wc +
+                                              16 * np,
+                                          LDN, lane));
+          b[2 * np][part][0] = r[0], b[2 * np][part][1] = r[1];
+          b[2 * np + 1][part][0] = r[2], b[2 * np + 1][part][1] = r[3];
+        }
+      }
+#pragma unroll
+      for (int mi = 0; mi < A_MI; ++mi) {
+#pragma unroll
+        for (int set = 0; set < 2; ++set) {
+          uint32_t a[2][4];
+#pragma unroll
+          for (int part = 0; part < 2; ++part)
+            ldmatrix_x4(a[part], ldm_a_addr(ws + (2 * set + part) * D_W_PLANE +
+                                                (16 * A_MI * wr + 16 * mi) * D_LDK + 16 * ks,
+                                            D_LDK, lane));
+          // The k step's three products in a fresh accumulator, added to
+          // nearest.
+          float t4[NI][4] = {};
+#pragma unroll
+          for (int nt = 0; nt < NI; ++nt) mma_tier<BF16X3>(t4[nt], t4[nt], a, b[nt]);
+#pragma unroll
+          for (int nt = 0; nt < NI; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[set][mi][nt][e] += t4[nt][e];
+        }
+      }
+    }
+    if (it % n_kc != n_kc - 1) continue;
+
+    // The tile is done: the delta density on the fragments, the row sums
+    // into shared memory, and the hi / lo workspace planes (4-byte stores
+    // of column pairs).
+    const int tile = it / n_kc;
+    const long long c0 = col0 + (long long)tile * A_BT;
+    const long long wcol = ws0 + (long long)tile * A_BT;
+#pragma unroll
+    for (int mi = 0; mi < A_MI; ++mi) {
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int rl = 16 * A_MI * wr + 16 * mi + g + 8 * hh;
+        const int row = row0 + rl;
+        float sums[4] = {};  // dll, pm, dysq, ysq
+#pragma unroll
+        for (int nt = 0; nt < NI; ++nt) {
+          const int cl = 32 * wc + 8 * nt + 2 * q;
+          float yv[2], ps[2], pd[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const float y_old = acc[0][mi][nt][2 * hh + e], dy = acc[1][mi][nt][2 * hh + e];
+            float psi, psid, dll;
+            score_der_loglik_delta<D>(p, y_old, dy, psi, psid, dll);
+            const float y = y_old + dy;
+            const bool valid = row < p.n && c0 + cl + e < p.t;
+            if (valid) {
+              sums[0] += dll;
+              sums[1] += psid;
+              if (p.need_ysq) {
+                sums[2] += (2.f * y_old + dy) * dy;
+                sums[3] += y * y;
+              }
+            }
+            score_der<D>(p, y, psi, psid);  // the contraction's psi, psi' of the f32 Y
+            yv[e] = y;  // 0 at padded rows and columns
+            ps[e] = psi;
+            pd[e] = valid ? psid : 0.f;
+            acc[0][mi][nt][2 * hh + e] = acc[1][mi][nt][2 * hh + e] = 0.f;
+          }
+          const long long off = (long long)row * p.ws_cols + wcol + cl;
+          uint32_t hi, lo;
+          split_pair(ps[0], ps[1], hi, lo);
+          *reinterpret_cast<uint32_t*>(p.ws[0] + off) = hi;
+          *reinterpret_cast<uint32_t*>(p.ws[1] + off) = lo;
+          split_pair(yv[0], yv[1], hi, lo);
+          *reinterpret_cast<uint32_t*>(p.ws[2] + off) = hi;
+          *reinterpret_cast<uint32_t*>(p.ws[3] + off) = lo;
+          if (NEED_H) {
+            split_pair(pd[0], pd[1], hi, lo);
+            *reinterpret_cast<uint32_t*>(p.ws[4] + off) = hi;
+            *reinterpret_cast<uint32_t*>(p.ws[5] + off) = lo;
+            split_pair(yv[0] * yv[0], yv[1] * yv[1], hi, lo);
+            *reinterpret_cast<uint32_t*>(p.ws[6] + off) = hi;
+            *reinterpret_cast<uint32_t*>(p.ws[7] + off) = lo;
+          }
+        }
+        // The quad's lanes, then this column warp's slot of the row: each
+        // slot has one writer.
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          sums[k] += __shfl_xor_sync(0xffffffffu, sums[k], 1);
+          sums[k] += __shfl_xor_sync(0xffffffffu, sums[k], 2);
+        }
+        if (q == 0) {
+#pragma unroll
+          for (int k = 0; k < 4; ++k) red[(k * A_WC + wc) * TILE + rl] += sums[k];
+        }
+      }
+    }
+  }
+
+  // The group's row partials: the column warps in order, rounded once.
+  __syncthreads();
+  const int row = row0 + tid;
+  if (tid < TILE && row < p.n) {
+    float v[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const double* r = red + k * A_WC * TILE + tid;
+      double sum = r[0];
+#pragma unroll
+      for (int c = 1; c < A_WC; ++c) sum += r[c * TILE];
+      v[k] = (float)sum;
+    }
+    const long long o = (long long)grp * p.stride + row;
+    p.ll[o] = v[0];
+    p.pm[o] = v[1];
+    if (p.need_ysq) {
+      p.dysq[o] = v[2];
+      p.ysq[o] = v[3];
+    }
+  }
+}
+
+template <int TIER>
 __global__ void __launch_bounds__(THREADS, BLOCKS) contract_kernel(BParams p) {
+  using C = BCfg<TIER>;
+  constexpr int P = C::P, LDK = C::LDK, KS = C::FRESH / 16;
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem);
 
@@ -315,61 +602,76 @@ __global__ void __launch_bounds__(THREADS, BLOCKS) contract_kernel(BParams p) {
   const int ti = blockIdx.x / p.edge, tj = blockIdx.x % p.edge;
   const bool hmat = blockIdx.z == 1;
   const long long k0 = (long long)blockIdx.y * p.cols;
-  const __nv_bfloat16* a_src = (hmat ? p.psid : p.psi) + (long long)ti * TILE * p.ws_cols + k0;
-  const __nv_bfloat16* b_src = (hmat ? p.y2 : p.y) + (long long)tj * TILE * p.ws_cols + k0;
-  const int total = p.cols / B_KC;
+  const __nv_bfloat16* src[2][P];
+#pragma unroll
+  for (int o = 0; o < 2; ++o)
+#pragma unroll
+    for (int pt = 0; pt < P; ++pt)
+      src[o][pt] = (hmat ? p.src[1][o][pt] : p.src[0][o][pt]) +
+                   (long long)(o ? tj : ti) * TILE * p.ws_cols + k0;
+  const int total = p.cols / C::KC;
 
-  // Both operands: TILE rows x B_KC in 16-byte pieces.
+  // Every part of both operands: TILE rows x KC in 16-byte pieces; the
+  // stage holds the left operand's parts, then the right's.
   auto load = [&](int it) {
-    __nv_bfloat16* as = ring + (it % B_STAGES) * 2 * B_STAGE;
-    __nv_bfloat16* bs = as + B_STAGE;
-    const long long k = (long long)it * B_KC;
-    for (int u = tid; u < TILE * (B_KC / 8); u += THREADS) {
-      const int r = u / (B_KC / 8), c = (u % (B_KC / 8)) * 8;
-      cp_async16_zfill(as + r * B_LDK + c, a_src + r * p.ws_cols + k + c, true);
-      cp_async16_zfill(bs + r * B_LDK + c, b_src + r * p.ws_cols + k + c, true);
+    __nv_bfloat16* stage = ring + (it % C::STAGES) * C::STAGE;
+    const long long k = (long long)it * C::KC;
+    for (int u = tid; u < TILE * (C::KC / 8); u += THREADS) {
+      const int r = u / (C::KC / 8), c = (u % (C::KC / 8)) * 8;
+#pragma unroll
+      for (int o = 0; o < 2; ++o)
+#pragma unroll
+        for (int pt = 0; pt < P; ++pt)
+          cp_async16_zfill(stage + (o * P + pt) * C::PLANE + r * LDK + c,
+                           src[o][pt] + r * p.ws_cols + k + c, true);
     }
   };
 
 #pragma unroll
-  for (int i = 0; i < B_STAGES - 1; ++i) {
+  for (int i = 0; i < C::STAGES - 1; ++i) {
     if (i < total) load(i);
     cp_async_commit_group();
   }
 
   float acc[MI][NI][4] = {};
   for (int it = 0; it < total; ++it) {
-    cp_async_wait<B_STAGES - 2>();
+    cp_async_wait<C::STAGES - 2>();
     __syncthreads();
-    if (it + B_STAGES - 1 < total) load(it + B_STAGES - 1);
+    if (it + C::STAGES - 1 < total) load(it + C::STAGES - 1);
     cp_async_commit_group();
 
-    const __nv_bfloat16* as = ring + (it % B_STAGES) * 2 * B_STAGE;
-    const __nv_bfloat16* bs = as + B_STAGE;
+    const __nv_bfloat16* as = ring + (it % C::STAGES) * C::STAGE;
+    const __nv_bfloat16* bs = as + P * C::PLANE;
 #pragma unroll
-    for (int k32 = 0; k32 < B_KC; k32 += 32) {
-      uint32_t b[2][NI][2];
+    for (int f = 0; f < C::KC; f += C::FRESH) {
+      uint32_t b[KS][NI][P][2];
 #pragma unroll
-      for (int ks = 0; ks < 2; ++ks) {
+      for (int ks = 0; ks < KS; ++ks) {
 #pragma unroll
-        for (int np = 0; np < NI / 2; ++np) {
-          uint32_t r[4];
-          ldmatrix_x4(r, ldm_b_addr(bs + (32 * wc + 16 * np) * B_LDK + k32 + 16 * ks, B_LDK,
-                                    lane));
-          b[ks][2 * np][0] = r[0], b[ks][2 * np][1] = r[1];
-          b[ks][2 * np + 1][0] = r[2], b[ks][2 * np + 1][1] = r[3];
+        for (int pt = 0; pt < P; ++pt) {
+#pragma unroll
+          for (int np = 0; np < NI / 2; ++np) {
+            uint32_t r[4];
+            ldmatrix_x4(r, ldm_b_addr(bs + pt * C::PLANE + (32 * wc + 16 * np) * LDK + f + 16 * ks,
+                                      LDK, lane));
+            b[ks][2 * np][pt][0] = r[0], b[ks][2 * np][pt][1] = r[1];
+            b[ks][2 * np + 1][pt][0] = r[2], b[ks][2 * np + 1][pt][1] = r[3];
+          }
         }
       }
 #pragma unroll
       for (int mi = 0; mi < MI; ++mi) {
         float t[NI][4] = {};
 #pragma unroll
-        for (int ks = 0; ks < 2; ++ks) {
-          uint32_t a[4];
-          ldmatrix_x4(a, ldm_a_addr(as + (64 * wr + 16 * mi) * B_LDK + k32 + 16 * ks, B_LDK,
-                                    lane));
+        for (int ks = 0; ks < KS; ++ks) {
+          uint32_t a[P][4];
 #pragma unroll
-          for (int nt = 0; nt < NI; ++nt) mma_bf16(t[nt], a, b[ks][nt][0], b[ks][nt][1]);
+          for (int pt = 0; pt < P; ++pt)
+            ldmatrix_x4(a[pt], ldm_a_addr(as + pt * C::PLANE + (64 * wr + 16 * mi) * LDK + f +
+                                              16 * ks,
+                                          LDK, lane));
+#pragma unroll
+          for (int nt = 0; nt < NI; ++nt) mma_tier<TIER>(t[nt], t[nt], a, b[ks][nt]);
         }
 #pragma unroll
         for (int nt = 0; nt < NI; ++nt)
@@ -379,7 +681,7 @@ __global__ void __launch_bounds__(THREADS, BLOCKS) contract_kernel(BParams p) {
     }
   }
 
-  float* out = (hmat ? p.h : p.g) + (long long)(p.g0 + blockIdx.y) * p.stride;
+  float* out = (hmat ? p.out[1] : p.out[0]) + (long long)(p.g0 + blockIdx.y) * p.stride;
 #pragma unroll
   for (int mi = 0; mi < MI; ++mi) {
 #pragma unroll
@@ -414,69 +716,115 @@ cudaError_t launch_a(int dens, dim3 grid, const AParams& p, cudaStream_t st) {
   return cudaErrorInvalidValue;
 }
 
+template <bool NEED_H>
+cudaError_t launch_d(int dens, dim3 grid, const DParams& p, cudaStream_t st) {
+  switch (dens) {
+    case TANH: return launch(rotate_delta_kernel<TANH, NEED_H>, D_BYTES, grid, p, st);
+    case EXP: return launch(rotate_delta_kernel<EXP, NEED_H>, D_BYTES, grid, p, st);
+    case CUBE: return launch(rotate_delta_kernel<CUBE, NEED_H>, D_BYTES, grid, p, st);
+  }
+  return cudaErrorInvalidValue;
+}
+
 }  // namespace
 
 extern "C" {
 
-// The tile edge (W rows of a block of A, B's output tile edge) and A's
-// k depth of a stage: the caller pads W to (n_pad, kp) with n_pad a
-// multiple of the first and kp of the second, and sizes groups in whole
+// The tile edge (W rows of a block of A, B's output tile edge) and the k
+// depth the caller pads W to: the caller pads W to (n_pad, kp) with n_pad
+// a multiple of the first and kp of the second, and sizes groups in whole
 // tiles.
 int picard_stream_tc_tile() { return TILE; }
 int picard_stream_tc_kc() { return A_KC; }
 
-// The plain-mode line-search try at the bf16 tier on bf16 X (the outputs
-// of picard_streaming_fused_sums with delta = 0, rot = ct = BF16, x_bf16 =
-// 1). w: the (n_pad, kp) zero-padded bf16 copy of M_new; x: (n, t) bf16;
-// ws: the workspace, 2 (4 with H) bf16 matrices of (n_pad,
-// groups_per_chunk * cols). T is cut into n_parts groups of `cols`
-// columns; group g's partial of each output is at out + g * stride.
-int picard_streaming_fused_tc(int density, int need_h, int need_ysq, double alpha, int n,
-                              long long t, int cols, int n_parts, int groups_per_chunk,
-                              const void* w, const void* x, void* ws, float* dll, float* dysq,
-                              float* g, float* pm, float* h, float* ysq, long long stride,
-                              void* stream) {
-  if (n < 1 || n > picard_stream_max_n() || t < 1 || cols < TILE || cols % TILE != 0 ||
+// A line-search try of picard_streaming_fused_sums on the tensor cores, in
+// one of two (mode, tier) pairs:
+//   * delta = 0, tier = BF16: plain mode at the bf16 tier on bf16 X (rot =
+//     ct = BF16, x_bf16 = 1); w: the (n_pad, kp) zero-padded bf16 copy of
+//     M_new; x: (n, t) bf16; ws: 2 (4 with H) bf16 planes;
+//   * delta = 1, tier = BF16X3: delta mode at the bf16x3 tier on f32 X; w:
+//     4 (n_pad, kp) zero-padded bf16 planes, the hi / lo splits of M_old
+//     and of dM = M_new - M_old; x: (n, t) f32; ws: 4 (8 with H) planes.
+// The workspace planes are (n_pad, groups_per_chunk * cols) each. T is cut
+// into n_parts groups of `cols` columns; group g's partial of each output
+// is at out + g * stride.
+int picard_streaming_fused_tc(int delta, int tier, int density, int need_h, int need_ysq,
+                              double alpha, int n, long long t, int cols, int n_parts,
+                              int groups_per_chunk, const void* w, const void* x, void* ws,
+                              float* dll, float* dysq, float* g, float* pm, float* h, float* ysq,
+                              long long stride, void* stream) {
+  if (!((delta == 0 && tier == BF16) || (delta == 1 && tier == BF16X3)) || n < 1 ||
+      n > picard_stream_max_n() || t < 1 || cols < TILE || cols % TILE != 0 ||
       (long long)n_parts != (t + cols - 1) / cols || groups_per_chunk < 1 ||
       groups_per_chunk > MAX_GRID_Y || density < TANH || density > CUBE || stride < 1 ||
       (need_ysq && (!dysq || !ysq)) || (need_h && !h) ||
-      reinterpret_cast<std::uintptr_t>(ws) % 16 != 0)
+      reinterpret_cast<std::uintptr_t>(ws) % 16 != 0 ||
+      reinterpret_cast<std::uintptr_t>(w) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   const int n_pad = (n + TILE - 1) / TILE * TILE;
+  const int kp = (n + A_KC - 1) / A_KC * A_KC;
   const long long ws_cols = (long long)groups_per_chunk * cols;
   const long long mat = (long long)n_pad * ws_cols;
   __nv_bfloat16* base = static_cast<__nv_bfloat16*>(ws);
+  const int n_planes = 2 * (1 + need_h) * parts(tier);
+  // Plane (matrix * 2 + operand) * parts + part: psi, Y (psi', Y^2), each
+  // as hi (and lo).
+  auto plane = [&](int i) { return i < n_planes ? base + i * mat : nullptr; };
 
-  AParams a;
-  a.n = n;
-  a.kp = (n + A_KC - 1) / A_KC * A_KC;
-  a.t = t;
-  a.need_ysq = need_ysq;
-  a.vec = (t * 2) % 16 == 0 && reinterpret_cast<std::uintptr_t>(x) % 16 == 0;
-  a.a = (float)alpha;
-  a.m2a = (float)(-2.0 * alpha);
-  a.mha = (float)(-alpha / 2.0);
-  a.w = static_cast<const __nv_bfloat16*>(w);
-  a.x = static_cast<const __nv_bfloat16*>(x);
-  a.psi = base;
-  a.y = base + mat;
-  a.psid = need_h ? base + 2 * mat : nullptr;
-  a.y2 = need_h ? base + 3 * mat : nullptr;
-  a.ws_cols = ws_cols;
-  a.cols = cols;
-  a.ll = dll;
-  a.dysq = dysq;
-  a.pm = pm;
-  a.ysq = ysq;
-  a.stride = stride;
+  AParams a{};
+  DParams d{};
+  if (delta) {
+    d.n = n;
+    d.kp = kp;
+    d.n_kc = (n + D_KC - 1) / D_KC;
+    d.t = t;
+    d.need_ysq = need_ysq;
+    d.vec = t % 4 == 0 && reinterpret_cast<std::uintptr_t>(x) % 16 == 0;
+    d.a = (float)alpha;
+    d.m2a = (float)(-2.0 * alpha);
+    d.mha = (float)(-alpha / 2.0);
+    d.w = static_cast<const __nv_bfloat16*>(w);
+    d.w_plane = (long long)n_pad * kp;
+    d.x = static_cast<const float*>(x);
+    for (int i = 0; i < 8; ++i) d.ws[i] = plane(i);
+    d.ws_cols = ws_cols;
+    d.cols = cols;
+    d.ll = dll;
+    d.dysq = dysq;
+    d.pm = pm;
+    d.ysq = ysq;
+    d.stride = stride;
+  } else {
+    a.n = n;
+    a.kp = kp;
+    a.t = t;
+    a.need_ysq = need_ysq;
+    a.vec = (t * 2) % 16 == 0 && reinterpret_cast<std::uintptr_t>(x) % 16 == 0;
+    a.a = (float)alpha;
+    a.m2a = (float)(-2.0 * alpha);
+    a.mha = (float)(-alpha / 2.0);
+    a.w = static_cast<const __nv_bfloat16*>(w);
+    a.x = static_cast<const __nv_bfloat16*>(x);
+    a.psi = plane(0);
+    a.y = plane(1);
+    a.psid = plane(2);
+    a.y2 = plane(3);
+    a.ws_cols = ws_cols;
+    a.cols = cols;
+    a.ll = dll;
+    a.dysq = dysq;
+    a.pm = pm;
+    a.ysq = ysq;
+    a.stride = stride;
+  }
 
-  BParams b;
-  b.psi = a.psi;
-  b.y = a.y;
-  b.psid = a.psid;
-  b.y2 = a.y2;
-  b.g = g;
-  b.h = h;
+  BParams b{};
+  const int P = parts(tier);
+  for (int m = 0; m < 2; ++m)
+    for (int o = 0; o < 2; ++o)
+      for (int pt = 0; pt < P; ++pt) b.src[m][o][pt] = plane((m * 2 + o) * P + pt);
+  b.out[0] = g;
+  b.out[1] = h;
   b.n = n;
   b.edge = n_pad / TILE;
   b.ws_cols = ws_cols;
@@ -486,12 +834,17 @@ int picard_streaming_fused_tc(int density, int need_h, int need_ysq, double alph
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   for (int g0 = 0; g0 < n_parts; g0 += groups_per_chunk) {
     const int ng = n_parts - g0 < groups_per_chunk ? n_parts - g0 : groups_per_chunk;
-    a.g0 = b.g0 = g0;
-    const dim3 grid_a(n_pad / TILE, ng);
-    cudaError_t e = need_h ? launch_a<true>(density, grid_a, a, st)
-                           : launch_a<false>(density, grid_a, a, st);
-    if (e != cudaSuccess) return (int)e;
-    e = launch(contract_kernel, B_BYTES, dim3(b.edge * b.edge, ng, need_h ? 2 : 1), b, st);
+    a.g0 = d.g0 = b.g0 = g0;
+    const dim3 grid_a(n_pad / TILE, ng), grid_b(b.edge * b.edge, ng, need_h ? 2 : 1);
+    cudaError_t e;
+    if (delta) {
+      e = need_h ? launch_d<true>(density, grid_a, d, st) : launch_d<false>(density, grid_a, d, st);
+      if (e == cudaSuccess)
+        e = launch(contract_kernel<BF16X3>, BCfg<BF16X3>::BYTES, grid_b, b, st);
+    } else {
+      e = need_h ? launch_a<true>(density, grid_a, a, st) : launch_a<false>(density, grid_a, a, st);
+      if (e == cudaSuccess) e = launch(contract_kernel<BF16>, BCfg<BF16>::BYTES, grid_b, b, st);
+    }
     if (e != cudaSuccess) return (int)e;
   }
   return 0;

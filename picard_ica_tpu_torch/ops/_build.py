@@ -71,7 +71,7 @@ _SIGNATURES = {
     "picard_stream_tc_tile": [],
     "picard_stream_tc_kc": [],
     "picard_streaming_fused_tc": [
-        _I, _I, _I, _D, _I, _LL, _I, _I, _I,
+        _I, _I, _I, _I, _I, _D, _I, _LL, _I, _I, _I,
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _P,
     ],
 }

@@ -19,11 +19,13 @@ longer fits whole in shared memory:
 
   * :func:`streaming_fused_sums` — kernel 1's outputs with W in row
     blocks and a contraction phase over the parked Y tile (replaces
-    ``streaming_fused_sums``, :1061-1183); its plain mode at the bf16
-    tier on bf16 X runs as two GEMM-shaped tensor-core launches instead
-    (``csrc/streaming_fused_tc.cu``, planned by :func:`stream_tc_plan`):
-    the rotation with the density and row sums into a bf16 psi / Y
-    workspace, then G (H) over it;
+    ``streaming_fused_sums``, :1061-1183); the two stages of the default
+    schedule, its plain mode at the bf16 tier on bf16 X and its delta
+    mode at the bf16x3 tier on f32 X, run as two GEMM-shaped tensor-core
+    launches instead (``csrc/streaming_fused_tc.cu``, planned by
+    :func:`stream_tc_plan`): the rotation with the density and row sums
+    into a workspace of bf16 psi / Y planes (hi and lo at bf16x3), then
+    G (H) over it;
   * :func:`streaming_loglik_sums` — kernel 3's outputs for large N
     (replaces ``streaming_loglik_sums``, :1205-1274).
 
@@ -60,7 +62,8 @@ reduce across devices first). For each there is:
     tests and ``chip_smoke.py`` hold the kernels against it;
   * a launch counter, ``<wrapper>.launches``, raised by one at each
     kernel launch and nowhere else (``rotated_fused_sums`` also counts
-    by tier, ``launches_by_tier``);
+    by tier, ``launches_by_tier``; ``streaming_fused_sums`` by route,
+    ``launches_by_route``, and by route and tier, ``launches_by_tier``);
   * the fold of the kernel's per-block partials on the card, in
     :func:`ops.moments.fold_pairwise`'s order and bitwise equal to it:
     the core kernels write all their outputs side by side into one
@@ -134,8 +137,9 @@ STREAM_TC_KC = 64
 # contraction's K, so its (N, N) partial is written once per this many
 # columns.
 STREAM_TC_GROUP_COLS = 4096
-# The route's bf16 psi and Y (psi', Y^2 with H) of a call are kept under
-# this many bytes; a larger call runs in chunks of whole groups.
+# The route's bf16 psi and Y planes (psi', Y^2 with H; each as hi and lo
+# at the bf16x3 tier) of a call are kept under this many bytes; a larger
+# call runs in chunks of whole groups.
 STREAM_TC_WORKSPACE_MAX = 2 * 1024**3
 # Groups one launch may take (a CUDA grid's y extent).
 _MAX_GRID_Y = 65535
@@ -145,6 +149,8 @@ _STREAM_SMEM_MAX = 232448
 _STREAM_KC, _STREAM_PASS, _STREAM_CB = 16, 8192, 64
 
 _TIERS = {"f32": 0, "bf16x3": 1, "bf16": 2}
+# bf16 parts of an operand on the tensor-core route, by tier.
+_TC_PARTS = {"bf16": 1, "bf16x3": 2}
 
 
 def work_dtype(x):
@@ -358,7 +364,7 @@ class StreamTcPlan(NamedTuple):
     ws_bytes: int          # the workspace of one chunk
 
 
-def stream_tc_plan(n: int, t: int, need_h: bool) -> StreamTcPlan:
+def stream_tc_plan(n: int, t: int, need_h: bool, tier: str = "bf16") -> StreamTcPlan:
     """The tensor-core route's partition of T: groups of at least
     :data:`STREAM_TC_GROUP_COLS` columns (fewer for a smaller T), more
     where the (n_parts, N, N) f32 partials would pass
@@ -366,11 +372,12 @@ def stream_tc_plan(n: int, t: int, need_h: bool) -> StreamTcPlan:
     groups, and fewer where one group's workspace would pass
     :data:`STREAM_TC_WORKSPACE_MAX`, which wins; then as many whole groups
     per chunk as the workspace cap holds. The workspace is 2 (4 with H)
-    bf16 matrices of (n_pad, groups_per_chunk * cols_per_group)."""
+    bf16 planes of (n_pad, groups_per_chunk * cols_per_group) at the bf16
+    tier, twice as many (hi and lo) at bf16x3."""
     tile = STREAM_TC_TILE
     n_pad = _n_chunks(n, tile) * tile
     n_mats = 1 + need_h
-    col_bytes = 2 * n_mats * n_pad * 2
+    col_bytes = 2 * n_mats * _TC_PARTS[tier] * n_pad * 2
     max_groups = min(_MAX_GRID_Y, max(1, STREAM_PARTIALS_MAX // (n_mats * n * n * 4)))
     want = max(STREAM_TC_GROUP_COLS, _n_chunks(t, max_groups))
     fit = STREAM_TC_WORKSPACE_MAX // (col_bytes * tile) * tile
@@ -742,8 +749,9 @@ def streaming_fused_sums(m_new, m_old, x, density, need_h: bool,
                                           need_ysq, precision, absolute_ll)
     mats = (m_new,) if absolute_ll else (m_new, m_old)
     n, t, _ = _check_cuda(x, *mats, cap=STREAM_MAX_N)
-    if absolute_ll and _tiers(x, precision) == ("bf16", "bf16") and x.dtype == torch.bfloat16:
-        out = _streaming_fused_tc(m_new, x, density, need_h, need_ysq)
+    tier = _tiers(x, precision)[0]
+    if _tc_route(x, tier, absolute_ll):
+        out = _streaming_fused_tc(m_new, m_old, x, density, need_h, need_ysq, tier)
         route = "tc"
     else:
         n_tiles = _n_chunks(t, stream_tile(n))
@@ -754,26 +762,45 @@ def streaming_fused_sums(m_new, m_old, x, density, need_h: bool,
         route = "scalar"
     streaming_fused_sums.launches += 1
     streaming_fused_sums.launches_by_route[route] += 1
+    streaming_fused_sums.launches_by_tier[route][tier] += 1
     return out
 
 
-def _streaming_fused_tc(m_new, x, density, need_h, need_ysq):
-    """The tensor-core route (plain mode, bf16 tier, bf16 X): M_new as a
-    zero-padded (n_pad, kp) bf16 matrix, one workspace of
-    :func:`stream_tc_plan`'s size, both launches per chunk in one C call,
-    and the packed partials folded as the scalar kernel's."""
+def _tc_route(x, tier: str, absolute_ll: bool) -> bool:
+    """The (mode, contraction tier, X dtype) pairs of the tensor-core
+    route: plain bf16 on bf16 X, and delta bf16x3 on f32 X (whose
+    rotation tier is bf16x3 too)."""
+    if absolute_ll:
+        return tier == "bf16" and x.dtype == torch.bfloat16
+    return tier == "bf16x3" and x.dtype == torch.float32
+
+
+def _streaming_fused_tc(m_new, m_old, x, density, need_h, need_ysq, tier):
+    """The tensor-core route at ``tier``: the weights as zero-padded (n_pad,
+    kp) bf16 planes (at bf16 M_new; at bf16x3 the hi / lo splits of M_old
+    and of dM = M_new - M_old in f32, as the plain version's
+    ``_split_bf16``), one workspace of :func:`stream_tc_plan`'s size, both
+    launches per chunk in one C call, and the packed partials folded as
+    the scalar kernel's."""
     n, t = x.shape
-    plan = stream_tc_plan(n, t, need_h)
+    plan = stream_tc_plan(n, t, need_h, tier)
     code, alpha = _density_code(density)
     kp = _n_chunks(n, STREAM_TC_KC) * STREAM_TC_KC
-    w = torch.zeros((plan.n_pad, kp), dtype=torch.bfloat16, device=x.device)
-    w[:n, :n] = _mats(x, m_new)[0]  # bf16 values: the conversion is exact
+    if tier == "bf16":
+        planes = _mats(x, m_new)
+    else:
+        m_old = m_old.to(torch.float32)
+        planes = [*_split_bf16(m_old), *_split_bf16(m_new.to(torch.float32) - m_old)]
+    w = torch.zeros((len(planes), plan.n_pad, kp), dtype=torch.bfloat16, device=x.device)
+    for plane, v in zip(w, planes):
+        plane[:n, :n] = v  # bf16 values: the conversion is exact
     ws = torch.empty(plan.ws_bytes, dtype=torch.uint8, device=x.device)
 
     def launch(ptrs, stride):
-        _run(_lib().picard_streaming_fused_tc, code, int(need_h), int(need_ysq), alpha, n, t,
-             plan.cols_per_group, plan.n_parts, plan.groups_per_chunk, w.data_ptr(),
-             x.data_ptr(), ws.data_ptr(), *ptrs, stride, device=x.device)
+        _run(_lib().picard_streaming_fused_tc, int(tier == "bf16x3"), _TIERS[tier], code,
+             int(need_h), int(need_ysq), alpha, n, t, plan.cols_per_group, plan.n_parts,
+             plan.groups_per_chunk, w.data_ptr(), x.data_ptr(), ws.data_ptr(), *ptrs, stride,
+             device=x.device)
 
     return _fold_outputs(plan.n_parts, _fused_outputs(n, need_h, need_ysq), x, launch)
 
@@ -900,11 +927,14 @@ def reset_launch_counts() -> None:
     """Set every kernel's launch counter, ``rotated_fused_sums``'s counts
     by tier (keyed by the tier of its contractions) and
     ``streaming_fused_sums``'s by route ("tc": the tensor-core route,
-    "scalar": every other mode and tier) to 0."""
+    "scalar": every other mode and tier) and by route and tier (the tier
+    of its contractions) to 0."""
     for k in KERNELS:
         k.launches = 0
     rotated_fused_sums.launches_by_tier = dict.fromkeys(_TIERS, 0)
     streaming_fused_sums.launches_by_route = dict.fromkeys(("scalar", "tc"), 0)
+    streaming_fused_sums.launches_by_tier = {
+        route: dict.fromkeys(_TIERS, 0) for route in ("scalar", "tc")}
 
 
 reset_launch_counts()

@@ -14,9 +14,11 @@ after, before; each turn measures, with ``chip_smoke.py``'s helpers:
     time (median of 10) and 10 calls back to back (median of 5); and
     delta f32 at ``chip_smoke.py``'s ragged shapes (17 and 63 rows,
     1,000,003 columns);
-  * ``streaming_fused_sums`` in plain mode at the bf16 tier on bf16 X
-    (``chip_smoke.py``'s unit-variance Laplace inputs) at 256 x 2,000,000
-    and 1024 x 200,000, timed the same two ways;
+  * ``streaming_fused_sums`` (``chip_smoke.py``'s unit-variance Laplace
+    inputs) at 256 x 2,000,000 and 1024 x 200,000 in the cases of the
+    default schedule's two stages, plain mode at the bf16 tier on bf16 X
+    and delta mode at the bf16x3 tier on f32 X, and in delta mode at the
+    f32 tier at 256 x 2,000,000, timed the same two ways;
   * ``chip_smoke.py``'s phase-3 fit (64 x 2,000,000 mixed mixture, f64
     NumPy input) and phase-4 fits (the bench 64 x 4,000,000 made on the
     card) at the default staged schedule and in the exact f32 tier: core
@@ -32,11 +34,14 @@ four turns, also written to ``--out`` (default
 ``chiprun_out/turns.json``). Needs one CUDA card and nvcc.
 
 With ``--kernels-only`` the turns time the kernels alone, without the
-fits.
+fits. With ``--large-n`` they take only the ``streaming_fused_sums``
+cases and, unless ``--kernels-only`` is given too, the staged fit below
+(core seconds, iterations, stage exits, launches by route and tier).
 
     python3 port_turns.py --profile [TREE]
 
-traces one tree's ``streaming_fused_sums`` plain bf16 calls on bf16 X at
+traces one tree's ``streaming_fused_sums`` calls of the default
+schedule's two stages (plain bf16 on bf16 X, delta bf16x3 on f32 X) at
 both shapes, with the tanh and cube densities, in ``torch.profiler`` and
 prints each CUDA kernel's device ms a call (mean of 5 calls).
 
@@ -47,7 +52,11 @@ seed 0, an f32 CUDA tensor) once with ``use_kernels=True`` at the default
 staged schedule with TREE's package (default: this checkout), and prints
 convergence, iterations, stage exits, the number of negative
 (sub-Gaussian) signs, Amari distance to the mixing, and the streaming
-fused kernel's launches.
+fused kernel's launches; with ``--torch-path`` the same fit runs on the
+torch path (``use_kernels=False``). With ``--trace`` it also prints each
+iteration's tier, gradient norm, stall counters and line-search passes;
+the trace syncs the host once an iteration, so its core seconds are not
+comparable with an untraced fit's.
 """
 
 from __future__ import annotations
@@ -68,8 +77,13 @@ CASES = [  # (label, precision, absolute_ll, bf16 X)
 ]
 RAGGED_F32_ROWS = (17, 63)
 # (N, T, seed of chip_smoke._stream_inputs) of the streaming fused
-# kernel's plain bf16 cases on bf16 X.
-STREAM_BF16_SHAPES = ((256, 2_000_000, 5), (1024, 200_000, 7))
+# kernel's cases.
+STREAM_SHAPES = ((256, 2_000_000, 5), (1024, 200_000, 7))
+STREAM_CASES = [  # (label, precision, absolute_ll, bf16 X, shapes)
+    ("plain bf16, bf16 X", "bf16", True, True, STREAM_SHAPES),
+    ("delta bf16x3", "bf16x3", False, False, STREAM_SHAPES),
+    ("delta f32", "f32", False, False, STREAM_SHAPES[:1]),
+]
 
 
 def _smoke():
@@ -94,7 +108,7 @@ def _count_tiers(core, kernels):
     return by_tier
 
 
-def one_turn(tree: str, kernels_only: bool = False) -> dict:
+def one_turn(tree: str, kernels_only: bool = False, large_n: bool = False) -> dict:
     import numpy as np
     import torch
 
@@ -112,6 +126,11 @@ def one_turn(tree: str, kernels_only: bool = False) -> dict:
     assert Path(K.__file__).resolve().is_relative_to(Path(tree).resolve()), K.__file__
     _build.load()
     turn = {"tree": tree, "kernel": {}, "fits": {}}
+    if large_n:
+        _stream_turn(sm, K, tree, turn)
+        if not kernels_only:
+            turn["fits"]["staged 256 x 2M"] = staged_fit(tree, sm)
+        return turn
 
     rng = np.random.default_rng(sm.SEED)
     x = torch.from_numpy((rng.laplace(size=(sm.N, sm.T)) / np.sqrt(2.0))
@@ -141,17 +160,7 @@ def one_turn(tree: str, kernels_only: bool = False) -> dict:
         sm._log(f"[{tree}] rotated_fused_sums [{label}]: {sm._fmt_pair((ms, ms_stream))}")
         del xr
     torch.cuda.empty_cache()
-    for n, t, seed in STREAM_BF16_SHAPES:
-        xs, ms_old, ms_new = sm._stream_inputs(n, t, seed)
-        xs16 = xs.to(torch.bfloat16)
-        del xs
-        label = f"streaming plain bf16, bf16 X, {n} x {t}"
-        ms, ms_stream = sm._time_both(lambda: K.streaming_fused_sums(
-            ms_new, ms_old, xs16, Tanh(), False, False, "bf16", True))
-        turn["kernel"][label] = {"ms": ms, "ms_stream": ms_stream}
-        sm._log(f"[{tree}] streaming_fused_sums [{label}]: {sm._fmt_pair((ms, ms_stream))}")
-        del xs16
-        torch.cuda.empty_cache()
+    _stream_turn(sm, K, tree, turn)
     if kernels_only:
         return turn
 
@@ -198,6 +207,28 @@ def one_turn(tree: str, kernels_only: bool = False) -> dict:
     return turn
 
 
+def _stream_turn(sm, K, tree, turn):
+    """Time STREAM_CASES, each shape's inputs made once."""
+    import torch
+
+    from picard_ica_tpu_torch.ops.densities import Tanh
+
+    for n, t, seed in STREAM_SHAPES:
+        xs, ms_old, ms_new = sm._stream_inputs(n, t, seed)
+        xs16 = xs.to(torch.bfloat16)
+        for case, precision, absolute_ll, bf16_x, shapes in STREAM_CASES:
+            if (n, t, seed) not in shapes:
+                continue
+            xx = xs16 if bf16_x else xs
+            label = f"streaming {case}, {n} x {t}"
+            ms, ms_stream = sm._time_both(lambda: K.streaming_fused_sums(
+                ms_new, ms_old, xx, Tanh(), False, False, precision, absolute_ll))
+            turn["kernel"][label] = {"ms": ms, "ms_stream": ms_stream}
+            sm._log(f"[{tree}] streaming_fused_sums [{label}]: {sm._fmt_pair((ms, ms_stream))}")
+        del xs, xs16, xx
+        torch.cuda.empty_cache()
+
+
 def profile(tree: str) -> dict:
     """Device ms a call of each CUDA kernel in the tensor-core route's
     calls (torch.profiler over 5 calls after 3 warm-up calls)."""
@@ -212,42 +243,63 @@ def profile(tree: str) -> dict:
 
     assert Path(K.__file__).resolve().is_relative_to(Path(tree).resolve()), K.__file__
     out = {}
-    for n, t, seed in STREAM_BF16_SHAPES:
-        xs, _, ms_new = sm._stream_inputs(n, t, seed)
+    for n, t, seed in STREAM_SHAPES:
+        xs, ms_old, ms_new = sm._stream_inputs(n, t, seed)
         xs16 = xs.to(torch.bfloat16)
-        del xs
-        for density in (Tanh(), Cube()):
-            def call():
-                return K.streaming_fused_sums(ms_new, ms_new, xs16, density, False, False,
-                                              "bf16", True)
+        for case, precision, absolute_ll, bf16_x, _ in STREAM_CASES[:2]:
+            xx = xs16 if bf16_x else xs
+            for density in (Tanh(), Cube()):
+                def call():
+                    return K.streaming_fused_sums(ms_new, ms_old, xx, density, False, False,
+                                                  precision, absolute_ll)
 
-            for _ in range(3):
-                call()
-            torch.cuda.synchronize()
-            with traced(activities=[ProfilerActivity.CUDA]) as prof:
-                for _ in range(5):
+                for _ in range(3):
                     call()
                 torch.cuda.synchronize()
-            rows = {e.key[:90]: e.device_time_total / 5e3 for e in prof.key_averages()
-                    if e.device_time_total > 0}
-            label = f"{n} x {t}, {type(density).__name__}"
-            out[label] = rows
-            sm._log(f"[{tree}] profile {label}: total {sum(rows.values()):.3f} ms a call; "
-                    + "; ".join(f"{k}: {v:.3f}" for k, v in sorted(rows.items(),
-                                                                 key=lambda kv: -kv[1])))
-        del xs16
+                with traced(activities=[ProfilerActivity.CUDA]) as prof:
+                    for _ in range(5):
+                        call()
+                    torch.cuda.synchronize()
+                rows = {e.key[:90]: e.device_time_total / 5e3 for e in prof.key_averages()
+                        if e.device_time_total > 0}
+                label = f"{case}, {n} x {t}, {type(density).__name__}"
+                out[label] = rows
+                sm._log(f"[{tree}] profile {label}: total {sum(rows.values()):.3f} ms a call; "
+                        + "; ".join(f"{k}: {v:.3f}" for k, v in sorted(rows.items(),
+                                                                     key=lambda kv: -kv[1])))
+        del xs, xs16, xx
         torch.cuda.empty_cache()
     return out
 
 
-def staged_fit(tree: str) -> dict:
+def _trace_iterations(core):
+    """Wrap the core loop's iteration to record, after each one, its tier,
+    iteration count, gradient norm, stall counters and line-search
+    passes."""
+    rows = []
+    inner = core._iteration_body
+
+    def traced(st, x, covariance, tol, lambda_min, opts):
+        out = inner(st, x, covariance, tol, lambda_min, opts)
+        rows.append((opts.kernel_precision, out.n_iter_done if out.converged else out.it,
+                     float(out.gradient_norm), out.since_improve, out.consec_fallbacks,
+                     out.ls_calls))
+        return out
+
+    core._iteration_body = traced
+    return rows
+
+
+def staged_fit(tree: str, sm=None, trace: bool = False, use_kernels: bool = True) -> dict:
     """Phase 5's 256 x 2,000,000 data fitted once at the default staged
     schedule through the streaming kernels."""
     import numpy as np
     import torch
 
-    sm = _smoke()
-    sm.phase0_env()
+    if sm is None:
+        sm = _smoke()
+        sm.phase0_env()
+    from picard_ica_tpu_torch.models import core
     from picard_ica_tpu_torch.ops import kernels as K
     from picard_ica_tpu_torch.utils.datagen import generate_mixed_kurtosis_data
     from picard_ica_tpu_torch.utils.metrics import amari_distance
@@ -256,9 +308,15 @@ def staged_fit(tree: str) -> dict:
     _, a, x_np = generate_mixed_kurtosis_data(sm.N5, sm.T5, sm.SEED)
     x = torch.from_numpy(x_np.astype(np.float32)).cuda()
     del x_np
+    rows = _trace_iterations(core) if trace else None
     K.reset_launch_counts()
-    r, wall = sm._fit(x, True)
-    sm._report_fit(f"[{tree}] staged {sm.N5} x {sm.T5}", r, wall, sm.T5)
+    r, wall = sm._fit(x, use_kernels)
+    path = "kernels" if use_kernels else "torch path"
+    sm._report_fit(f"[{tree}] staged {sm.N5} x {sm.T5} ({path})", r, wall, sm.T5)
+    for row in rows or ():
+        sm._log(f"[{tree}] iteration: tier {row[0]}, it {row[1]}, gradient norm "
+                f"{row[2]:.4e}, since_improve {row[3]}, consec_fallbacks {row[4]}, "
+                f"ls_calls {row[5]}")
     result = {"converged": r.converged, "n_iterations": r.n_iterations,
               "stage_exits": list(r.stage_exits or ()), "core_seconds": r.core_seconds,
               "gradient_norm": r.gradient_norm,
@@ -266,7 +324,11 @@ def staged_fit(tree: str) -> dict:
               "amari": amari_distance(r.full_unmixing().double().cpu().numpy(), a),
               "streaming_fused_launches": K.streaming_fused_sums.launches,
               "streaming_fused_by_route": getattr(K.streaming_fused_sums,
-                                                  "launches_by_route", None)}
+                                                  "launches_by_route", None),
+              "streaming_fused_by_tier": getattr(K.streaming_fused_sums,
+                                                 "launches_by_tier", None)}
+    del x
+    torch.cuda.empty_cache()
     sm._log(f"[{tree}] staged fit: {result}")
     return result
 
@@ -293,16 +355,23 @@ def main(argv=None):
     ap.add_argument("--profile", action="store_true",
                     help="trace the streaming tensor-core route's kernels")
     ap.add_argument("--kernels-only", action="store_true", help="turns without the fits")
+    ap.add_argument("--trace", action="store_true",
+                    help="with --staged-fit, print each iteration's gradient norm")
+    ap.add_argument("--torch-path", action="store_true",
+                    help="with --staged-fit, fit on the torch path")
+    ap.add_argument("--large-n", action="store_true",
+                    help="turns of the streaming fused kernel's cases and the staged fit only")
     args = ap.parse_args(argv)
     if args.staged_fit or args.profile:
         tree = str(Path(args.trees[0] if args.trees else HERE).resolve())
         sys.path[:] = [tree] + [p for p in sys.path if p and Path(p).resolve() != HERE]
-        print(json.dumps((staged_fit if args.staged_fit else profile)(tree)))
+        print(json.dumps(staged_fit(tree, trace=args.trace, use_kernels=not args.torch_path)
+                         if args.staged_fit else profile(tree)))
         return 0
     if args.one:
         # Only the turn's tree provides the package, not this script's.
         sys.path[:] = [args.one] + [p for p in sys.path if p and Path(p).resolve() != HERE]
-        print(json.dumps(one_turn(args.one, args.kernels_only)))
+        print(json.dumps(one_turn(args.one, args.kernels_only, args.large_n)))
         return 0
     if len(args.trees) != 2:
         ap.error("give the BEFORE and AFTER directories")
@@ -312,7 +381,8 @@ def main(argv=None):
     for tree in (before, after, after, before):
         env = dict(os.environ, PYTHONPATH=tree)
         proc = subprocess.run([sys.executable, __file__, "--one", tree]
-                              + ["--kernels-only"] * args.kernels_only, env=env,
+                              + ["--kernels-only"] * args.kernels_only
+                              + ["--large-n"] * args.large_n, env=env,
                               cwd=tree, capture_output=True, text=True)
         sys.stdout.write(proc.stdout.rsplit("\n", 2)[0] + "\n")
         if proc.returncode != 0:

@@ -1,24 +1,28 @@
 """The tensor-core route of streaming_fused_sums, on the CPU.
 
-The route (``csrc/streaming_fused_tc.cu``: plain mode, bf16 tier, bf16
-X) runs only on the card. What surrounds it is held here:
+The route (``csrc/streaming_fused_tc.cu``: plain mode at the bf16 tier on
+bf16 X, delta mode at the bf16x3 tier on f32 X) runs only on the card.
+What surrounds it is held here:
 
-  * :func:`ops.kernels.stream_tc_plan`'s invariants: the groups cover T
-    once in whole tiles, a chunk is whole groups, and the workspace stays
-    under its cap;
-  * a torch emulation of the two launches (the plan's groups and chunks,
-    bf16 psi and Y, with H psi' and Y^2, in a workspace with exact zeros
-    at padded rows and columns, per-group row sums and products, the
-    groups folded pairwise) against
+  * :func:`ops.kernels.stream_tc_plan`'s invariants at both tiers: the
+    groups cover T once in whole tiles, a chunk is whole groups, and the
+    workspace stays under its cap;
+  * a torch emulation of the two launches (the plan's groups and chunks;
+    the workspace planes, bf16 psi and Y, with H psi' and Y^2, each as hi
+    and lo at bf16x3, exact zeros at padded rows and columns; per-group
+    row sums and products; the groups folded pairwise) against
     ``picard_ica_tpu.ops.pallas_kernels.streaming_fused_sums(...,
-    precision="bf16", absolute_ll=True, interpret=True)`` on bf16 X and
-    against ``streaming_fused_sums_plain``.
+    interpret=True)`` (``precision="bf16", absolute_ll=True`` on bf16 X;
+    ``precision="bf16x3", absolute_ll=False`` on f32 X) and against
+    ``streaming_fused_sums_plain``.
 
-Tolerance: 1e-3 of each output's largest entry, the bf16-X rule of
-tests/test_torch_streaming.py (psi and Y are rounded to bf16 after
-rotations whose f32 sums are ordered differently). The CUDA kernels are
-held against the plain version on the card by
-tests/test_torch_stream_tc_cuda.py and chip_smoke.py.
+Tolerances: in plain bf16, 1e-3 of each output's largest entry, the
+bf16-X rule of tests/test_torch_streaming.py (psi and Y are rounded to
+bf16 after rotations whose f32 sums are ordered differently); in delta
+bf16x3, 2e-5 of each output's largest entry, that file's f32 and bf16x3
+rule (the hi / lo splits keep ~16 bits, and only the order of the f32
+sums differs). The CUDA kernels are held against the plain version on
+the card by tests/test_torch_stream_tc_cuda.py and chip_smoke.py.
 """
 
 import jax.numpy as jnp
@@ -37,6 +41,7 @@ torch.set_num_threads(2)
 DENS = {"tanh": (jd.Tanh(), td.Tanh()), "exp0.5": (jd.Exp(0.5), td.Exp(0.5)),
         "cube": (jd.Cube(), td.Cube())}
 BF16_TOL = 1e-3
+X3_TOL = 2e-5
 # One 128-row block with padded rows, a second block, ragged T.
 SHAPES = [(65, 777), (80, 2049), (130, 4099)]
 
@@ -48,17 +53,46 @@ def _inputs(n, t, seed):
     return m_new, x
 
 
-def _emulate(m_new, x, density, need_h, need_ysq):
+def _delta_inputs(n, t, seed):
+    """f32 X and a line-search step's M_old, M_new near the identity."""
+    m_new, x = _inputs(n, t, seed)
+    rng = np.random.default_rng(seed + 1)
+    m_old = (m_new - 0.1 * 0.8 / np.sqrt(n) * rng.standard_normal((n, n))).astype(np.float32)
+    return m_new, m_old, x
+
+
+def _padded_planes(mats, n_pad):
+    """The weights as zero-padded (n_pad, n) rows."""
+    out = torch.zeros((len(mats), n_pad, mats[0].shape[1]))
+    for plane, m in zip(out, mats):
+        plane[: m.shape[0]] = m
+    return out
+
+
+def _x3(a_pair, b_pair):
+    """The three products of split operands, hi*hi + lo*hi + hi*lo."""
+    (a_hi, a_lo), (b_hi, b_lo) = a_pair, b_pair
+    return a_hi @ b_hi + a_lo @ b_hi + a_hi @ b_lo
+
+
+def _emulate(m_new, x, density, need_h, need_ysq, m_old=None):
     """The route's two launches in torch, on the CPU: per chunk of whole
-    groups, launch A's workspace (bf16 psi and Y, with H psi' and Y^2;
-    zeros at padded rows and columns, psi' masked there) and its row sums
-    per group, launch B's products per group; every output's groups
-    folded pairwise."""
+    groups, launch A's workspace and its row sums per group, launch B's
+    products per group; every output's groups folded pairwise. Plain mode
+    at the bf16 tier (``m_old`` None, bf16 X): bf16 psi and Y, with H
+    psi' and Y^2. Delta mode at bf16x3 (f32 X): hi / lo of M_old, dM and
+    of each chunk of X, Y_old and dY as three products each, Y = Y_old +
+    dY, the delta density's row sums, and the hi / lo planes of psi and Y
+    (psi' and Y^2) with three products per group. Zeros at padded rows
+    and columns, psi' masked there."""
     n, t = x.shape
-    plan = K.stream_tc_plan(n, t, need_h)
+    delta = m_old is not None
+    plan = K.stream_tc_plan(n, t, need_h, "bf16x3" if delta else "bf16")
     cols = plan.cols_per_group
-    w = torch.zeros((plan.n_pad, n))
-    w[:n] = K._bf16(m_new.float())
+    if delta:
+        w = _padded_planes([*K._split_bf16(m_old), *K._split_bf16(m_new - m_old)], plan.n_pad)
+    else:
+        w = _padded_planes([K._bf16(m_new.float())], plan.n_pad)
     xf = x.float()
     live = (torch.arange(plan.n_pad) < n)[:, None]
     parts = [[] for _ in range(6)]
@@ -66,25 +100,42 @@ def _emulate(m_new, x, density, need_h, need_ysq):
         g1 = min(g0 + plan.groups_per_chunk, plan.n_parts)
         c0, c1 = g0 * cols, g1 * cols
         xc = torch.nn.functional.pad(xf[:, c0:min(c1, t)], (0, c1 - min(c1, t)))
-        y = w @ xc  # products of bf16 values are exact in f32
-        psi, psid, ll = density.score_der_loglik(y)
         valid = live & (torch.arange(c0, c1) < t)[None]
+        if delta:
+            x_pair = K._split_bf16(xc)  # one split shared by both rotations
+            y_old = _x3((w[0], w[1]), x_pair)
+            dy = _x3((w[2], w[3]), x_pair)
+            y = y_old + dy
+            _, pm_el, ll = density.score_der_loglik_delta(y_old, dy)
+            dysq = (2.0 * y_old + dy) * dy
+            psi, psid = density.score_and_der(y)
+            split = K._split_bf16
+        else:
+            y = w[0] @ xc  # products of bf16 values are exact in f32
+            psi, psid, ll = density.score_der_loglik(y)
+            pm_el, dysq = psid, y * y
+            split = lambda v: (K._bf16(v),)  # noqa: E731
         ll = torch.where(valid, ll, 0.0)
+        pm_el = torch.where(valid, pm_el, 0.0)
         psid = torch.where(valid, psid, 0.0)
-        ws = [K._bf16(psi), K._bf16(y)] + ([K._bf16(psid), K._bf16(y * y)] if need_h else [])
-        assert len(ws) * plan.n_pad * (c1 - c0) * 2 <= plan.ws_bytes
-        for v in ws:  # the workspace is exactly zero past n and t
+        ops = [split(psi), split(y)] + ([split(psid), split(y * y)] if need_h else [])
+        assert sum(map(len, ops)) * plan.n_pad * (c1 - c0) * 2 <= plan.ws_bytes
+        for v in (u for pair in ops for u in pair):  # exactly zero past n and t
             assert not v[~valid].any()
+
+        def product(a, b, s):
+            a, b = [u[:n, s] for u in a], [u[:n, s].T for u in b]
+            return _x3(a, b) if delta else a[0] @ b[0]
+
         for g in range(g1 - g0):
             s = slice(g * cols, (g + 1) * cols)
-            ysq = (y[:n, s] * y[:n, s]).sum(dim=1)
             parts[0].append(ll[:n, s].sum(dim=1))
-            parts[1].append(ysq)
-            parts[2].append(ws[0][:n, s] @ ws[1][:n, s].T)
-            parts[3].append(psid[:n, s].sum(dim=1))
+            parts[1].append(dysq[:n, s].sum(dim=1))
+            parts[2].append(product(ops[0], ops[1], s))
+            parts[3].append(pm_el[:n, s].sum(dim=1))
             if need_h:
-                parts[4].append(ws[2][:n, s] @ ws[3][:n, s].T)
-            parts[5].append(ysq)
+                parts[4].append(product(ops[2], ops[3], s))
+            parts[5].append((y[:n, s] * y[:n, s]).sum(dim=1))
     assert len(parts[0]) == plan.n_parts
     out = [fold_pairwise(torch.stack(p)) if p else torch.zeros((n, n)) for p in parts]
     if not need_ysq:
@@ -150,6 +201,69 @@ def test_emulated_route_in_chunks(monkeypatch, need_h):
     _check(_jax(m_new, x, "tanh", need_h, True), chunked)
 
 
+def _jax_delta(m_new, m_old, x, dens, need_h, need_ysq):
+    return pk.streaming_fused_sums(jnp.asarray(m_new), jnp.asarray(m_old), jnp.asarray(x),
+                                   DENS[dens][0], need_h, need_ysq, interpret=True,
+                                   precision="bf16x3", absolute_ll=False)
+
+
+def _delta_case(n, t, seed):
+    m_new, m_old, x = _delta_inputs(n, t, seed)
+    return (m_new, m_old, x), tuple(torch.from_numpy(v) for v in (m_new, m_old, x))
+
+
+@pytest.mark.parametrize("dens", list(DENS))
+@pytest.mark.parametrize("n,t", SHAPES)
+def test_emulated_delta_route_matches_jax_and_plain(n, t, dens):
+    (m_new, m_old, x), (tm, to, tx) = _delta_case(n, t, n + t)
+    tden = DENS[dens][1]
+    got = _emulate(tm, tx, tden, True, True, m_old=to)
+    _check(_jax_delta(m_new, m_old, x, dens, True, True), got, X3_TOL)
+    _check(K.streaming_fused_sums_plain(tm, to, tx, tden, True, True, "bf16x3", False), got,
+           X3_TOL)
+
+
+@pytest.mark.parametrize("need_ysq", [False, True], ids=["no-ysq", "ysq"])
+@pytest.mark.parametrize("need_h", [False, True], ids=["no-h", "h"])
+def test_emulated_delta_route_flags(need_h, need_ysq):
+    (m_new, m_old, x), (tm, to, tx) = _delta_case(80, 1001, 3)
+    got = _emulate(tm, tx, td.Tanh(), need_h, need_ysq, m_old=to)
+    _check(_jax_delta(m_new, m_old, x, "tanh", need_h, need_ysq), got, X3_TOL)
+    if not need_h:
+        assert not got[4].any()
+    if not need_ysq:
+        assert not got[1].any() and not got[5].any()
+
+
+@pytest.mark.parametrize("need_h", [False, True], ids=["no-h", "h"])
+def test_emulated_delta_route_in_chunks(monkeypatch, need_h):
+    """Groups of 128 columns and a workspace of two groups of hi / lo
+    planes: 2,049 columns in 17 groups run as 9 chunks, and give the
+    unchunked sums."""
+    (m_new, m_old, x), (tm, to, tx) = _delta_case(80, 2049, 4)
+    monkeypatch.setattr(K, "STREAM_TC_GROUP_COLS", 128)
+    whole = _emulate(tm, tx, td.Exp(0.5), need_h, True, m_old=to)
+    monkeypatch.setattr(K, "STREAM_TC_WORKSPACE_MAX", 2 * 128 * 2 * (1 + need_h) * 2 * 128 * 2)
+    plan = K.stream_tc_plan(80, 2049, need_h, "bf16x3")
+    assert (plan.cols_per_group, plan.n_parts, plan.groups_per_chunk) == (128, 17, 2)
+    chunked = _emulate(tm, tx, td.Exp(0.5), need_h, True, m_old=to)
+    _check(whole, chunked, 1e-6)
+    _check(_jax_delta(m_new, m_old, x, "exp0.5", need_h, True), chunked, X3_TOL)
+
+
+def test_cpu_wrapper_runs_the_plain_version_in_delta_bf16x3():
+    """Delta bf16x3 on a CPU tensor of f32 X runs the plain version and
+    launches nothing."""
+    _, (tm, to, tx) = _delta_case(80, 1001, 5)
+    K.reset_launch_counts()
+    out = K.streaming_fused_sums(tm, to, tx, td.Tanh(), True, True, "bf16x3", False)
+    ref = K.streaming_fused_sums_plain(tm, to, tx, td.Tanh(), True, True, "bf16x3", False)
+    assert all(torch.equal(a, b) for a, b in zip(out, ref))
+    assert K.streaming_fused_sums.launches == 0
+    assert K.streaming_fused_sums.launches_by_tier == {
+        route: {"f32": 0, "bf16x3": 0, "bf16": 0} for route in ("scalar", "tc")}
+
+
 def test_cpu_wrapper_runs_the_plain_version():
     """On a CPU tensor the route's tuple runs the plain version and
     launches nothing."""
@@ -163,8 +277,8 @@ def test_cpu_wrapper_runs_the_plain_version():
     assert K.streaming_fused_sums.launches_by_route == {"scalar": 0, "tc": 0}
 
 
-def _col_bytes(plan, need_h):
-    return 2 * (1 + need_h) * plan.n_pad * 2
+def _col_bytes(plan, need_h, tier="bf16"):
+    return 2 * (1 + need_h) * (2 if tier == "bf16x3" else 1) * plan.n_pad * 2
 
 
 PLAN_CASES = [  # (n, t, need_h, workspace cap or None, group columns or None)
@@ -183,13 +297,13 @@ PLAN_CASES = [  # (n, t, need_h, workspace cap or None, group columns or None)
 ]
 
 
-@pytest.mark.parametrize("n,t,need_h,cap,group_cols", PLAN_CASES)
-def test_plan_invariants(monkeypatch, n, t, need_h, cap, group_cols):
+def _plan_invariants(monkeypatch, n, t, need_h, cap, group_cols, tier):
     if cap is not None:
         monkeypatch.setattr(K, "STREAM_TC_WORKSPACE_MAX", cap)
     if group_cols is not None:
         monkeypatch.setattr(K, "STREAM_TC_GROUP_COLS", group_cols)
-    plan = K.stream_tc_plan(n, t, need_h)
+    plan = K.stream_tc_plan(n, t, need_h, tier)
+    col_bytes = _col_bytes(plan, need_h, tier)
     tile = K.STREAM_TC_TILE
     assert plan.n_pad % tile == 0 and n <= plan.n_pad < n + tile
     # the groups cover T exactly once, in whole tiles
@@ -198,12 +312,36 @@ def test_plan_invariants(monkeypatch, n, t, need_h, cap, group_cols):
     # a chunk is whole groups, and a launch's grid takes them
     assert 1 <= plan.groups_per_chunk <= min(plan.n_parts, 65535)
     # the workspace of one chunk, under the cap
-    assert plan.ws_bytes == plan.groups_per_chunk * plan.cols_per_group * _col_bytes(plan, need_h)
+    assert plan.ws_bytes == plan.groups_per_chunk * plan.cols_per_group * col_bytes
     assert plan.ws_bytes <= K.STREAM_TC_WORKSPACE_MAX
     # groups of at least STREAM_TC_GROUP_COLS columns where T and the cap allow
-    fit = K.STREAM_TC_WORKSPACE_MAX // (_col_bytes(plan, need_h) * tile) * tile
+    fit = K.STREAM_TC_WORKSPACE_MAX // (col_bytes * tile) * tile
     assert plan.cols_per_group >= min(K.STREAM_TC_GROUP_COLS, -(-t // tile) * tile, fit)
     # the partials stay under their cap unless the workspace cap forced narrower groups
     partials = plan.n_parts * (1 + need_h) * n * n * 4
     assert partials <= max(K.STREAM_PARTIALS_MAX, (1 + need_h) * n * n * 4) or (
         plan.cols_per_group == fit)
+    return plan
+
+
+@pytest.mark.parametrize("n,t,need_h,cap,group_cols", PLAN_CASES)
+def test_plan_invariants(monkeypatch, n, t, need_h, cap, group_cols):
+    _plan_invariants(monkeypatch, n, t, need_h, cap, group_cols, "bf16")
+
+
+@pytest.mark.parametrize("n,t,need_h,cap,group_cols", PLAN_CASES)
+def test_plan_invariants_bf16x3(monkeypatch, n, t, need_h, cap, group_cols):
+    """The hi / lo planes double the workspace a column: the same call
+    takes chunks of half the groups, or narrower groups."""
+    x3 = _plan_invariants(monkeypatch, n, t, need_h, cap, group_cols, "bf16x3")
+    one = K.stream_tc_plan(n, t, need_h, "bf16")
+    assert x3.n_pad == one.n_pad and x3.cols_per_group <= one.cols_per_group
+    assert x3.groups_per_chunk * x3.cols_per_group <= one.groups_per_chunk * one.cols_per_group
+
+
+def test_plan_of_the_staged_fit_delta_stage():
+    """256 x 2,000,000 at bf16x3 without H: 4.1 GB of planes for all of T,
+    so 489 groups of 4,096 columns run as two chunks of up to 256 groups
+    under the 2 GB cap."""
+    plan = K.stream_tc_plan(256, 2_000_000, False, "bf16x3")
+    assert plan == K.StreamTcPlan(256, 4096, 489, 256, 2 * 1024**3)

@@ -1,10 +1,11 @@
 """The tensor-core route of streaming_fused_sums against its plain version.
 
-The route (``csrc/streaming_fused_tc.cu``) serves the plain mode at the
-bf16 tier on bf16 X, 64 < N <= STREAM_MAX_N: a rotation-and-density
-launch into a bf16 workspace, then a contraction launch. Needs an NVIDIA
-GPU (Hopper, sm_90a): every test here is marked ``cuda`` and skips
-without one. Imports no JAX:
+The route (``csrc/streaming_fused_tc.cu``) serves, at 64 < N <=
+STREAM_MAX_N, the plain mode at the bf16 tier on bf16 X and the delta
+mode at the bf16x3 tier on f32 X: a rotation-and-density launch into a
+workspace of bf16 planes, then a contraction launch. Needs an NVIDIA GPU
+(Hopper, sm_90a): every test here is marked ``cuda`` and skips without
+one. Imports no JAX:
 
     python -m pytest --noconftest tests/test_torch_stream_tc_cuda.py -q
 
@@ -19,6 +20,15 @@ H the largest move one flip in each operand can make, 2^-7 of the
 largest |psi| |Y| (|psi'| |Y^2|). G's drift against f64 sums of the same
 bf16 operands may be DRIFT_FACTOR times the plain version's, plus
 DRIFT_FLOOR of G's largest entry.
+
+Delta bf16x3 on f32 X: RTOL_X3 = 2e-5 of each output's largest entry,
+the bf16x3 rule of tests/test_torch_streaming.py (the hi / lo splits keep
+~16 bits, so a flipped rounding of a lo part moves a term by at most
+2^-17 of each operand). The drift of its rotation (dysq and ysq against
+f64 sums of the same split operands) and of its contraction (G, with
+operands equal bit for bit to the plain version's) may be DRIFT_FACTOR
+times the plain version's, plus DRIFT_FLOOR of the output's largest
+entry.
 """
 
 import numpy as np
@@ -33,6 +43,7 @@ torch.set_num_threads(2)
 pytestmark = pytest.mark.cuda
 
 RTOL_BF16 = 1e-3
+RTOL_X3 = 2e-5
 DRIFT_FACTOR = 2.0
 DRIFT_FLOOR = 1e-7
 DENSITIES = [Tanh(), Exp(0.5), Cube()]
@@ -47,15 +58,15 @@ def dev():
     return torch.device("cuda")
 
 
-def _inputs(dev, n, t, seed):
-    """Unit-variance Laplace X in bf16 and weights near the identity whose
-    rows keep unit scale at any N."""
+def _inputs(dev, n, t, seed, dtype=torch.bfloat16):
+    """Unit-variance Laplace X (in bf16 unless asked otherwise) and
+    weights near the identity whose rows keep unit scale at any N."""
     rng = np.random.default_rng(seed)
     x = torch.from_numpy((rng.laplace(size=(n, t)) / np.sqrt(2.0)).astype(np.float32))
     s = 0.8 / np.sqrt(n)
     m_old = np.eye(n) + s * rng.standard_normal((n, n))
     m_new = m_old + 0.1 * s * rng.standard_normal((n, n))
-    return (x.to(dev).to(torch.bfloat16), torch.from_numpy(m_old).float().to(dev),
+    return (x.to(dev).to(dtype), torch.from_numpy(m_old).float().to(dev),
             torch.from_numpy(m_new).float().to(dev))
 
 
@@ -86,6 +97,8 @@ def _run_tc(args):
     out = K.streaming_fused_sums(*args)
     assert K.streaming_fused_sums.launches_by_route == {"scalar": 0, "tc": 1}
     assert K.streaming_fused_sums.launches == 1
+    tier = "bf16" if args[7] else "bf16x3"
+    assert K.streaming_fused_sums.launches_by_tier["tc"][tier] == 1
     return out
 
 
@@ -156,7 +169,8 @@ SCALAR_ROUTES = [
     ("plain bf16x3, bf16 X", "bf16x3", True, True),
     ("plain f32", "f32", True, False),
     ("plain bf16, f32 X", "bf16", True, False),
-    ("delta bf16x3", "bf16x3", False, False),
+    ("delta f32", "f32", False, False),
+    ("plain bf16x3", "bf16x3", True, False),
 ]
 
 
@@ -192,3 +206,128 @@ def test_stream_tc_g_drift_against_f64(dev):
     err_p = float((g_p.double() - g_64).abs().max())
     bound = DRIFT_FACTOR * err_p + DRIFT_FLOOR * float(g_64.abs().max())
     assert err_k <= bound, (err_k, err_p, bound)
+
+
+# ---------------------------------------------------------------------------
+# Delta mode at the bf16x3 tier on f32 X.
+# ---------------------------------------------------------------------------
+
+
+def _x3_args(dev, n, t, seed, density=Tanh(), need_h=True, need_ysq=True):
+    x, m_old, m_new = _inputs(dev, n, t, seed, torch.float32)
+    return (m_new, m_old, x, density, need_h, need_ysq, "bf16x3", False)
+
+
+@pytest.mark.parametrize("t", [1, 31, 4100, 20_001])
+@pytest.mark.parametrize("n", [65, 130, 257, 1344])
+def test_stream_tc_x3_shapes_match_plain(dev, n, t):
+    """Delta bf16x3 at the edges of the 128-row blocks and the 32-deep k
+    stages, ragged T (T % 8 != 0; 4-byte copies where T % 4 != 0), H and
+    the Y^2 sums on."""
+    args = _x3_args(dev, n, t, seed=n + t)
+    _close(_run_tc(args), K.streaming_fused_sums_plain(*args), RTOL_X3)
+
+
+@pytest.mark.parametrize("density", DENSITIES, ids=str)
+@pytest.mark.parametrize("need_ysq", [False, True], ids=["no-ysq", "ysq"])
+@pytest.mark.parametrize("need_h", [False, True], ids=["no-h", "h"])
+def test_stream_tc_x3_flags_and_densities_match_plain(dev, need_h, need_ysq, density):
+    """Ragged N and T (T % 8 == 4: 16-byte copies of f32 rows)."""
+    args = _x3_args(dev, 257, 10_004, 8, density, need_h, need_ysq)
+    out = _run_tc(args)
+    _close(out, K.streaming_fused_sums_plain(*args), RTOL_X3)
+    if not need_h:
+        assert not out[4].any()
+    if not need_ysq:
+        assert not out[1].any() and not out[5].any()
+
+
+@pytest.mark.parametrize("n", [257, 1024])
+def test_stream_tc_x3_unaligned_rows_match_plain(dev, n):
+    """1,000,003 columns: f32 rows that are not 16-byte aligned take the
+    4-byte copies; 245 groups of 4,096 columns."""
+    args = _x3_args(dev, n, 1_000_003, n, need_h=False)
+    _close(_run_tc(args), K.streaming_fused_sums_plain(*args), RTOL_X3)
+
+
+@pytest.mark.parametrize("need_h", [False, True], ids=["no-h", "h"])
+def test_stream_tc_x3_chunks_match_plain(dev, monkeypatch, need_h):
+    """A workspace cap of two groups of hi / lo planes: 20,001 columns in
+    20 groups of 1,024 run as 10 chunks of both launches."""
+    monkeypatch.setattr(K, "STREAM_TC_GROUP_COLS", 1024)
+    n, t = 257, 20_001
+    col_bytes = 2 * (1 + need_h) * 2 * 384 * 2
+    monkeypatch.setattr(K, "STREAM_TC_WORKSPACE_MAX", 2 * 1024 * col_bytes)
+    plan = K.stream_tc_plan(n, t, need_h, "bf16x3")
+    assert (plan.cols_per_group, plan.n_parts, plan.groups_per_chunk) == (1024, 20, 2)
+    args = _x3_args(dev, n, t, 9, need_h=need_h)
+    _close(_run_tc(args), K.streaming_fused_sums_plain(*args), RTOL_X3)
+
+
+def test_rotated_hand_off_takes_the_x3_route(dev):
+    """rotated_fused_sums above N = 64, delta bf16x3 on f32 X (the staged
+    schedule's second stage): the tensor-core route at bf16x3."""
+    x, m_old, m_new = _inputs(dev, 130, 5000, 10, torch.float32)
+    args = (m_new, m_old, x, Tanh(), False, True, "bf16x3", False)
+    K.reset_launch_counts()
+    out = K.rotated_fused_sums(*args)
+    assert K.streaming_fused_sums.launches_by_route == {"scalar": 0, "tc": 1}
+    assert K.streaming_fused_sums.launches_by_tier["tc"]["bf16x3"] == 1
+    _close(out, K.rotated_fused_sums_plain(*args), RTOL_X3)
+
+
+def _split64(v):
+    return tuple(u.double() for u in K._split_bf16(v.float()))
+
+
+def _x3_64(a_pair, b_pair):
+    """hi*hi + lo*hi + hi*lo of split operands, in f64."""
+    (a_hi, a_lo), (b_hi, b_lo) = a_pair, b_pair
+    return a_hi @ b_hi + a_lo @ b_hi + a_hi @ b_lo
+
+
+def _drift(out_k, out_p, ref):
+    err_k = float((out_k.double() - ref).abs().max())
+    err_p = float((out_p.double() - ref).abs().max())
+    bound = DRIFT_FACTOR * err_p + DRIFT_FLOOR * float(ref.abs().max())
+    assert err_k <= bound, (err_k, err_p, bound)
+
+
+def test_stream_tc_x3_rotation_drift_against_f64(dev):
+    """The rotation's sums at 1024 x 200,000, K 1024 deep: dysq = sum (2
+    Y_old + dY) dY and ysq = sum Y^2 against the same sums in f64 of the
+    same split operands (the tensor cores round toward zero, so a long
+    chain of MMAs would pull Y_old and dY toward zero)."""
+    n, t = 1024, 200_000
+    args = _x3_args(dev, n, t, 11, need_h=False)
+    m_new, m_old, x = args[:3]
+    out_k = _run_tc(args)
+    out_p = K.streaming_fused_sums_plain(*args)
+    x_pair = _split64(x)
+    y_old = _x3_64(_split64(m_old), x_pair)
+    dy = _x3_64(_split64(m_new - m_old), x_pair)
+    del x_pair
+    dysq = ((2.0 * y_old + dy) * dy).sum(dim=1)
+    y_old += dy
+    ysq = (y_old * y_old).sum(dim=1)
+    del y_old, dy
+    _drift(out_k[1], out_p[1], dysq)
+    _drift(out_k[5], out_p[5], ysq)
+
+
+def test_stream_tc_x3_g_drift_against_f64(dev):
+    """The contraction's sums at 1024 x 200,000: M_old = M_new = I and the
+    cube density, so Y = hi(X) + lo(X) exactly in both and the kernel's
+    split operands are bit for bit the plain version's; G's error against
+    f64 sums of those operands within DRIFT_FACTOR of the plain
+    version's."""
+    n, t = 1024, 200_000
+    x, _, _ = _inputs(dev, n, t, 12, torch.float32)
+    eye = torch.eye(n, device=dev)
+    args = (eye, eye, x, Cube(), False, False, "bf16x3", False)
+    g_k = _run_tc(args)[2]
+    g_p = K.streaming_fused_sums_plain(*args)[2]
+    hi, lo = K._split_bf16(x)
+    y = hi + lo
+    g_64 = _x3_64(_split64(y * y * y), tuple(v.T for v in _split64(y)))
+    _drift(g_k, g_p, g_64)
