@@ -43,9 +43,11 @@ prints no result line):
   5. the large-N slice at BASELINE config 5's width: a 256 x 2,000,000
      mixed sub/super-Gaussian mixture as an f32 CUDA tensor, fitted with
      ``use_kernels=True`` through the streaming kernels at tol 1e-7 in
-     the exact f32 tier, then on the torch path: convergence, Amari to
-     the mixing, agreement, launch counts (streaming > 0, resident core
-     kernels 0, whitening kernels > 0) and the caller's tensor unchanged;
+     the exact f32 tier (its delta passes on the tensor-core route, which
+     must launch there at f32), then on the torch path: convergence,
+     Amari to the mixing, agreement, launch counts (streaming > 0,
+     resident core kernels 0, whitening kernels > 0) and the caller's
+     tensor unchanged;
   5b. the JAX package's large-N exhibit (benchmarks/suite.py:597-627):
      1024 x 200,000 bench mixture made on the card, 10 iterations at tol
      1e-4 on both paths at the default staged schedule, so the bf16 tier
@@ -55,26 +57,29 @@ prints no result line):
   5c. phase 5's 256 x 2,000,000 tensor fitted with ``use_kernels=True`` at
      the default staged schedule: converged at tol 1e-7, Amari to the
      mixing and to phase 5's torch-path fit, and the tensor-core route
-     launched at both its tiers (the bf16 stage's plain passes on bf16 X,
-     the bf16x3 stage's delta passes on f32 X); core seconds beside phase
-     5's f32-only kernel fit.
+     launched at its three tiers (the bf16 stage's plain passes on bf16 X,
+     the bf16x3 and f32 stages' delta passes on f32 X); core seconds
+     beside phase 5's f32-only kernel fit.
 
 Phase 2 also holds the streaming kernels against their plain versions:
 ``streaming_fused_sums`` at 256 x 2,000,000 (every mode and tier the
 path runs), 306 x 1,000,003 and 1024 x 200,000, ``streaming_loglik_sums``
 at 256 x 2,000,000 and 1024 x 200,000. Its plain bf16 cases on bf16 X
-and its delta bf16x3 cases on f32 X run the tensor-core route, which
-must launch at that tier, and make a row each of their own in the
-``kernels`` line (``streaming_fused_sums/tc``, launches counted in phase
-5b; ``streaming_fused_sums/tc_bf16x3``, launches counted in phase 5c).
+and its delta bf16x3 and delta f32 cases on f32 X run the tensor-core
+route, which must launch at that tier, and make a row each of their own
+in the ``kernels`` line (``streaming_fused_sums/tc``, launches counted in
+phase 5b; ``streaming_fused_sums/tc_bf16x3``, launches counted in phase
+5c; ``streaming_fused_sums/tc_f32``, launches counted in phase 5, its
+f32 cases held to f64 like every f32 case); the scalar kernel's row
+keeps its plain f32 case (the moments hand-off).
 
 The line before the last is a JSON object describing every kernel:
 launches on its path (phase 3 for the resident core kernels, phase 4
 for the whitening kernels, 4b for the grouped one, 5 for the streaming
-kernels, 5b and 5c for the streaming tensor-core route's two tiers; the
-fused pass's tensor-core kernel counts the launches of its three tiers
-in phase 4, ``launches_by_tier``), error against the plain
-version (and, for the fused kernel's f32 tier, against f64), and
+kernels and the streaming tensor-core route's f32 tier, 5b and 5c for
+its bf16 and bf16x3 tiers; the fused pass's tensor-core kernel counts
+the launches of its three tiers in phase 4, ``launches_by_tier``), error
+against the plain version (and, for every f32 case, against f64), and
 the numbers of its headline case (``_KERNELS``): ``ms`` and ``plain_ms``
 (CUDA events, one synchronised call at a time, median of 10),
 ``ms_stream`` (10 calls back
@@ -234,10 +239,13 @@ def _core_fmas(name, args, tensor_cores=True):
     """(f32 FMAs, bf16 products) a core kernel's call needs: N^2 per
     column for each rotation and each contraction it computes, tripled
     at the bf16x3 tier. The fused pass runs every tier on the tensor
-    cores, its f32 tier as six bf16 products ("bf16x6"); with
+    cores, and so does the streaming fused kernel's route of delta f32 on
+    f32 X: their f32 tier as six bf16 products ("bf16x6"); with
     ``tensor_cores=False`` that tier counts as f32 FMAs, the scalar
     kernel's work. The density's elementwise work is not counted."""
     import torch
+
+    from picard_ica_tpu_torch.ops import kernels as K
 
     if name.endswith("fused_sums"):
         _, _, x, _, need_h, _, precision, absolute_ll = args
@@ -246,7 +254,8 @@ def _core_fmas(name, args, tensor_cores=True):
         else:
             rot = con = precision
         work = [(rot, 1 if absolute_ll else 2), (con, 1 + need_h)]
-        if name == "rotated_fused_sums" and tensor_cores:
+        on_tc = name == "rotated_fused_sums" or K._tc_route(x, con, absolute_ll)
+        if on_tc and tensor_cores:
             work = [("bf16x6" if tier == "f32" else tier, k) for tier, k in work]
     elif name == "rotated_moments_sums":
         _, x, _, need_h, _ = args
@@ -413,10 +422,12 @@ def _hold(rows, kern, plain, label, tier, make, m_new, m_old, xx, key=None):
     finite = all(bool(torch.isfinite(v).all()) for v in out_k)
     n_bytes = _bytes(args) + _bytes(out_k)
     bound_ms, bound_by = _bound(n_bytes, *_core_fmas(name, args))
-    if name == "rotated_fused_sums" and tier == "f32":
-        # The scalar FP32 kernel's bound for the same work, kept beside.
-        extra["bound_fp32_ms"] = _bound(n_bytes, *_core_fmas(name, args, False))[0]
-        detail += f", FP32 bound {extra['bound_fp32_ms']:.3f} ms"
+    bound_fp32 = _bound(n_bytes, *_core_fmas(name, args, False))[0]
+    if bound_fp32 != bound_ms:
+        # The tensor-core f32 tier: the scalar FP32 kernel's bound for the
+        # same work, kept beside.
+        extra["bound_fp32_ms"] = bound_fp32
+        detail += f", FP32 bound {bound_fp32:.3f} ms"
     del out_k, out_p
     torch.cuda.empty_cache()
     ms, ms_stream = _time_both(lambda: kern(*args))
@@ -475,26 +486,28 @@ def phase2_streaming_kernels():
         return lambda m1, m0, xx: (m0, xx, d, need_ysq)
 
     # (kernel, label, tier, args, bf16 X) — the main path's modes first.
-    # The plain bf16 cases on bf16 X (TC_LABEL) and the delta bf16x3 cases
-    # on f32 X (TC3_LABEL) run the tensor-core route.
+    # The plain bf16 cases on bf16 X (TC_LABEL) and the delta bf16x3
+    # (TC3_LABEL) and delta f32 (TC_F32_LABEL) cases on f32 X run the
+    # tensor-core route; the plain f32 case (the moments hand-off) runs the
+    # scalar kernel.
     plans = [
         ((N5, T5, 5), [
-            (fused, "delta f32", "f32", f("f32", False), False),
+            (fused, TC_F32_LABEL, "f32", f("f32", False), False),
             (fused, TC3_LABEL, "bf16x3", f("bf16x3", False), False),
             (fused, TC3_LABEL + ", H+ysq", "bf16x3", f("bf16x3", False, True), False),
             (fused, TC_LABEL, "bf16", f("bf16", True), True),
             (fused, TC_LABEL + ", H+ysq", "bf16", f("bf16", True, True), True),
             (fused, "plain f32 (moments)", "f32", f("f32", True), False),
-            (fused, "delta f32, H+ysq", "f32", f("f32", False, True), False),
+            (fused, TC_F32_LABEL + ", H+ysq", "f32", f("f32", False, True), False),
             (loglik, "f32", "f32", ll(False), False),
             (loglik, "f32, ysq", "f32", ll(True), False),
             (loglik, "bf16 X", "bf16", ll(False), True),
         ]),
         ((N_MEG, T_MEG, 6), [
-            (fused, "delta f32", "f32", f("f32", False), False),
+            (fused, TC_F32_LABEL, "f32", f("f32", False), False),
         ]),
         ((N5B, T5B, 7), [
-            (fused, "delta f32", "f32", f("f32", False), False),
+            (fused, TC_F32_LABEL, "f32", f("f32", False), False),
             (fused, TC_LABEL, "bf16", f("bf16", True), True),
             (fused, TC3_LABEL, "bf16x3", f("bf16x3", False), False),
             (loglik, "f32", "f32", ll(False), False),
@@ -505,8 +518,9 @@ def phase2_streaming_kernels():
         x, m_old, m_new = _stream_inputs(n, t, seed)
         x16 = x.to(torch.bfloat16)
         for kern, label, tier, make, bf16_x in cases:
-            key = next((row for lab, row in ((TC_LABEL, TC_ROW), (TC3_LABEL, TC3_ROW))
-                        if label.startswith(lab)), None)
+            key = next((row for lab, row in ((TC_LABEL, TC_ROW), (TC3_LABEL, TC3_ROW),
+                                             (TC_F32_LABEL, TC_F32_ROW))
+                        if kern is fused and label.startswith(lab)), None)
             before = _stream_tc_launches(tier)
             _hold(rows, kern, plain_of[kern], label, tier, make, m_new, m_old,
                   x16 if bf16_x else x, key=key)
@@ -666,7 +680,9 @@ TC_LABEL = "plain bf16, bf16 X"
 TC_ROW = "streaming_fused_sums/tc"
 TC3_LABEL = "delta bf16x3"
 TC3_ROW = "streaming_fused_sums/tc_bf16x3"
-_TC_TIER = {TC_ROW: "bf16", TC3_ROW: "bf16x3"}
+TC_F32_LABEL = "delta f32"
+TC_F32_ROW = "streaming_fused_sums/tc_f32"
+_TC_TIER = {TC_ROW: "bf16", TC3_ROW: "bf16x3", TC_F32_ROW: "f32"}
 # The fused pass's kernel and the tiers it serves: the tensor-core kernel
 # (csrc/rotated_fused_tc.cu) runs all three.
 TIER_ROWS = {"rotated_fused_sums": ("bf16", "bf16x3", "f32")}
@@ -919,7 +935,8 @@ def phase5_large_n():
         raise AssertionError(f"amari {amari} >= 5e-3")
     if tuple(r.sources.shape) != (N5, T5) or not bool(r.sources.isfinite().all()):
         raise AssertionError("sources are not finite (N, T)")
-    missing = [k for k in _STREAM_KERNELS + _WHITENING_KERNELS if launches[k] == 0]
+    missing = [k for k in _STREAM_KERNELS + _WHITENING_KERNELS + (TC_F32_ROW,)
+               if launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched in the large-N fit: {missing}")
     resident = {k: launches[k] for k in _CORE_KERNELS if launches[k]}
@@ -946,7 +963,8 @@ def phase5_large_n():
 def phase5c_staged(x, a, w_torch, f32_core):
     """Phase 5's tensor at the default staged schedule through the
     streaming kernels: its bf16 stage's plain passes on bf16 X and its
-    bf16x3 stage's delta passes on f32 X both run the tensor-core route."""
+    bf16x3 and f32 stages' delta passes on f32 X all run the tensor-core
+    route."""
     import numpy as np
     import torch
 
@@ -1036,15 +1054,16 @@ _KERNELS = {
     "centered_covariance_sums": (_STATS_SOURCE, 635, "f32"),
     "covariance_sums": (_STATS_SOURCE, 598, "f32"),
     "_grouped_covariance": (_STATS_SOURCE, 531, "centered"),
-    "streaming_fused_sums": (_STREAM_SOURCE, 1149, "delta f32"),
+    "streaming_fused_sums": (_STREAM_SOURCE, 1149, "plain f32 (moments)"),
     TC_ROW: (_STREAM_TC_SOURCE, 1149, f"{TC_LABEL}, {N5B} x {T5B}"),
     TC3_ROW: (_STREAM_TC_SOURCE, 1149, f"{TC3_LABEL}, {N5} x {T5}"),
+    TC_F32_ROW: (_STREAM_TC_SOURCE, 1149, f"{TC_F32_LABEL}, {N5} x {T5}"),
     "streaming_loglik_sums": (_STREAM_SOURCE, 1247, "f32"),
 }
 # The fit whose launches each row reports.
 _PATH_OF = {**dict.fromkeys(_CORE_KERNELS, "phase3"), **dict.fromkeys(TIER_ROWS, "phase4"),
             **dict.fromkeys(_STREAM_KERNELS, "phase5"), "_grouped_covariance": "phase4b",
-            TC_ROW: "phase5b", TC3_ROW: "phase5c"}
+            TC_ROW: "phase5b", TC3_ROW: "phase5c", TC_F32_ROW: "phase5"}
 
 
 def main():

@@ -1,6 +1,6 @@
 // Tensor-core building blocks for the three tiers of the fused core
-// kernel (rotated_fused_tc.cu) and for the streaming kernel's plain bf16
-// tier (streaming_fused_tc.cu).
+// kernel (rotated_fused_tc.cu) and of the streaming kernel's tensor-core
+// route (streaming_fused_tc.cu).
 //
 // The tiers of density.cuh, on mma.sync: BF16 = one product of bf16
 // operands with f32 accumulation; BF16X3 = the hi/lo bf16 split of both
@@ -15,10 +15,10 @@
 // The tensor cores add an MMA's products to its accumulator with the
 // result rounded toward zero, not to nearest, so a long chain of MMAs
 // into one accumulator drifts toward zero by up to an ulp a link. The
-// F32 tier keeps its sums out of such chains: its hi*hi products go
-// either to an accumulator whose sums are exact (the rotation's
-// fixed-point grids, rotated_fused_tc.cu) or to a fresh one per 16-deep
-// step, which the caller adds in f32 to nearest.
+// F32 and BF16X3 tiers keep their sums out of such chains: their hi*hi
+// products go either to an accumulator whose sums are exact (the f32
+// rotation's fixed-point grids, rotated_fused_tc.cu) or to a fresh one
+// per 16-deep step, which the caller adds in f32 to nearest.
 //
 #pragma once
 
@@ -125,6 +125,19 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
 // bf16 parts an operand splits into at the tier.
 __host__ __device__ constexpr int parts(int tier) {
   return tier == BF16 ? 1 : tier == BF16X3 ? 2 : 3;
+}
+
+// Two values as the bf16x2 registers of their parts at the tier, split
+// elementwise.
+template <int TIER>
+__device__ __forceinline__ void split_parts(float a, float b, uint32_t (&v)[parts(TIER)]) {
+  if constexpr (TIER == BF16) {
+    v[0] = pack_bf16(a, b);
+  } else if constexpr (TIER == BF16X3) {
+    split_pair(a, b, v[0], v[1]);
+  } else {
+    split3_pair(a, b, v[0], v[1], v[2]);
+  }
 }
 
 // d += A B at the tier, from the fragments of each part of A (a[p]) and

@@ -18,9 +18,13 @@
 //
 // What the design does about it.
 //   * Rotation and contraction on mma.sync m16n8k16 bf16 (mma_tiers.cuh):
-//     bf16x3 is three products into one f32 accumulator, f32 six. W (and
-//     dm in delta mode) are split into bf16 tiles once per block and read
-//     with ldmatrix.
+//     bf16x3 is three products, f32 six. W (and dm in delta mode) are
+//     split into bf16 tiles once per block and read with ldmatrix.
+//   * The bf16x3 tier's sums: each 16-deep step's three products go to a
+//     fresh accumulator added in f32 to nearest, in the rotation and the
+//     contraction. Chained into one accumulator (12 MMAs a rotation, 384
+//     a block's contraction), the sums drifted toward zero against f64
+//     past twice the plain version's error (PERF.md).
 //   * The f32 tier's sums. The tensor cores round each MMA's sum toward
 //     zero, so a chain of MMAs drifts by up to an ulp a link, always the
 //     same way, and a row sum over 2M columns of Y^2 would carry it.
@@ -178,19 +182,6 @@ __device__ __forceinline__ void load_x(unsigned char* dst, const TcParams& p, in
         cp_async4_zfill(s + r * Sh::LDX + c, in ? x + r * p.t + c0 + c : x, in);
       }
     }
-  }
-}
-
-// Two values as the bf16x2 registers of their parts at the tier, split
-// elementwise.
-template <int TIER>
-__device__ __forceinline__ void split_parts(float a, float b, uint32_t (&v)[parts(TIER)]) {
-  if constexpr (TIER == BF16) {
-    v[0] = pack_bf16(a, b);
-  } else if constexpr (TIER == BF16X3) {
-    split_pair(a, b, v[0], v[1]);
-  } else {
-    split3_pair(a, b, v[0], v[1], v[2]);
   }
 }
 
@@ -365,8 +356,22 @@ __global__ void __launch_bounds__(THREADS, blocks_per_sm(NEED_H, CT))
     }
 
     // Rotation: acc = M x (accd = dm x) over this warp's 16 MI x 16 block;
-    // the f32 tier's small products in accs (accds), added last.
+    // the f32 tier's small products in accs (accds), added last. The
+    // bf16x3 tier sums each 16-deep k step's three products in a fresh
+    // accumulator, added to acc in f32 to nearest, so that no MMA chain
+    // into acc is longer than three links.
     float acc[MI][2][4] = {}, accd[MI][2][4] = {}, accs[MI][2][4] = {}, accds[MI][2][4] = {};
+    auto rotate = [](float (&d)[4], float (&small)[4], const uint32_t (&af)[RP][4],
+                     const uint32_t (&bf)[RP][2]) {
+      if constexpr (ROT == BF16X3) {
+        float t[4] = {};
+        mma_tier<ROT>(t, t, af, bf);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) d[e] += t[e];
+      } else {
+        mma_tier<ROT>(d, small, af, bf);
+      }
+    };
     if (live[0]) {
       for (int ks = 0; ks < k_steps; ++ks) {
         uint32_t b[2][RP][2];  // [n-tile][part][b0 / b1]
@@ -400,12 +405,12 @@ __global__ void __launch_bounds__(THREADS, blocks_per_sm(NEED_H, CT))
 #pragma unroll
           for (int u = 0; u < RP; ++u) ldmatrix_x4(a[u], ldm_a_addr(w_s + u * TILE_W + a_off, LDB, lane));
 #pragma unroll
-          for (int nt = 0; nt < 2; ++nt) mma_tier<ROT>(acc[mi][nt], accs[mi][nt], a, b[nt]);
+          for (int nt = 0; nt < 2; ++nt) rotate(acc[mi][nt], accs[mi][nt], a, b[nt]);
           if (DELTA) {
 #pragma unroll
             for (int u = 0; u < RP; ++u) ldmatrix_x4(a[u], ldm_a_addr(d_s + u * TILE_W + a_off, LDB, lane));
 #pragma unroll
-            for (int nt = 0; nt < 2; ++nt) mma_tier<ROT>(accd[mi][nt], accds[mi][nt], a, b[nt]);
+            for (int nt = 0; nt < 2; ++nt) rotate(accd[mi][nt], accds[mi][nt], a, b[nt]);
           }
         }
       }
@@ -466,8 +471,10 @@ __global__ void __launch_bounds__(THREADS, blocks_per_sm(NEED_H, CT))
     __syncthreads();  // the tiles are complete
 
     // Contraction: G += psi Y^T (H += psi' (Y^2)^T) over the sub-tile. The
-    // f32 tier sums each 16-column step's six products in a fresh
-    // accumulator and adds it to G in f32, to nearest.
+    // f32 and bf16x3 tiers sum each 16-column step's six (three) products
+    // in a fresh accumulator and add it to G in f32, to nearest: a block's
+    // 2,048 columns chained into G would be 384 MMAs at bf16x3, each
+    // rounded toward zero.
     if (16 * cm < nr) {
 #pragma unroll
       for (int ks = 0; ks < BT / 16; ++ks) {
@@ -496,7 +503,7 @@ __global__ void __launch_bounds__(THREADS, blocks_per_sm(NEED_H, CT))
 #pragma unroll
             for (int nt = 0; nt < 2; ++nt) {
               float(&d)[4] = dst[2 * np + nt];
-              if constexpr (CT == F32) {
+              if constexpr (CT != BF16) {
                 float t[4] = {};
                 mma_tier<CT>(t, t, af, b[nt]);
 #pragma unroll

@@ -1,11 +1,13 @@
-// Hand-written Hopper (sm_90a) kernels for two routes of
-// picard_streaming_fused_sums, the two stages of the default staged
-// schedule at N > 64: the plain mode (absolute log-lik) at the bf16 tier
-// on bf16 X (the first stage, and the moments hand-off on its X), and the
-// delta mode at the bf16x3 tier on f32 X (the second stage). They replace,
-// for those routes, picard_ica_tpu/ops/pallas_kernels.py
-// streaming_fused_sums / _streaming_fused_kernel; every other mode and
-// tier stays on streaming_sums.cu's scalar kernel.
+// Hand-written Hopper (sm_90a) kernels for three routes of
+// picard_streaming_fused_sums at N > 64, the three stages of the default
+// staged schedule: the plain mode (absolute log-lik) at the bf16 tier on
+// bf16 X (the first stage, and the moments hand-off on its X), the delta
+// mode at the bf16x3 tier on f32 X (the second stage) and the delta mode
+// at the f32 tier on f32 X (the last stage, and the whole of a
+// kernel_precision="f32" fit). They replace, for those routes,
+// picard_ica_tpu/ops/pallas_kernels.py streaming_fused_sums /
+// _streaming_fused_kernel; every other mode and tier stays on
+// streaming_sums.cu's scalar kernel.
 //
 // What they compute, with f32 sums of exact bf16 products:
 //   * plain bf16: Y = bf16(M_new) X on bf16 X; the row sums dll = sum
@@ -21,12 +23,17 @@
 //     >= T) and, with need_ysq, dysq = sum (2 Y_old + dY) dY and ysq = sum
 //     Y^2; G (H) as the three products of the hi / lo splits of psi(Y) and
 //     Y (psi'(Y) and Y^2), psi and psi' those of the f32 Y.
+//   * delta f32, the TPU's HIGHEST: the same with every operand split
+//     three ways (hi = bf16(v), mid = bf16(v - hi), lo = bf16(v - hi -
+//     mid), elementwise) and each product the six bf16 products whose
+//     terms are at least 2^-16 of hi*hi (mma_tiers.cuh mma_tier<F32>).
 //
 // What bounds them on the card: bf16 FMAs on the tensor cores, N^2 T a
-// product: 2 N^2 T plain (3 with H), 9 N^2 T delta bf16x3 (12 with H); at
-// 256 x 2M 0.53 and 2.39 ms of the tensor cores' 494.5 T FMA/s, against
-// X's bytes read once (bf16 1 GB, 0.31 ms; f32 2 GB, 0.61 ms); beside
-// them N T density evaluations on the FP32 pipes and the SFU.
+// product: 2 N^2 T plain (3 with H), 9 N^2 T delta bf16x3 (12 with H), 18
+// N^2 T delta f32 (24 with H); at 256 x 2M 0.53, 2.39 and 4.77 ms of the
+// tensor cores' 494.5 T FMA/s, against X's bytes read once (bf16 1 GB,
+// 0.31 ms; f32 2 GB, 0.61 ms); beside them N T density evaluations on
+// the FP32 pipes and the SFU.
 //
 // What the design does about it: two GEMM-shaped launches, each a plain
 // tile loop on mma.sync m16n8k16 (mma_tiers.cuh) fed by a cp.async ring,
@@ -51,27 +58,39 @@
 //   * Launch A, delta bf16x3 (rotate_delta_kernel): the same walk with two
 //     accumulator sets a warp (Y_old, dY). The caller passes M_old and dM
 //     already split, four zero-padded bf16 planes; X comes in as f32, and
-//     each landed D_KC-row stage is split once into hi / lo bf16 tiles in
+//     each landed KC-row stage is split once into hi / lo bf16 tiles in
 //     shared memory that every warp reads with ldmatrix.trans. The tensor
 //     cores round each MMA's sum toward zero, and the rotation's K runs up
 //     to 1344 deep, so each 16-deep k step is summed in a fresh
 //     accumulator (a chain of three MMAs) and added to Y_old or dY in f32,
 //     to nearest. Four W planes and f32 X make a 32-deep stage 1.8 times
-//     the plain mode's 64-deep one, so the ring holds two D_KC = 32-deep
+//     the plain mode's 64-deep one, so the ring holds two KC = 32-deep
 //     stages; the row sums go to shared memory once per tile, in f64, to
 //     leave the registers to the two accumulator sets. At 128 registers a
 //     thread ptxas still spills ~100 bytes; one block an SM (255
 //     registers, no spills) with four 32-deep or two 64-deep stages
 //     measured slower (PERF.md). The workspace holds the hi / lo planes
 //     of psi and Y (psi' and Y^2 with H).
+//   * Launch A, delta f32 (rotate_delta_kernel<F32>): the same kernel
+//     with three parts an operand, six W planes (M_old and dM, hi, mid,
+//     lo) and six products a 16-deep k step into the fresh accumulator.
+//     Six W planes make a 16-deep stage as large as bf16x3's 32-deep one,
+//     so the ring holds two stages of one k step each, and two blocks
+//     still share an SM. The hi parts are plain elementwise splits, not
+//     the fixed-point grids of rotated_fused_tc.cu: the fresh
+//     accumulator per step already keeps every MMA chain six links long.
+//     The workspace holds psi and Y (psi' and Y^2 with H) as f32 planes,
+//     8 bytes a column element as at bf16x3.
 //   * Launch B (contract_kernel<TIER>): G = psi Y^T (H = psi' (Y^2)^T) as
 //     a plain NT GEMM whose K is the group's columns; both operands are
 //     K-contiguous and read with ldmatrix, as one (bf16) or two (bf16x3,
-//     hi and lo) planes each. One block per TILE x TILE output tile and
-//     group keeps its tile in registers over the group's columns and
-//     writes it once into the group's partial. Each FRESH columns are
-//     summed in a fresh accumulator (a chain of two MMAs at bf16, three at
-//     bf16x3) and added to the tile in f32, to nearest.
+//     hi and lo) planes each; at f32 each landed f32 stage of both
+//     operands is split once, all threads together, into hi / mid / lo
+//     part tiles. One block per TILE x TILE output tile and group keeps
+//     its tile in registers over the group's columns and writes it once
+//     into the group's partial. Each FRESH columns are summed in a fresh
+//     accumulator (a chain of two MMAs at bf16, three at bf16x3, six at
+//     f32) and added to the tile in f32, to nearest.
 //   * Both launches cut T into the same n_parts groups, so the caller's
 //     packed partial buffer and its one fold launch (ops/kernels.py
 //     _fold_outputs) are those of the scalar kernel. Where the workspace
@@ -119,45 +138,59 @@ constexpr int BLOCKS = 2;                // blocks an SM, in every launch
 constexpr int SM_SMEM = 233472;          // shared memory of an SM for its blocks
 constexpr int BLOCK_RESERVED = 1024;     // kept by the system per block
 
-// Launch A in delta mode: the same tile and warps; k in D_KC-deep stages
-// of a D_STAGES ring. A stage holds the four W planes (M_old hi, lo, dM
-// hi, lo: [row][k] each) and the f32 X tile ([k][column]); each landed X
-// tile is split into hi / lo bf16 [k][column] tiles (stride LDN). Then
-// the row sums (4 sums x A_WC warps x TILE rows) in f64, added to once a
-// tile, so the group's sums carry no error of their order.
-constexpr int D_KC = 32;
+// Launch A in delta mode at TIER (BF16X3 or F32): the same tile and warps;
+// k in KC-deep stages of a D_STAGES ring. A stage holds the 2 P W planes
+// (M_old's parts, then dM's: [row][k] each) and the f32 X tile
+// ([k][column]); each landed X tile is split into P bf16 [k][column] part
+// tiles (stride LDN). Then the row sums (4 sums x A_WC warps x TILE rows)
+// in f64, added to once a tile, so the group's sums carry no error of
+// their order. At bf16x3 the layout fills the 115,712 bytes a block may
+// take at two blocks an SM; at f32 the six W planes take 16-deep stages.
 constexpr int D_STAGES = 2;
-constexpr int D_LDK = D_KC + 8;
-constexpr int LDX = A_BT;                // row stride (floats) of the f32 X stage tile
-constexpr int D_W_PLANE = TILE * D_LDK;  // elements
-constexpr int D_STAGE = 4 * D_W_PLANE * 2 + D_KC * LDX * 4;  // bytes
-constexpr int D_SPLIT = D_STAGES * D_STAGE;
-constexpr int D_RED = D_SPLIT + 2 * D_KC * LDN * 2;
-constexpr int D_BYTES = D_RED + 4 * A_WC * TILE * 8;
-static_assert(D_STAGE % 16 == 0 && (4 * D_W_PLANE * 2) % 16 == 0, "16-byte aligned stages");
+constexpr int LDX = A_BT;  // row stride (floats) of the f32 X stage tile
+template <int TIER>
+struct DCfg {
+  static constexpr int P = parts(TIER);
+  static constexpr int KC = TIER == F32 ? 16 : 32;
+  static constexpr int LDK = KC + 8;
+  static constexpr int W_PLANE = TILE * LDK;             // elements
+  static constexpr int W_BYTES = 2 * P * W_PLANE * 2;
+  static constexpr int STAGE = W_BYTES + KC * LDX * 4;  // bytes
+  static constexpr int SPLIT = D_STAGES * STAGE;
+  static constexpr int RED = SPLIT + P * KC * LDN * 2;
+  static constexpr int BYTES = RED + 4 * A_WC * TILE * 8;
+  static_assert(STAGE % 16 == 0 && W_BYTES % 16 == 0 && RED % 8 == 0, "aligned stages");
+  static_assert(KC % 16 == 0, "stage depth");
+};
 
 // Launch B: a warp's 64 x 32 share of the output tile, 4 m-tiles x 4
-// n-tiles; k in KC-deep stages of a STAGES ring (a [row][k] tile for each
-// part of both operands a stage), summed FRESH columns at a time in a
-// fresh accumulator.
+// n-tiles; k in KC-deep stages of a STAGES ring, summed FRESH columns at
+// a time in a fresh accumulator. At bf16 and bf16x3 a stage holds a
+// [row][k] tile for each part of both operands; at f32 it holds both
+// operands' f32 [row][k] tiles, and the P part tiles of the stage in use
+// follow the ring (SPLIT).
 constexpr int MI = 4;
 template <int TIER>
 struct BCfg {
   static constexpr int P = parts(TIER);
-  static constexpr int KC = TIER == BF16 ? 64 : 32;
-  static constexpr int STAGES = TIER == BF16 ? 3 : 2;
+  static constexpr int KC = TIER == BF16 ? 64 : TIER == BF16X3 ? 32 : 16;
+  static constexpr int STAGES = TIER == BF16X3 ? 2 : 3;
   static constexpr int FRESH = TIER == BF16 ? 32 : 16;
   static constexpr int LDK = KC + 8;
-  static constexpr int PLANE = TILE * LDK;      // elements of one part's stage tile
-  static constexpr int STAGE = 2 * P * PLANE;  // elements
-  static constexpr int BYTES = STAGES * STAGE * 2;
+  static constexpr int PLANE = TILE * LDK;  // elements of one part's tile
+  // Elements (bf16) of a stage; at f32 the two f32 tiles.
+  static constexpr int STAGE = TIER == F32 ? 2 * TILE * KC * 2 : 2 * P * PLANE;
+  static constexpr int SPLIT = STAGES * STAGE;  // elements: the f32 tier's part tiles
+  static constexpr int BYTES = (SPLIT + (TIER == F32 ? 2 * P * PLANE : 0)) * 2;
   static_assert(KC % FRESH == 0 && FRESH % 16 == 0, "stage depths");
 };
-static_assert(A_KC % 16 == 0 && D_KC % 16 == 0, "stage depths");
+static_assert(A_KC % 16 == 0, "stage depths");
 static_assert(BLOCKS * (A_BYTES + BLOCK_RESERVED) <= SM_SMEM &&
-                  BLOCKS * (D_BYTES + BLOCK_RESERVED) <= SM_SMEM &&
+                  BLOCKS * (DCfg<BF16X3>::BYTES + BLOCK_RESERVED) <= SM_SMEM &&
+                  BLOCKS * (DCfg<F32>::BYTES + BLOCK_RESERVED) <= SM_SMEM &&
                   BLOCKS * (BCfg<BF16>::BYTES + BLOCK_RESERVED) <= SM_SMEM &&
-                  BLOCKS * (BCfg<BF16X3>::BYTES + BLOCK_RESERVED) <= SM_SMEM,
+                  BLOCKS * (BCfg<BF16X3>::BYTES + BLOCK_RESERVED) <= SM_SMEM &&
+                  BLOCKS * (BCfg<F32>::BYTES + BLOCK_RESERVED) <= SM_SMEM,
               "two blocks of either launch fit an SM's shared memory");
 
 struct AParams {
@@ -175,16 +208,20 @@ struct AParams {
 };
 
 struct DParams {
-  int n, kp, n_kc;  // components; k extent of the padded W; D_KC stages of k
+  int n, kp, n_kc;  // components; k extent of the padded W; KC-deep stages of k
   long long t;
   int need_ysq, vec;
   float a, m2a, mha;
-  const __nv_bfloat16* w;  // 4 (n_pad, kp) bf16 planes: M_old hi, lo, dM hi, lo
-  long long w_plane;       // n_pad * kp
-  const float* x;          // (n, t) f32, row-major
-  // workspace: psi hi, lo, Y hi, lo (with H psi' hi, lo, Y^2 hi, lo),
-  // (n_pad, ws_cols) each
+  // 2 P (n_pad, kp) bf16 planes: M_old's parts, then dM's (hi, lo at
+  // bf16x3; hi, mid, lo at f32)
+  const __nv_bfloat16* w;
+  long long w_plane;  // n_pad * kp
+  const float* x;     // (n, t) f32, row-major
+  // workspace, (n_pad, ws_cols) each: at bf16x3 the bf16 planes psi hi,
+  // lo, Y hi, lo (with H psi' hi, lo, Y^2 hi, lo); at f32 the f32 planes
+  // psi, Y (with H psi', Y^2)
   __nv_bfloat16* ws[8];
+  float* wsf[4];
   long long ws_cols;
   int cols, g0;
   float *ll, *dysq, *pm, *ysq;
@@ -192,8 +229,10 @@ struct DParams {
 };
 
 struct BParams {
-  // [G or H][left or right operand][part] of the workspace
+  // [G or H][left or right operand][part] of a bf16 workspace, or
+  // [G or H][left or right operand] of an f32 one
   const __nv_bfloat16* src[2][2][2];
+  const float* srcf[2][2];
   float* out[2];  // G, H
   int n, edge;    // components; output tiles along a side (n_pad / TILE)
   long long ws_cols;
@@ -377,31 +416,34 @@ __global__ void __launch_bounds__(THREADS, BLOCKS) rotate_density_kernel(AParams
 
 // Start delta launch A's copies for ring step `it` (tile it / n_kc,
 // k-stage it % n_kc) into stage `st`; the caller commits.
+template <int TIER>
 __device__ __forceinline__ void load_d(const DParams& p, unsigned char* st, int it,
                                        long long col0) {
+  using C = DCfg<TIER>;
+  constexpr int KC = C::KC;
   const int tid = threadIdx.x;
-  const int tile = it / p.n_kc, k0 = (it % p.n_kc) * D_KC;
-  // W: 4 planes x TILE rows x D_KC in 16-byte pieces, always in bounds.
+  const int tile = it / p.n_kc, k0 = (it % p.n_kc) * KC;
+  // W: 2 P planes x TILE rows x KC in 16-byte pieces, always in bounds.
   __nv_bfloat16* ws = reinterpret_cast<__nv_bfloat16*>(st);
   const __nv_bfloat16* w = p.w + (long long)blockIdx.x * TILE * p.kp + k0;
-  for (int u = tid; u < 4 * TILE * (D_KC / 8); u += THREADS) {
-    const int m = u / (TILE * (D_KC / 8)), v = u % (TILE * (D_KC / 8));
-    const int r = v / (D_KC / 8), c = (v % (D_KC / 8)) * 8;
-    cp_async16_zfill(ws + m * D_W_PLANE + r * D_LDK + c, w + m * p.w_plane + (long long)r * p.kp + c,
-                     true);
+  for (int u = tid; u < 2 * C::P * TILE * (KC / 8); u += THREADS) {
+    const int m = u / (TILE * (KC / 8)), v = u % (TILE * (KC / 8));
+    const int r = v / (KC / 8), c = (v % (KC / 8)) * 8;
+    cp_async16_zfill(ws + m * C::W_PLANE + r * C::LDK + c,
+                     w + m * p.w_plane + (long long)r * p.kp + c, true);
   }
-  // X: D_KC rows x A_BT f32 columns, zero past n and t.
-  float* xs = reinterpret_cast<float*>(st + 4 * D_W_PLANE * 2);
+  // X: KC rows x A_BT f32 columns, zero past n and t.
+  float* xs = reinterpret_cast<float*>(st + C::W_BYTES);
   const long long c0 = col0 + (long long)tile * A_BT;
   if (p.vec) {  // t % 4 == 0: a 4-column piece is all in or all out
-    for (int u = tid; u < D_KC * (A_BT / 4); u += THREADS) {
+    for (int u = tid; u < KC * (A_BT / 4); u += THREADS) {
       const int kr = u / (A_BT / 4), c = (u % (A_BT / 4)) * 4;
       const bool in = k0 + kr < p.n && c0 + c < p.t;
       cp_async16_zfill(xs + kr * LDX + c, in ? p.x + (long long)(k0 + kr) * p.t + c0 + c : p.x,
                        in);
     }
   } else {  // rows not 16-byte aligned: 4-byte copies
-    for (int u = tid; u < D_KC * A_BT; u += THREADS) {
+    for (int u = tid; u < KC * A_BT; u += THREADS) {
       const int kr = u / A_BT, c = u % A_BT;
       const bool in = k0 + kr < p.n && c0 + c < p.t;
       cp_async4_zfill(xs + kr * LDX + c, in ? p.x + (long long)(k0 + kr) * p.t + c0 + c : p.x, in);
@@ -409,13 +451,15 @@ __device__ __forceinline__ void load_d(const DParams& p, unsigned char* st, int 
   }
 }
 
-// Delta mode at the bf16x3 tier on f32 X; warps as in launch A's plain
-// mode.
-template <int D, bool NEED_H>
+// Delta mode at the bf16x3 or the f32 tier (TIER) on f32 X; warps as in
+// launch A's plain mode.
+template <int TIER, int D, bool NEED_H>
 __global__ void __launch_bounds__(THREADS, BLOCKS) rotate_delta_kernel(DParams p) {
+  using C = DCfg<TIER>;
+  constexpr int P = C::P, KC = C::KC;
   extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* xsplit = reinterpret_cast<__nv_bfloat16*>(smem + D_SPLIT);  // hi, then lo
-  double* red = reinterpret_cast<double*>(smem + D_RED);
+  __nv_bfloat16* xsplit = reinterpret_cast<__nv_bfloat16*>(smem + C::SPLIT);  // P part tiles
+  double* red = reinterpret_cast<double*>(smem + C::RED);
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, q = lane & 3;
@@ -430,7 +474,7 @@ __global__ void __launch_bounds__(THREADS, BLOCKS) rotate_delta_kernel(DParams p
   for (int u = tid; u < 4 * A_WC * TILE; u += THREADS) red[u] = 0.0;
 #pragma unroll
   for (int i = 0; i < D_STAGES - 1; ++i) {
-    if (i < total) load_d(p, smem + i * D_STAGE, i, col0);
+    if (i < total) load_d<TIER>(p, smem + i * C::STAGE, i, col0);
     cp_async_commit_group();
   }
 
@@ -440,32 +484,33 @@ __global__ void __launch_bounds__(THREADS, BLOCKS) rotate_delta_kernel(DParams p
     cp_async_wait<D_STAGES - 2>();
     __syncthreads();  // step it landed everywhere; the split tiles and stage (it - 1) are free
     const int ahead = it + D_STAGES - 1;
-    if (ahead < total) load_d(p, smem + (ahead % D_STAGES) * D_STAGE, ahead, col0);
+    if (ahead < total) load_d<TIER>(p, smem + (ahead % D_STAGES) * C::STAGE, ahead, col0);
     cp_async_commit_group();
 
-    const unsigned char* st = smem + (it % D_STAGES) * D_STAGE;
+    const unsigned char* st = smem + (it % D_STAGES) * C::STAGE;
     const __nv_bfloat16* ws = reinterpret_cast<const __nv_bfloat16*>(st);
-    const float* xs = reinterpret_cast<const float*>(st + 4 * D_W_PLANE * 2);
-    // The X tile's hi / lo split, once for every warp.
-    for (int u = tid; u < D_KC * (A_BT / 2); u += THREADS) {
+    const float* xs = reinterpret_cast<const float*>(st + C::W_BYTES);
+    // The X tile's split into its parts, once for every warp.
+    for (int u = tid; u < KC * (A_BT / 2); u += THREADS) {
       const int kr = u / (A_BT / 2), c = 2 * (u % (A_BT / 2));
       const float2 v = *reinterpret_cast<const float2*>(xs + kr * LDX + c);
-      uint32_t hi, lo;
-      split_pair(v.x, v.y, hi, lo);
-      *reinterpret_cast<uint32_t*>(xsplit + kr * LDN + c) = hi;
-      *reinterpret_cast<uint32_t*>(xsplit + D_KC * LDN + kr * LDN + c) = lo;
+      uint32_t parts_of[P];
+      split_parts<TIER>(v.x, v.y, parts_of);
+#pragma unroll
+      for (int part = 0; part < P; ++part)
+        *reinterpret_cast<uint32_t*>(xsplit + part * KC * LDN + kr * LDN + c) = parts_of[part];
     }
     __syncthreads();
 
 #pragma unroll
-    for (int ks = 0; ks < D_KC / 16; ++ks) {
-      uint32_t b[NI][2][2];  // [n-tile][part][b0 / b1]
+    for (int ks = 0; ks < KC / 16; ++ks) {
+      uint32_t b[NI][P][2];  // [n-tile][part][b0 / b1]
 #pragma unroll
-      for (int part = 0; part < 2; ++part) {
+      for (int part = 0; part < P; ++part) {
 #pragma unroll
         for (int np = 0; np < NI / 2; ++np) {
           uint32_t r[4];
-          ldmatrix_x4_trans(r, ldm_a_addr(xsplit + part * D_KC * LDN + 16 * ks * LDN + 32 * wc +
+          ldmatrix_x4_trans(r, ldm_a_addr(xsplit + part * KC * LDN + 16 * ks * LDN + 32 * wc +
                                               16 * np,
                                           LDN, lane));
           b[2 * np][part][0] = r[0], b[2 * np][part][1] = r[1];
@@ -476,17 +521,17 @@ __global__ void __launch_bounds__(THREADS, BLOCKS) rotate_delta_kernel(DParams p
       for (int mi = 0; mi < A_MI; ++mi) {
 #pragma unroll
         for (int set = 0; set < 2; ++set) {
-          uint32_t a[2][4];
+          uint32_t a[P][4];
 #pragma unroll
-          for (int part = 0; part < 2; ++part)
-            ldmatrix_x4(a[part], ldm_a_addr(ws + (2 * set + part) * D_W_PLANE +
-                                                (16 * A_MI * wr + 16 * mi) * D_LDK + 16 * ks,
-                                            D_LDK, lane));
-          // The k step's three products in a fresh accumulator, added to
-          // nearest.
+          for (int part = 0; part < P; ++part)
+            ldmatrix_x4(a[part], ldm_a_addr(ws + (P * set + part) * C::W_PLANE +
+                                                (16 * A_MI * wr + 16 * mi) * C::LDK + 16 * ks,
+                                            C::LDK, lane));
+          // The k step's three (six) products in a fresh accumulator, added
+          // to nearest.
           float t4[NI][4] = {};
 #pragma unroll
-          for (int nt = 0; nt < NI; ++nt) mma_tier<BF16X3>(t4[nt], t4[nt], a, b[nt]);
+          for (int nt = 0; nt < NI; ++nt) mma_tier<TIER>(t4[nt], t4[nt], a, b[nt]);
 #pragma unroll
           for (int nt = 0; nt < NI; ++nt)
 #pragma unroll
@@ -497,8 +542,8 @@ __global__ void __launch_bounds__(THREADS, BLOCKS) rotate_delta_kernel(DParams p
     if (it % n_kc != n_kc - 1) continue;
 
     // The tile is done: the delta density on the fragments, the row sums
-    // into shared memory, and the hi / lo workspace planes (4-byte stores
-    // of column pairs).
+    // into shared memory, and the workspace planes (stores of column
+    // pairs: 4-byte hi / lo pairs at bf16x3, 8-byte f32 pairs at f32).
     const int tile = it / n_kc;
     const long long c0 = col0 + (long long)tile * A_BT;
     const long long wcol = ws0 + (long long)tile * A_BT;
@@ -535,20 +580,30 @@ __global__ void __launch_bounds__(THREADS, BLOCKS) rotate_delta_kernel(DParams p
             acc[0][mi][nt][2 * hh + e] = acc[1][mi][nt][2 * hh + e] = 0.f;
           }
           const long long off = (long long)row * p.ws_cols + wcol + cl;
-          uint32_t hi, lo;
-          split_pair(ps[0], ps[1], hi, lo);
-          *reinterpret_cast<uint32_t*>(p.ws[0] + off) = hi;
-          *reinterpret_cast<uint32_t*>(p.ws[1] + off) = lo;
-          split_pair(yv[0], yv[1], hi, lo);
-          *reinterpret_cast<uint32_t*>(p.ws[2] + off) = hi;
-          *reinterpret_cast<uint32_t*>(p.ws[3] + off) = lo;
-          if (NEED_H) {
-            split_pair(pd[0], pd[1], hi, lo);
-            *reinterpret_cast<uint32_t*>(p.ws[4] + off) = hi;
-            *reinterpret_cast<uint32_t*>(p.ws[5] + off) = lo;
-            split_pair(yv[0] * yv[0], yv[1] * yv[1], hi, lo);
-            *reinterpret_cast<uint32_t*>(p.ws[6] + off) = hi;
-            *reinterpret_cast<uint32_t*>(p.ws[7] + off) = lo;
+          if constexpr (TIER == F32) {
+            *reinterpret_cast<float2*>(p.wsf[0] + off) = make_float2(ps[0], ps[1]);
+            *reinterpret_cast<float2*>(p.wsf[1] + off) = make_float2(yv[0], yv[1]);
+            if (NEED_H) {
+              *reinterpret_cast<float2*>(p.wsf[2] + off) = make_float2(pd[0], pd[1]);
+              *reinterpret_cast<float2*>(p.wsf[3] + off) =
+                  make_float2(yv[0] * yv[0], yv[1] * yv[1]);
+            }
+          } else {
+            uint32_t hi, lo;
+            split_pair(ps[0], ps[1], hi, lo);
+            *reinterpret_cast<uint32_t*>(p.ws[0] + off) = hi;
+            *reinterpret_cast<uint32_t*>(p.ws[1] + off) = lo;
+            split_pair(yv[0], yv[1], hi, lo);
+            *reinterpret_cast<uint32_t*>(p.ws[2] + off) = hi;
+            *reinterpret_cast<uint32_t*>(p.ws[3] + off) = lo;
+            if (NEED_H) {
+              split_pair(pd[0], pd[1], hi, lo);
+              *reinterpret_cast<uint32_t*>(p.ws[4] + off) = hi;
+              *reinterpret_cast<uint32_t*>(p.ws[5] + off) = lo;
+              split_pair(yv[0] * yv[0], yv[1] * yv[1], hi, lo);
+              *reinterpret_cast<uint32_t*>(p.ws[6] + off) = hi;
+              *reinterpret_cast<uint32_t*>(p.ws[7] + off) = lo;
+            }
           }
         }
         // The quad's lanes, then this column warp's slot of the row: each
@@ -602,28 +657,48 @@ __global__ void __launch_bounds__(THREADS, BLOCKS) contract_kernel(BParams p) {
   const int ti = blockIdx.x / p.edge, tj = blockIdx.x % p.edge;
   const bool hmat = blockIdx.z == 1;
   const long long k0 = (long long)blockIdx.y * p.cols;
+  // The operands' rows of this tile: P bf16 part planes each, or at f32
+  // one f32 plane each (srcf).
   const __nv_bfloat16* src[2][P];
+  const float* srcf[2];
 #pragma unroll
-  for (int o = 0; o < 2; ++o)
+  for (int o = 0; o < 2; ++o) {
+    if constexpr (TIER == F32) {
+      srcf[o] = (hmat ? p.srcf[1][o] : p.srcf[0][o]) + (long long)(o ? tj : ti) * TILE * p.ws_cols +
+                k0;
+    } else {
 #pragma unroll
-    for (int pt = 0; pt < P; ++pt)
-      src[o][pt] = (hmat ? p.src[1][o][pt] : p.src[0][o][pt]) +
-                   (long long)(o ? tj : ti) * TILE * p.ws_cols + k0;
+      for (int pt = 0; pt < P; ++pt)
+        src[o][pt] = (hmat ? p.src[1][o][pt] : p.src[0][o][pt]) +
+                     (long long)(o ? tj : ti) * TILE * p.ws_cols + k0;
+    }
+  }
   const int total = p.cols / C::KC;
 
   // Every part of both operands: TILE rows x KC in 16-byte pieces; the
-  // stage holds the left operand's parts, then the right's.
+  // stage holds the left operand's parts, then the right's. At f32 both
+  // operands' f32 tiles, [row][k] with row stride KC.
   auto load = [&](int it) {
     __nv_bfloat16* stage = ring + (it % C::STAGES) * C::STAGE;
     const long long k = (long long)it * C::KC;
-    for (int u = tid; u < TILE * (C::KC / 8); u += THREADS) {
-      const int r = u / (C::KC / 8), c = (u % (C::KC / 8)) * 8;
+    if constexpr (TIER == F32) {
+      float* stf = reinterpret_cast<float*>(stage);
+      for (int u = tid; u < TILE * (C::KC / 4); u += THREADS) {
+        const int r = u / (C::KC / 4), c = (u % (C::KC / 4)) * 4;
 #pragma unroll
-      for (int o = 0; o < 2; ++o)
+        for (int o = 0; o < 2; ++o)
+          cp_async16_zfill(stf + (o * TILE + r) * C::KC + c, srcf[o] + r * p.ws_cols + k + c, true);
+      }
+    } else {
+      for (int u = tid; u < TILE * (C::KC / 8); u += THREADS) {
+        const int r = u / (C::KC / 8), c = (u % (C::KC / 8)) * 8;
 #pragma unroll
-        for (int pt = 0; pt < P; ++pt)
-          cp_async16_zfill(stage + (o * P + pt) * C::PLANE + r * LDK + c,
-                           src[o][pt] + r * p.ws_cols + k + c, true);
+        for (int o = 0; o < 2; ++o)
+#pragma unroll
+          for (int pt = 0; pt < P; ++pt)
+            cp_async16_zfill(stage + (o * P + pt) * C::PLANE + r * LDK + c,
+                             src[o][pt] + r * p.ws_cols + k + c, true);
+      }
     }
   };
 
@@ -641,6 +716,26 @@ __global__ void __launch_bounds__(THREADS, BLOCKS) contract_kernel(BParams p) {
     cp_async_commit_group();
 
     const __nv_bfloat16* as = ring + (it % C::STAGES) * C::STAGE;
+    if constexpr (TIER == F32) {
+      // Both landed f32 tiles split into their hi / mid / lo part tiles,
+      // once for every warp (the barrier above also freed them: every
+      // warp is past step it - 1's products).
+      const float* stf = reinterpret_cast<const float*>(as);
+      __nv_bfloat16* split = ring + C::SPLIT;
+      for (int u = tid; u < 2 * TILE * (C::KC / 2); u += THREADS) {
+        const int orow = u / (C::KC / 2), c = 2 * (u % (C::KC / 2));
+        const int o = orow / TILE, r = orow % TILE;
+        const float2 v = *reinterpret_cast<const float2*>(stf + orow * C::KC + c);
+        uint32_t parts_of[P];
+        split_parts<TIER>(v.x, v.y, parts_of);
+#pragma unroll
+        for (int pt = 0; pt < P; ++pt)
+          *reinterpret_cast<uint32_t*>(split + (o * P + pt) * C::PLANE + r * LDK + c) =
+              parts_of[pt];
+      }
+      __syncthreads();
+      as = split;
+    }
     const __nv_bfloat16* bs = as + P * C::PLANE;
 #pragma unroll
     for (int f = 0; f < C::KC; f += C::FRESH) {
@@ -716,14 +811,25 @@ cudaError_t launch_a(int dens, dim3 grid, const AParams& p, cudaStream_t st) {
   return cudaErrorInvalidValue;
 }
 
-template <bool NEED_H>
+template <int TIER, bool NEED_H>
 cudaError_t launch_d(int dens, dim3 grid, const DParams& p, cudaStream_t st) {
+  constexpr int bytes = DCfg<TIER>::BYTES;
   switch (dens) {
-    case TANH: return launch(rotate_delta_kernel<TANH, NEED_H>, D_BYTES, grid, p, st);
-    case EXP: return launch(rotate_delta_kernel<EXP, NEED_H>, D_BYTES, grid, p, st);
-    case CUBE: return launch(rotate_delta_kernel<CUBE, NEED_H>, D_BYTES, grid, p, st);
+    case TANH: return launch(rotate_delta_kernel<TIER, TANH, NEED_H>, bytes, grid, p, st);
+    case EXP: return launch(rotate_delta_kernel<TIER, EXP, NEED_H>, bytes, grid, p, st);
+    case CUBE: return launch(rotate_delta_kernel<TIER, CUBE, NEED_H>, bytes, grid, p, st);
   }
   return cudaErrorInvalidValue;
+}
+
+// Delta launch A then B, at TIER, for one chunk.
+template <int TIER>
+cudaError_t launch_delta(int dens, bool need_h, dim3 grid_a, const DParams& d, dim3 grid_b,
+                         const BParams& b, cudaStream_t st) {
+  cudaError_t e = need_h ? launch_d<TIER, true>(dens, grid_a, d, st)
+                         : launch_d<TIER, false>(dens, grid_a, d, st);
+  if (e != cudaSuccess) return e;
+  return launch(contract_kernel<TIER>, BCfg<TIER>::BYTES, grid_b, b, st);
 }
 
 }  // namespace
@@ -738,13 +844,17 @@ int picard_stream_tc_tile() { return TILE; }
 int picard_stream_tc_kc() { return A_KC; }
 
 // A line-search try of picard_streaming_fused_sums on the tensor cores, in
-// one of two (mode, tier) pairs:
+// one of three (mode, tier) pairs:
 //   * delta = 0, tier = BF16: plain mode at the bf16 tier on bf16 X (rot =
 //     ct = BF16, x_bf16 = 1); w: the (n_pad, kp) zero-padded bf16 copy of
 //     M_new; x: (n, t) bf16; ws: 2 (4 with H) bf16 planes;
 //   * delta = 1, tier = BF16X3: delta mode at the bf16x3 tier on f32 X; w:
 //     4 (n_pad, kp) zero-padded bf16 planes, the hi / lo splits of M_old
-//     and of dM = M_new - M_old; x: (n, t) f32; ws: 4 (8 with H) planes.
+//     and of dM = M_new - M_old; x: (n, t) f32; ws: 4 (8 with H) bf16
+//     planes;
+//   * delta = 1, tier = F32: delta mode at the f32 tier on f32 X; w: 6
+//     (n_pad, kp) zero-padded bf16 planes, the hi / mid / lo splits of
+//     M_old and of dM; x: (n, t) f32; ws: 2 (4 with H) f32 planes.
 // The workspace planes are (n_pad, groups_per_chunk * cols) each. T is cut
 // into n_parts groups of `cols` columns; group g's partial of each output
 // is at out + g * stride.
@@ -753,8 +863,8 @@ int picard_streaming_fused_tc(int delta, int tier, int density, int need_h, int 
                               int groups_per_chunk, const void* w, const void* x, void* ws,
                               float* dll, float* dysq, float* g, float* pm, float* h, float* ysq,
                               long long stride, void* stream) {
-  if (!((delta == 0 && tier == BF16) || (delta == 1 && tier == BF16X3)) || n < 1 ||
-      n > picard_stream_max_n() || t < 1 || cols < TILE || cols % TILE != 0 ||
+  if (!((delta == 0 && tier == BF16) || (delta == 1 && (tier == BF16X3 || tier == F32))) ||
+      n < 1 || n > picard_stream_max_n() || t < 1 || cols < TILE || cols % TILE != 0 ||
       (long long)n_parts != (t + cols - 1) / cols || groups_per_chunk < 1 ||
       groups_per_chunk > MAX_GRID_Y || density < TANH || density > CUBE || stride < 1 ||
       (need_ysq && (!dysq || !ysq)) || (need_h && !h) ||
@@ -765,18 +875,22 @@ int picard_streaming_fused_tc(int delta, int tier, int density, int need_h, int 
   const int kp = (n + A_KC - 1) / A_KC * A_KC;
   const long long ws_cols = (long long)groups_per_chunk * cols;
   const long long mat = (long long)n_pad * ws_cols;
+  // Workspace plane (matrix * 2 + operand) * P + part: psi, Y (psi', Y^2),
+  // each as hi (and lo) bf16 planes, or at f32 as one f32 plane (P = 1).
+  const int P = tier == F32 ? 1 : parts(tier);
+  const int n_planes = 2 * (1 + need_h) * P;
   __nv_bfloat16* base = static_cast<__nv_bfloat16*>(ws);
-  const int n_planes = 2 * (1 + need_h) * parts(tier);
-  // Plane (matrix * 2 + operand) * parts + part: psi, Y (psi', Y^2), each
-  // as hi (and lo).
-  auto plane = [&](int i) { return i < n_planes ? base + i * mat : nullptr; };
+  float* base_f = static_cast<float*>(ws);
+  auto plane = [&](int i) { return i < n_planes && tier != F32 ? base + i * mat : nullptr; };
+  auto plane_f = [&](int i) { return i < n_planes && tier == F32 ? base_f + i * mat : nullptr; };
 
   AParams a{};
   DParams d{};
   if (delta) {
     d.n = n;
     d.kp = kp;
-    d.n_kc = (n + D_KC - 1) / D_KC;
+    const int kc = tier == F32 ? DCfg<F32>::KC : DCfg<BF16X3>::KC;
+    d.n_kc = (n + kc - 1) / kc;
     d.t = t;
     d.need_ysq = need_ysq;
     d.vec = t % 4 == 0 && reinterpret_cast<std::uintptr_t>(x) % 16 == 0;
@@ -787,6 +901,7 @@ int picard_streaming_fused_tc(int delta, int tier, int density, int need_h, int 
     d.w_plane = (long long)n_pad * kp;
     d.x = static_cast<const float*>(x);
     for (int i = 0; i < 8; ++i) d.ws[i] = plane(i);
+    for (int i = 0; i < 4; ++i) d.wsf[i] = plane_f(i);
     d.ws_cols = ws_cols;
     d.cols = cols;
     d.ll = dll;
@@ -819,10 +934,11 @@ int picard_streaming_fused_tc(int delta, int tier, int density, int need_h, int 
   }
 
   BParams b{};
-  const int P = parts(tier);
   for (int m = 0; m < 2; ++m)
-    for (int o = 0; o < 2; ++o)
+    for (int o = 0; o < 2; ++o) {
       for (int pt = 0; pt < P; ++pt) b.src[m][o][pt] = plane((m * 2 + o) * P + pt);
+      b.srcf[m][o] = plane_f(m * 2 + o);
+    }
   b.out[0] = g;
   b.out[1] = h;
   b.n = n;
@@ -837,13 +953,13 @@ int picard_streaming_fused_tc(int delta, int tier, int density, int need_h, int 
     a.g0 = d.g0 = b.g0 = g0;
     const dim3 grid_a(n_pad / TILE, ng), grid_b(b.edge * b.edge, ng, need_h ? 2 : 1);
     cudaError_t e;
-    if (delta) {
-      e = need_h ? launch_d<true>(density, grid_a, d, st) : launch_d<false>(density, grid_a, d, st);
-      if (e == cudaSuccess)
-        e = launch(contract_kernel<BF16X3>, BCfg<BF16X3>::BYTES, grid_b, b, st);
-    } else {
+    if (!delta) {
       e = need_h ? launch_a<true>(density, grid_a, a, st) : launch_a<false>(density, grid_a, a, st);
       if (e == cudaSuccess) e = launch(contract_kernel<BF16>, BCfg<BF16>::BYTES, grid_b, b, st);
+    } else if (tier == F32) {
+      e = launch_delta<F32>(density, need_h, grid_a, d, grid_b, b, st);
+    } else {
+      e = launch_delta<BF16X3>(density, need_h, grid_a, d, grid_b, b, st);
     }
     if (e != cudaSuccess) return (int)e;
   }

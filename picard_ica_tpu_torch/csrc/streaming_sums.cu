@@ -13,6 +13,12 @@
 //                                _streaming_loglik_kernel (sum log_lik(M X),
 //                                sum (M X)^2 per row).
 //
+// The delta mode on f32 X at the bf16x3 and the f32 tier (the staged
+// schedule's last two stages) runs on the tensor cores instead
+// (streaming_fused_tc.cu), and so does the plain mode at the bf16 tier on
+// bf16 X; the fused kernel here keeps every other (mode, tier, X dtype),
+// and its delta mode is not built at those two tier pairs.
+//
 // What computes what. A block owns `group` consecutive tiles of BT
 // columns of X. For each tile it rotates Y = W X one pass of RPP rows at a
 // time (RPP * BT = 8192 outputs a pass; W and X stream through shared
@@ -487,9 +493,11 @@ cudaError_t by_h(int need_h, int bt, const SParams& p, int ng, cudaStream_t st) 
 template <int MODE>
 cudaError_t by_tiers(int rot, int ct, int need_h, int bt, const SParams& p,
                      int ng, cudaStream_t st) {
-  if (rot == F32 && ct == F32) return by_h<MODE, F32, F32>(need_h, bt, p, ng, st);
-  if (rot == BF16X3 && ct == BF16X3)
-    return by_h<MODE, BF16X3, BF16X3>(need_h, bt, p, ng, st);
+  if constexpr (MODE != S_DELTA) {  // delta: streaming_fused_tc.cu
+    if (rot == F32 && ct == F32) return by_h<MODE, F32, F32>(need_h, bt, p, ng, st);
+    if (rot == BF16X3 && ct == BF16X3)
+      return by_h<MODE, BF16X3, BF16X3>(need_h, bt, p, ng, st);
+  }
   if (rot == BF16 && ct == BF16) return by_h<MODE, BF16, BF16>(need_h, bt, p, ng, st);
   if (rot == BF16 && ct == BF16X3)  // bf16 X at the bf16x3 tier
     return by_h<MODE, BF16, BF16X3>(need_h, bt, p, ng, st);

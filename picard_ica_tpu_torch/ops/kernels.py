@@ -19,13 +19,14 @@ longer fits whole in shared memory:
 
   * :func:`streaming_fused_sums` — kernel 1's outputs with W in row
     blocks and a contraction phase over the parked Y tile (replaces
-    ``streaming_fused_sums``, :1061-1183); the two stages of the default
-    schedule, its plain mode at the bf16 tier on bf16 X and its delta
-    mode at the bf16x3 tier on f32 X, run as two GEMM-shaped tensor-core
-    launches instead (``csrc/streaming_fused_tc.cu``, planned by
-    :func:`stream_tc_plan`): the rotation with the density and row sums
-    into a workspace of bf16 psi / Y planes (hi and lo at bf16x3), then
-    G (H) over it;
+    ``streaming_fused_sums``, :1061-1183); the three stages of the
+    default schedule, its plain mode at the bf16 tier on bf16 X and its
+    delta mode at the bf16x3 and the f32 tier on f32 X, run as two
+    GEMM-shaped tensor-core launches instead (``csrc/streaming_fused_tc.cu``,
+    planned by :func:`stream_tc_plan`): the rotation with the density and
+    row sums into a workspace of psi / Y planes (bf16; hi and lo at
+    bf16x3; f32 at f32, split three ways by the contraction), then G (H)
+    over it;
   * :func:`streaming_loglik_sums` — kernel 3's outputs for large N
     (replaces ``streaming_loglik_sums``, :1205-1274).
 
@@ -89,7 +90,7 @@ import torch
 
 from .densities import Cube, Exp, Tanh
 from .moments import fold_pairwise
-from .precision import _bf16, _dot_bf16x3_presplit, _kernel_dot, _split_bf16
+from .precision import _bf16, _dot_bf16x3_presplit, _kernel_dot, _split3_bf16, _split_bf16
 
 _pad = torch.nn.functional.pad
 
@@ -137,9 +138,9 @@ STREAM_TC_KC = 64
 # contraction's K, so its (N, N) partial is written once per this many
 # columns.
 STREAM_TC_GROUP_COLS = 4096
-# The route's bf16 psi and Y planes (psi', Y^2 with H; each as hi and lo
-# at the bf16x3 tier) of a call are kept under this many bytes; a larger
-# call runs in chunks of whole groups.
+# The route's psi and Y planes (psi', Y^2 with H; bf16, as hi and lo at
+# the bf16x3 tier, f32 at the f32 tier) of a call are kept under this
+# many bytes; a larger call runs in chunks of whole groups.
 STREAM_TC_WORKSPACE_MAX = 2 * 1024**3
 # Groups one launch may take (a CUDA grid's y extent).
 _MAX_GRID_Y = 65535
@@ -149,8 +150,10 @@ _STREAM_SMEM_MAX = 232448
 _STREAM_KC, _STREAM_PASS, _STREAM_CB = 16, 8192, 64
 
 _TIERS = {"f32": 0, "bf16x3": 1, "bf16": 2}
-# bf16 parts of an operand on the tensor-core route, by tier.
-_TC_PARTS = {"bf16": 1, "bf16x3": 2}
+# Workspace bytes of one element of an operand (psi, Y, psi', Y^2) on the
+# tensor-core route, by tier: one bf16 plane, hi and lo bf16 planes, one
+# f32 plane.
+_TC_ELEM_BYTES = {"bf16": 2, "bf16x3": 4, "f32": 4}
 
 
 def work_dtype(x):
@@ -372,12 +375,12 @@ def stream_tc_plan(n: int, t: int, need_h: bool, tier: str = "bf16") -> StreamTc
     groups, and fewer where one group's workspace would pass
     :data:`STREAM_TC_WORKSPACE_MAX`, which wins; then as many whole groups
     per chunk as the workspace cap holds. The workspace is 2 (4 with H)
-    bf16 planes of (n_pad, groups_per_chunk * cols_per_group) at the bf16
-    tier, twice as many (hi and lo) at bf16x3."""
+    planes of (n_pad, groups_per_chunk * cols_per_group): bf16 at the bf16
+    tier, twice as many (hi and lo) at bf16x3, f32 at f32."""
     tile = STREAM_TC_TILE
     n_pad = _n_chunks(n, tile) * tile
     n_mats = 1 + need_h
-    col_bytes = 2 * n_mats * _TC_PARTS[tier] * n_pad * 2
+    col_bytes = 2 * n_mats * _TC_ELEM_BYTES[tier] * n_pad
     max_groups = min(_MAX_GRID_Y, max(1, STREAM_PARTIALS_MAX // (n_mats * n * n * 4)))
     want = max(STREAM_TC_GROUP_COLS, _n_chunks(t, max_groups))
     fit = STREAM_TC_WORKSPACE_MAX // (col_bytes * tile) * tile
@@ -768,20 +771,21 @@ def streaming_fused_sums(m_new, m_old, x, density, need_h: bool,
 
 def _tc_route(x, tier: str, absolute_ll: bool) -> bool:
     """The (mode, contraction tier, X dtype) pairs of the tensor-core
-    route: plain bf16 on bf16 X, and delta bf16x3 on f32 X (whose
-    rotation tier is bf16x3 too)."""
+    route: plain bf16 on bf16 X, and delta bf16x3 and delta f32 on f32 X
+    (whose rotation tier is the contraction's)."""
     if absolute_ll:
         return tier == "bf16" and x.dtype == torch.bfloat16
-    return tier == "bf16x3" and x.dtype == torch.float32
+    return tier in ("bf16x3", "f32") and x.dtype == torch.float32
 
 
 def _streaming_fused_tc(m_new, m_old, x, density, need_h, need_ysq, tier):
     """The tensor-core route at ``tier``: the weights as zero-padded (n_pad,
     kp) bf16 planes (at bf16 M_new; at bf16x3 the hi / lo splits of M_old
     and of dM = M_new - M_old in f32, as the plain version's
-    ``_split_bf16``), one workspace of :func:`stream_tc_plan`'s size, both
-    launches per chunk in one C call, and the packed partials folded as
-    the scalar kernel's."""
+    ``_split_bf16``; at f32 their hi / mid / lo splits, ``_split3_bf16``),
+    one workspace of :func:`stream_tc_plan`'s size, both launches per
+    chunk in one C call, and the packed partials folded as the scalar
+    kernel's."""
     n, t = x.shape
     plan = stream_tc_plan(n, t, need_h, tier)
     code, alpha = _density_code(density)
@@ -789,15 +793,16 @@ def _streaming_fused_tc(m_new, m_old, x, density, need_h, need_ysq, tier):
     if tier == "bf16":
         planes = _mats(x, m_new)
     else:
+        split = _split_bf16 if tier == "bf16x3" else _split3_bf16
         m_old = m_old.to(torch.float32)
-        planes = [*_split_bf16(m_old), *_split_bf16(m_new.to(torch.float32) - m_old)]
+        planes = [*split(m_old), *split(m_new.to(torch.float32) - m_old)]
     w = torch.zeros((len(planes), plan.n_pad, kp), dtype=torch.bfloat16, device=x.device)
     for plane, v in zip(w, planes):
         plane[:n, :n] = v  # bf16 values: the conversion is exact
     ws = torch.empty(plan.ws_bytes, dtype=torch.uint8, device=x.device)
 
     def launch(ptrs, stride):
-        _run(_lib().picard_streaming_fused_tc, int(tier == "bf16x3"), _TIERS[tier], code,
+        _run(_lib().picard_streaming_fused_tc, int(tier != "bf16"), _TIERS[tier], code,
              int(need_h), int(need_ysq), alpha, n, t, plan.cols_per_group, plan.n_parts,
              plan.groups_per_chunk, w.data_ptr(), x.data_ptr(), ws.data_ptr(), *ptrs, stride,
              device=x.device)

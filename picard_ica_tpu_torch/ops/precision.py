@@ -35,6 +35,16 @@ def _split_bf16(v):
     return hi, lo
 
 
+def _split3_bf16(v):
+    """(hi, mid, lo) bf16 thirds of an f32 operand, as f32 tensors: hi =
+    bf16(v), mid = bf16(v - hi), lo = bf16(v - hi - mid); hi + mid + lo
+    is v (the f32 tier's split, ``csrc/mma_tiers.cuh`` split3_pair)."""
+    hi = _bf16(v)
+    rest = v - hi
+    mid = _bf16(rest)
+    return hi, mid, _bf16(rest - mid)
+
+
 def _dot_bf16x3_presplit(a_pair, b_pair, acc=torch.float32):
     """The three bf16 products of already-split operands, summed in the
     JAX package's order: hi*hi + lo*hi + hi*lo."""

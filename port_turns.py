@@ -16,9 +16,10 @@ after, before; each turn measures, with ``chip_smoke.py``'s helpers:
     1,000,003 columns);
   * ``streaming_fused_sums`` (``chip_smoke.py``'s unit-variance Laplace
     inputs) at 256 x 2,000,000 and 1024 x 200,000 in the cases of the
-    default schedule's two stages, plain mode at the bf16 tier on bf16 X
-    and delta mode at the bf16x3 tier on f32 X, and in delta mode at the
-    f32 tier at 256 x 2,000,000, timed the same two ways;
+    default schedule's three stages, plain mode at the bf16 tier on bf16
+    X and delta mode at the bf16x3 and the f32 tier on f32 X, and
+    ``streaming_loglik_sums`` on f32 X at both shapes, timed the same two
+    ways;
   * ``chip_smoke.py``'s phase-3 fit (64 x 2,000,000 mixed mixture, f64
     NumPy input) and phase-4 fits (the bench 64 x 4,000,000 made on the
     card) at the default staged schedule and in the exact f32 tier: core
@@ -34,22 +35,28 @@ four turns, also written to ``--out`` (default
 ``chiprun_out/turns.json``). Needs one CUDA card and nvcc.
 
 With ``--kernels-only`` the turns time the kernels alone, without the
-fits. With ``--large-n`` they take only the ``streaming_fused_sums``
-cases and, unless ``--kernels-only`` is given too, the staged fit below
-(core seconds, iterations, stage exits, launches by route and tier).
+fits. With ``--large-n`` they take only the kernels (the
+``rotated_fused_sums`` cases at 64 x 2,000,000 and the streaming
+kernels' cases) and, unless ``--kernels-only`` is given too, phase 5's
+data fitted through the streaming kernels twice, at the default staged
+schedule and in the exact f32 tier (``kernel_precision="f32"``, phase
+5's fit): core seconds, iterations, stage exits, launches by route and
+tier.
 
     python3 port_turns.py --profile [TREE]
 
 traces one tree's ``streaming_fused_sums`` calls of the default
-schedule's two stages (plain bf16 on bf16 X, delta bf16x3 on f32 X) at
-both shapes, with the tanh and cube densities, in ``torch.profiler`` and
-prints each CUDA kernel's device ms a call (mean of 5 calls).
+schedule's three stages (plain bf16 on bf16 X, delta bf16x3 and delta f32
+on f32 X) at both shapes, with the tanh and cube densities, in
+``torch.profiler`` and prints each CUDA kernel's device ms a call (mean
+of 5 calls).
 
     python3 port_turns.py --staged-fit [TREE]
 
 fits ``chip_smoke.py``'s phase-5 data (256 x 2,000,000 mixed mixture,
 seed 0, an f32 CUDA tensor) once with ``use_kernels=True`` at the default
-staged schedule with TREE's package (default: this checkout), and prints
+staged schedule (with ``--f32`` in the exact f32 tier) with TREE's
+package (default: this checkout), and prints
 convergence, iterations, stage exits, the number of negative
 (sub-Gaussian) signs, Amari distance to the mixing, and the streaming
 fused kernel's launches; with ``--torch-path`` the same fit runs on the
@@ -79,10 +86,10 @@ RAGGED_F32_ROWS = (17, 63)
 # (N, T, seed of chip_smoke._stream_inputs) of the streaming fused
 # kernel's cases.
 STREAM_SHAPES = ((256, 2_000_000, 5), (1024, 200_000, 7))
-STREAM_CASES = [  # (label, precision, absolute_ll, bf16 X, shapes)
-    ("plain bf16, bf16 X", "bf16", True, True, STREAM_SHAPES),
-    ("delta bf16x3", "bf16x3", False, False, STREAM_SHAPES),
-    ("delta f32", "f32", False, False, STREAM_SHAPES[:1]),
+STREAM_CASES = [  # (label, precision, absolute_ll, bf16 X)
+    ("plain bf16, bf16 X", "bf16", True, True),
+    ("delta bf16x3", "bf16x3", False, False),
+    ("delta f32", "f32", False, False),
 ]
 
 
@@ -126,12 +133,6 @@ def one_turn(tree: str, kernels_only: bool = False, large_n: bool = False) -> di
     assert Path(K.__file__).resolve().is_relative_to(Path(tree).resolve()), K.__file__
     _build.load()
     turn = {"tree": tree, "kernel": {}, "fits": {}}
-    if large_n:
-        _stream_turn(sm, K, tree, turn)
-        if not kernels_only:
-            turn["fits"]["staged 256 x 2M"] = staged_fit(tree, sm)
-        return turn
-
     rng = np.random.default_rng(sm.SEED)
     x = torch.from_numpy((rng.laplace(size=(sm.N, sm.T)) / np.sqrt(2.0))
                          .astype(np.float32)).cuda()
@@ -151,6 +152,13 @@ def one_turn(tree: str, kernels_only: bool = False, large_n: bool = False) -> di
                 f"{sm._fmt_pair((ms, ms_stream))}")
     del x, x16
     torch.cuda.empty_cache()
+    if large_n:
+        _stream_turn(sm, K, tree, turn)
+        if not kernels_only:
+            x5, a5 = _large_n_data(sm)
+            for label, precision in (("staged 256 x 2M", "auto"), ("f32 256 x 2M", "f32")):
+                turn["fits"][label] = large_n_fit(tree, sm, x5, a5, precision=precision)
+        return turn
     for n in RAGGED_F32_ROWS:
         xr, mr_old, mr_new = sm._stream_inputs(n, sm.T_RAGGED, n)
         label = f"delta f32, {n} x {sm.T_RAGGED}"
@@ -208,7 +216,8 @@ def one_turn(tree: str, kernels_only: bool = False, large_n: bool = False) -> di
 
 
 def _stream_turn(sm, K, tree, turn):
-    """Time STREAM_CASES, each shape's inputs made once."""
+    """Time STREAM_CASES and the loglik kernel on f32 X, each shape's
+    inputs made once."""
     import torch
 
     from picard_ica_tpu_torch.ops.densities import Tanh
@@ -216,15 +225,17 @@ def _stream_turn(sm, K, tree, turn):
     for n, t, seed in STREAM_SHAPES:
         xs, ms_old, ms_new = sm._stream_inputs(n, t, seed)
         xs16 = xs.to(torch.bfloat16)
-        for case, precision, absolute_ll, bf16_x, shapes in STREAM_CASES:
-            if (n, t, seed) not in shapes:
-                continue
+        for case, precision, absolute_ll, bf16_x in STREAM_CASES:
             xx = xs16 if bf16_x else xs
             label = f"streaming {case}, {n} x {t}"
             ms, ms_stream = sm._time_both(lambda: K.streaming_fused_sums(
                 ms_new, ms_old, xx, Tanh(), False, False, precision, absolute_ll))
             turn["kernel"][label] = {"ms": ms, "ms_stream": ms_stream}
             sm._log(f"[{tree}] streaming_fused_sums [{label}]: {sm._fmt_pair((ms, ms_stream))}")
+        label = f"streaming loglik f32, {n} x {t}"
+        ms, ms_stream = sm._time_both(lambda: K.streaming_loglik_sums(ms_old, xs, Tanh(), False))
+        turn["kernel"][label] = {"ms": ms, "ms_stream": ms_stream}
+        sm._log(f"[{tree}] streaming_loglik_sums [{label}]: {sm._fmt_pair((ms, ms_stream))}")
         del xs, xs16, xx
         torch.cuda.empty_cache()
 
@@ -246,7 +257,7 @@ def profile(tree: str) -> dict:
     for n, t, seed in STREAM_SHAPES:
         xs, ms_old, ms_new = sm._stream_inputs(n, t, seed)
         xs16 = xs.to(torch.bfloat16)
-        for case, precision, absolute_ll, bf16_x, _ in STREAM_CASES[:2]:
+        for case, precision, absolute_ll, bf16_x in STREAM_CASES:
             xx = xs16 if bf16_x else xs
             for density in (Tanh(), Cube()):
                 def call():
@@ -290,10 +301,23 @@ def _trace_iterations(core):
     return rows
 
 
-def staged_fit(tree: str, sm=None, trace: bool = False, use_kernels: bool = True) -> dict:
-    """Phase 5's 256 x 2,000,000 data fitted once at the default staged
-    schedule through the streaming kernels."""
+def _large_n_data(sm):
+    """Phase 5's 256 x 2,000,000 mixed mixture (seed 0) as an f32 CUDA
+    tensor, and its mixing."""
     import numpy as np
+    import torch
+
+    from picard_ica_tpu_torch.utils.datagen import generate_mixed_kurtosis_data
+
+    _, a, x_np = generate_mixed_kurtosis_data(sm.N5, sm.T5, sm.SEED)
+    return torch.from_numpy(x_np.astype(np.float32)).cuda(), a
+
+
+def large_n_fit(tree: str, sm=None, x=None, a=None, trace: bool = False,
+                use_kernels: bool = True, precision: str = "auto") -> dict:
+    """Phase 5's 256 x 2,000,000 data (made here unless ``x`` and ``a`` are
+    given) fitted once through the streaming kernels, at the default
+    staged schedule or in one tier (``precision``)."""
     import torch
 
     if sm is None:
@@ -301,18 +325,17 @@ def staged_fit(tree: str, sm=None, trace: bool = False, use_kernels: bool = True
         sm.phase0_env()
     from picard_ica_tpu_torch.models import core
     from picard_ica_tpu_torch.ops import kernels as K
-    from picard_ica_tpu_torch.utils.datagen import generate_mixed_kurtosis_data
     from picard_ica_tpu_torch.utils.metrics import amari_distance
 
     assert Path(K.__file__).resolve().is_relative_to(Path(tree).resolve()), K.__file__
-    _, a, x_np = generate_mixed_kurtosis_data(sm.N5, sm.T5, sm.SEED)
-    x = torch.from_numpy(x_np.astype(np.float32)).cuda()
-    del x_np
+    if x is None:
+        x, a = _large_n_data(sm)
     rows = _trace_iterations(core) if trace else None
     K.reset_launch_counts()
-    r, wall = sm._fit(x, use_kernels)
+    r, wall = sm._fit(x, use_kernels, kernel_precision=precision)
     path = "kernels" if use_kernels else "torch path"
-    sm._report_fit(f"[{tree}] staged {sm.N5} x {sm.T5} ({path})", r, wall, sm.T5)
+    schedule = "staged" if precision == "auto" else precision
+    sm._report_fit(f"[{tree}] {schedule} {sm.N5} x {sm.T5} ({path})", r, wall, sm.T5)
     for row in rows or ():
         sm._log(f"[{tree}] iteration: tier {row[0]}, it {row[1]}, gradient norm "
                 f"{row[2]:.4e}, since_improve {row[3]}, consec_fallbacks {row[4]}, "
@@ -327,9 +350,9 @@ def staged_fit(tree: str, sm=None, trace: bool = False, use_kernels: bool = True
                                                   "launches_by_route", None),
               "streaming_fused_by_tier": getattr(K.streaming_fused_sums,
                                                  "launches_by_tier", None)}
-    del x
+    del r
     torch.cuda.empty_cache()
-    sm._log(f"[{tree}] staged fit: {result}")
+    sm._log(f"[{tree}] {schedule} fit: {result}")
     return result
 
 
@@ -359,13 +382,16 @@ def main(argv=None):
                     help="with --staged-fit, print each iteration's gradient norm")
     ap.add_argument("--torch-path", action="store_true",
                     help="with --staged-fit, fit on the torch path")
+    ap.add_argument("--f32", action="store_true",
+                    help="with --staged-fit, fit in the exact f32 tier instead")
     ap.add_argument("--large-n", action="store_true",
                     help="turns of the streaming fused kernel's cases and the staged fit only")
     args = ap.parse_args(argv)
     if args.staged_fit or args.profile:
         tree = str(Path(args.trees[0] if args.trees else HERE).resolve())
         sys.path[:] = [tree] + [p for p in sys.path if p and Path(p).resolve() != HERE]
-        print(json.dumps(staged_fit(tree, trace=args.trace, use_kernels=not args.torch_path)
+        print(json.dumps(large_n_fit(tree, trace=args.trace, use_kernels=not args.torch_path,
+                                     precision="f32" if args.f32 else "auto")
                          if args.staged_fit else profile(tree)))
         return 0
     if args.one:

@@ -48,6 +48,11 @@ DENSITIES = [Tanh(), Exp(0.5), Cube()]
 # be near zero).
 F32_ERR_FACTOR = 2.0
 F32_SCALE_FLOOR = 1e-7
+# The bf16x3 tier's error against f64 sums of the same split operands may
+# be this many times the plain version's, plus DRIFT_FLOOR of the
+# output's largest entry (tests/test_torch_stream_tc_cuda.py's rule).
+DRIFT_FACTOR = 2.0
+DRIFT_FLOOR = 1e-7
 
 
 @pytest.fixture
@@ -184,6 +189,63 @@ def test_fused_f32_tier_error_against_f64(dev, absolute_ll):
         err_p = float((p.double() - r).abs().max())
         bound = F32_ERR_FACTOR * err_p + F32_SCALE_FLOOR * float(r.abs().max())
         assert err_k <= bound, (err_k, err_p, bound)
+
+
+def _split64(v):
+    return tuple(u.double() for u in K._split_bf16(v.float()))
+
+
+def _x3_64(a_pair, b_pair):
+    """hi*hi + lo*hi + hi*lo of split operands, in f64."""
+    (a_hi, a_lo), (b_hi, b_lo) = a_pair, b_pair
+    return a_hi @ b_hi + a_lo @ b_hi + a_hi @ b_lo
+
+
+def _drift(out_k, out_p, ref):
+    err_k = float((out_k.double() - ref).abs().max())
+    err_p = float((out_p.double() - ref).abs().max())
+    bound = DRIFT_FACTOR * err_p + DRIFT_FLOOR * float(ref.abs().max())
+    print(f"error against f64: kernel {err_k:.4g}, plain {err_p:.4g}, bound {bound:.4g}")
+    assert err_k <= bound, (err_k, err_p, bound)
+
+
+def test_fused_bf16x3_rotation_drift_against_f64(dev):
+    """The bf16x3 tier at the main path's width, 64 x 2,000,000: dysq =
+    sum (2 Y_old + dY) dY and ysq = sum Y^2 against the same sums in f64
+    of the same hi / lo operands (the tensor cores round each MMA's sum
+    toward zero, so a chain of MMAs pulls Y_old and dY toward zero, and
+    a sum of Y^2 over 2M columns carries it)."""
+    x, m_old, m_new = _inputs(dev, 64, 2_000_000, seed=13)
+    args = (m_new, m_old, x, Tanh(), False, True, "bf16x3", False)
+    out_k = K.rotated_fused_sums(*args)
+    out_p = K.rotated_fused_sums_plain(*args)
+    x_pair = _split64(x)
+    y_old = _x3_64(_split64(m_old), x_pair)
+    dy = _x3_64(_split64(m_new - m_old), x_pair)
+    del x_pair
+    dysq = ((2.0 * y_old + dy) * dy).sum(dim=1)
+    y_old += dy
+    ysq = (y_old * y_old).sum(dim=1)
+    del y_old, dy
+    _drift(out_k[1], out_p[1], dysq)
+    _drift(out_k[5], out_p[5], ysq)
+
+
+def test_fused_bf16x3_g_drift_against_f64(dev):
+    """The bf16x3 contraction at 64 x 2,000,000 (128 16-column steps a
+    2,048-column partial): M_old = M_new = I and the cube density, so Y =
+    hi(X) + lo(X) exactly in both and the kernel's split operands are bit
+    for bit the plain version's; G's error against f64 sums of those
+    operands within DRIFT_FACTOR of the plain version's."""
+    x, _, _ = _inputs(dev, 64, 2_000_000, seed=14)
+    eye = torch.eye(64, device=dev)
+    args = (eye, eye, x, Cube(), False, False, "bf16x3", False)
+    g_k = K.rotated_fused_sums(*args)[2]
+    g_p = K.rotated_fused_sums_plain(*args)[2]
+    hi, lo = K._split_bf16(x)
+    y = hi + lo
+    g_64 = _x3_64(_split64(y * y * y), tuple(v.T for v in _split64(y)))
+    _drift(g_k, g_p, g_64)
 
 
 def _core_calls(dev):
@@ -528,10 +590,12 @@ def test_streaming_fused_bf16_x_matches_plain(dev, n, t, precision, absolute_ll)
 def test_streaming_fused_across_group_boundaries(dev, monkeypatch, n, group):
     """70,001 columns: 547 tiles of 128 at N = 72 in groups of ``group``
     tiles; 2,188 tiles of 32 at N = 1024, where the G and H partials
-    budget (STREAM_PARTIALS_MAX) sets groups of 18."""
+    budget (STREAM_PARTIALS_MAX) sets groups of 18. Plain mode at f32 (the
+    moments hand-off), which the scalar kernel serves; delta f32 runs the
+    tensor-core route, whose groups are stream_tc_plan's."""
     monkeypatch.setattr(K, "STREAM_GROUP", group)
     x, m_old, m_new = _inputs(dev, n, 70_001, seed=6)
-    args = (m_new, m_old, x, Tanh(), True, True, "f32", False)
+    args = (m_new, m_old, x, Tanh(), True, True, "f32", True)
     _close(K.streaming_fused_sums(*args), K.streaming_fused_sums_plain(*args))
 
 

@@ -1,28 +1,34 @@
 """The tensor-core route of streaming_fused_sums, on the CPU.
 
 The route (``csrc/streaming_fused_tc.cu``: plain mode at the bf16 tier on
-bf16 X, delta mode at the bf16x3 tier on f32 X) runs only on the card.
-What surrounds it is held here:
+bf16 X, delta mode at the bf16x3 and the f32 tier on f32 X) runs only on
+the card. What surrounds it is held here:
 
-  * :func:`ops.kernels.stream_tc_plan`'s invariants at both tiers: the
+  * :func:`ops.kernels.stream_tc_plan`'s invariants at every tier: the
     groups cover T once in whole tiles, a chunk is whole groups, and the
     workspace stays under its cap;
   * a torch emulation of the two launches (the plan's groups and chunks;
     the workspace planes, bf16 psi and Y, with H psi' and Y^2, each as hi
-    and lo at bf16x3, exact zeros at padded rows and columns; per-group
-    row sums and products; the groups folded pairwise) against
-    ``picard_ica_tpu.ops.pallas_kernels.streaming_fused_sums(...,
-    interpret=True)`` (``precision="bf16", absolute_ll=True`` on bf16 X;
-    ``precision="bf16x3", absolute_ll=False`` on f32 X) and against
-    ``streaming_fused_sums_plain``.
+    and lo at bf16x3 and as f32 at f32, exact zeros at padded rows and
+    columns; per-group row sums and products; the groups folded
+    pairwise) against the JAX package's ``streaming_fused_sums(...,
+    interpret=True)`` (``picard_ica_tpu.ops.pallas_kernels``;
+    ``precision="bf16", absolute_ll=True`` on bf16 X;
+    ``precision="bf16x3"`` and ``precision="f32"``,
+    ``absolute_ll=False``, on f32 X) and against
+    ``streaming_fused_sums_plain``. At f32 the emulation splits every
+    operand three ways (hi / mid / lo) and sums the six products of each
+    16-deep step, small first and hi*hi last, before adding the step to
+    its f32 sum, as the kernels' fresh accumulators do.
 
 Tolerances: in plain bf16, 1e-3 of each output's largest entry, the
 bf16-X rule of tests/test_torch_streaming.py (psi and Y are rounded to
 bf16 after rotations whose f32 sums are ordered differently); in delta
-bf16x3, 2e-5 of each output's largest entry, that file's f32 and bf16x3
-rule (the hi / lo splits keep ~16 bits, and only the order of the f32
-sums differs). The CUDA kernels are held against the plain version on
-the card by tests/test_torch_stream_tc_cuda.py and chip_smoke.py.
+bf16x3 and delta f32, 2e-5 of each output's largest entry, that file's
+f32 and bf16x3 rule (the splits keep ~16 or ~24 bits, and only the order
+of the f32 sums differs). The CUDA kernels are held against the plain
+version on the card by tests/test_torch_stream_tc_cuda.py and
+chip_smoke.py.
 """
 
 import jax.numpy as jnp
@@ -42,6 +48,7 @@ DENS = {"tanh": (jd.Tanh(), td.Tanh()), "exp0.5": (jd.Exp(0.5), td.Exp(0.5)),
         "cube": (jd.Cube(), td.Cube())}
 BF16_TOL = 1e-3
 X3_TOL = 2e-5
+F32_TOL = 2e-5
 # One 128-row block with padded rows, a second block, ragged T.
 SHAPES = [(65, 777), (80, 2049), (130, 4099)]
 
@@ -75,21 +82,65 @@ def _x3(a_pair, b_pair):
     return a_hi @ b_hi + a_lo @ b_hi + a_hi @ b_lo
 
 
-def _emulate(m_new, x, density, need_h, need_ysq, m_old=None):
+def _x6(a, b):
+    """The six products of three-way split operands in the kernels' order:
+    lo*hi, mid*mid, hi*lo, mid*hi, hi*mid, then hi*hi (mma_tier<F32>)."""
+    (a_hi, a_mid, a_lo), (b_hi, b_mid, b_lo) = a, b
+    return (a_lo @ b_hi + a_mid @ b_mid + a_hi @ b_lo + a_mid @ b_hi + a_hi @ b_mid
+            + a_hi @ b_hi)
+
+
+STEP = 16  # the depth of an MMA: each step's products form one fresh sum
+
+
+def _x6_rotate(w_parts, x_parts):
+    """W X at the f32 tier: the six products of each 16-deep k step, each
+    step's sum added to the f32 result in order."""
+    out = 0.0
+    for s in range(0, x_parts[0].shape[0], STEP):
+        out = out + _x6([u[:, s:s + STEP] for u in w_parts], [u[s:s + STEP] for u in x_parts])
+    return out
+
+
+def _x6_contract(a, b):
+    """a b^T at the f32 tier over a group's columns: a and b split three
+    ways, the six products of each 16-column step (batched over the
+    steps), the steps added to the f32 result in order."""
+    n, cols = a.shape
+
+    def stepped(v):  # (n, cols) -> (steps, n, STEP)
+        return v.reshape(n, cols // STEP, STEP).transpose(0, 1)
+
+    steps = _x6([stepped(u) for u in K._split3_bf16(a)],
+                [stepped(u).transpose(1, 2) for u in K._split3_bf16(b)])
+    out = steps[0]
+    for p in steps[1:]:
+        out = out + p
+    return out
+
+
+def _emulate(m_new, x, density, need_h, need_ysq, m_old=None, tier=None):
     """The route's two launches in torch, on the CPU: per chunk of whole
     groups, launch A's workspace and its row sums per group, launch B's
     products per group; every output's groups folded pairwise. Plain mode
     at the bf16 tier (``m_old`` None, bf16 X): bf16 psi and Y, with H
-    psi' and Y^2. Delta mode at bf16x3 (f32 X): hi / lo of M_old, dM and
-    of each chunk of X, Y_old and dY as three products each, Y = Y_old +
-    dY, the delta density's row sums, and the hi / lo planes of psi and Y
-    (psi' and Y^2) with three products per group. Zeros at padded rows
-    and columns, psi' masked there."""
+    psi' and Y^2. Delta mode at bf16x3 (f32 X, the default with
+    ``m_old``): hi / lo of M_old, dM and of each chunk of X, Y_old and dY
+    as three products each, Y = Y_old + dY, the delta density's row sums,
+    and the hi / lo planes of psi and Y (psi' and Y^2) with three
+    products per group. Delta mode at ``tier="f32"``: the same with hi /
+    mid / lo splits, six products per 16-deep step in a fresh sum (the
+    rotation's k steps, the contraction's column steps), and f32 planes
+    of psi and Y (psi' and Y^2) that the contraction splits. Zeros at
+    padded rows and columns, psi' masked there."""
     n, t = x.shape
     delta = m_old is not None
-    plan = K.stream_tc_plan(n, t, need_h, "bf16x3" if delta else "bf16")
+    tier = tier or ("bf16x3" if delta else "bf16")
+    plan = K.stream_tc_plan(n, t, need_h, tier)
     cols = plan.cols_per_group
-    if delta:
+    if tier == "f32":
+        w = _padded_planes([*K._split3_bf16(m_old), *K._split3_bf16(m_new - m_old)], plan.n_pad)
+    elif delta:
         w = _padded_planes([*K._split_bf16(m_old), *K._split_bf16(m_new - m_old)], plan.n_pad)
     else:
         w = _padded_planes([K._bf16(m_new.float())], plan.n_pad)
@@ -101,15 +152,20 @@ def _emulate(m_new, x, density, need_h, need_ysq, m_old=None):
         c0, c1 = g0 * cols, g1 * cols
         xc = torch.nn.functional.pad(xf[:, c0:min(c1, t)], (0, c1 - min(c1, t)))
         valid = live & (torch.arange(c0, c1) < t)[None]
-        if delta:
+        if tier == "f32":
+            x_parts = K._split3_bf16(xc)  # one split shared by both rotations
+            y_old = _x6_rotate(w[:3], x_parts)
+            dy = _x6_rotate(w[3:], x_parts)
+        elif delta:
             x_pair = K._split_bf16(xc)  # one split shared by both rotations
             y_old = _x3((w[0], w[1]), x_pair)
             dy = _x3((w[2], w[3]), x_pair)
+        if delta:
             y = y_old + dy
             _, pm_el, ll = density.score_der_loglik_delta(y_old, dy)
             dysq = (2.0 * y_old + dy) * dy
             psi, psid = density.score_and_der(y)
-            split = K._split_bf16
+            split = (lambda v: (v,)) if tier == "f32" else K._split_bf16  # noqa: E731
         else:
             y = w[0] @ xc  # products of bf16 values are exact in f32
             psi, psid, ll = density.score_der_loglik(y)
@@ -119,11 +175,14 @@ def _emulate(m_new, x, density, need_h, need_ysq, m_old=None):
         pm_el = torch.where(valid, pm_el, 0.0)
         psid = torch.where(valid, psid, 0.0)
         ops = [split(psi), split(y)] + ([split(psid), split(y * y)] if need_h else [])
-        assert sum(map(len, ops)) * plan.n_pad * (c1 - c0) * 2 <= plan.ws_bytes
+        elem = 4 if tier == "f32" else 2  # bytes of a workspace element of one plane
+        assert sum(map(len, ops)) * plan.n_pad * (c1 - c0) * elem <= plan.ws_bytes
         for v in (u for pair in ops for u in pair):  # exactly zero past n and t
             assert not v[~valid].any()
 
         def product(a, b, s):
+            if tier == "f32":
+                return _x6_contract(a[0][:n, s], b[0][:n, s])
             a, b = [u[:n, s] for u in a], [u[:n, s].T for u in b]
             return _x3(a, b) if delta else a[0] @ b[0]
 
@@ -201,10 +260,10 @@ def test_emulated_route_in_chunks(monkeypatch, need_h):
     _check(_jax(m_new, x, "tanh", need_h, True), chunked)
 
 
-def _jax_delta(m_new, m_old, x, dens, need_h, need_ysq):
+def _jax_delta(m_new, m_old, x, dens, need_h, need_ysq, precision="bf16x3"):
     return pk.streaming_fused_sums(jnp.asarray(m_new), jnp.asarray(m_old), jnp.asarray(x),
                                    DENS[dens][0], need_h, need_ysq, interpret=True,
-                                   precision="bf16x3", absolute_ll=False)
+                                   precision=precision, absolute_ll=False)
 
 
 def _delta_case(n, t, seed):
@@ -264,6 +323,92 @@ def test_cpu_wrapper_runs_the_plain_version_in_delta_bf16x3():
         route: {"f32": 0, "bf16x3": 0, "bf16": 0} for route in ("scalar", "tc")}
 
 
+# ---------------------------------------------------------------------------
+# Delta mode at the f32 tier on f32 X.
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dens", list(DENS))
+@pytest.mark.parametrize("n,t", SHAPES)
+def test_emulated_f32_route_matches_jax_and_plain(n, t, dens):
+    (m_new, m_old, x), (tm, to, tx) = _delta_case(n, t, n + t)
+    tden = DENS[dens][1]
+    got = _emulate(tm, tx, tden, True, True, m_old=to, tier="f32")
+    _check(_jax_delta(m_new, m_old, x, dens, True, True, "f32"), got, F32_TOL)
+    _check(K.streaming_fused_sums_plain(tm, to, tx, tden, True, True, "f32", False), got,
+           F32_TOL)
+
+
+@pytest.mark.parametrize("need_ysq", [False, True], ids=["no-ysq", "ysq"])
+@pytest.mark.parametrize("need_h", [False, True], ids=["no-h", "h"])
+def test_emulated_f32_route_flags(need_h, need_ysq):
+    (m_new, m_old, x), (tm, to, tx) = _delta_case(80, 1001, 3)
+    got = _emulate(tm, tx, td.Tanh(), need_h, need_ysq, m_old=to, tier="f32")
+    _check(_jax_delta(m_new, m_old, x, "tanh", need_h, need_ysq, "f32"), got, F32_TOL)
+    if not need_h:
+        assert not got[4].any()
+    if not need_ysq:
+        assert not got[1].any() and not got[5].any()
+
+
+@pytest.mark.parametrize("need_h", [False, True], ids=["no-h", "h"])
+def test_emulated_f32_route_in_chunks(monkeypatch, need_h):
+    """Groups of 128 columns and a workspace of two groups of f32 planes:
+    2,049 columns in 17 groups run as 9 chunks, and give the unchunked
+    sums."""
+    (m_new, m_old, x), (tm, to, tx) = _delta_case(80, 2049, 4)
+    monkeypatch.setattr(K, "STREAM_TC_GROUP_COLS", 128)
+    whole = _emulate(tm, tx, td.Cube(), need_h, True, m_old=to, tier="f32")
+    monkeypatch.setattr(K, "STREAM_TC_WORKSPACE_MAX", 2 * 128 * 2 * (1 + need_h) * 128 * 4)
+    plan = K.stream_tc_plan(80, 2049, need_h, "f32")
+    assert (plan.cols_per_group, plan.n_parts, plan.groups_per_chunk) == (128, 17, 2)
+    chunked = _emulate(tm, tx, td.Cube(), need_h, True, m_old=to, tier="f32")
+    _check(whole, chunked, 1e-6)
+    _check(_jax_delta(m_new, m_old, x, "cube", need_h, True, "f32"), chunked, F32_TOL)
+
+
+def test_split3_is_exact():
+    """hi + mid + lo is the f32 operand exactly, each part a bf16 value,
+    and each part at most 2^-8 of the one before (to nearest), over
+    magnitudes from 1e-20 to 1e20."""
+    rng = np.random.default_rng(0)
+    v = torch.from_numpy(np.concatenate([
+        rng.standard_normal(4096) * 10.0 ** rng.integers(-20, 20, 4096),
+        [0.0, 1.0, -3.0, 2.0**-100]]).astype(np.float32))
+    hi, mid, lo = K._split3_bf16(v)
+    assert torch.equal((hi + mid) + lo, v)
+    for part in (hi, mid, lo):
+        assert torch.equal(K._bf16(part), part)
+    assert bool((mid.abs() <= 2.0**-8 * hi.abs()).all())
+    assert bool((lo.abs() <= 2.0**-8 * mid.abs()).all())
+
+
+def test_cpu_wrapper_runs_the_plain_version_in_delta_f32():
+    """Delta f32 on a CPU tensor of f32 X runs the plain version and
+    launches nothing."""
+    _, (tm, to, tx) = _delta_case(80, 1001, 6)
+    K.reset_launch_counts()
+    out = K.streaming_fused_sums(tm, to, tx, td.Tanh(), False, True, "f32", False)
+    ref = K.streaming_fused_sums_plain(tm, to, tx, td.Tanh(), False, True, "f32", False)
+    assert all(torch.equal(a, b) for a, b in zip(out, ref))
+    assert K.streaming_fused_sums.launches == 0
+    assert K.streaming_fused_sums.launches_by_route == {"scalar": 0, "tc": 0}
+
+
+def test_tc_route_takes_delta_f32_on_f32_x():
+    """The routes of the tensor-core kernels, by (mode, tier, X dtype):
+    delta f32 on f32 X is one of them; plain f32 and delta f32 on bf16 X
+    (which runs the bf16 tier) are not."""
+    x32 = torch.zeros((80, 8))
+    x16 = x32.to(torch.bfloat16)
+    assert K._tc_route(x32, "f32", False)
+    assert K._tc_route(x32, "bf16x3", False)
+    assert K._tc_route(x16, "bf16", True)
+    assert not K._tc_route(x32, "f32", True)
+    assert not K._tc_route(x16, K._tiers(x16, "f32")[0], False)
+    assert not K._tc_route(x32, "bf16", False)
+
+
 def test_cpu_wrapper_runs_the_plain_version():
     """On a CPU tensor the route's tuple runs the plain version and
     launches nothing."""
@@ -278,7 +423,7 @@ def test_cpu_wrapper_runs_the_plain_version():
 
 
 def _col_bytes(plan, need_h, tier="bf16"):
-    return 2 * (1 + need_h) * (2 if tier == "bf16x3" else 1) * plan.n_pad * 2
+    return 2 * (1 + need_h) * (1 if tier == "bf16" else 2) * plan.n_pad * 2
 
 
 PLAN_CASES = [  # (n, t, need_h, workspace cap or None, group columns or None)
@@ -337,6 +482,22 @@ def test_plan_invariants_bf16x3(monkeypatch, n, t, need_h, cap, group_cols):
     one = K.stream_tc_plan(n, t, need_h, "bf16")
     assert x3.n_pad == one.n_pad and x3.cols_per_group <= one.cols_per_group
     assert x3.groups_per_chunk * x3.cols_per_group <= one.groups_per_chunk * one.cols_per_group
+
+
+@pytest.mark.parametrize("n,t,need_h,cap,group_cols", PLAN_CASES)
+def test_plan_invariants_f32(monkeypatch, n, t, need_h, cap, group_cols):
+    """f32 planes take 4 bytes an element, as bf16x3's hi / lo pair: the
+    same call is cut as at bf16x3."""
+    f32 = _plan_invariants(monkeypatch, n, t, need_h, cap, group_cols, "f32")
+    assert f32 == K.stream_tc_plan(n, t, need_h, "bf16x3")
+
+
+def test_plan_of_the_f32_fit():
+    """256 x 2,000,000 at f32 without H (the f32 stage and the f32-only
+    fit): 4.1 GB of f32 planes for all of T, so 489 groups of 4,096 columns
+    run as two chunks of up to 256 groups under the 2 GB cap."""
+    plan = K.stream_tc_plan(256, 2_000_000, False, "f32")
+    assert plan == K.StreamTcPlan(256, 4096, 489, 256, 2 * 1024**3)
 
 
 def test_plan_of_the_staged_fit_delta_stage():

@@ -2,8 +2,9 @@
 
 The route (``csrc/streaming_fused_tc.cu``) serves, at 64 < N <=
 STREAM_MAX_N, the plain mode at the bf16 tier on bf16 X and the delta
-mode at the bf16x3 tier on f32 X: a rotation-and-density launch into a
-workspace of bf16 planes, then a contraction launch. Needs an NVIDIA GPU
+mode at the bf16x3 and the f32 tier on f32 X: a rotation-and-density
+launch into a workspace of psi / Y planes, then a contraction launch.
+Needs an NVIDIA GPU
 (Hopper, sm_90a): every test here is marked ``cuda`` and skips without
 one. Imports no JAX:
 
@@ -29,6 +30,13 @@ f64 sums of the same split operands) and of its contraction (G, with
 operands equal bit for bit to the plain version's) may be DRIFT_FACTOR
 times the plain version's, plus DRIFT_FLOOR of the output's largest
 entry.
+
+Delta f32 on f32 X (six bf16 products of three-way splits): RTOL_F32 =
+2e-5 of each output's largest entry against the exact-f32 plain version,
+the f32 rule of tests/test_torch_streaming.py. Its drift (dysq and ysq,
+and G) is held against f64 sums of the f32 operands themselves, within
+DRIFT_FACTOR of the plain version's error plus DRIFT_FLOOR of the
+output's largest entry.
 """
 
 import numpy as np
@@ -44,6 +52,7 @@ pytestmark = pytest.mark.cuda
 
 RTOL_BF16 = 1e-3
 RTOL_X3 = 2e-5
+RTOL_F32 = 2e-5
 DRIFT_FACTOR = 2.0
 DRIFT_FLOOR = 1e-7
 DENSITIES = [Tanh(), Exp(0.5), Cube()]
@@ -97,7 +106,7 @@ def _run_tc(args):
     out = K.streaming_fused_sums(*args)
     assert K.streaming_fused_sums.launches_by_route == {"scalar": 0, "tc": 1}
     assert K.streaming_fused_sums.launches == 1
-    tier = "bf16" if args[7] else "bf16x3"
+    tier = K._tiers(args[2], args[6])[0]
     assert K.streaming_fused_sums.launches_by_tier["tc"][tier] == 1
     return out
 
@@ -169,7 +178,6 @@ SCALAR_ROUTES = [
     ("plain bf16x3, bf16 X", "bf16x3", True, True),
     ("plain f32", "f32", True, False),
     ("plain bf16, f32 X", "bf16", True, False),
-    ("delta f32", "f32", False, False),
     ("plain bf16x3", "bf16x3", True, False),
 ]
 
@@ -290,6 +298,7 @@ def _drift(out_k, out_p, ref):
     err_k = float((out_k.double() - ref).abs().max())
     err_p = float((out_p.double() - ref).abs().max())
     bound = DRIFT_FACTOR * err_p + DRIFT_FLOOR * float(ref.abs().max())
+    print(f"error against f64: kernel {err_k:.4g}, plain {err_p:.4g}, bound {bound:.4g}")
     assert err_k <= bound, (err_k, err_p, bound)
 
 
@@ -330,4 +339,115 @@ def test_stream_tc_x3_g_drift_against_f64(dev):
     hi, lo = K._split_bf16(x)
     y = hi + lo
     g_64 = _x3_64(_split64(y * y * y), tuple(v.T for v in _split64(y)))
+    _drift(g_k, g_p, g_64)
+
+
+# ---------------------------------------------------------------------------
+# Delta mode at the f32 tier on f32 X.
+# ---------------------------------------------------------------------------
+
+
+def _f32_args(dev, n, t, seed, density=Tanh(), need_h=True, need_ysq=True):
+    x, m_old, m_new = _inputs(dev, n, t, seed, torch.float32)
+    return (m_new, m_old, x, density, need_h, need_ysq, "f32", False)
+
+
+@pytest.mark.parametrize("t", [1, 31, 4100, 20_001])
+@pytest.mark.parametrize("n", [65, 130, 257, 1024, 1344])
+def test_stream_tc_f32_shapes_match_plain(dev, n, t):
+    """Delta f32 at the edges of the 128-row blocks and the 16-deep k
+    stages, ragged T (T % 8 != 0; 4-byte copies where T % 4 != 0), H and
+    the Y^2 sums on."""
+    args = _f32_args(dev, n, t, seed=n + t)
+    _close(_run_tc(args), K.streaming_fused_sums_plain(*args), RTOL_F32)
+
+
+@pytest.mark.parametrize("density", DENSITIES, ids=str)
+@pytest.mark.parametrize("need_ysq", [False, True], ids=["no-ysq", "ysq"])
+@pytest.mark.parametrize("need_h", [False, True], ids=["no-h", "h"])
+def test_stream_tc_f32_flags_and_densities_match_plain(dev, need_h, need_ysq, density):
+    """Ragged N and T (T % 8 == 4: 16-byte copies of f32 rows)."""
+    args = _f32_args(dev, 257, 10_004, 13, density, need_h, need_ysq)
+    out = _run_tc(args)
+    _close(out, K.streaming_fused_sums_plain(*args), RTOL_F32)
+    if not need_h:
+        assert not out[4].any()
+    if not need_ysq:
+        assert not out[1].any() and not out[5].any()
+
+
+@pytest.mark.parametrize("n", [257, 1024])
+def test_stream_tc_f32_unaligned_rows_match_plain(dev, n):
+    """1,000,003 columns: f32 rows that are not 16-byte aligned take the
+    4-byte copies; 245 groups of 4,096 columns."""
+    args = _f32_args(dev, n, 1_000_003, n + 1, need_h=False)
+    _close(_run_tc(args), K.streaming_fused_sums_plain(*args), RTOL_F32)
+
+
+@pytest.mark.parametrize("need_h", [False, True], ids=["no-h", "h"])
+def test_stream_tc_f32_chunks_match_plain(dev, monkeypatch, need_h):
+    """A workspace cap of two groups of f32 planes: 20,001 columns in 20
+    groups of 1,024 run as 10 chunks of both launches."""
+    monkeypatch.setattr(K, "STREAM_TC_GROUP_COLS", 1024)
+    n, t = 257, 20_001
+    col_bytes = 2 * (1 + need_h) * 384 * 4
+    monkeypatch.setattr(K, "STREAM_TC_WORKSPACE_MAX", 2 * 1024 * col_bytes)
+    plan = K.stream_tc_plan(n, t, need_h, "f32")
+    assert (plan.cols_per_group, plan.n_parts, plan.groups_per_chunk) == (1024, 20, 2)
+    args = _f32_args(dev, n, t, 14, need_h=need_h)
+    _close(_run_tc(args), K.streaming_fused_sums_plain(*args), RTOL_F32)
+
+
+def test_rotated_hand_off_takes_the_f32_route(dev):
+    """rotated_fused_sums above N = 64, delta f32 on f32 X (the staged
+    schedule's last stage, and every pass of an f32-only fit): the
+    tensor-core route at f32. The moments hand-off (plain f32) stays on
+    the scalar kernel."""
+    x, m_old, m_new = _inputs(dev, 130, 5000, 15, torch.float32)
+    args = (m_new, m_old, x, Tanh(), False, True, "f32", False)
+    K.reset_launch_counts()
+    out = K.rotated_fused_sums(*args)
+    assert K.streaming_fused_sums.launches_by_route == {"scalar": 0, "tc": 1}
+    assert K.streaming_fused_sums.launches_by_tier["tc"]["f32"] == 1
+    _close(out, K.rotated_fused_sums_plain(*args), RTOL_F32)
+    K.reset_launch_counts()
+    mom = K.rotated_moments_sums(m_old, x, Tanh(), False, True)
+    assert K.streaming_fused_sums.launches_by_route == {"scalar": 1, "tc": 0}
+    _close(mom, K.rotated_moments_sums_plain(m_old, x, Tanh(), False, True), RTOL_F32)
+
+
+def test_stream_tc_f32_rotation_drift_against_f64(dev):
+    """The rotation's sums at 1024 x 200,000, K 1024 deep: dysq = sum (2
+    Y_old + dY) dY and ysq = sum Y^2 against the same sums in f64 of the
+    f32 operands (M_old, the f32 dM = M_new - M_old and X), within
+    DRIFT_FACTOR of the exact-f32 plain version's error."""
+    n, t = 1024, 200_000
+    args = _f32_args(dev, n, t, 16, need_h=False)
+    m_new, m_old, x = args[:3]
+    out_k = _run_tc(args)
+    out_p = K.streaming_fused_sums_plain(*args)
+    x64 = x.double()
+    y_old = m_old.double() @ x64
+    dy = (m_new - m_old).double() @ x64
+    del x64
+    dysq = ((2.0 * y_old + dy) * dy).sum(dim=1)
+    y_old += dy
+    ysq = (y_old * y_old).sum(dim=1)
+    del y_old, dy
+    _drift(out_k[1], out_p[1], dysq)
+    _drift(out_k[5], out_p[5], ysq)
+
+
+def test_stream_tc_f32_g_drift_against_f64(dev):
+    """The contraction's sums at 1024 x 200,000: M_old = M_new = I and the
+    cube density, so Y = X exactly in both (hi(I) = 1, mid = lo = 0) and
+    psi = X^3 in f32; G's error against f64 sums of those f32 operands
+    within DRIFT_FACTOR of the exact-f32 plain version's."""
+    n, t = 1024, 200_000
+    x, _, _ = _inputs(dev, n, t, 17, torch.float32)
+    eye = torch.eye(n, device=dev)
+    args = (eye, eye, x, Cube(), False, False, "f32", False)
+    g_k = _run_tc(args)[2]
+    g_p = K.streaming_fused_sums_plain(*args)[2]
+    g_64 = (x * x * x).double() @ x.double().T
     _drift(g_k, g_p, g_64)
