@@ -56,28 +56,40 @@ prints no result line):
      (``csrc/streaming_fused_tc.cu``), which must launch there;
   5c. phase 5's 256 x 2,000,000 tensor fitted with ``use_kernels=True`` at
      the default staged schedule: converged at tol 1e-7, Amari to the
-     mixing and to phase 5's torch-path fit, and the tensor-core route
-     launched at its three tiers (the bf16 stage's plain passes on bf16 X,
-     the bf16x3 and f32 stages' delta passes on f32 X); core seconds
-     beside phase 5's f32-only kernel fit.
+     mixing and to phase 5's torch-path fit, the tensor-core route
+     launched at its four (mode, tier) pairs (the bf16 stage's plain
+     passes on bf16 X, the bf16x3 and f32 stages' delta passes on f32 X,
+     the plain moments at the bf16x3 and f32 stage boundaries), the
+     loglik kernel on the tensor cores (on the bf16 stage's bf16 X at
+     least), and the scalar kernel never; core seconds beside
+     phase 5's f32-only kernel fit;
+  5d. the same tensor fitted for 3 iterations with the tier pinned to
+     bf16 (``kernel_precision="bf16"``), the one fit that still reaches
+     the scalar streaming kernel (``csrc/streaming_sums.cu``: its tries,
+     delta bf16 on f32 X), which must launch there.
 
 Phase 2 also holds the streaming kernels against their plain versions:
 ``streaming_fused_sums`` at 256 x 2,000,000 (every mode and tier the
 path runs), 306 x 1,000,003 and 1024 x 200,000, ``streaming_loglik_sums``
-at 256 x 2,000,000 and 1024 x 200,000. Its plain bf16 cases on bf16 X
-and its delta bf16x3 and delta f32 cases on f32 X run the tensor-core
-route, which must launch at that tier, and make a row each of their own
-in the ``kernels`` line (``streaming_fused_sums/tc``, launches counted in
-phase 5b; ``streaming_fused_sums/tc_bf16x3``, launches counted in phase
-5c; ``streaming_fused_sums/tc_f32``, launches counted in phase 5, its
-f32 cases held to f64 like every f32 case); the scalar kernel's row
-keeps its plain f32 case (the moments hand-off).
+at 256 x 2,000,000 and 1024 x 200,000 on both X dtypes. Its plain bf16
+cases on bf16 X and its delta bf16x3, delta f32 and plain f32 cases on
+f32 X run the tensor-core route, which must launch at that tier, and
+make a row each of their own in the ``kernels`` line
+(``streaming_fused_sums/tc``, launches counted in phase 5b;
+``streaming_fused_sums/tc_bf16x3``, launches counted in phase 5c;
+``streaming_fused_sums/tc_f32`` and ``streaming_fused_sums/tc_plain_f32``,
+launches counted in phase 5, their f32 cases held to f64 like every f32
+case); the scalar kernel's row keeps its delta bf16 case on f32 X (phase
+5d's passes). The loglik kernel runs on the tensor cores on both dtypes,
+a row each (``streaming_loglik_sums/tc_f32``, launches counted in phase
+5, held to f64; ``streaming_loglik_sums/tc_bf16``, launches counted in
+phase 5c).
 
 The line before the last is a JSON object describing every kernel:
 launches on its path (phase 3 for the resident core kernels, phase 4
 for the whitening kernels, 4b for the grouped one, 5 for the streaming
-kernels and the streaming tensor-core route's f32 tier, 5b and 5c for
-its bf16 and bf16x3 tiers; the fused pass's tensor-core kernel counts
+kernels' f32 routes, 5b and 5c for the bf16 and bf16x3 routes, 5d for
+the scalar streaming kernel; the fused pass's tensor-core kernel counts
 the launches of its three tiers in phase 4, ``launches_by_tier``), error
 against the plain version (and, for every f32 case, against f64), and
 the numbers of its headline case (``_KERNELS``): ``ms`` and ``plain_ms``
@@ -260,9 +272,12 @@ def _core_fmas(name, args, tensor_cores=True):
     elif name == "rotated_moments_sums":
         _, x, _, need_h, _ = args
         work = [("bf16" if x.dtype == torch.bfloat16 else "f32", 1), ("f32", 1 + need_h)]
-    else:  # the loglik kernels: one rotation
+    else:  # the loglik kernels: one rotation, on the tensor cores above N = 64
         x = args[1]
-        work = [("bf16" if x.dtype == torch.bfloat16 else "f32", 1)]
+        tier = "bf16" if x.dtype == torch.bfloat16 else "f32"
+        if tier == "f32" and name == "streaming_loglik_sums" and tensor_cores:
+            tier = "bf16x6"
+        work = [(tier, 1)]
     n, t = x.shape
     f32 = sum(k for tier, k in work if tier == "f32") * n * n * t
     bf16 = sum(k * _BF16_PASSES[tier] for tier, k in work if tier != "f32") * n * n * t
@@ -487,9 +502,11 @@ def phase2_streaming_kernels():
 
     # (kernel, label, tier, args, bf16 X) — the main path's modes first.
     # The plain bf16 cases on bf16 X (TC_LABEL) and the delta bf16x3
-    # (TC3_LABEL) and delta f32 (TC_F32_LABEL) cases on f32 X run the
-    # tensor-core route; the plain f32 case (the moments hand-off) runs the
-    # scalar kernel.
+    # (TC3_LABEL), delta f32 (TC_F32_LABEL) and plain f32 (TC_PF32_LABEL,
+    # the moments hand-off) cases on f32 X run the tensor-core route; the
+    # delta bf16 case on f32 X (SCALAR_LABEL, a kernel_precision="bf16"
+    # fit's passes) runs the scalar kernel. Every loglik case runs on the
+    # tensor cores.
     plans = [
         ((N5, T5, 5), [
             (fused, TC_F32_LABEL, "f32", f("f32", False), False),
@@ -497,11 +514,13 @@ def phase2_streaming_kernels():
             (fused, TC3_LABEL + ", H+ysq", "bf16x3", f("bf16x3", False, True), False),
             (fused, TC_LABEL, "bf16", f("bf16", True), True),
             (fused, TC_LABEL + ", H+ysq", "bf16", f("bf16", True, True), True),
-            (fused, "plain f32 (moments)", "f32", f("f32", True), False),
+            (fused, TC_PF32_LABEL, "f32", f("f32", True), False),
+            (fused, TC_PF32_LABEL + ", H+ysq", "f32", f("f32", True, True), False),
             (fused, TC_F32_LABEL + ", H+ysq", "f32", f("f32", False, True), False),
-            (loglik, "f32", "f32", ll(False), False),
-            (loglik, "f32, ysq", "f32", ll(True), False),
-            (loglik, "bf16 X", "bf16", ll(False), True),
+            (fused, SCALAR_LABEL, "bf16", f("bf16", False), False),
+            (loglik, LL_F32_LABEL, "f32", ll(False), False),
+            (loglik, LL_F32_LABEL + ", ysq", "f32", ll(True), False),
+            (loglik, LL_BF16_LABEL, "bf16", ll(False), True),
         ]),
         ((N_MEG, T_MEG, 6), [
             (fused, TC_F32_LABEL, "f32", f("f32", False), False),
@@ -510,7 +529,9 @@ def phase2_streaming_kernels():
             (fused, TC_F32_LABEL, "f32", f("f32", False), False),
             (fused, TC_LABEL, "bf16", f("bf16", True), True),
             (fused, TC3_LABEL, "bf16x3", f("bf16x3", False), False),
-            (loglik, "f32", "f32", ll(False), False),
+            (fused, TC_PF32_LABEL, "f32", f("f32", True), False),
+            (loglik, LL_F32_LABEL, "f32", ll(False), False),
+            (loglik, LL_BF16_LABEL, "bf16", ll(False), True),
         ]),
     ]
     rows = {}
@@ -518,24 +539,15 @@ def phase2_streaming_kernels():
         x, m_old, m_new = _stream_inputs(n, t, seed)
         x16 = x.to(torch.bfloat16)
         for kern, label, tier, make, bf16_x in cases:
-            key = next((row for lab, row in ((TC_LABEL, TC_ROW), (TC3_LABEL, TC3_ROW),
-                                             (TC_F32_LABEL, TC_F32_ROW))
-                        if kern is fused and label.startswith(lab)), None)
-            before = _stream_tc_launches(tier)
+            key = next(row for lab, row in _ROW_OF_LABEL if label.startswith(lab))
+            before = _count(key, _launches())
             _hold(rows, kern, plain_of[kern], label, tier, make, m_new, m_old,
                   x16 if bf16_x else x, key=key)
-            if key and _stream_tc_launches(tier) == before:
-                raise AssertionError(f"[{label}] did not run the tensor-core route at {tier}")
+            if _count(key, _launches()) == before:
+                raise AssertionError(f"[{label}] did not run its kernel ({key})")
         del x, x16
         torch.cuda.empty_cache()
     return rows
-
-
-def _stream_tc_launches(tier):
-    """The streaming fused kernel's tensor-core launches at ``tier``."""
-    from picard_ica_tpu_torch.ops import kernels as K
-
-    return K.streaming_fused_sums.launches_by_tier["tc"][tier]
 
 
 def _f32_check(name, label, x, fmas, run, plain, run64, library):
@@ -682,7 +694,24 @@ TC3_LABEL = "delta bf16x3"
 TC3_ROW = "streaming_fused_sums/tc_bf16x3"
 TC_F32_LABEL = "delta f32"
 TC_F32_ROW = "streaming_fused_sums/tc_f32"
-_TC_TIER = {TC_ROW: "bf16", TC3_ROW: "bf16x3", TC_F32_ROW: "f32"}
+TC_PF32_LABEL = "plain f32 (moments)"
+TC_PF32_ROW = "streaming_fused_sums/tc_plain_f32"
+# The route's rows by tier: tc_f32 and tc_plain_f32 share one, so _count
+# tells them apart by mode (stream_by_mode).
+_TC_TIER = {TC_ROW: "bf16", TC3_ROW: "bf16x3", TC_F32_ROW: "f32", TC_PF32_ROW: "f32"}
+# The scalar streaming kernel's case: a kernel_precision="bf16" fit's
+# delta pass on f32 X.
+SCALAR_LABEL = "delta bf16, f32 X"
+SCALAR_ROW = "streaming_fused_sums"
+# The loglik kernel on the route, a row per X dtype.
+LL_F32_LABEL = "loglik f32"
+LL_F32_ROW = "streaming_loglik_sums/tc_f32"
+LL_BF16_LABEL = "loglik bf16 X"
+LL_BF16_ROW = "streaming_loglik_sums/tc_bf16"
+_LL_TIER = {LL_F32_ROW: "f32", LL_BF16_ROW: "bf16"}
+_ROW_OF_LABEL = ((TC_LABEL, TC_ROW), (TC3_LABEL, TC3_ROW), (TC_F32_LABEL, TC_F32_ROW),
+                 (TC_PF32_LABEL, TC_PF32_ROW), (SCALAR_LABEL, SCALAR_ROW),
+                 (LL_F32_LABEL, LL_F32_ROW), (LL_BF16_LABEL, LL_BF16_ROW))
 # The fused pass's kernel and the tiers it serves: the tensor-core kernel
 # (csrc/rotated_fused_tc.cu) runs all three.
 TIER_ROWS = {"rotated_fused_sums": ("bf16", "bf16x3", "f32")}
@@ -692,10 +721,14 @@ def _count(name, launches):
     """A kernel's launches in one phase's counts (``_launches``)."""
     if name in TIER_ROWS:
         return sum(launches["by_tier"][t] for t in TIER_ROWS[name])
-    if name == "streaming_fused_sums":  # its scalar kernel; the tensor-core route's rows by tier
+    if name == SCALAR_ROW:  # its scalar kernel; the tensor-core route's rows by tier
         return launches["stream_by_route"]["scalar"]
+    if name in (TC_F32_ROW, TC_PF32_ROW):
+        return launches["stream_by_mode"]["plain" if name == TC_PF32_ROW else "delta"]["f32"]
     if name in _TC_TIER:
         return launches["stream_by_tier"]["tc"][_TC_TIER[name]]
+    if name in _LL_TIER:
+        return launches["loglik_by_tier"][_LL_TIER[name]]
     return launches.get(name, 0)
 _PHASE4_KERNELS = ("row_sums", "centered_covariance_sums", "covariance_sums",
                    "rotated_fused_sums", "rotated_moments_sums")
@@ -762,7 +795,10 @@ def _launches():
     counts["stream_by_route"] = dict(K.streaming_fused_sums.launches_by_route)
     counts["stream_by_tier"] = {route: dict(tiers) for route, tiers in
                                 K.streaming_fused_sums.launches_by_tier.items()}
-    for row in _TC_TIER:
+    counts["stream_by_mode"] = {mode: dict(tiers) for mode, tiers in
+                                K.streaming_fused_sums.launches_by_mode.items()}
+    counts["loglik_by_tier"] = dict(K.streaming_loglik_sums.launches_by_tier)
+    for row in (*_TC_TIER, *_LL_TIER):
         counts[row] = _count(row, counts)
     return counts
 
@@ -935,10 +971,11 @@ def phase5_large_n():
         raise AssertionError(f"amari {amari} >= 5e-3")
     if tuple(r.sources.shape) != (N5, T5) or not bool(r.sources.isfinite().all()):
         raise AssertionError("sources are not finite (N, T)")
-    missing = [k for k in _STREAM_KERNELS + _WHITENING_KERNELS + (TC_F32_ROW,)
-               if launches[k] == 0]
+    missing = [k for k in _STREAM_KERNELS + _WHITENING_KERNELS
+               + (TC_F32_ROW, TC_PF32_ROW, LL_F32_ROW) if launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched in the large-N fit: {missing}")
+    _no_scalar_launch("large-N slice", launches)
     resident = {k: launches[k] for k in _CORE_KERNELS if launches[k]}
     if resident:
         raise AssertionError(f"resident core kernels ran at N = {N5}: {resident}")
@@ -984,7 +1021,8 @@ def phase5c_staged(x, a, w_torch, f32_core):
          f"negative signs {int((r.signs < 0).sum()) if r.signs is not None else None}")
     _log(f"{label}: core {r.core_seconds:.4f} s against the f32-only kernel fit's "
          f"{f32_core:.4f} s; streaming fused launches by route "
-         f"{launches['stream_by_route']}, by route and tier {launches['stream_by_tier']}")
+         f"{launches['stream_by_route']}, by mode and tier {launches['stream_by_mode']}, "
+         f"loglik by tier {launches['loglik_by_tier']}")
     if not r.converged:
         raise AssertionError("the staged streaming-kernel fit did not converge at tol 1e-7")
     if not amari < 5e-3:
@@ -993,9 +1031,47 @@ def phase5c_staged(x, a, w_torch, f32_core):
         raise AssertionError(f"staged kernel and torch fits disagree: amari {agree}")
     if tuple(r.sources.shape) != (N5, T5) or not bool(r.sources.isfinite().all()):
         raise AssertionError("sources are not finite (N, T)")
-    missing = [row for row in _TC_TIER if launches[row] == 0]
+    # Its bf16 stage re-baselines the loss on bf16 X; on f32 X only where
+    # a sign flips in a later stage (phase 5 runs that row's path).
+    missing = [row for row in (*_TC_TIER, LL_BF16_ROW) if launches[row] == 0]
     if missing:
         raise AssertionError(f"the tensor-core route never launched in the staged fit: {missing}")
+    _no_scalar_launch(label, launches)
+    return launches
+
+
+def _no_scalar_launch(label, launches):
+    """Every streaming pass of a default or f32 fit runs on the tensor
+    cores: the scalar kernel never launched, and every loglik launch is
+    counted by the route's tiers."""
+    if launches["stream_by_route"]["scalar"] != 0:
+        raise AssertionError(f"{label}: the scalar streaming kernel launched "
+                             f"{launches['stream_by_route']['scalar']} times")
+    if sum(launches["loglik_by_tier"].values()) != launches["streaming_loglik_sums"]:
+        raise AssertionError(f"{label}: loglik launches off the tensor cores")
+
+
+def phase5d_pinned_bf16(x):
+    """Phase 5's tensor fitted for 3 iterations with the tier pinned to
+    bf16: its tries, delta bf16 on f32 X, are the one route of a fit that
+    still runs the scalar streaming kernel (its moments and loss
+    baselines run on the tensor cores)."""
+    import torch
+
+    from picard_ica_tpu_torch.ops import kernels as K
+
+    torch.cuda.empty_cache()
+    K.reset_launch_counts()
+    r, wall = _fit(x, True, kernel_precision="bf16", max_iter=3)
+    launches = _launches()
+    label = "large-N slice, pinned bf16 (kernels)"
+    _report_fit(label, r, wall, T5)
+    _log(f"{label}: streaming fused launches by route {launches['stream_by_route']}, "
+         f"by mode and tier {launches['stream_by_mode']}")
+    if not bool(torch.isfinite(r.unmixing).all()) or tuple(r.unmixing.shape) != (N5, N5):
+        raise AssertionError(f"{label}: the unmixing is not a finite ({N5}, {N5}) matrix")
+    if launches["stream_by_route"]["scalar"] == 0:
+        raise AssertionError(f"{label}: the scalar streaming kernel never launched")
     return launches
 
 
@@ -1054,16 +1130,19 @@ _KERNELS = {
     "centered_covariance_sums": (_STATS_SOURCE, 635, "f32"),
     "covariance_sums": (_STATS_SOURCE, 598, "f32"),
     "_grouped_covariance": (_STATS_SOURCE, 531, "centered"),
-    "streaming_fused_sums": (_STREAM_SOURCE, 1149, "plain f32 (moments)"),
+    SCALAR_ROW: (_STREAM_SOURCE, 1149, f"{SCALAR_LABEL}, {N5} x {T5}"),
     TC_ROW: (_STREAM_TC_SOURCE, 1149, f"{TC_LABEL}, {N5B} x {T5B}"),
     TC3_ROW: (_STREAM_TC_SOURCE, 1149, f"{TC3_LABEL}, {N5} x {T5}"),
     TC_F32_ROW: (_STREAM_TC_SOURCE, 1149, f"{TC_F32_LABEL}, {N5} x {T5}"),
-    "streaming_loglik_sums": (_STREAM_SOURCE, 1247, "f32"),
+    TC_PF32_ROW: (_STREAM_TC_SOURCE, 1149, f"{TC_PF32_LABEL}, {N5} x {T5}"),
+    LL_F32_ROW: (_STREAM_TC_SOURCE, 1247, f"{LL_F32_LABEL}, {N5} x {T5}"),
+    LL_BF16_ROW: (_STREAM_TC_SOURCE, 1247, f"{LL_BF16_LABEL}, {N5} x {T5}"),
 }
 # The fit whose launches each row reports.
 _PATH_OF = {**dict.fromkeys(_CORE_KERNELS, "phase3"), **dict.fromkeys(TIER_ROWS, "phase4"),
-            **dict.fromkeys(_STREAM_KERNELS, "phase5"), "_grouped_covariance": "phase4b",
-            TC_ROW: "phase5b", TC3_ROW: "phase5c", TC_F32_ROW: "phase5"}
+            "_grouped_covariance": "phase4b", SCALAR_ROW: "phase5d", TC_ROW: "phase5b",
+            TC3_ROW: "phase5c", TC_F32_ROW: "phase5", TC_PF32_ROW: "phase5",
+            LL_F32_ROW: "phase5", LL_BF16_ROW: "phase5c"}
 
 
 def main():
@@ -1078,6 +1157,7 @@ def main():
                "phase4b": phase4b_grouped()}
     by_path["phase5"], large_n = phase5_large_n()
     by_path["phase5c"] = phase5c_staged(*large_n)
+    by_path["phase5d"] = phase5d_pinned_bf16(large_n[0])
     del large_n
     by_path["phase5b"] = phase5b_exhibit()
     kernels = []

@@ -22,9 +22,11 @@
 //     split into bf16 tiles once per block and read with ldmatrix.
 //   * The bf16x3 tier's sums: each 16-deep step's three products go to a
 //     fresh accumulator added in f32 to nearest, in the rotation and the
-//     contraction. Chained into one accumulator (12 MMAs a rotation, 384
-//     a block's contraction), the sums drifted toward zero against f64
-//     past twice the plain version's error (PERF.md).
+//     contraction; so does each 16-column step's product in the bf16
+//     tier's contraction. Chained into one accumulator (12 MMAs a
+//     rotation, 384 a block's contraction at bf16x3, 128 at bf16), the
+//     sums drifted toward zero against f64 past twice the plain version's
+//     error (PERF.md).
 //   * The f32 tier's sums. The tensor cores round each MMA's sum toward
 //     zero, so a chain of MMAs drifts by up to an ulp a link, always the
 //     same way, and a row sum over 2M columns of Y^2 would carry it.
@@ -470,11 +472,11 @@ __global__ void __launch_bounds__(THREADS, blocks_per_sm(NEED_H, CT))
     }
     __syncthreads();  // the tiles are complete
 
-    // Contraction: G += psi Y^T (H += psi' (Y^2)^T) over the sub-tile. The
-    // f32 and bf16x3 tiers sum each 16-column step's six (three) products
-    // in a fresh accumulator and add it to G in f32, to nearest: a block's
-    // 2,048 columns chained into G would be 384 MMAs at bf16x3, each
-    // rounded toward zero.
+    // Contraction: G += psi Y^T (H += psi' (Y^2)^T) over the sub-tile.
+    // Every tier sums each 16-column step's six (three, one) products in a
+    // fresh accumulator and adds it to G in f32, to nearest: a block's
+    // 2,048 columns chained into G would be 384 MMAs at bf16x3 and 128 at
+    // bf16, each rounded toward zero.
     if (16 * cm < nr) {
 #pragma unroll
       for (int ks = 0; ks < BT / 16; ++ks) {
@@ -503,14 +505,10 @@ __global__ void __launch_bounds__(THREADS, blocks_per_sm(NEED_H, CT))
 #pragma unroll
             for (int nt = 0; nt < 2; ++nt) {
               float(&d)[4] = dst[2 * np + nt];
-              if constexpr (CT != BF16) {
-                float t[4] = {};
-                mma_tier<CT>(t, t, af, b[nt]);
+              float t[4] = {};
+              mma_tier<CT>(t, t, af, b[nt]);
 #pragma unroll
-                for (int e = 0; e < 4; ++e) d[e] += t[e];
-              } else {
-                mma_tier<CT>(d, d, af, b[nt]);
-              }
+              for (int e = 0; e < 4; ++e) d[e] += t[e];
             }
           };
           load_b(y_s);

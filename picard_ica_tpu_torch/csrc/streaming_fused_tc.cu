@@ -1,13 +1,17 @@
-// Hand-written Hopper (sm_90a) kernels for three routes of
-// picard_streaming_fused_sums at N > 64, the three stages of the default
-// staged schedule: the plain mode (absolute log-lik) at the bf16 tier on
-// bf16 X (the first stage, and the moments hand-off on its X), the delta
-// mode at the bf16x3 tier on f32 X (the second stage) and the delta mode
-// at the f32 tier on f32 X (the last stage, and the whole of a
-// kernel_precision="f32" fit). They replace, for those routes,
-// picard_ica_tpu/ops/pallas_kernels.py streaming_fused_sums /
-// _streaming_fused_kernel; every other mode and tier stays on
-// streaming_sums.cu's scalar kernel.
+// Hand-written Hopper (sm_90a) kernels for four routes of
+// picard_streaming_fused_sums at N > 64, every pass of the default staged
+// schedule: the plain mode (absolute log-lik) at the bf16 tier on bf16 X
+// (the first stage, and the moments hand-off on its X), the delta mode at
+// the bf16x3 tier on f32 X (the second stage), the delta mode at the f32
+// tier on f32 X (the last stage, and the whole of a kernel_precision="f32"
+// fit) and the plain mode at the f32 tier on f32 X (the moments hand-off
+// at the f32 stage boundary and at an f32 fit's start). They replace, for
+// those routes, picard_ica_tpu/ops/pallas_kernels.py streaming_fused_sums
+// / _streaming_fused_kernel; every other mode and tier stays on
+// streaming_sums.cu's scalar kernel. Launch A alone, with a log-lik
+// epilogue and no workspace, is also picard_streaming_loglik_tc: it
+// replaces streaming_loglik_sums / _streaming_loglik_kernel on both X
+// dtypes (below).
 //
 // What they compute, with f32 sums of exact bf16 products:
 //   * plain bf16: Y = bf16(M_new) X on bf16 X; the row sums dll = sum
@@ -27,13 +31,21 @@
 //     three ways (hi = bf16(v), mid = bf16(v - hi), lo = bf16(v - hi -
 //     mid), elementwise) and each product the six bf16 products whose
 //     terms are at least 2^-16 of hi*hi (mma_tiers.cuh mma_tier<F32>).
+//   * plain f32: Y = M_new X as one rotation of the f32 tier (M_new and X
+//     split three ways), the plain mode's row sums and f32 psi, Y (psi',
+//     Y^2) for the contraction, as delta f32's.
+//   * loglik (picard_streaming_loglik_tc): Y = M X as plain bf16's
+//     rotation on bf16 X (M rounded to bf16) or plain f32's on f32 X, and
+//     only the row sums ll = sum log_lik(Y), masked at columns >= T, and,
+//     with need_ysq, ysq = sum Y^2.
 //
 // What bounds them on the card: bf16 FMAs on the tensor cores, N^2 T a
 // product: 2 N^2 T plain (3 with H), 9 N^2 T delta bf16x3 (12 with H), 18
-// N^2 T delta f32 (24 with H); at 256 x 2M 0.53, 2.39 and 4.77 ms of the
-// tensor cores' 494.5 T FMA/s, against X's bytes read once (bf16 1 GB,
-// 0.31 ms; f32 2 GB, 0.61 ms); beside them N T density evaluations on
-// the FP32 pipes and the SFU.
+// N^2 T delta f32 (24 with H), 12 N^2 T plain f32 (18 with H), loglik N^2
+// T on bf16 X and 6 N^2 T on f32 X; at 256 x 2M 0.53, 2.39, 4.77, 3.18,
+// 0.27 and 1.59 ms of the tensor cores' 494.5 T FMA/s, against X's bytes
+// read once (bf16 1 GB, 0.31 ms; f32 2 GB, 0.61 ms); beside them N T
+// density evaluations on the FP32 pipes and the SFU.
 //
 // What the design does about it: two GEMM-shaped launches, each a plain
 // tile loop on mma.sync m16n8k16 (mma_tiers.cuh) fed by a cp.async ring,
@@ -55,9 +67,10 @@
 //     so launch B needs no mask and psi'(0) != 0 never reaches H. 128 x
 //     128 tiles at one block an SM, and 32-deep stages, measured slower
 //     (PERF.md).
-//   * Launch A, delta bf16x3 (rotate_delta_kernel): the same walk with two
-//     accumulator sets a warp (Y_old, dY). The caller passes M_old and dM
-//     already split, four zero-padded bf16 planes; X comes in as f32, and
+//   * Launch A, delta bf16x3 (rotate_split_kernel<BF16X3, MODE_DELTA>):
+//     the same walk with two accumulator sets a warp (Y_old, dY). The
+//     caller passes M_old and dM already split, four zero-padded bf16
+//     planes; X comes in as f32, and
 //     each landed KC-row stage is split once into hi / lo bf16 tiles in
 //     shared memory that every warp reads with ldmatrix.trans. The tensor
 //     cores round each MMA's sum toward zero, and the rotation's K runs up
@@ -71,16 +84,32 @@
 //     registers, no spills) with four 32-deep or two 64-deep stages
 //     measured slower (PERF.md). The workspace holds the hi / lo planes
 //     of psi and Y (psi' and Y^2 with H).
-//   * Launch A, delta f32 (rotate_delta_kernel<F32>): the same kernel
-//     with three parts an operand, six W planes (M_old and dM, hi, mid,
-//     lo) and six products a 16-deep k step into the fresh accumulator.
-//     Six W planes make a 16-deep stage as large as bf16x3's 32-deep one,
-//     so the ring holds two stages of one k step each, and two blocks
-//     still share an SM. The hi parts are plain elementwise splits, not
-//     the fixed-point grids of rotated_fused_tc.cu: the fresh
+//   * Launch A, delta f32 (rotate_split_kernel<F32, MODE_DELTA>): the
+//     same kernel with three parts an operand, six W planes (M_old and dM,
+//     hi, mid, lo) and six products a 16-deep k step into the fresh
+//     accumulator. Six W planes make a 16-deep stage as large as bf16x3's
+//     32-deep one, so the ring holds two stages of one k step each, and
+//     two blocks still share an SM. The hi parts are plain elementwise
+//     splits, not the fixed-point grids of rotated_fused_tc.cu: the fresh
 //     accumulator per step already keeps every MMA chain six links long.
 //     The workspace holds psi and Y (psi' and Y^2 with H) as f32 planes,
 //     8 bytes a column element as at bf16x3.
+//   * Launch A, plain f32 (rotate_split_kernel<F32, MODE_PLAIN>): the same
+//     kernel with one accumulator set and three W planes (M_new's hi, mid,
+//     lo), not delta mode with M_old = 0, which would double the products
+//     and give the delta density's dll. The three planes free half of the
+//     delta stage's W bytes, which buy 32-deep stages (two k steps a
+//     barrier) at the same two blocks an SM. Its density is the plain
+//     score_der_loglik, as rotate_density_kernel's; the workspace is delta
+//     f32's.
+//   * Loglik (picard_streaming_loglik_tc): launch A alone, in MODE_LOGLIK,
+//     rotate_density_kernel on bf16 X and rotate_split_kernel<F32> (one
+//     set) on f32 X: log_lik on the fragments, the two row sums kept as
+//     the plain mode keeps them, no workspace and no launch B. Its groups
+//     are narrower (ops/kernels.py STREAM_TC_LOGLIK_COLS): with only (N,)
+//     partials, a group's width sets nothing but the number of blocks,
+//     and at 1024 x 200k 4,096-column groups would fill 1.5 waves of the
+//     card.
 //   * Launch B (contract_kernel<TIER>): G = psi Y^T (H = psi' (Y^2)^T) as
 //     a plain NT GEMM whose K is the group's columns; both operands are
 //     K-contiguous and read with ldmatrix, as one (bf16) or two (bf16x3,
@@ -138,23 +167,30 @@ constexpr int BLOCKS = 2;                // blocks an SM, in every launch
 constexpr int SM_SMEM = 233472;          // shared memory of an SM for its blocks
 constexpr int BLOCK_RESERVED = 1024;     // kept by the system per block
 
-// Launch A in delta mode at TIER (BF16X3 or F32): the same tile and warps;
-// k in KC-deep stages of a D_STAGES ring. A stage holds the 2 P W planes
-// (M_old's parts, then dM's: [row][k] each) and the f32 X tile
-// ([k][column]); each landed X tile is split into P bf16 [k][column] part
-// tiles (stride LDN). Then the row sums (4 sums x A_WC warps x TILE rows)
-// in f64, added to once a tile, so the group's sums carry no error of
-// their order. At bf16x3 the layout fills the 115,712 bytes a block may
-// take at two blocks an SM; at f32 the six W planes take 16-deep stages.
+// What launch A computes from Y: the plain mode's density, row sums and
+// workspace; the delta mode's (two accumulator sets, Y_old and dY); or
+// the log-lik row sums alone (kernel 9: no workspace).
+enum AMode { MODE_PLAIN = 0, MODE_DELTA = 1, MODE_LOGLIK = 2 };
+
+// Launch A on f32 X at TIER (BF16X3 or F32) with SETS accumulator sets
+// (2 in delta mode, else 1): the same tile and warps; k in KC-deep stages
+// of a D_STAGES ring. A stage holds the SETS P W planes (M_old's parts,
+// then dM's; or M's: [row][k] each) and the f32 X tile ([k][column]);
+// each landed X tile is split into P bf16 [k][column] part tiles (stride
+// LDN). Then the row sums (4 sums x A_WC warps x TILE rows) in f64, added
+// to once a tile, so the group's sums carry no error of their order. At
+// bf16x3 the layout fills the 115,712 bytes a block may take at two
+// blocks an SM; the six W planes of delta f32 take 16-deep stages, the
+// three of one set 32-deep ones.
 constexpr int D_STAGES = 2;
 constexpr int LDX = A_BT;  // row stride (floats) of the f32 X stage tile
-template <int TIER>
+template <int TIER, int SETS>
 struct DCfg {
   static constexpr int P = parts(TIER);
-  static constexpr int KC = TIER == F32 ? 16 : 32;
+  static constexpr int KC = TIER == F32 && SETS == 2 ? 16 : 32;
   static constexpr int LDK = KC + 8;
   static constexpr int W_PLANE = TILE * LDK;             // elements
-  static constexpr int W_BYTES = 2 * P * W_PLANE * 2;
+  static constexpr int W_BYTES = SETS * P * W_PLANE * 2;
   static constexpr int STAGE = W_BYTES + KC * LDX * 4;  // bytes
   static constexpr int SPLIT = D_STAGES * STAGE;
   static constexpr int RED = SPLIT + P * KC * LDN * 2;
@@ -186,8 +222,9 @@ struct BCfg {
 };
 static_assert(A_KC % 16 == 0, "stage depths");
 static_assert(BLOCKS * (A_BYTES + BLOCK_RESERVED) <= SM_SMEM &&
-                  BLOCKS * (DCfg<BF16X3>::BYTES + BLOCK_RESERVED) <= SM_SMEM &&
-                  BLOCKS * (DCfg<F32>::BYTES + BLOCK_RESERVED) <= SM_SMEM &&
+                  BLOCKS * (DCfg<BF16X3, 2>::BYTES + BLOCK_RESERVED) <= SM_SMEM &&
+                  BLOCKS * (DCfg<F32, 2>::BYTES + BLOCK_RESERVED) <= SM_SMEM &&
+                  BLOCKS * (DCfg<F32, 1>::BYTES + BLOCK_RESERVED) <= SM_SMEM &&
                   BLOCKS * (BCfg<BF16>::BYTES + BLOCK_RESERVED) <= SM_SMEM &&
                   BLOCKS * (BCfg<BF16X3>::BYTES + BLOCK_RESERVED) <= SM_SMEM &&
                   BLOCKS * (BCfg<F32>::BYTES + BLOCK_RESERVED) <= SM_SMEM,
@@ -198,9 +235,9 @@ struct AParams {
   long long t;
   int need_ysq, vec;
   float a, m2a, mha;           // the density's constants, as in density.cuh
-  const __nv_bfloat16* w;      // (n_pad, kp) bf16 M_new, zero-padded
+  const __nv_bfloat16* w;      // (n_pad, kp) bf16 M_new (M in loglik mode), zero-padded
   const __nv_bfloat16* x;      // (n, t) bf16, row-major
-  __nv_bfloat16 *psi, *y, *psid, *y2;  // workspace, (n_pad, ws_cols) each
+  __nv_bfloat16 *psi, *y, *psid, *y2;  // workspace, (n_pad, ws_cols) each; none in loglik mode
   long long ws_cols;
   int cols, g0;                // columns per group; this chunk's first group
   float *ll, *dysq, *pm, *ysq; // group g's partial at + g * stride
@@ -212,8 +249,8 @@ struct DParams {
   long long t;
   int need_ysq, vec;
   float a, m2a, mha;
-  // 2 P (n_pad, kp) bf16 planes: M_old's parts, then dM's (hi, lo at
-  // bf16x3; hi, mid, lo at f32)
+  // SETS P (n_pad, kp) bf16 planes: M_old's parts, then dM's (hi, lo at
+  // bf16x3; hi, mid, lo at f32); in plain and loglik mode M's
   const __nv_bfloat16* w;
   long long w_plane;  // n_pad * kp
   const float* x;     // (n, t) f32, row-major
@@ -273,8 +310,8 @@ __device__ __forceinline__ void load_a(const AParams& p, __nv_bfloat16* ws, __nv
 // Warps: in launch A, warp w owns rows 16 A_MI (w / A_WC) .. and columns
 // 32 (w % A_WC) .. + 31 of the block's TILE x A_BT tile; in launch B, rows
 // 64 (w / 4) .. + 63 and columns 32 (w % 4) .. + 31 of the TILE x TILE
-// output tile.
-template <int D, bool NEED_H>
+// output tile. MODE is MODE_PLAIN or MODE_LOGLIK (no workspace, no pm).
+template <int MODE, int D, bool NEED_H>
 __global__ void __launch_bounds__(THREADS, BLOCKS) rotate_density_kernel(AParams p) {
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem);
@@ -349,12 +386,15 @@ __global__ void __launch_bounds__(THREADS, BLOCKS) rotate_density_kernel(AParams
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             const float y = acc[mi][nt][2 * hh + e];
-            float psi, psid, ll;
-            score_der_loglik<D>(p, y, psi, psid, ll);
+            float psi = 0.f, psid = 0.f, ll;
+            if constexpr (MODE == MODE_LOGLIK)
+              ll = log_lik<D>(p, y);
+            else
+              score_der_loglik<D>(p, y, psi, psid, ll);
             const bool valid = row < p.n && c0 + cl + e < p.t;
-            if (valid) {
+            if (valid) {  // log_lik(0) != 0 and psi'(0) != 0
               rs_ll[mi][hh] += ll;
-              rs_pm[mi][hh] += psid;
+              if constexpr (MODE == MODE_PLAIN) rs_pm[mi][hh] += psid;
               if (p.need_ysq) rs_ysq[mi][hh] += y * y;
             }
             yv[e] = y;     // 0 at padded rows and columns
@@ -362,12 +402,15 @@ __global__ void __launch_bounds__(THREADS, BLOCKS) rotate_density_kernel(AParams
             pd[e] = valid ? psid : 0.f;
             acc[mi][nt][2 * hh + e] = 0.f;
           }
-          const long long off = (long long)row * p.ws_cols + wcol + cl;
-          *reinterpret_cast<uint32_t*>(p.y + off) = pack_bf16(yv[0], yv[1]);
-          *reinterpret_cast<uint32_t*>(p.psi + off) = pack_bf16(ps[0], ps[1]);
-          if (NEED_H) {
-            *reinterpret_cast<uint32_t*>(p.psid + off) = pack_bf16(pd[0], pd[1]);
-            *reinterpret_cast<uint32_t*>(p.y2 + off) = pack_bf16(yv[0] * yv[0], yv[1] * yv[1]);
+          if constexpr (MODE == MODE_PLAIN) {
+            const long long off = (long long)row * p.ws_cols + wcol + cl;
+            *reinterpret_cast<uint32_t*>(p.y + off) = pack_bf16(yv[0], yv[1]);
+            *reinterpret_cast<uint32_t*>(p.psi + off) = pack_bf16(ps[0], ps[1]);
+            if (NEED_H) {
+              *reinterpret_cast<uint32_t*>(p.psid + off) = pack_bf16(pd[0], pd[1]);
+              *reinterpret_cast<uint32_t*>(p.y2 + off) =
+                  pack_bf16(yv[0] * yv[0], yv[1] * yv[1]);
+            }
           }
         }
       }
@@ -406,27 +449,27 @@ __global__ void __launch_bounds__(THREADS, BLOCKS) rotate_density_kernel(AParams
     }
     const long long o = (long long)grp * p.stride + row;
     p.ll[o] = v[0];
-    p.pm[o] = v[1];
+    if (MODE == MODE_PLAIN) p.pm[o] = v[1];
     if (p.need_ysq) {
       p.ysq[o] = v[2];
-      p.dysq[o] = v[2];
+      if (MODE == MODE_PLAIN) p.dysq[o] = v[2];
     }
   }
 }
 
-// Start delta launch A's copies for ring step `it` (tile it / n_kc,
+// Start split launch A's copies for ring step `it` (tile it / n_kc,
 // k-stage it % n_kc) into stage `st`; the caller commits.
-template <int TIER>
+template <int TIER, int SETS>
 __device__ __forceinline__ void load_d(const DParams& p, unsigned char* st, int it,
                                        long long col0) {
-  using C = DCfg<TIER>;
+  using C = DCfg<TIER, SETS>;
   constexpr int KC = C::KC;
   const int tid = threadIdx.x;
   const int tile = it / p.n_kc, k0 = (it % p.n_kc) * KC;
-  // W: 2 P planes x TILE rows x KC in 16-byte pieces, always in bounds.
+  // W: SETS P planes x TILE rows x KC in 16-byte pieces, always in bounds.
   __nv_bfloat16* ws = reinterpret_cast<__nv_bfloat16*>(st);
   const __nv_bfloat16* w = p.w + (long long)blockIdx.x * TILE * p.kp + k0;
-  for (int u = tid; u < 2 * C::P * TILE * (KC / 8); u += THREADS) {
+  for (int u = tid; u < SETS * C::P * TILE * (KC / 8); u += THREADS) {
     const int m = u / (TILE * (KC / 8)), v = u % (TILE * (KC / 8));
     const int r = v / (KC / 8), c = (v % (KC / 8)) * 8;
     cp_async16_zfill(ws + m * C::W_PLANE + r * C::LDK + c,
@@ -451,11 +494,13 @@ __device__ __forceinline__ void load_d(const DParams& p, unsigned char* st, int 
   }
 }
 
-// Delta mode at the bf16x3 or the f32 tier (TIER) on f32 X; warps as in
-// launch A's plain mode.
-template <int TIER, int D, bool NEED_H>
-__global__ void __launch_bounds__(THREADS, BLOCKS) rotate_delta_kernel(DParams p) {
-  using C = DCfg<TIER>;
+// Launch A on f32 X with split operands at the bf16x3 or the f32 tier
+// (TIER), in MODE: delta (two accumulator sets), plain or loglik (one);
+// warps as in launch A's plain mode.
+template <int TIER, int MODE, int D, bool NEED_H>
+__global__ void __launch_bounds__(THREADS, BLOCKS) rotate_split_kernel(DParams p) {
+  constexpr int SETS = MODE == MODE_DELTA ? 2 : 1;
+  using C = DCfg<TIER, SETS>;
   constexpr int P = C::P, KC = C::KC;
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* xsplit = reinterpret_cast<__nv_bfloat16*>(smem + C::SPLIT);  // P part tiles
@@ -474,17 +519,18 @@ __global__ void __launch_bounds__(THREADS, BLOCKS) rotate_delta_kernel(DParams p
   for (int u = tid; u < 4 * A_WC * TILE; u += THREADS) red[u] = 0.0;
 #pragma unroll
   for (int i = 0; i < D_STAGES - 1; ++i) {
-    if (i < total) load_d<TIER>(p, smem + i * C::STAGE, i, col0);
+    if (i < total) load_d<TIER, SETS>(p, smem + i * C::STAGE, i, col0);
     cp_async_commit_group();
   }
 
-  float acc[2][A_MI][NI][4] = {};  // Y_old, dY
+  float acc[SETS][A_MI][NI][4] = {};  // Y_old, dY in delta mode; else Y
 
   for (int it = 0; it < total; ++it) {
     cp_async_wait<D_STAGES - 2>();
     __syncthreads();  // step it landed everywhere; the split tiles and stage (it - 1) are free
     const int ahead = it + D_STAGES - 1;
-    if (ahead < total) load_d<TIER>(p, smem + (ahead % D_STAGES) * C::STAGE, ahead, col0);
+    if (ahead < total)
+      load_d<TIER, SETS>(p, smem + (ahead % D_STAGES) * C::STAGE, ahead, col0);
     cp_async_commit_group();
 
     const unsigned char* st = smem + (it % D_STAGES) * C::STAGE;
@@ -520,7 +566,7 @@ __global__ void __launch_bounds__(THREADS, BLOCKS) rotate_delta_kernel(DParams p
 #pragma unroll
       for (int mi = 0; mi < A_MI; ++mi) {
 #pragma unroll
-        for (int set = 0; set < 2; ++set) {
+        for (int set = 0; set < SETS; ++set) {
           uint32_t a[P][4];
 #pragma unroll
           for (int part = 0; part < P; ++part)
@@ -541,9 +587,10 @@ __global__ void __launch_bounds__(THREADS, BLOCKS) rotate_delta_kernel(DParams p
     }
     if (it % n_kc != n_kc - 1) continue;
 
-    // The tile is done: the delta density on the fragments, the row sums
-    // into shared memory, and the workspace planes (stores of column
-    // pairs: 4-byte hi / lo pairs at bf16x3, 8-byte f32 pairs at f32).
+    // The tile is done: the density on the fragments, the row sums into
+    // shared memory, and (but in loglik mode) the workspace planes (stores
+    // of column pairs: 4-byte hi / lo pairs at bf16x3, 8-byte f32 pairs at
+    // f32).
     const int tile = it / n_kc;
     const long long c0 = col0 + (long long)tile * A_BT;
     const long long wcol = ws0 + (long long)tile * A_BT;
@@ -553,34 +600,56 @@ __global__ void __launch_bounds__(THREADS, BLOCKS) rotate_delta_kernel(DParams p
       for (int hh = 0; hh < 2; ++hh) {
         const int rl = 16 * A_MI * wr + 16 * mi + g + 8 * hh;
         const int row = row0 + rl;
-        float sums[4] = {};  // dll, pm, dysq, ysq
+        float sums[4] = {};  // dll (plain: ll), pm, dysq, ysq
 #pragma unroll
         for (int nt = 0; nt < NI; ++nt) {
           const int cl = 32 * wc + 8 * nt + 2 * q;
           float yv[2], ps[2], pd[2];
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
-            const float y_old = acc[0][mi][nt][2 * hh + e], dy = acc[1][mi][nt][2 * hh + e];
-            float psi, psid, dll;
-            score_der_loglik_delta<D>(p, y_old, dy, psi, psid, dll);
-            const float y = y_old + dy;
-            const bool valid = row < p.n && c0 + cl + e < p.t;
-            if (valid) {
-              sums[0] += dll;
-              sums[1] += psid;
-              if (p.need_ysq) {
-                sums[2] += (2.f * y_old + dy) * dy;
-                sums[3] += y * y;
+            if constexpr (MODE == MODE_DELTA) {
+              const float y_old = acc[0][mi][nt][2 * hh + e];
+              const float dy = acc[SETS - 1][mi][nt][2 * hh + e];
+              float psi, psid, dll;
+              score_der_loglik_delta<D>(p, y_old, dy, psi, psid, dll);
+              const float y = y_old + dy;
+              const bool valid = row < p.n && c0 + cl + e < p.t;
+              if (valid) {
+                sums[0] += dll;
+                sums[1] += psid;
+                if (p.need_ysq) {
+                  sums[2] += (2.f * y_old + dy) * dy;
+                  sums[3] += y * y;
+                }
               }
+              score_der<D>(p, y, psi, psid);  // the contraction's psi, psi' of the f32 Y
+              yv[e] = y;  // 0 at padded rows and columns
+              ps[e] = psi;
+              pd[e] = valid ? psid : 0.f;
+              acc[0][mi][nt][2 * hh + e] = acc[SETS - 1][mi][nt][2 * hh + e] = 0.f;
+            } else {
+              const float y = acc[0][mi][nt][2 * hh + e];
+              float psi = 0.f, psid = 0.f, ll;
+              if constexpr (MODE == MODE_PLAIN)
+                score_der_loglik<D>(p, y, psi, psid, ll);
+              else
+                ll = log_lik<D>(p, y);
+              const bool valid = row < p.n && c0 + cl + e < p.t;
+              if (valid) {  // log_lik(0) != 0 and psi'(0) != 0
+                sums[0] += ll;
+                if constexpr (MODE == MODE_PLAIN) sums[1] += psid;
+                if (p.need_ysq) sums[3] += y * y;
+              }
+              yv[e] = y;
+              ps[e] = psi;
+              pd[e] = valid ? psid : 0.f;
+              acc[0][mi][nt][2 * hh + e] = 0.f;
             }
-            score_der<D>(p, y, psi, psid);  // the contraction's psi, psi' of the f32 Y
-            yv[e] = y;  // 0 at padded rows and columns
-            ps[e] = psi;
-            pd[e] = valid ? psid : 0.f;
-            acc[0][mi][nt][2 * hh + e] = acc[1][mi][nt][2 * hh + e] = 0.f;
           }
           const long long off = (long long)row * p.ws_cols + wcol + cl;
-          if constexpr (TIER == F32) {
+          if constexpr (MODE == MODE_LOGLIK) {
+            // no workspace
+          } else if constexpr (TIER == F32) {
             *reinterpret_cast<float2*>(p.wsf[0] + off) = make_float2(ps[0], ps[1]);
             *reinterpret_cast<float2*>(p.wsf[1] + off) = make_float2(yv[0], yv[1]);
             if (NEED_H) {
@@ -636,9 +705,10 @@ __global__ void __launch_bounds__(THREADS, BLOCKS) rotate_delta_kernel(DParams p
     }
     const long long o = (long long)grp * p.stride + row;
     p.ll[o] = v[0];
-    p.pm[o] = v[1];
+    if (MODE != MODE_LOGLIK) p.pm[o] = v[1];
     if (p.need_ysq) {
-      p.dysq[o] = v[2];
+      // plain mode: dysq = ysq = sum Y^2
+      if (MODE != MODE_LOGLIK) p.dysq[o] = MODE == MODE_DELTA ? v[2] : v[3];
       p.ysq[o] = v[3];
     }
   }
@@ -801,35 +871,94 @@ cudaError_t launch(Kernel kernel, int smem, dim3 grid, const Params& p, cudaStre
   return cudaGetLastError();
 }
 
-template <bool NEED_H>
+template <int MODE, bool NEED_H>
 cudaError_t launch_a(int dens, dim3 grid, const AParams& p, cudaStream_t st) {
   switch (dens) {
-    case TANH: return launch(rotate_density_kernel<TANH, NEED_H>, A_BYTES, grid, p, st);
-    case EXP: return launch(rotate_density_kernel<EXP, NEED_H>, A_BYTES, grid, p, st);
-    case CUBE: return launch(rotate_density_kernel<CUBE, NEED_H>, A_BYTES, grid, p, st);
+    case TANH: return launch(rotate_density_kernel<MODE, TANH, NEED_H>, A_BYTES, grid, p, st);
+    case EXP: return launch(rotate_density_kernel<MODE, EXP, NEED_H>, A_BYTES, grid, p, st);
+    case CUBE: return launch(rotate_density_kernel<MODE, CUBE, NEED_H>, A_BYTES, grid, p, st);
   }
   return cudaErrorInvalidValue;
 }
 
-template <int TIER, bool NEED_H>
+template <int TIER, int MODE, bool NEED_H>
 cudaError_t launch_d(int dens, dim3 grid, const DParams& p, cudaStream_t st) {
-  constexpr int bytes = DCfg<TIER>::BYTES;
+  constexpr int bytes = DCfg<TIER, MODE == MODE_DELTA ? 2 : 1>::BYTES;
   switch (dens) {
-    case TANH: return launch(rotate_delta_kernel<TIER, TANH, NEED_H>, bytes, grid, p, st);
-    case EXP: return launch(rotate_delta_kernel<TIER, EXP, NEED_H>, bytes, grid, p, st);
-    case CUBE: return launch(rotate_delta_kernel<TIER, CUBE, NEED_H>, bytes, grid, p, st);
+    case TANH: return launch(rotate_split_kernel<TIER, MODE, TANH, NEED_H>, bytes, grid, p, st);
+    case EXP: return launch(rotate_split_kernel<TIER, MODE, EXP, NEED_H>, bytes, grid, p, st);
+    case CUBE: return launch(rotate_split_kernel<TIER, MODE, CUBE, NEED_H>, bytes, grid, p, st);
   }
   return cudaErrorInvalidValue;
 }
 
-// Delta launch A then B, at TIER, for one chunk.
-template <int TIER>
-cudaError_t launch_delta(int dens, bool need_h, dim3 grid_a, const DParams& d, dim3 grid_b,
+// Split launch A in MODE (delta or plain) then B, at TIER, for one chunk.
+template <int TIER, int MODE>
+cudaError_t launch_split(int dens, bool need_h, dim3 grid_a, const DParams& d, dim3 grid_b,
                          const BParams& b, cudaStream_t st) {
-  cudaError_t e = need_h ? launch_d<TIER, true>(dens, grid_a, d, st)
-                         : launch_d<TIER, false>(dens, grid_a, d, st);
+  cudaError_t e = need_h ? launch_d<TIER, MODE, true>(dens, grid_a, d, st)
+                         : launch_d<TIER, MODE, false>(dens, grid_a, d, st);
   if (e != cudaSuccess) return e;
   return launch(contract_kernel<TIER>, BCfg<TIER>::BYTES, grid_b, b, st);
+}
+
+// The stage depth of split launch A at the tier, in delta mode or not.
+int split_kc(int tier, bool delta) {
+  if (tier == F32) return delta ? DCfg<F32, 2>::KC : DCfg<F32, 1>::KC;
+  return DCfg<BF16X3, 2>::KC;
+}
+
+// The fields launch A's two parameter sets share, from the C entries'
+// arguments (the weights at w, X at x, the ll / dysq / pm / ysq partials).
+template <class Params>
+void fill_common(Params& a, int n, long long t, int need_ysq, double alpha, int cols, float* ll,
+                 float* dysq, float* pm, float* ysq, long long stride) {
+  a.n = n;
+  a.kp = (n + A_KC - 1) / A_KC * A_KC;
+  a.t = t;
+  a.need_ysq = need_ysq;
+  a.a = (float)alpha;
+  a.m2a = (float)(-2.0 * alpha);
+  a.mha = (float)(-alpha / 2.0);
+  a.cols = cols;
+  a.ll = ll;
+  a.dysq = dysq;
+  a.pm = pm;
+  a.ysq = ysq;
+  a.stride = stride;
+}
+
+// Launch A's parameters on bf16 X (w: the (n_pad, kp) bf16 plane) and on
+// f32 X (w: the planes of split_kc's tier and mode, n_pad * kp apart).
+AParams a_params(int n, long long t, int need_ysq, double alpha, int cols, const void* w,
+                 const void* x, float* ll, float* dysq, float* pm, float* ysq, long long stride) {
+  AParams a{};
+  fill_common(a, n, t, need_ysq, alpha, cols, ll, dysq, pm, ysq, stride);
+  a.vec = (t * 2) % 16 == 0 && reinterpret_cast<std::uintptr_t>(x) % 16 == 0;
+  a.w = static_cast<const __nv_bfloat16*>(w);
+  a.x = static_cast<const __nv_bfloat16*>(x);
+  return a;
+}
+
+DParams d_params(int tier, bool delta, int n, long long t, int need_ysq, double alpha, int cols,
+                 const void* w, const void* x, float* ll, float* dysq, float* pm, float* ysq,
+                 long long stride) {
+  DParams d{};
+  fill_common(d, n, t, need_ysq, alpha, cols, ll, dysq, pm, ysq, stride);
+  const int kc = split_kc(tier, delta);
+  d.n_kc = (n + kc - 1) / kc;
+  d.vec = t % 4 == 0 && reinterpret_cast<std::uintptr_t>(x) % 16 == 0;
+  d.w = static_cast<const __nv_bfloat16*>(w);
+  d.w_plane = (long long)(n + TILE - 1) / TILE * TILE * d.kp;
+  d.x = static_cast<const float*>(x);
+  return d;
+}
+
+bool bad_shape(int n, long long t, int cols, int n_parts, int density, long long stride,
+               const void* w) {
+  return n < 1 || n > picard_stream_max_n() || t < 1 || cols < TILE || cols % TILE != 0 ||
+         (long long)n_parts != (t + cols - 1) / cols || density < TANH || density > CUBE ||
+         stride < 1 || reinterpret_cast<std::uintptr_t>(w) % 16 != 0;
 }
 
 }  // namespace
@@ -844,7 +973,7 @@ int picard_stream_tc_tile() { return TILE; }
 int picard_stream_tc_kc() { return A_KC; }
 
 // A line-search try of picard_streaming_fused_sums on the tensor cores, in
-// one of three (mode, tier) pairs:
+// one of four (mode, tier) pairs:
 //   * delta = 0, tier = BF16: plain mode at the bf16 tier on bf16 X (rot =
 //     ct = BF16, x_bf16 = 1); w: the (n_pad, kp) zero-padded bf16 copy of
 //     M_new; x: (n, t) bf16; ws: 2 (4 with H) bf16 planes;
@@ -854,7 +983,10 @@ int picard_stream_tc_kc() { return A_KC; }
 //     planes;
 //   * delta = 1, tier = F32: delta mode at the f32 tier on f32 X; w: 6
 //     (n_pad, kp) zero-padded bf16 planes, the hi / mid / lo splits of
-//     M_old and of dM; x: (n, t) f32; ws: 2 (4 with H) f32 planes.
+//     M_old and of dM; x: (n, t) f32; ws: 2 (4 with H) f32 planes;
+//   * delta = 0, tier = F32: plain mode at the f32 tier on f32 X; w: 3
+//     (n_pad, kp) zero-padded bf16 planes, the hi / mid / lo splits of
+//     M_new; x: (n, t) f32; ws: 2 (4 with H) f32 planes.
 // The workspace planes are (n_pad, groups_per_chunk * cols) each. T is cut
 // into n_parts groups of `cols` columns; group g's partial of each output
 // is at out + g * stride.
@@ -863,16 +995,13 @@ int picard_streaming_fused_tc(int delta, int tier, int density, int need_h, int 
                               int groups_per_chunk, const void* w, const void* x, void* ws,
                               float* dll, float* dysq, float* g, float* pm, float* h, float* ysq,
                               long long stride, void* stream) {
-  if (!((delta == 0 && tier == BF16) || (delta == 1 && (tier == BF16X3 || tier == F32))) ||
-      n < 1 || n > picard_stream_max_n() || t < 1 || cols < TILE || cols % TILE != 0 ||
-      (long long)n_parts != (t + cols - 1) / cols || groups_per_chunk < 1 ||
-      groups_per_chunk > MAX_GRID_Y || density < TANH || density > CUBE || stride < 1 ||
-      (need_ysq && (!dysq || !ysq)) || (need_h && !h) ||
-      reinterpret_cast<std::uintptr_t>(ws) % 16 != 0 ||
-      reinterpret_cast<std::uintptr_t>(w) % 16 != 0)
+  if (!((delta == 0 && (tier == BF16 || tier == F32)) ||
+        (delta == 1 && (tier == BF16X3 || tier == F32))) ||
+      bad_shape(n, t, cols, n_parts, density, stride, w) || groups_per_chunk < 1 ||
+      groups_per_chunk > MAX_GRID_Y || (need_ysq && (!dysq || !ysq)) || (need_h && !h) ||
+      reinterpret_cast<std::uintptr_t>(ws) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   const int n_pad = (n + TILE - 1) / TILE * TILE;
-  const int kp = (n + A_KC - 1) / A_KC * A_KC;
   const long long ws_cols = (long long)groups_per_chunk * cols;
   const long long mat = (long long)n_pad * ws_cols;
   // Workspace plane (matrix * 2 + operand) * P + part: psi, Y (psi', Y^2),
@@ -886,51 +1015,18 @@ int picard_streaming_fused_tc(int delta, int tier, int density, int need_h, int 
 
   AParams a{};
   DParams d{};
-  if (delta) {
-    d.n = n;
-    d.kp = kp;
-    const int kc = tier == F32 ? DCfg<F32>::KC : DCfg<BF16X3>::KC;
-    d.n_kc = (n + kc - 1) / kc;
-    d.t = t;
-    d.need_ysq = need_ysq;
-    d.vec = t % 4 == 0 && reinterpret_cast<std::uintptr_t>(x) % 16 == 0;
-    d.a = (float)alpha;
-    d.m2a = (float)(-2.0 * alpha);
-    d.mha = (float)(-alpha / 2.0);
-    d.w = static_cast<const __nv_bfloat16*>(w);
-    d.w_plane = (long long)n_pad * kp;
-    d.x = static_cast<const float*>(x);
-    for (int i = 0; i < 8; ++i) d.ws[i] = plane(i);
-    for (int i = 0; i < 4; ++i) d.wsf[i] = plane_f(i);
-    d.ws_cols = ws_cols;
-    d.cols = cols;
-    d.ll = dll;
-    d.dysq = dysq;
-    d.pm = pm;
-    d.ysq = ysq;
-    d.stride = stride;
-  } else {
-    a.n = n;
-    a.kp = kp;
-    a.t = t;
-    a.need_ysq = need_ysq;
-    a.vec = (t * 2) % 16 == 0 && reinterpret_cast<std::uintptr_t>(x) % 16 == 0;
-    a.a = (float)alpha;
-    a.m2a = (float)(-2.0 * alpha);
-    a.mha = (float)(-alpha / 2.0);
-    a.w = static_cast<const __nv_bfloat16*>(w);
-    a.x = static_cast<const __nv_bfloat16*>(x);
+  if (tier == BF16) {
+    a = a_params(n, t, need_ysq, alpha, cols, w, x, dll, dysq, pm, ysq, stride);
     a.psi = plane(0);
     a.y = plane(1);
     a.psid = plane(2);
     a.y2 = plane(3);
     a.ws_cols = ws_cols;
-    a.cols = cols;
-    a.ll = dll;
-    a.dysq = dysq;
-    a.pm = pm;
-    a.ysq = ysq;
-    a.stride = stride;
+  } else {
+    d = d_params(tier, delta, n, t, need_ysq, alpha, cols, w, x, dll, dysq, pm, ysq, stride);
+    for (int i = 0; i < 8; ++i) d.ws[i] = plane(i);
+    for (int i = 0; i < 4; ++i) d.wsf[i] = plane_f(i);
+    d.ws_cols = ws_cols;
   }
 
   BParams b{};
@@ -953,17 +1049,45 @@ int picard_streaming_fused_tc(int delta, int tier, int density, int need_h, int 
     a.g0 = d.g0 = b.g0 = g0;
     const dim3 grid_a(n_pad / TILE, ng), grid_b(b.edge * b.edge, ng, need_h ? 2 : 1);
     cudaError_t e;
-    if (!delta) {
-      e = need_h ? launch_a<true>(density, grid_a, a, st) : launch_a<false>(density, grid_a, a, st);
+    if (tier == BF16) {
+      e = need_h ? launch_a<MODE_PLAIN, true>(density, grid_a, a, st)
+                 : launch_a<MODE_PLAIN, false>(density, grid_a, a, st);
       if (e == cudaSuccess) e = launch(contract_kernel<BF16>, BCfg<BF16>::BYTES, grid_b, b, st);
     } else if (tier == F32) {
-      e = launch_delta<F32>(density, need_h, grid_a, d, grid_b, b, st);
+      e = delta ? launch_split<F32, MODE_DELTA>(density, need_h, grid_a, d, grid_b, b, st)
+                : launch_split<F32, MODE_PLAIN>(density, need_h, grid_a, d, grid_b, b, st);
     } else {
-      e = launch_delta<BF16X3>(density, need_h, grid_a, d, grid_b, b, st);
+      e = launch_split<BF16X3, MODE_DELTA>(density, need_h, grid_a, d, grid_b, b, st);
     }
     if (e != cudaSuccess) return (int)e;
   }
   return 0;
+}
+
+// picard_streaming_loglik_sums' row sums on the tensor cores: ll = sum
+// log_lik(M x), masked at columns >= t, and with need_ysq ysq = sum (M
+// x)^2, one partial each per group at out + group index * stride, launch A
+// alone in loglik mode. tier = BF16: bf16 X; w: the (n_pad, kp)
+// zero-padded bf16 copy of M. tier = F32: f32 X; w: 3 (n_pad, kp)
+// zero-padded bf16 planes, the hi / mid / lo splits of M. T is cut into
+// n_parts groups of `cols` columns, at most MAX_GRID_Y (one launch).
+int picard_streaming_loglik_tc(int tier, int density, int need_ysq, double alpha, int n,
+                               long long t, int cols, int n_parts, const void* w, const void* x,
+                               float* ll, float* ysq, long long stride, void* stream) {
+  if (!(tier == BF16 || tier == F32) || bad_shape(n, t, cols, n_parts, density, stride, w) ||
+      n_parts > MAX_GRID_Y || !ll || (need_ysq && !ysq))
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((n + TILE - 1) / TILE, n_parts);
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  if (tier == BF16)
+    return (int)launch_a<MODE_LOGLIK, false>(
+        density, grid, a_params(n, t, need_ysq, alpha, cols, w, x, ll, nullptr, nullptr, ysq,
+                                stride),
+        st);
+  return (int)launch_d<F32, MODE_LOGLIK, false>(
+      density, grid,
+      d_params(F32, false, n, t, need_ysq, alpha, cols, w, x, ll, nullptr, nullptr, ysq, stride),
+      st);
 }
 
 }  // extern "C"

@@ -1,4 +1,4 @@
-// Hand-written Hopper (sm_90a) kernels for the core loop at N > 64, where
+// Hand-written Hopper (sm_90a) kernel for the core loop at N > 64, where
 // the weights no longer fit whole in shared memory:
 //
 //   picard_streaming_fused_sums  replaces picard_ica_tpu/ops/pallas_kernels.py
@@ -8,16 +8,16 @@
 //                                the candidate's G, sum psi', H, sum Y^2);
 //                                in plain mode it also serves the moments of
 //                                Y = W X (the JAX package's hand-off of
-//                                rotated_moments_sums, :338-342);
-//   picard_streaming_loglik_sums replaces streaming_loglik_sums /
-//                                _streaming_loglik_kernel (sum log_lik(M X),
-//                                sum (M X)^2 per row).
+//                                rotated_moments_sums, :338-342).
 //
-// The delta mode on f32 X at the bf16x3 and the f32 tier (the staged
-// schedule's last two stages) runs on the tensor cores instead
-// (streaming_fused_tc.cu), and so does the plain mode at the bf16 tier on
-// bf16 X; the fused kernel here keeps every other (mode, tier, X dtype),
-// and its delta mode is not built at those two tier pairs.
+// Every pass of the default staged schedule runs on the tensor cores
+// instead (streaming_fused_tc.cu): the plain mode at the bf16 tier on bf16
+// X and at the f32 tier on f32 X, and the delta mode at the bf16x3 and the
+// f32 tier on f32 X; so do the log-lik row sums (streaming_loglik_sums,
+// picard_streaming_loglik_tc). The kernel here keeps every other (mode,
+// tier, X dtype): delta bf16 on f32 X (a kernel_precision="bf16" fit),
+// delta on bf16 X, plain bf16 on f32 X and plain bf16x3; it is not built
+// at the tier pairs the tensor cores take.
 //
 // What computes what. A block owns `group` consecutive tiles of BT
 // columns of X. For each tile it rotates Y = W X one pass of RPP rows at a
@@ -45,7 +45,7 @@
 // 256 MB more for H; 306 x 1,000,003 (BT 64, 977) 366 MB; 1024 x 200,000
 // (BT 32, 250) 1.05 GB. All under RESIDENT_PARTIALS_MAX (2 GB).
 //
-// What bounds them on the card (H100 SXM: 33.5 T FMA/s of scalar FP32,
+// What bounds it on the card (H100 SXM: 33.5 T FMA/s of scalar FP32,
 // 3.35 TB/s of HBM, 50 MB of L2):
 //   * a delta try with G only costs 3 N^2 T FMAs (two rotations and one
 //     contraction): 3.9e11 at 256 x 2M (12 ms at peak), 6.3e11 at
@@ -59,7 +59,7 @@
 //     flight) it goes to HBM: 8 MB a tile, about 52 GB a call at
 //     1024 x 200k (16 ms of HBM time, overlapped with the FMAs of the next
 //     64 x 64 output block since its old values are loaded first).
-//   So the kernels are bound by the FP32 pipes and, in the rotation, by
+//   So the kernel is bound by the FP32 pipes and, in the rotation, by
 //   shared-memory issue (one broadcast float4 of W per 4-8 FMAs); at
 //   N = 1024 the partials' HBM traffic is the second limit.
 //
@@ -94,11 +94,10 @@ constexpr int WARPS = THREADS / 32;
 constexpr int KC = 16;             // k depth of one staged chunk of W and X
 constexpr int PASS_ELEMS = 8192;   // rotation outputs of one pass: RPP x BT
 constexpr int CB = 64;             // contraction output block edge
-constexpr int LOGLIK_BT = 128;     // the loglik kernel keeps no Y tile
 constexpr int MIN_BT = 32;
 constexpr int SMEM_MAX = 232448;   // opt-in shared memory of one block
 
-enum SMode { S_LOGLIK = 0, S_PLAIN = 1, S_DELTA = 2 };
+enum SMode { S_PLAIN = 1, S_DELTA = 2 };
 
 struct SParams {
   int n;
@@ -124,9 +123,8 @@ struct SParams {
   long long stride;
 };
 
-constexpr long long smem_floats(int mode, int n, int bt) {
+constexpr long long smem_floats(int n, int bt) {
   const long long rot = 2LL * (PASS_ELEMS / bt) * KC + (long long)KC * bt;
-  if (mode == S_LOGLIK) return rot;
   const long long ny = (long long)(n + CB - 1) / CB * CB;
   const long long con = 2LL * CB * (bt + 4);
   return ny * (bt + 4) + (rot > con ? rot : con);
@@ -134,7 +132,7 @@ constexpr long long smem_floats(int mode, int n, int bt) {
 
 constexpr int choose_bt(int n) {
   for (int bt = 128; bt >= MIN_BT; bt /= 2)
-    if (smem_floats(S_DELTA, n, bt) * 4 <= SMEM_MAX) return bt;
+    if (smem_floats(n, bt) * 4 <= SMEM_MAX) return bt;
   return 0;
 }
 
@@ -147,14 +145,6 @@ constexpr int stream_max_n() {
 constexpr int STREAM_MAX_N = stream_max_n();
 
 // ---- the density, chosen at run time (uniform across the grid) ----
-
-__device__ __forceinline__ float log_lik_rt(const SParams& p, float y) {
-  switch (p.dens) {
-    case TANH: return log_lik<TANH>(p, y);
-    case EXP: return log_lik<EXP>(p, y);
-    default: return log_lik<CUBE>(p, y);
-  }
-}
 
 __device__ __forceinline__ void score_der_rt(const SParams& p, float y,
                                              float& psi, float& psid) {
@@ -199,7 +189,6 @@ __device__ __forceinline__ void row_update(float* out, long long o, bool first,
 template <int MODE, int ROT, int CT, bool NEED_H, int BT>
 __global__ void __launch_bounds__(THREADS, 1) streaming_kernel(SParams p) {
   constexpr bool DELTA = MODE == S_DELTA;
-  constexpr bool CONTRACT = MODE != S_LOGLIK;
   constexpr int YS = BT + 4;                 // padded row stride of Y / psi
   constexpr int RPP = PASS_ELEMS / BT;       // rows of one rotation pass
   constexpr int QC = BT / 32;                // columns a thread: lane + 32 q
@@ -215,7 +204,7 @@ __global__ void __launch_bounds__(THREADS, 1) streaming_kernel(SParams p) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int n = p.n;
-  const int ny = CONTRACT ? (n + CB - 1) / CB * CB : 0;
+  const int ny = (n + CB - 1) / CB * CB;
   float* y_s = smem;                       // (ny, YS) Y tile
   float* stage = smem + (size_t)ny * YS;   // rotation chunks | psi blocks
   float* w_s = stage;                      // (RPP, KC)
@@ -335,10 +324,7 @@ __global__ void __launch_bounds__(THREADS, 1) streaming_kernel(SParams p) {
           const int c = lane + 32 * q;
           const bool valid = c0 + c < t_len;
           float y, psi = 0.f, psid = 0.f, ll = 0.f, dysq = 0.f;
-          if (MODE == S_LOGLIK) {
-            y = acc[r][q];
-            ll = log_lik_rt(p, y);
-          } else if (MODE == S_PLAIN) {
+          if (MODE == S_PLAIN) {
             y = acc[r][q];
             score_der_loglik_rt(p, y, psi, psid, ll);
           } else {
@@ -355,7 +341,7 @@ __global__ void __launch_bounds__(THREADS, 1) streaming_kernel(SParams p) {
               s_dysq += dysq;
             }
           }
-          if (CONTRACT && row < ny) y_s[row * YS + c] = y;
+          if (row < ny) y_s[row * YS + c] = y;
         }
 #pragma unroll
         for (int off = 16; off > 0; off >>= 1) {
@@ -367,7 +353,7 @@ __global__ void __launch_bounds__(THREADS, 1) streaming_kernel(SParams p) {
         if (lane == 0 && row < n) {
           const long long o = grp * p.stride + row;
           row_update(p.ll, o, first, s_ll);
-          if (MODE != S_LOGLIK) row_update(p.pm, o, first, s_pm);
+          row_update(p.pm, o, first, s_pm);
           if (p.need_ysq) {
             row_update(p.ysq, o, first, s_ysq);
             if (MODE == S_DELTA) row_update(p.dysq, o, first, s_dysq);
@@ -376,7 +362,6 @@ __global__ void __launch_bounds__(THREADS, 1) streaming_kernel(SParams p) {
         }
       }
     }
-    if (!CONTRACT) continue;
 
     // Contraction: G += psi Y^T (H += psi' (Y^2)^T) over the tile.
     __syncthreads();  // the Y tile is complete
@@ -463,7 +448,7 @@ __global__ void __launch_bounds__(THREADS, 1) streaming_kernel(SParams p) {
 
 template <int MODE, int ROT, int CT, bool NEED_H, int BT>
 cudaError_t launch(const SParams& p, int n_groups, cudaStream_t stream) {
-  const size_t smem = (size_t)smem_floats(MODE, p.n, BT) * sizeof(float);
+  const size_t smem = (size_t)smem_floats(p.n, BT) * sizeof(float);
   auto kern = streaming_kernel<MODE, ROT, CT, NEED_H, BT>;
   // Above 48 KB dynamic shared memory must be opted into; a refused
   // launch never runs and only cudaGetLastError reports it.
@@ -493,8 +478,8 @@ cudaError_t by_h(int need_h, int bt, const SParams& p, int ng, cudaStream_t st) 
 template <int MODE>
 cudaError_t by_tiers(int rot, int ct, int need_h, int bt, const SParams& p,
                      int ng, cudaStream_t st) {
-  if constexpr (MODE != S_DELTA) {  // delta: streaming_fused_tc.cu
-    if (rot == F32 && ct == F32) return by_h<MODE, F32, F32>(need_h, bt, p, ng, st);
+  // (f32, f32) and delta (bf16x3, bf16x3): streaming_fused_tc.cu
+  if constexpr (MODE == S_PLAIN) {
     if (rot == BF16X3 && ct == BF16X3)
       return by_h<MODE, BF16X3, BF16X3>(need_h, bt, p, ng, st);
   }
@@ -543,7 +528,7 @@ extern "C" {
 int picard_stream_max_n() { return STREAM_MAX_N; }
 
 // Columns a tile of the fused kernel takes at this N (0 above
-// STREAM_MAX_N); the loglik kernel always takes LOGLIK_BT.
+// STREAM_MAX_N).
 int picard_stream_tile(int n) { return n < 1 ? 0 : choose_bt(n); }
 
 // Fused line-search try at large N. delta = 1: dll = sum [log_lik(M_new x)
@@ -574,31 +559,6 @@ int picard_streaming_fused_sums(int delta, int rot_tier, int ct_tier,
   cudaError_t e = delta
       ? by_tiers<S_DELTA>(rot_tier, ct_tier, need_h, bt, p, n_groups, st)
       : by_tiers<S_PLAIN>(rot_tier, ct_tier, need_h, bt, p, n_groups, st);
-  return (int)e;
-}
-
-// Row sums of log_lik(M x) and (optionally) (M x)^2 at large N, one
-// partial each per group at out + group index * stride; `group` tiles of
-// LOGLIK_BT columns each.
-int picard_streaming_loglik_sums(int rot_tier, int density, int need_ysq,
-                                 double alpha, int n, long long t, int x_bf16,
-                                 int group, const float* m, const void* x,
-                                 float* ll, float* ysq, long long stride,
-                                 int n_groups, void* stream) {
-  if (bad_grid(n, t, density, LOGLIK_BT, group, n_groups, stride))
-    return (int)cudaErrorInvalidValue;
-  SParams p = make_params(n, t, need_ysq, x_bf16, density, alpha, m, nullptr,
-                          x, LOGLIK_BT, group, stride);
-  p.ll = ll;
-  p.ysq = ysq;
-  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  cudaError_t e;
-  if (rot_tier == F32)
-    e = launch<S_LOGLIK, F32, F32, false, LOGLIK_BT>(p, n_groups, st);
-  else if (rot_tier == BF16)
-    e = launch<S_LOGLIK, BF16, F32, false, LOGLIK_BT>(p, n_groups, st);
-  else
-    e = cudaErrorInvalidValue;
   return (int)e;
 }
 

@@ -65,14 +65,14 @@ _SIGNATURES = {
         _I, _I, _I, _I, _I, _I, _D, _I, _LL, _I, _I,
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _P,
     ],
-    "picard_streaming_loglik_sums": [
-        _I, _I, _I, _D, _I, _LL, _I, _I, _P, _P, _P, _P, _LL, _I, _P,
-    ],
     "picard_stream_tc_tile": [],
     "picard_stream_tc_kc": [],
     "picard_streaming_fused_tc": [
         _I, _I, _I, _I, _I, _D, _I, _LL, _I, _I, _I,
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _P,
+    ],
+    "picard_streaming_loglik_tc": [
+        _I, _I, _I, _D, _I, _LL, _I, _I, _P, _P, _P, _P, _LL, _P,
     ],
 }
 

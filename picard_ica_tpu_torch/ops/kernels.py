@@ -19,16 +19,19 @@ longer fits whole in shared memory:
 
   * :func:`streaming_fused_sums` — kernel 1's outputs with W in row
     blocks and a contraction phase over the parked Y tile (replaces
-    ``streaming_fused_sums``, :1061-1183); the three stages of the
-    default schedule, its plain mode at the bf16 tier on bf16 X and its
-    delta mode at the bf16x3 and the f32 tier on f32 X, run as two
-    GEMM-shaped tensor-core launches instead (``csrc/streaming_fused_tc.cu``,
-    planned by :func:`stream_tc_plan`): the rotation with the density and
-    row sums into a workspace of psi / Y planes (bf16; hi and lo at
-    bf16x3; f32 at f32, split three ways by the contraction), then G (H)
-    over it;
+    ``streaming_fused_sums``, :1061-1183); every pass of the default
+    schedule, its plain mode at the bf16 tier on bf16 X and at the f32
+    tier on f32 X and its delta mode at the bf16x3 and the f32 tier on
+    f32 X, runs as two GEMM-shaped tensor-core launches instead
+    (``csrc/streaming_fused_tc.cu``, planned by :func:`stream_tc_plan`):
+    the rotation with the density and row sums into a workspace of psi /
+    Y planes (bf16; hi and lo at bf16x3; f32 at f32, split three ways by
+    the contraction), then G (H) over it;
   * :func:`streaming_loglik_sums` — kernel 3's outputs for large N
-    (replaces ``streaming_loglik_sums``, :1205-1274).
+    (replaces ``streaming_loglik_sums``, :1205-1274), on the tensor
+    cores: the route's rotation launch alone with a log-lik epilogue
+    (``picard_streaming_loglik_tc``), on bf16 X at the bf16 tier and on
+    f32 X at the f32 tier, with no workspace.
 
 The three ``rotated_*`` wrappers hand off to the streaming ones, on
 every device, when N > :data:`KERNEL_MAX_N` or when their per-block
@@ -64,7 +67,9 @@ reduce across devices first). For each there is:
   * a launch counter, ``<wrapper>.launches``, raised by one at each
     kernel launch and nowhere else (``rotated_fused_sums`` also counts
     by tier, ``launches_by_tier``; ``streaming_fused_sums`` by route,
-    ``launches_by_route``, and by route and tier, ``launches_by_tier``);
+    ``launches_by_route``, by route and tier, ``launches_by_tier``, and
+    by mode and tier, ``launches_by_mode``; ``streaming_loglik_sums`` by
+    X's tier, ``launches_by_tier``);
   * the fold of the kernel's per-block partials on the card, in
     :func:`ops.moments.fold_pairwise`'s order and bitwise equal to it:
     the core kernels write all their outputs side by side into one
@@ -126,7 +131,7 @@ STREAM_GROUP = 16
 # More tiles go to a partial when the (n_groups, N, N) f32 partials of
 # one call would pass this many bytes (1024 x 200,000: 25 tiles).
 STREAM_PARTIALS_MAX = 1024**3
-# Columns per tile of the loglik kernel, which parks no Y tile.
+# Columns per tile of the loglik plain version, which parks no Y tile.
 STREAM_LOGLIK_TILE = 128
 # The tensor-core route of the fused kernel (csrc/streaming_fused_tc.cu:
 # TILE, A_KC): W row blocks and the contraction's output tiles are
@@ -142,6 +147,11 @@ STREAM_TC_GROUP_COLS = 4096
 # the bf16x3 tier, f32 at the f32 tier) of a call are kept under this
 # many bytes; a larger call runs in chunks of whole groups.
 STREAM_TC_WORKSPACE_MAX = 2 * 1024**3
+# Columns per partial of the loglik kernel on the route, at least: its
+# partials are (N,) rows, so a group's width sets only the number of
+# blocks (1,568 at 1024 x 200,000, against 392 with 4,096-column groups
+# on the card's 264 two-block slots).
+STREAM_TC_LOGLIK_COLS = 1024
 # Groups one launch may take (a CUDA grid's y extent).
 _MAX_GRID_Y = 65535
 # The fused kernel's shared-memory model (csrc/streaming_sums.cu:
@@ -367,7 +377,8 @@ class StreamTcPlan(NamedTuple):
     ws_bytes: int          # the workspace of one chunk
 
 
-def stream_tc_plan(n: int, t: int, need_h: bool, tier: str = "bf16") -> StreamTcPlan:
+def stream_tc_plan(n: int, t: int, need_h: bool, tier: str = "bf16",
+                   planes: bool = True) -> StreamTcPlan:
     """The tensor-core route's partition of T: groups of at least
     :data:`STREAM_TC_GROUP_COLS` columns (fewer for a smaller T), more
     where the (n_parts, N, N) f32 partials would pass
@@ -376,9 +387,19 @@ def stream_tc_plan(n: int, t: int, need_h: bool, tier: str = "bf16") -> StreamTc
     :data:`STREAM_TC_WORKSPACE_MAX`, which wins; then as many whole groups
     per chunk as the workspace cap holds. The workspace is 2 (4 with H)
     planes of (n_pad, groups_per_chunk * cols_per_group): bf16 at the bf16
-    tier, twice as many (hi and lo) at bf16x3, f32 at f32."""
+    tier, twice as many (hi and lo) at bf16x3, f32 at f32.
+
+    With ``planes=False``, the loglik kernel's partition: no workspace
+    and no (N, N) partials, so groups of at least
+    :data:`STREAM_TC_LOGLIK_COLS` columns, more where one launch would
+    take more than 65,535 groups, all in one chunk."""
     tile = STREAM_TC_TILE
     n_pad = _n_chunks(n, tile) * tile
+    if not planes:
+        want = max(STREAM_TC_LOGLIK_COLS, _n_chunks(t, _MAX_GRID_Y))
+        cols = min(_n_chunks(want, tile), _n_chunks(t, tile)) * tile
+        n_parts = _n_chunks(t, cols)
+        return StreamTcPlan(n_pad, cols, n_parts, n_parts, 0)
     n_mats = 1 + need_h
     col_bytes = 2 * n_mats * _TC_ELEM_BYTES[tier] * n_pad
     max_groups = min(_MAX_GRID_Y, max(1, STREAM_PARTIALS_MAX // (n_mats * n * n * 4)))
@@ -704,15 +725,15 @@ def rotated_loglik_sums(m, x, density, need_ysq: bool):
     if x.device.type == "cpu":
         return rotated_loglik_sums_plain(m, x, density, need_ysq)
     _, _, nb = _check_cuda(x, m)
-    out = _loglik_launch(_lib().picard_rotated_loglik_sums, (), nb, m, x,
-                         density, need_ysq)
+    out = _loglik_launch(_lib().picard_rotated_loglik_sums, nb, m, x, density, need_ysq)
     rotated_loglik_sums.launches += 1
     return out
 
 
-def _loglik_launch(entry, group_args, n_parts, m, x, density, need_ysq):
-    """Launch a loglik kernel (``entry``) with ``n_parts`` partials per
-    output and fold them; the ysq row sums are zeros when not asked for."""
+def _loglik_launch(entry, n_parts, m, x, density, need_ysq):
+    """Launch the resident loglik kernel (``entry``) with ``n_parts``
+    partials per output and fold them; the ysq row sums are zeros when not
+    asked for."""
     n, t = x.shape
     bf16_x = x.dtype == torch.bfloat16
     code, alpha = _density_code(density)
@@ -720,7 +741,7 @@ def _loglik_launch(entry, group_args, n_parts, m, x, density, need_ysq):
 
     def launch(ptrs, stride):
         _run(entry, _TIERS["bf16" if bf16_x else "f32"], code, int(need_ysq), alpha,
-             n, t, int(bf16_x), *group_args, mf.data_ptr(), x.data_ptr(), *ptrs,
+             n, t, int(bf16_x), mf.data_ptr(), x.data_ptr(), *ptrs,
              stride, n_parts, device=x.device)
 
     return _fold_outputs(n_parts, [((n,), True), ((n,), need_ysq)], x, launch)
@@ -754,7 +775,8 @@ def streaming_fused_sums(m_new, m_old, x, density, need_h: bool,
     n, t, _ = _check_cuda(x, *mats, cap=STREAM_MAX_N)
     tier = _tiers(x, precision)[0]
     if _tc_route(x, tier, absolute_ll):
-        out = _streaming_fused_tc(m_new, m_old, x, density, need_h, need_ysq, tier)
+        out = _streaming_fused_tc(m_new, m_old, x, density, need_h, need_ysq, tier,
+                                  absolute_ll)
         route = "tc"
     else:
         n_tiles = _n_chunks(t, stream_tile(n))
@@ -766,43 +788,53 @@ def streaming_fused_sums(m_new, m_old, x, density, need_h: bool,
     streaming_fused_sums.launches += 1
     streaming_fused_sums.launches_by_route[route] += 1
     streaming_fused_sums.launches_by_tier[route][tier] += 1
+    streaming_fused_sums.launches_by_mode["plain" if absolute_ll else "delta"][tier] += 1
     return out
 
 
 def _tc_route(x, tier: str, absolute_ll: bool) -> bool:
     """The (mode, contraction tier, X dtype) pairs of the tensor-core
-    route: plain bf16 on bf16 X, and delta bf16x3 and delta f32 on f32 X
-    (whose rotation tier is the contraction's)."""
+    route: plain bf16 on bf16 X, plain f32 on f32 X, and delta bf16x3 and
+    delta f32 on f32 X (whose rotation tier is the contraction's)."""
     if absolute_ll:
-        return tier == "bf16" and x.dtype == torch.bfloat16
+        return (tier, x.dtype) in (("bf16", torch.bfloat16), ("f32", torch.float32))
     return tier in ("bf16x3", "f32") and x.dtype == torch.float32
 
 
-def _streaming_fused_tc(m_new, m_old, x, density, need_h, need_ysq, tier):
+def _tc_weights(planes, n: int, n_pad: int, device):
+    """The weights' bf16 planes zero-padded to (n_pad, kp), kp a multiple
+    of :data:`STREAM_TC_KC`, as one (len(planes), n_pad, kp) tensor."""
+    kp = _n_chunks(n, STREAM_TC_KC) * STREAM_TC_KC
+    w = torch.zeros((len(planes), n_pad, kp), dtype=torch.bfloat16, device=device)
+    for plane, v in zip(w, planes):
+        plane[:n, :n] = v  # bf16 values: the conversion is exact
+    return w
+
+
+def _streaming_fused_tc(m_new, m_old, x, density, need_h, need_ysq, tier, absolute_ll):
     """The tensor-core route at ``tier``: the weights as zero-padded (n_pad,
-    kp) bf16 planes (at bf16 M_new; at bf16x3 the hi / lo splits of M_old
+    kp) bf16 planes (plain bf16: M_new; plain f32: M_new's hi / mid / lo
+    splits, ``_split3_bf16``; delta bf16x3: the hi / lo splits of M_old
     and of dM = M_new - M_old in f32, as the plain version's
-    ``_split_bf16``; at f32 their hi / mid / lo splits, ``_split3_bf16``),
-    one workspace of :func:`stream_tc_plan`'s size, both launches per
-    chunk in one C call, and the packed partials folded as the scalar
-    kernel's."""
+    ``_split_bf16``; delta f32: their hi / mid / lo splits), one workspace
+    of :func:`stream_tc_plan`'s size, both launches per chunk in one C
+    call, and the packed partials folded as the scalar kernel's."""
     n, t = x.shape
     plan = stream_tc_plan(n, t, need_h, tier)
     code, alpha = _density_code(density)
-    kp = _n_chunks(n, STREAM_TC_KC) * STREAM_TC_KC
     if tier == "bf16":
         planes = _mats(x, m_new)
+    elif absolute_ll:
+        planes = _split3_bf16(m_new.to(torch.float32))
     else:
         split = _split_bf16 if tier == "bf16x3" else _split3_bf16
         m_old = m_old.to(torch.float32)
         planes = [*split(m_old), *split(m_new.to(torch.float32) - m_old)]
-    w = torch.zeros((len(planes), plan.n_pad, kp), dtype=torch.bfloat16, device=x.device)
-    for plane, v in zip(w, planes):
-        plane[:n, :n] = v  # bf16 values: the conversion is exact
+    w = _tc_weights(planes, n, plan.n_pad, x.device)
     ws = torch.empty(plan.ws_bytes, dtype=torch.uint8, device=x.device)
 
     def launch(ptrs, stride):
-        _run(_lib().picard_streaming_fused_tc, int(tier != "bf16"), _TIERS[tier], code,
+        _run(_lib().picard_streaming_fused_tc, int(not absolute_ll), _TIERS[tier], code,
              int(need_h), int(need_ysq), alpha, n, t, plan.cols_per_group, plan.n_parts,
              plan.groups_per_chunk, w.data_ptr(), x.data_ptr(), ws.data_ptr(), *ptrs, stride,
              device=x.device)
@@ -811,16 +843,29 @@ def _streaming_fused_tc(m_new, m_old, x, density, need_h, need_ysq, tier):
 
 
 def streaming_loglik_sums(m, x, density, need_ysq: bool):
-    """:func:`rotated_loglik_sums` for N up to :data:`STREAM_MAX_N`."""
+    """:func:`rotated_loglik_sums` for N up to :data:`STREAM_MAX_N`, on
+    the tensor cores: bf16 X at the bf16 tier (M rounded to bf16, one
+    bf16 plane), f32 X at the f32 tier (M's hi / mid / lo splits, six
+    products a 16-deep step); groups of
+    :func:`stream_tc_plan`'s ``planes=False`` partition, one launch."""
     _stream_cap(x)
     if x.device.type == "cpu":
         return streaming_loglik_sums_plain(m, x, density, need_ysq)
     n, t, _ = _check_cuda(x, m, cap=STREAM_MAX_N)
-    n_tiles = _n_chunks(t, STREAM_LOGLIK_TILE)
-    group = stream_group(n_tiles, n, 0)
-    out = _loglik_launch(_lib().picard_streaming_loglik_sums, (group,),
-                         _n_chunks(n_tiles, group), m, x, density, need_ysq)
+    tier = "bf16" if x.dtype == torch.bfloat16 else "f32"
+    plan = stream_tc_plan(n, t, False, planes=False)
+    code, alpha = _density_code(density)
+    planes = _mats(x, m) if tier == "bf16" else _split3_bf16(m.to(torch.float32))
+    w = _tc_weights(planes, n, plan.n_pad, x.device)
+
+    def launch(ptrs, stride):
+        _run(_lib().picard_streaming_loglik_tc, _TIERS[tier], code, int(need_ysq), alpha, n, t,
+             plan.cols_per_group, plan.n_parts, w.data_ptr(), x.data_ptr(), *ptrs, stride,
+             device=x.device)
+
+    out = _fold_outputs(plan.n_parts, [((n,), True), ((n,), need_ysq)], x, launch)
     streaming_loglik_sums.launches += 1
+    streaming_loglik_sums.launches_by_tier[tier] += 1
     return out
 
 
@@ -930,16 +975,21 @@ KERNELS = (rotated_fused_sums, rotated_moments_sums, rotated_loglik_sums,
 
 def reset_launch_counts() -> None:
     """Set every kernel's launch counter, ``rotated_fused_sums``'s counts
-    by tier (keyed by the tier of its contractions) and
+    by tier (keyed by the tier of its contractions),
     ``streaming_fused_sums``'s by route ("tc": the tensor-core route,
-    "scalar": every other mode and tier) and by route and tier (the tier
-    of its contractions) to 0."""
+    "scalar": every other mode and tier), by route and tier (the tier of
+    its contractions) and by mode ("plain", "delta") and tier, and
+    ``streaming_loglik_sums``'s by tier ("bf16" on bf16 X, "f32" on f32
+    X) to 0."""
     for k in KERNELS:
         k.launches = 0
     rotated_fused_sums.launches_by_tier = dict.fromkeys(_TIERS, 0)
+    streaming_loglik_sums.launches_by_tier = dict.fromkeys(("bf16", "f32"), 0)
     streaming_fused_sums.launches_by_route = dict.fromkeys(("scalar", "tc"), 0)
     streaming_fused_sums.launches_by_tier = {
         route: dict.fromkeys(_TIERS, 0) for route in ("scalar", "tc")}
+    streaming_fused_sums.launches_by_mode = {
+        mode: dict.fromkeys(_TIERS, 0) for mode in ("plain", "delta")}
 
 
 reset_launch_counts()

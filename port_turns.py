@@ -16,10 +16,11 @@ after, before; each turn measures, with ``chip_smoke.py``'s helpers:
     1,000,003 columns);
   * ``streaming_fused_sums`` (``chip_smoke.py``'s unit-variance Laplace
     inputs) at 256 x 2,000,000 and 1024 x 200,000 in the cases of the
-    default schedule's three stages, plain mode at the bf16 tier on bf16
-    X and delta mode at the bf16x3 and the f32 tier on f32 X, and
-    ``streaming_loglik_sums`` on f32 X at both shapes, timed the same two
-    ways;
+    default schedule's passes, plain mode at the bf16 tier on bf16 X,
+    delta mode at the bf16x3 and the f32 tier on f32 X and plain mode at
+    the f32 tier on f32 X (the moments hand-off), and
+    ``streaming_loglik_sums`` on f32 X and on bf16 X at both shapes, timed
+    the same two ways;
   * ``chip_smoke.py``'s phase-3 fit (64 x 2,000,000 mixed mixture, f64
     NumPy input) and phase-4 fits (the bench 64 x 4,000,000 made on the
     card) at the default staged schedule and in the exact f32 tier: core
@@ -46,8 +47,8 @@ tier.
     python3 port_turns.py --profile [TREE]
 
 traces one tree's ``streaming_fused_sums`` calls of the default
-schedule's three stages (plain bf16 on bf16 X, delta bf16x3 and delta f32
-on f32 X) at both shapes, with the tanh and cube densities, in
+schedule's passes (plain bf16 on bf16 X, delta bf16x3, delta f32 and
+plain f32 on f32 X) at both shapes, with the tanh and cube densities, in
 ``torch.profiler`` and prints each CUDA kernel's device ms a call (mean
 of 5 calls).
 
@@ -90,6 +91,7 @@ STREAM_CASES = [  # (label, precision, absolute_ll, bf16 X)
     ("plain bf16, bf16 X", "bf16", True, True),
     ("delta bf16x3", "bf16x3", False, False),
     ("delta f32", "f32", False, False),
+    ("plain f32", "f32", True, False),
 ]
 
 
@@ -216,8 +218,8 @@ def one_turn(tree: str, kernels_only: bool = False, large_n: bool = False) -> di
 
 
 def _stream_turn(sm, K, tree, turn):
-    """Time STREAM_CASES and the loglik kernel on f32 X, each shape's
-    inputs made once."""
+    """Time STREAM_CASES and the loglik kernel on f32 X and on bf16 X,
+    each shape's inputs made once."""
     import torch
 
     from picard_ica_tpu_torch.ops.densities import Tanh
@@ -232,10 +234,12 @@ def _stream_turn(sm, K, tree, turn):
                 ms_new, ms_old, xx, Tanh(), False, False, precision, absolute_ll))
             turn["kernel"][label] = {"ms": ms, "ms_stream": ms_stream}
             sm._log(f"[{tree}] streaming_fused_sums [{label}]: {sm._fmt_pair((ms, ms_stream))}")
-        label = f"streaming loglik f32, {n} x {t}"
-        ms, ms_stream = sm._time_both(lambda: K.streaming_loglik_sums(ms_old, xs, Tanh(), False))
-        turn["kernel"][label] = {"ms": ms, "ms_stream": ms_stream}
-        sm._log(f"[{tree}] streaming_loglik_sums [{label}]: {sm._fmt_pair((ms, ms_stream))}")
+        for case, xx in (("f32", xs), ("bf16 X", xs16)):
+            label = f"streaming loglik {case}, {n} x {t}"
+            ms, ms_stream = sm._time_both(
+                lambda: K.streaming_loglik_sums(ms_old, xx, Tanh(), False))
+            turn["kernel"][label] = {"ms": ms, "ms_stream": ms_stream}
+            sm._log(f"[{tree}] streaming_loglik_sums [{label}]: {sm._fmt_pair((ms, ms_stream))}")
         del xs, xs16, xx
         torch.cuda.empty_cache()
 
@@ -349,7 +353,12 @@ def large_n_fit(tree: str, sm=None, x=None, a=None, trace: bool = False,
               "streaming_fused_by_route": getattr(K.streaming_fused_sums,
                                                   "launches_by_route", None),
               "streaming_fused_by_tier": getattr(K.streaming_fused_sums,
-                                                 "launches_by_tier", None)}
+                                                 "launches_by_tier", None),
+              "streaming_fused_by_mode": getattr(K.streaming_fused_sums,
+                                                 "launches_by_mode", None),
+              "streaming_loglik_launches": K.streaming_loglik_sums.launches,
+              "streaming_loglik_by_tier": getattr(K.streaming_loglik_sums,
+                                                  "launches_by_tier", None)}
     del r
     torch.cuda.empty_cache()
     sm._log(f"[{tree}] {schedule} fit: {result}")

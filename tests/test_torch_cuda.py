@@ -248,6 +248,40 @@ def test_fused_bf16x3_g_drift_against_f64(dev):
     _drift(g_k, g_p, g_64)
 
 
+def test_fused_bf16_rotation_drift_against_f64(dev):
+    """The plain bf16 tier on bf16 X at the main path's width, 64 x
+    2,000,000: ysq = sum Y^2 (and dysq, the same sum in plain mode)
+    against the same sum in f64 of the same bf16 operands, bf16(M) and X
+    (the tensor cores round each MMA's sum toward zero)."""
+    x, _, m_new = _inputs(dev, 64, 2_000_000, seed=15)
+    x = x.to(torch.bfloat16)
+    args = (m_new, m_new, x, Tanh(), False, True, "bf16", True)
+    out_k = K.rotated_fused_sums(*args)
+    out_p = K.rotated_fused_sums_plain(*args)
+    y = K._bf16(m_new).double() @ x.double()
+    ysq = (y * y).sum(dim=1)
+    del y
+    _drift(out_k[5], out_p[5], ysq)
+    _drift(out_k[1], out_p[1], ysq)
+
+
+def test_fused_bf16_g_drift_against_f64(dev):
+    """The plain bf16 contraction at 64 x 2,000,000 (128 16-column steps a
+    2,048-column partial): M = I and the cube density on bf16 X, so Y = X
+    exactly in both and the operands bf16(Y^3) and Y are bit for bit the
+    plain version's; G's error against f64 sums of those operands within
+    DRIFT_FACTOR of the plain version's."""
+    x, _, _ = _inputs(dev, 64, 2_000_000, seed=16)
+    x = x.to(torch.bfloat16)
+    eye = torch.eye(64, device=dev)
+    args = (eye, eye, x, Cube(), False, False, "bf16", True)
+    g_k = K.rotated_fused_sums(*args)[2]
+    g_p = K.rotated_fused_sums_plain(*args)[2]
+    y = x.float()
+    g_64 = K._bf16(y * y * y).double() @ y.double().T
+    _drift(g_k, g_p, g_64)
+
+
 def _core_calls(dev):
     """One call per core wrapper (all outputs on), over several partials;
     the fused wrapper in each tier, and at N = 80 the streaming kernels."""
@@ -590,12 +624,12 @@ def test_streaming_fused_bf16_x_matches_plain(dev, n, t, precision, absolute_ll)
 def test_streaming_fused_across_group_boundaries(dev, monkeypatch, n, group):
     """70,001 columns: 547 tiles of 128 at N = 72 in groups of ``group``
     tiles; 2,188 tiles of 32 at N = 1024, where the G and H partials
-    budget (STREAM_PARTIALS_MAX) sets groups of 18. Plain mode at f32 (the
-    moments hand-off), which the scalar kernel serves; delta f32 runs the
+    budget (STREAM_PARTIALS_MAX) sets groups of 18. Plain mode at bf16x3,
+    which the scalar kernel serves; plain and delta f32 run the
     tensor-core route, whose groups are stream_tc_plan's."""
     monkeypatch.setattr(K, "STREAM_GROUP", group)
     x, m_old, m_new = _inputs(dev, n, 70_001, seed=6)
-    args = (m_new, m_old, x, Tanh(), True, True, "f32", True)
+    args = (m_new, m_old, x, Tanh(), True, True, "bf16x3", True)
     _close(K.streaming_fused_sums(*args), K.streaming_fused_sums_plain(*args))
 
 

@@ -1,8 +1,11 @@
-"""The tensor-core route of streaming_fused_sums, on the CPU.
+"""The tensor-core route of streaming_fused_sums and streaming_loglik_sums,
+on the CPU.
 
 The route (``csrc/streaming_fused_tc.cu``: plain mode at the bf16 tier on
-bf16 X, delta mode at the bf16x3 and the f32 tier on f32 X) runs only on
-the card. What surrounds it is held here:
+bf16 X and at the f32 tier on f32 X, delta mode at the bf16x3 and the f32
+tier on f32 X; the loglik kernel, the rotation launch alone with a log-lik
+epilogue, on bf16 X at the bf16 tier and on f32 X at the f32 tier) runs
+only on the card. What surrounds it is held here:
 
   * :func:`ops.kernels.stream_tc_plan`'s invariants at every tier: the
     groups cover T once in whole tiles, a chunk is whole groups, and the
@@ -15,18 +18,26 @@ the card. What surrounds it is held here:
     interpret=True)`` (``picard_ica_tpu.ops.pallas_kernels``;
     ``precision="bf16", absolute_ll=True`` on bf16 X;
     ``precision="bf16x3"`` and ``precision="f32"``,
-    ``absolute_ll=False``, on f32 X) and against
-    ``streaming_fused_sums_plain``. At f32 the emulation splits every
-    operand three ways (hi / mid / lo) and sums the six products of each
-    16-deep step, small first and hi*hi last, before adding the step to
-    its f32 sum, as the kernels' fresh accumulators do.
+    ``absolute_ll=False``, and ``precision="f32", absolute_ll=True``, on
+    f32 X) and against ``streaming_fused_sums_plain``. At f32 the
+    emulation splits every operand three ways (hi / mid / lo) and sums the
+    six products of each 16-deep step, small first and hi*hi last, before
+    adding the step to its f32 sum, as the kernels' fresh accumulators do;
+  * a torch emulation of the loglik kernel (the ``planes=False`` plan's
+    groups, the rotation of either tier, the masked log-lik and Y^2 row
+    sums per group, the groups folded pairwise) against the JAX package's
+    ``streaming_loglik_sums(..., interpret=True)`` and
+    ``streaming_loglik_sums_plain``, and the wrapper's launch on a tensor
+    on the meta device (the C entry replaced by a recorder).
 
 Tolerances: in plain bf16, 1e-3 of each output's largest entry, the
 bf16-X rule of tests/test_torch_streaming.py (psi and Y are rounded to
 bf16 after rotations whose f32 sums are ordered differently); in delta
-bf16x3 and delta f32, 2e-5 of each output's largest entry, that file's
-f32 and bf16x3 rule (the splits keep ~16 or ~24 bits, and only the order
-of the f32 sums differs). The CUDA kernels are held against the plain
+bf16x3, delta f32 and plain f32, 2e-5 of each output's largest entry,
+that file's f32 and bf16x3 rule (the splits keep ~16 or ~24 bits, and
+only the order of the f32 sums differs). The loglik kernel rounds nothing
+to bf16 after its rotation, so both its tiers are held to 2e-5 too
+(LL_TOL): only the order of the f32 sums differs. The CUDA kernels are held against the plain
 version on the card by tests/test_torch_stream_tc_cuda.py and
 chip_smoke.py.
 """
@@ -131,15 +142,19 @@ def _emulate(m_new, x, density, need_h, need_ysq, m_old=None, tier=None):
     products per group. Delta mode at ``tier="f32"``: the same with hi /
     mid / lo splits, six products per 16-deep step in a fresh sum (the
     rotation's k steps, the contraction's column steps), and f32 planes
-    of psi and Y (psi' and Y^2) that the contraction splits. Zeros at
-    padded rows and columns, psi' masked there."""
+    of psi and Y (psi' and Y^2) that the contraction splits. Plain mode at
+    ``tier="f32"`` (``m_old`` None, f32 X): one such rotation of M_new,
+    the plain density's row sums and the same f32 planes. Zeros at padded
+    rows and columns, psi' masked there."""
     n, t = x.shape
     delta = m_old is not None
     tier = tier or ("bf16x3" if delta else "bf16")
     plan = K.stream_tc_plan(n, t, need_h, tier)
     cols = plan.cols_per_group
-    if tier == "f32":
+    if tier == "f32" and delta:
         w = _padded_planes([*K._split3_bf16(m_old), *K._split3_bf16(m_new - m_old)], plan.n_pad)
+    elif tier == "f32":
+        w = _padded_planes(K._split3_bf16(m_new), plan.n_pad)
     elif delta:
         w = _padded_planes([*K._split_bf16(m_old), *K._split_bf16(m_new - m_old)], plan.n_pad)
     else:
@@ -154,8 +169,9 @@ def _emulate(m_new, x, density, need_h, need_ysq, m_old=None, tier=None):
         valid = live & (torch.arange(c0, c1) < t)[None]
         if tier == "f32":
             x_parts = K._split3_bf16(xc)  # one split shared by both rotations
-            y_old = _x6_rotate(w[:3], x_parts)
-            dy = _x6_rotate(w[3:], x_parts)
+            y_old = _x6_rotate(w[:3], x_parts)  # plain mode: Y
+            if delta:
+                dy = _x6_rotate(w[3:], x_parts)
         elif delta:
             x_pair = K._split_bf16(xc)  # one split shared by both rotations
             y_old = _x3((w[0], w[1]), x_pair)
@@ -167,10 +183,14 @@ def _emulate(m_new, x, density, need_h, need_ysq, m_old=None, tier=None):
             psi, psid = density.score_and_der(y)
             split = (lambda v: (v,)) if tier == "f32" else K._split_bf16  # noqa: E731
         else:
-            y = w[0] @ xc  # products of bf16 values are exact in f32
+            # bf16: products of bf16 values are exact in f32
+            y = y_old if tier == "f32" else w[0] @ xc
             psi, psid, ll = density.score_der_loglik(y)
             pm_el, dysq = psid, y * y
-            split = lambda v: (K._bf16(v),)  # noqa: E731
+            if tier == "f32":
+                split = lambda v: (v,)  # noqa: E731
+            else:
+                split = lambda v: (K._bf16(v),)  # noqa: E731
         ll = torch.where(valid, ll, 0.0)
         pm_el = torch.where(valid, pm_el, 0.0)
         psid = torch.where(valid, psid, 0.0)
@@ -184,7 +204,7 @@ def _emulate(m_new, x, density, need_h, need_ysq, m_old=None, tier=None):
             if tier == "f32":
                 return _x6_contract(a[0][:n, s], b[0][:n, s])
             a, b = [u[:n, s] for u in a], [u[:n, s].T for u in b]
-            return _x3(a, b) if delta else a[0] @ b[0]
+            return _x3(a, b) if delta else a[0] @ b[0]  # bf16x3 or bf16
 
         for g in range(g1 - g0):
             s = slice(g * cols, (g + 1) * cols)
@@ -397,16 +417,21 @@ def test_cpu_wrapper_runs_the_plain_version_in_delta_f32():
 
 def test_tc_route_takes_delta_f32_on_f32_x():
     """The routes of the tensor-core kernels, by (mode, tier, X dtype):
-    delta f32 on f32 X is one of them; plain f32 and delta f32 on bf16 X
-    (which runs the bf16 tier) are not."""
+    delta f32 and plain f32 on f32 X are two of them; delta f32 on bf16 X
+    (which runs the bf16 tier), delta bf16 on f32 X (a
+    kernel_precision="bf16" fit), plain bf16 on f32 X and plain bf16x3
+    are not."""
     x32 = torch.zeros((80, 8))
     x16 = x32.to(torch.bfloat16)
     assert K._tc_route(x32, "f32", False)
     assert K._tc_route(x32, "bf16x3", False)
     assert K._tc_route(x16, "bf16", True)
-    assert not K._tc_route(x32, "f32", True)
+    assert K._tc_route(x32, "f32", True)
     assert not K._tc_route(x16, K._tiers(x16, "f32")[0], False)
     assert not K._tc_route(x32, "bf16", False)
+    assert not K._tc_route(x32, "bf16", True)
+    assert not K._tc_route(x32, "bf16x3", True)
+    assert not K._tc_route(x16, "bf16x3", True)
 
 
 def test_cpu_wrapper_runs_the_plain_version():
@@ -506,3 +531,283 @@ def test_plan_of_the_staged_fit_delta_stage():
     under the 2 GB cap."""
     plan = K.stream_tc_plan(256, 2_000_000, False, "bf16x3")
     assert plan == K.StreamTcPlan(256, 4096, 489, 256, 2 * 1024**3)
+
+
+# ---------------------------------------------------------------------------
+# Plain mode at the f32 tier on f32 X (the moments hand-off at f32).
+# ---------------------------------------------------------------------------
+
+# One 128-row block with padded rows, two, and three
+# with one live row in the last; ragged T.
+WIDE_SHAPES = [(65, 777), (130, 2049), (257, 1031)]
+
+
+def _jax_plain_f32(m_new, x, dens, need_h, need_ysq):
+    m = jnp.asarray(m_new)
+    return pk.streaming_fused_sums(m, m, jnp.asarray(x), DENS[dens][0], need_h, need_ysq,
+                                   interpret=True, precision="f32", absolute_ll=True)
+
+
+@pytest.mark.parametrize("dens", list(DENS))
+@pytest.mark.parametrize("n,t", WIDE_SHAPES)
+def test_emulated_plain_f32_route_matches_jax_and_plain(n, t, dens):
+    m_new, x = _inputs(n, t, n + t + 1)
+    tm, tx = torch.from_numpy(m_new), torch.from_numpy(x)
+    tden = DENS[dens][1]
+    got = _emulate(tm, tx, tden, True, True, tier="f32")
+    _check(_jax_plain_f32(m_new, x, dens, True, True), got, F32_TOL)
+    _check(K.streaming_fused_sums_plain(tm, tm, tx, tden, True, True, "f32", True), got,
+           F32_TOL)
+
+
+@pytest.mark.parametrize("need_ysq", [False, True], ids=["no-ysq", "ysq"])
+@pytest.mark.parametrize("need_h", [False, True], ids=["no-h", "h"])
+def test_emulated_plain_f32_route_flags(need_h, need_ysq):
+    m_new, x = _inputs(80, 1001, 7)
+    tm, tx = torch.from_numpy(m_new), torch.from_numpy(x)
+    got = _emulate(tm, tx, td.Tanh(), need_h, need_ysq, tier="f32")
+    _check(_jax_plain_f32(m_new, x, "tanh", need_h, need_ysq), got, F32_TOL)
+    if not need_h:
+        assert not got[4].any()
+    if not need_ysq:
+        assert not got[1].any() and not got[5].any()
+    else:
+        assert torch.equal(got[1], got[5])  # plain mode: dysq = ysq = sum Y^2
+
+
+@pytest.mark.parametrize("need_h", [False, True], ids=["no-h", "h"])
+def test_emulated_plain_f32_route_in_chunks(monkeypatch, need_h):
+    """Groups of 128 columns and a workspace of two groups of f32 planes:
+    2,049 columns in 17 groups run as 9 chunks, and give the unchunked
+    sums."""
+    m_new, x = _inputs(80, 2049, 8)
+    tm, tx = torch.from_numpy(m_new), torch.from_numpy(x)
+    monkeypatch.setattr(K, "STREAM_TC_GROUP_COLS", 128)
+    whole = _emulate(tm, tx, td.Exp(0.5), need_h, True, tier="f32")
+    monkeypatch.setattr(K, "STREAM_TC_WORKSPACE_MAX", 2 * 128 * 2 * (1 + need_h) * 128 * 4)
+    plan = K.stream_tc_plan(80, 2049, need_h, "f32")
+    assert (plan.cols_per_group, plan.n_parts, plan.groups_per_chunk) == (128, 17, 2)
+    chunked = _emulate(tm, tx, td.Exp(0.5), need_h, True, tier="f32")
+    _check(whole, chunked, 1e-6)
+    _check(_jax_plain_f32(m_new, x, "exp0.5", need_h, True), chunked, F32_TOL)
+
+
+def test_cpu_wrapper_runs_the_plain_version_in_plain_f32():
+    """Plain f32 on a CPU tensor of f32 X (the moments hand-off) runs the
+    plain version and launches nothing."""
+    m_new, x = _inputs(80, 1001, 9)
+    tm, tx = torch.from_numpy(m_new), torch.from_numpy(x)
+    K.reset_launch_counts()
+    out = K.rotated_moments_sums(tm, tx, td.Tanh(), True, True)
+    ref = K.streaming_fused_sums_plain(tm, tm, tx, td.Tanh(), True, True, "f32", True)[2:]
+    assert all(torch.equal(a, b) for a, b in zip(out, ref))
+    assert K.streaming_fused_sums.launches == 0
+    assert K.streaming_fused_sums.launches_by_route == {"scalar": 0, "tc": 0}
+
+
+# ---------------------------------------------------------------------------
+# The loglik kernel (kernel 9) on the route: bf16 X and f32 X.
+# ---------------------------------------------------------------------------
+
+LL_TOL = 2e-5
+
+
+def _emulate_loglik(m, x, density, need_ysq):
+    """The loglik kernel in torch, on the CPU: the ``planes=False`` plan's
+    groups; Y = bf16(M) X on bf16 X (exact bf16 products, f32 sums) or,
+    on f32 X, the f32 tier's rotation (hi / mid / lo of M and X, six
+    products a 16-deep k step in a fresh sum); log_lik(Y) masked at
+    padded rows and at columns >= T (log_lik(0) != 0), and Y^2; row sums
+    per group, the groups folded pairwise."""
+    n, t = x.shape
+    tier = "bf16" if x.dtype == torch.bfloat16 else "f32"
+    plan = K.stream_tc_plan(n, t, False, tier, planes=False)
+    assert plan.ws_bytes == 0 and plan.groups_per_chunk == plan.n_parts
+    cols, width = plan.cols_per_group, plan.n_parts * plan.cols_per_group
+    xc = torch.nn.functional.pad(x.float(), (0, width - t))
+    if tier == "f32":
+        y = _x6_rotate(_padded_planes(K._split3_bf16(m), plan.n_pad), K._split3_bf16(xc))
+    else:
+        y = _padded_planes([K._bf16(m.float())], plan.n_pad)[0] @ xc
+    valid = (torch.arange(plan.n_pad) < n)[:, None] & (torch.arange(width) < t)[None]
+    ll = torch.where(valid, density.log_lik(y), 0.0)
+    assert not y[~valid].any()  # zeros past n and t: Y^2 needs no mask
+
+    def folded(v):
+        return fold_pairwise(v[:n].reshape(n, plan.n_parts, cols).sum(dim=2).T)
+
+    return folded(ll), folded(y * y) if need_ysq else torch.zeros(n)
+
+
+def _jax_loglik(m, x, dens, need_ysq, bf16_x):
+    xj = jnp.asarray(x).astype(jnp.bfloat16) if bf16_x else jnp.asarray(x)
+    return pk.streaming_loglik_sums(jnp.asarray(m), xj, DENS[dens][0], need_ysq,
+                                    interpret=True)
+
+
+def _loglik_case(n, t, seed, bf16_x):
+    m, x = _inputs(n, t, seed)
+    tx = torch.from_numpy(x)
+    return m, x, torch.from_numpy(m), tx.to(torch.bfloat16) if bf16_x else tx
+
+
+@pytest.mark.parametrize("bf16_x", [False, True], ids=["f32x", "bf16x"])
+@pytest.mark.parametrize("dens", list(DENS))
+@pytest.mark.parametrize("n,t", WIDE_SHAPES)
+def test_emulated_loglik_matches_jax_and_plain(n, t, dens, bf16_x):
+    m, x, tm, tx = _loglik_case(n, t, n + t + 2, bf16_x)
+    tden = DENS[dens][1]
+    got = _emulate_loglik(tm, tx, tden, True)
+    _check(_jax_loglik(m, x, dens, True, bf16_x), got, LL_TOL)
+    _check(K.streaming_loglik_sums_plain(tm, tx, tden, True), got, LL_TOL)
+
+
+@pytest.mark.parametrize("bf16_x", [False, True], ids=["f32x", "bf16x"])
+@pytest.mark.parametrize("need_ysq", [False, True], ids=["no-ysq", "ysq"])
+def test_emulated_loglik_flags(need_ysq, bf16_x):
+    m, x, tm, tx = _loglik_case(80, 1001, 10, bf16_x)
+    got = _emulate_loglik(tm, tx, td.Tanh(), need_ysq)
+    _check(_jax_loglik(m, x, "tanh", need_ysq, bf16_x), got, LL_TOL)
+    if not need_ysq:
+        assert not got[1].any()
+
+
+@pytest.mark.parametrize("bf16_x", [False, True], ids=["f32x", "bf16x"])
+def test_emulated_loglik_at_the_group_cap(monkeypatch, bf16_x):
+    """A launch takes at most 65,535 groups: with a cap of 5, 2,049 columns
+    go to 5 groups of 512 instead of 17 of 128, and give the same sums."""
+    m, x, tm, tx = _loglik_case(80, 2049, 11, bf16_x)
+    monkeypatch.setattr(K, "STREAM_TC_LOGLIK_COLS", 128)
+    narrow = _emulate_loglik(tm, tx, td.Cube(), True)
+    assert K.stream_tc_plan(80, 2049, False, planes=False).n_parts == 17
+    monkeypatch.setattr(K, "_MAX_GRID_Y", 5)
+    plan = K.stream_tc_plan(80, 2049, False, planes=False)
+    assert (plan.cols_per_group, plan.n_parts, plan.groups_per_chunk) == (512, 5, 5)
+    capped = _emulate_loglik(tm, tx, td.Cube(), True)
+    _check(narrow, capped, 1e-6)
+    _check(_jax_loglik(m, x, "cube", True, bf16_x), capped, LL_TOL)
+
+
+LOGLIK_PLAN_CASES = [  # (n, t)
+    (65, 1), (65, 127), (128, 1024), (129, 1025), (256, 2_000_000), (306, 1_000_003),
+    (1024, 200_000), (1344, 30_000_000), (1344, 100_000_000), (700, 9_999_999),
+]
+
+
+@pytest.mark.parametrize("n,t", LOGLIK_PLAN_CASES)
+def test_loglik_plan_invariants(n, t):
+    """The loglik kernel's partition: whole tiles covering T once, groups
+    of at least STREAM_TC_LOGLIK_COLS columns where T allows, at most
+    65,535 of them in the one launch, and no workspace."""
+    plan = K.stream_tc_plan(n, t, False, "f32", planes=False)
+    tile = K.STREAM_TC_TILE
+    assert plan.n_pad % tile == 0 and n <= plan.n_pad < n + tile
+    assert plan.cols_per_group % tile == 0
+    assert (plan.n_parts - 1) * plan.cols_per_group < t <= plan.n_parts * plan.cols_per_group
+    assert 1 <= plan.n_parts == plan.groups_per_chunk <= 65535
+    assert plan.ws_bytes == 0
+    assert plan.cols_per_group >= min(K.STREAM_TC_LOGLIK_COLS, -(-t // tile) * tile)
+    assert plan == K.stream_tc_plan(n, t, True, "bf16", planes=False)  # H and the tier: no say
+
+
+def test_loglik_plan_of_the_fits():
+    """256 x 2,000,000 (phases 5 and 5c) in 1,954 groups of 1,024 columns,
+    1024 x 200,000 in 196."""
+    assert K.stream_tc_plan(256, 2_000_000, False, planes=False) == K.StreamTcPlan(
+        256, 1024, 1954, 1954, 0)
+    assert K.stream_tc_plan(1024, 200_000, False, planes=False) == K.StreamTcPlan(
+        1024, 1024, 196, 196, 0)
+
+
+def test_cpu_loglik_wrapper_runs_the_plain_version():
+    """On CPU tensors of either dtype the loglik wrapper runs the plain
+    version and launches nothing."""
+    K.reset_launch_counts()
+    for bf16_x in (False, True):
+        _, _, tm, tx = _loglik_case(80, 1001, 12, bf16_x)
+        out = K.streaming_loglik_sums(tm, tx, td.Tanh(), True)
+        ref = K.streaming_loglik_sums_plain(tm, tx, td.Tanh(), True)
+        assert all(torch.equal(a, b) for a, b in zip(out, ref))
+    assert K.streaming_loglik_sums.launches == 0
+    assert K.streaming_loglik_sums.launches_by_tier == {"bf16": 0, "f32": 0}
+
+
+class _Recorder:
+    """Stands in for the kernels' library and ``_run``: records each C
+    entry's name and arguments, launches nothing."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __getattr__(self, name):
+        def entry(*args):
+            return 0
+        entry.__name__ = name
+        return entry
+
+    def run(self, entry, *args, device):
+        self.calls.append((entry.__name__, args))
+
+
+@pytest.fixture
+def recorder(monkeypatch):
+    rec = _Recorder()
+    monkeypatch.setattr(K, "_lib", lambda: rec)
+    monkeypatch.setattr(K, "_run", rec.run)
+    planes = []
+    real = K._tc_weights
+
+    def spy(p, n, n_pad, device):
+        planes.append([v.to(torch.float32) for v in p])
+        return real(p, n, n_pad, device)
+
+    monkeypatch.setattr(K, "_tc_weights", spy)
+    rec.planes = planes
+    return rec
+
+
+def _meta(v):
+    return v.to("meta")
+
+
+@pytest.mark.parametrize("bf16_x", [False, True], ids=["f32x", "bf16x"])
+def test_loglik_wrapper_routes_both_dtypes(recorder, bf16_x):
+    """A non-CPU tensor of either dtype takes the route's loglik entry: the
+    bf16 tier on bf16 X with M rounded to bf16 (one plane), the f32 tier
+    on f32 X with M's hi / mid / lo (three planes), the ``planes=False``
+    plan's groups, one launch counted by tier; then the fold."""
+    n, t = 257, 3000
+    _, _, tm, tx = _loglik_case(n, t, 13, bf16_x)
+    K.reset_launch_counts()
+    ll, ysq = K.streaming_loglik_sums(_meta(tm), _meta(tx), td.Exp(0.5), True)
+    assert ll.shape == ysq.shape == (n,)
+    tier = "bf16" if bf16_x else "f32"
+    plan = K.stream_tc_plan(n, t, False, tier, planes=False)
+    (name, args), (fold, _) = recorder.calls
+    assert name == "picard_streaming_loglik_tc" and fold == "picard_fold_pairwise"
+    assert args[:8] == (K._TIERS[tier], 1, 1, 0.5, n, t, plan.cols_per_group, plan.n_parts)
+    assert K.streaming_loglik_sums.launches == 1
+    assert K.streaming_loglik_sums.launches_by_tier == {"bf16": int(bf16_x), "f32": int(not bf16_x)}
+    (planes,) = recorder.planes  # meta tensors hold no values: their count and shapes
+    assert len(planes) == (1 if bf16_x else 3)
+    assert all(p.shape == (n, n) for p in planes)
+
+
+def test_plain_f32_wrapper_takes_the_route(recorder):
+    """Plain f32 on a non-CPU f32 tensor (the moments hand-off) takes the
+    tensor-core entry in plain mode (delta = 0) at the f32 tier with M_new's
+    three planes and the f32 plan, counted on the route."""
+    n, t = 130, 5000
+    m_new, x = _inputs(n, t, 14)
+    tm = _meta(torch.from_numpy(m_new))
+    K.reset_launch_counts()
+    out = K.rotated_moments_sums(tm, _meta(torch.from_numpy(x)), td.Tanh(), True, True)
+    assert [tuple(v.shape) for v in out] == [(n, n), (n,), (n, n), (n,)]
+    plan = K.stream_tc_plan(n, t, True, "f32")
+    (name, args), (fold, _) = recorder.calls
+    assert name == "picard_streaming_fused_tc" and fold == "picard_fold_pairwise"
+    assert args[:2] == (0, K._TIERS["f32"])
+    assert args[7:11] == (t, plan.cols_per_group, plan.n_parts, plan.groups_per_chunk)
+    assert len(recorder.planes[0]) == 3
+    assert K.streaming_fused_sums.launches_by_tier["tc"]["f32"] == 1
+    assert K.streaming_fused_sums.launches_by_route == {"scalar": 0, "tc": 1}

@@ -1,10 +1,12 @@
-"""The tensor-core route of streaming_fused_sums against its plain version.
+"""The tensor-core route of streaming_fused_sums and streaming_loglik_sums
+against their plain versions.
 
 The route (``csrc/streaming_fused_tc.cu``) serves, at 64 < N <=
-STREAM_MAX_N, the plain mode at the bf16 tier on bf16 X and the delta
-mode at the bf16x3 and the f32 tier on f32 X: a rotation-and-density
-launch into a workspace of psi / Y planes, then a contraction launch.
-Needs an NVIDIA GPU
+STREAM_MAX_N, the plain mode at the bf16 tier on bf16 X and at the f32
+tier on f32 X, and the delta mode at the bf16x3 and the f32 tier on f32
+X: a rotation-and-density launch into a workspace of psi / Y planes, then
+a contraction launch; and the loglik kernel, the rotation launch alone
+with a log-lik epilogue, on bf16 X and on f32 X. Needs an NVIDIA GPU
 (Hopper, sm_90a): every test here is marked ``cuda`` and skips without
 one. Imports no JAX:
 
@@ -31,12 +33,18 @@ operands equal bit for bit to the plain version's) may be DRIFT_FACTOR
 times the plain version's, plus DRIFT_FLOOR of the output's largest
 entry.
 
-Delta f32 on f32 X (six bf16 products of three-way splits): RTOL_F32 =
-2e-5 of each output's largest entry against the exact-f32 plain version,
-the f32 rule of tests/test_torch_streaming.py. Its drift (dysq and ysq,
-and G) is held against f64 sums of the f32 operands themselves, within
-DRIFT_FACTOR of the plain version's error plus DRIFT_FLOOR of the
-output's largest entry.
+Delta f32 and plain f32 on f32 X (six bf16 products of three-way
+splits): RTOL_F32 = 2e-5 of each output's largest entry against the
+exact-f32 plain version, the f32 rule of tests/test_torch_streaming.py.
+Their drift (dysq and ysq, and G) is held against f64 sums of the f32
+operands themselves, within DRIFT_FACTOR of the plain version's error
+plus DRIFT_FLOOR of the output's largest entry.
+
+The loglik kernel: RTOL_F32 at both tiers (it rounds nothing to bf16
+after its rotation, so only the order of the f32 sums differs); at the
+f32 tier its ll and ysq drift against f64 sums of the f32 operands under
+the same DRIFT_FACTOR rule (ll is the loss baseline the line search
+compares against).
 """
 
 import numpy as np
@@ -176,7 +184,7 @@ SCALAR_ROUTES = [
     ("delta bf16, bf16 X", "bf16", False, True),
     ("delta bf16x3, bf16 X", "bf16x3", False, True),
     ("plain bf16x3, bf16 X", "bf16x3", True, True),
-    ("plain f32", "f32", True, False),
+    ("delta bf16, f32 X", "bf16", False, False),
     ("plain bf16, f32 X", "bf16", True, False),
     ("plain bf16x3", "bf16x3", True, False),
 ]
@@ -401,8 +409,7 @@ def test_stream_tc_f32_chunks_match_plain(dev, monkeypatch, need_h):
 def test_rotated_hand_off_takes_the_f32_route(dev):
     """rotated_fused_sums above N = 64, delta f32 on f32 X (the staged
     schedule's last stage, and every pass of an f32-only fit): the
-    tensor-core route at f32. The moments hand-off (plain f32) stays on
-    the scalar kernel."""
+    tensor-core route at f32. So does the moments hand-off (plain f32)."""
     x, m_old, m_new = _inputs(dev, 130, 5000, 15, torch.float32)
     args = (m_new, m_old, x, Tanh(), False, True, "f32", False)
     K.reset_launch_counts()
@@ -412,7 +419,8 @@ def test_rotated_hand_off_takes_the_f32_route(dev):
     _close(out, K.rotated_fused_sums_plain(*args), RTOL_F32)
     K.reset_launch_counts()
     mom = K.rotated_moments_sums(m_old, x, Tanh(), False, True)
-    assert K.streaming_fused_sums.launches_by_route == {"scalar": 1, "tc": 0}
+    assert K.streaming_fused_sums.launches_by_route == {"scalar": 0, "tc": 1}
+    assert K.streaming_fused_sums.launches_by_tier["tc"]["f32"] == 1
     _close(mom, K.rotated_moments_sums_plain(m_old, x, Tanh(), False, True), RTOL_F32)
 
 
@@ -451,3 +459,193 @@ def test_stream_tc_f32_g_drift_against_f64(dev):
     g_p = K.streaming_fused_sums_plain(*args)[2]
     g_64 = (x * x * x).double() @ x.double().T
     _drift(g_k, g_p, g_64)
+
+
+# ---------------------------------------------------------------------------
+# Plain mode at the f32 tier on f32 X (the moments hand-off at f32).
+# ---------------------------------------------------------------------------
+
+WIDE_N = [65, 127, 129, 704, 1344]
+
+
+def _plain_f32_args(dev, n, t, seed, density=Tanh(), need_h=True, need_ysq=True):
+    x, m_old, _ = _inputs(dev, n, t, seed, torch.float32)
+    return (m_old, m_old, x, density, need_h, need_ysq, "f32", True)
+
+
+@pytest.mark.parametrize("flags", [(False, False), (True, True)], ids=["min", "h+ysq"])
+@pytest.mark.parametrize("t", [1, 31, 4100, 20_001])
+@pytest.mark.parametrize("n", WIDE_N)
+def test_stream_tc_plain_f32_shapes_match_plain(dev, n, t, flags):
+    """Plain f32 at the edges of the 128-row blocks and the 32-deep k
+    stages, ragged T (T % 8 != 0; 4-byte copies where T % 4 != 0), with
+    and without H and the Y^2 sums."""
+    args = _plain_f32_args(dev, n, t, n + t + 20, need_h=flags[0], need_ysq=flags[1])
+    out = _run_tc(args)
+    _close(out, K.streaming_fused_sums_plain(*args), RTOL_F32)
+    if flags[1]:
+        assert torch.equal(out[1], out[5])  # dysq = ysq = sum Y^2
+
+
+@pytest.mark.parametrize("density", DENSITIES, ids=str)
+@pytest.mark.parametrize("need_ysq", [False, True], ids=["no-ysq", "ysq"])
+@pytest.mark.parametrize("need_h", [False, True], ids=["no-h", "h"])
+def test_stream_tc_plain_f32_flags_and_densities_match_plain(dev, need_h, need_ysq, density):
+    """Ragged N and T (T % 8 == 4: 16-byte copies of f32 rows)."""
+    args = _plain_f32_args(dev, 257, 10_004, 21, density, need_h, need_ysq)
+    out = _run_tc(args)
+    _close(out, K.streaming_fused_sums_plain(*args), RTOL_F32)
+    if not need_h:
+        assert not out[4].any()
+    if not need_ysq:
+        assert not out[1].any() and not out[5].any()
+
+
+@pytest.mark.parametrize("need_h", [False, True], ids=["no-h", "h"])
+def test_stream_tc_plain_f32_unaligned_and_chunked_match_plain(dev, monkeypatch, need_h):
+    """1,000,003 columns (4-byte copies of f32 rows), then a workspace cap
+    of two groups of f32 planes: 20,001 columns in 20 groups of 1,024 run
+    as 10 chunks of both launches."""
+    args = _plain_f32_args(dev, 257, 1_000_003, 22, need_h=need_h)
+    _close(_run_tc(args), K.streaming_fused_sums_plain(*args), RTOL_F32)
+    monkeypatch.setattr(K, "STREAM_TC_GROUP_COLS", 1024)
+    n, t = 257, 20_001
+    monkeypatch.setattr(K, "STREAM_TC_WORKSPACE_MAX", 2 * 1024 * 2 * (1 + need_h) * 384 * 4)
+    plan = K.stream_tc_plan(n, t, need_h, "f32")
+    assert (plan.cols_per_group, plan.n_parts, plan.groups_per_chunk) == (1024, 20, 2)
+    args = _plain_f32_args(dev, n, t, 23, need_h=need_h)
+    _close(_run_tc(args), K.streaming_fused_sums_plain(*args), RTOL_F32)
+
+
+def test_stream_tc_plain_f32_rotation_drift_against_f64(dev):
+    """The plain f32 rotation at 1024 x 200,000, K 1024 deep: ysq = sum Y^2
+    against the same sum in f64 of the f32 operands (M and X), within
+    DRIFT_FACTOR of the exact-f32 plain version's error."""
+    args = _plain_f32_args(dev, 1024, 200_000, 24, need_h=False)
+    m, x = args[0], args[2]
+    out_k = _run_tc(args)
+    out_p = K.streaming_fused_sums_plain(*args)
+    y = m.double() @ x.double()
+    ysq = (y * y).sum(dim=1)
+    del y
+    _drift(out_k[5], out_p[5], ysq)
+
+
+def test_stream_tc_plain_f32_g_drift_against_f64(dev):
+    """The plain f32 route's contraction at 1024 x 200,000: M = I and the
+    cube density, so Y = X exactly and psi = X^3 in f32; G's error against
+    f64 sums of those f32 operands within DRIFT_FACTOR of the exact-f32
+    plain version's."""
+    n, t = 1024, 200_000
+    x, _, _ = _inputs(dev, n, t, 25, torch.float32)
+    eye = torch.eye(n, device=dev)
+    args = (eye, eye, x, Cube(), False, False, "f32", True)
+    g_k = _run_tc(args)[2]
+    g_p = K.streaming_fused_sums_plain(*args)[2]
+    _drift(g_k, g_p, (x * x * x).double() @ x.double().T)
+
+
+# ---------------------------------------------------------------------------
+# The loglik kernel on the route, bf16 X and f32 X.
+# ---------------------------------------------------------------------------
+
+
+def _run_loglik(args):
+    K.reset_launch_counts()
+    out = K.streaming_loglik_sums(*args)
+    tier = "bf16" if args[1].dtype == torch.bfloat16 else "f32"
+    assert K.streaming_loglik_sums.launches == 1
+    assert K.streaming_loglik_sums.launches_by_tier == {
+        "bf16": int(tier == "bf16"), "f32": int(tier == "f32")}
+    return out
+
+
+def _loglik_args(dev, n, t, seed, bf16_x, density=Tanh(), need_ysq=True):
+    x, m_old, _ = _inputs(dev, n, t, seed, torch.bfloat16 if bf16_x else torch.float32)
+    return (m_old, x, density, need_ysq)
+
+
+@pytest.mark.parametrize("need_ysq", [False, True], ids=["no-ysq", "ysq"])
+@pytest.mark.parametrize("bf16_x", [False, True], ids=["f32x", "bf16x"])
+@pytest.mark.parametrize("t", [1, 31, 4100, 20_001])
+@pytest.mark.parametrize("n", WIDE_N)
+def test_stream_loglik_tc_shapes_match_plain(dev, n, t, bf16_x, need_ysq):
+    """The loglik kernel at the edges of the 128-row blocks and the k
+    stages (64-deep on bf16 X, 32-deep on f32 X) and ragged T, masked at
+    columns >= T (log_lik(0) != 0)."""
+    args = _loglik_args(dev, n, t, n + t + 30, bf16_x, need_ysq=need_ysq)
+    out = _run_loglik(args)
+    _close(out, K.streaming_loglik_sums_plain(*args), RTOL_F32)
+    if not need_ysq:
+        assert not out[1].any()
+
+
+@pytest.mark.parametrize("density", DENSITIES, ids=str)
+@pytest.mark.parametrize("bf16_x", [False, True], ids=["f32x", "bf16x"])
+def test_stream_loglik_tc_densities_match_plain(dev, bf16_x, density):
+    args = _loglik_args(dev, 257, 10_004, 31, bf16_x, density)
+    _close(_run_loglik(args), K.streaming_loglik_sums_plain(*args), RTOL_F32)
+
+
+@pytest.mark.parametrize("bf16_x", [False, True], ids=["f32x", "bf16x"])
+def test_stream_loglik_tc_unaligned_and_narrow_groups_match_plain(dev, monkeypatch, bf16_x):
+    """1,000,003 columns (rows not 16-byte aligned: plain loads of bf16,
+    4-byte copies of f32), then groups of one 128-column tile (7,813
+    groups in the one launch)."""
+    args = _loglik_args(dev, 1024, 1_000_003, 32, bf16_x)
+    _close(_run_loglik(args), K.streaming_loglik_sums_plain(*args), RTOL_F32)
+    monkeypatch.setattr(K, "STREAM_TC_LOGLIK_COLS", 128)
+    assert K.stream_tc_plan(129, 1_000_003, False, planes=False).n_parts == 7813
+    args = _loglik_args(dev, 129, 1_000_003, 33, bf16_x)
+    _close(_run_loglik(args), K.streaming_loglik_sums_plain(*args), RTOL_F32)
+
+
+def test_rotated_loglik_hand_off_takes_the_route(dev):
+    """rotated_loglik_sums above N = 64 (the loss re-baselines): the
+    route's loglik kernel on either X dtype."""
+    for bf16_x in (False, True):
+        args = _loglik_args(dev, 130, 5000, 34, bf16_x)
+        K.reset_launch_counts()
+        out = K.rotated_loglik_sums(*args)
+        tier = "bf16" if bf16_x else "f32"
+        assert K.streaming_loglik_sums.launches_by_tier[tier] == 1
+        assert K.rotated_loglik_sums.launches == 0
+        _close(out, K.rotated_loglik_sums_plain(*args), RTOL_F32)
+
+
+def test_stream_loglik_tc_drift_against_f64(dev):
+    """The loglik kernel's f32 tier at 1024 x 200,000, K 1024 deep: ll and
+    ysq against the same sums in f64 of the f32 operands (M and X), within
+    DRIFT_FACTOR of the exact-f32 plain version's error (ll is the loss
+    baseline the line search compares against)."""
+    args = _loglik_args(dev, 1024, 200_000, 35, False)
+    m, x, density = args[:3]
+    out_k = _run_loglik(args)
+    out_p = K.streaming_loglik_sums_plain(*args)
+    y = m.double() @ x.double()
+    ll = density.log_lik(y).sum(dim=1)
+    ysq = (y * y).sum(dim=1)
+    del y
+    _drift(out_k[0], out_p[0], ll)
+    _drift(out_k[1], out_p[1], ysq)
+
+
+def test_staged_fit_makes_no_scalar_launch(dev):
+    """A default staged fit at N = 256 through the streaming kernels
+    (``use_kernels=True``): every fused pass on the tensor-core route, the
+    scalar kernel never launched, and every loglik launch on the route."""
+    from picard_ica_tpu_torch import Picard, PicardConfig
+    from picard_ica_tpu_torch.utils import generate_mixed_kurtosis_data
+
+    _, _, x = generate_mixed_kurtosis_data(256, 100_000, 2)
+    K.reset_launch_counts()
+    r = Picard.fit(x, PicardConfig(random_state=0, use_kernels=True))
+    route = K.streaming_fused_sums.launches_by_route
+    tiers = K.streaming_fused_sums.launches_by_tier["tc"]
+    print(f"iterations {r.n_iterations}, stage exits {r.stage_exits}, fused {tiers}, "
+          f"loglik {K.streaming_loglik_sums.launches_by_tier}")
+    assert bool(torch.isfinite(r.unmixing).all())
+    assert route["scalar"] == 0 and route["tc"] == K.streaming_fused_sums.launches > 0
+    assert tiers["bf16"] > 0
+    assert K.streaming_loglik_sums.launches == sum(
+        K.streaming_loglik_sums.launches_by_tier.values())
