@@ -12,12 +12,13 @@ prints no result line):
      N = 64, T = 2,000,000, for every mode and tier the main path runs
      plus one case with the H / Y^2 outputs on per kernel, and time both
      with CUDA events (one call at a time, median of 10 after warm-up;
-     the kernel also 10 calls back to back); the fused pass's tiers, all
-     on the tensor cores, also at ragged shapes (N = 17 and 63, T =
-     1,000,003). An f32 case is held to an f64 evaluation of the same
-     sums as well, and prints both errors against f64, the kernel's and
-     the exact-f32 plain version's, beside the error against the plain
-     version;
+     the kernel also 10 calls back to back); the resident core kernels,
+     all on the tensor cores (the fused pass's tiers, the moments on f32
+     and bf16 X, the log-lik on f32 and bf16 X), also at ragged shapes
+     (N = 17 and 63, T = 1,000,003). An f32 case is held to an f64
+     evaluation of the same sums as well, and prints both errors against
+     f64, the kernel's and the exact-f32 plain version's, beside the
+     error against the plain version;
      The whitening kernels are held the same way: ``row_sums``,
      ``centered_covariance_sums`` and ``covariance_sums`` at 64 x
      4,000,000, ``_grouped_covariance`` (centered and not) at 600 x
@@ -250,9 +251,10 @@ _BF16_PASSES = {"bf16": 1, "bf16x3": 3, "bf16x6": 6}
 def _core_fmas(name, args, tensor_cores=True):
     """(f32 FMAs, bf16 products) a core kernel's call needs: N^2 per
     column for each rotation and each contraction it computes, tripled
-    at the bf16x3 tier. The fused pass runs every tier on the tensor
-    cores, and so does the streaming fused kernel's route of delta f32 on
-    f32 X: their f32 tier as six bf16 products ("bf16x6"); with
+    at the bf16x3 tier. The resident kernels (the fused pass, the moments
+    and the log-lik) run every tier on the tensor cores, and so do the
+    streaming fused kernel's route and the streaming log-lik kernel:
+    their f32 tier as six bf16 products ("bf16x6"); with
     ``tensor_cores=False`` that tier counts as f32 FMAs, the scalar
     kernel's work. The density's elementwise work is not counted."""
     import torch
@@ -271,11 +273,12 @@ def _core_fmas(name, args, tensor_cores=True):
             work = [("bf16x6" if tier == "f32" else tier, k) for tier, k in work]
     elif name == "rotated_moments_sums":
         _, x, _, need_h, _ = args
-        work = [("bf16" if x.dtype == torch.bfloat16 else "f32", 1), ("f32", 1 + need_h)]
-    else:  # the loglik kernels: one rotation, on the tensor cores above N = 64
+        con = "bf16x6" if tensor_cores else "f32"
+        work = [("bf16" if x.dtype == torch.bfloat16 else con, 1), (con, 1 + need_h)]
+    else:  # the loglik kernels: one rotation
         x = args[1]
         tier = "bf16" if x.dtype == torch.bfloat16 else "f32"
-        if tier == "f32" and name == "streaming_loglik_sums" and tensor_cores:
+        if tier == "f32" and tensor_cores:
             tier = "bf16x6"
         work = [(tier, 1)]
     n, t = x.shape
@@ -356,6 +359,8 @@ def phase2_kernels():
          lambda m1, m0, xx: (m1, xx, d, False, False), x),
         (moments, "f32, H+ysq", "f32",
          lambda m1, m0, xx: (m1, xx, d, True, True), x),
+        (moments, "bf16 X", "bf16",
+         lambda m1, m0, xx: (m1, xx, d, False, False), x16),
         (loglik, "f32", "f32",
          lambda m1, m0, xx: (m1, xx, d, False), x),
         (loglik, "f32, ysq", "f32",
@@ -375,25 +380,35 @@ def phase2_kernels():
     del x, x16
     torch.cuda.empty_cache()
 
-    # The tensor-core kernel's five tier pairs at ragged shapes: N past
-    # and short of a 16-row tile, T past a 64-column sub-tile, rows not
-    # 16-byte aligned.
+    # The tensor-core kernel's tier pairs and modes at ragged shapes: N
+    # past and short of a 16-row tile, T past a 64-column sub-tile, rows
+    # not 16-byte aligned.
     def f(precision, absolute_ll, flags=False):
         return lambda m1, m0, xx: (m1, m0, xx, d, flags, flags, precision, absolute_ll)
+
+    def mom(flags=False):
+        return lambda m1, m0, xx: (m1, xx, d, flags, flags)
+
+    def ll(need_ysq):
+        return lambda m1, m0, xx: (m1, xx, d, need_ysq)
 
     for n in (17, 63):
         xr, m_old_r, m_new_r = _stream_inputs(n, T_RAGGED, n)
         xr16 = xr.to(torch.bfloat16)
-        for label, tier, make, xx in [
-            ("plain bf16, bf16 X", "bf16", f("bf16", True), xr16),
-            ("delta bf16x3", "bf16x3", f("bf16x3", False), xr),
-            ("delta bf16x3, bf16 X, H+ysq", "bf16x3", f("bf16x3", False, True), xr16),
-            ("delta bf16, f32 X", "bf16", f("bf16", False), xr),
-            ("delta f32", "f32", f("f32", False), xr),
-            ("delta f32, H+ysq", "f32", f("f32", False, True), xr),
+        for kern, label, tier, make, xx in [
+            (fused, "plain bf16, bf16 X", "bf16", f("bf16", True), xr16),
+            (fused, "delta bf16x3", "bf16x3", f("bf16x3", False), xr),
+            (fused, "delta bf16x3, bf16 X, H+ysq", "bf16x3", f("bf16x3", False, True), xr16),
+            (fused, "delta bf16, f32 X", "bf16", f("bf16", False), xr),
+            (fused, "delta f32", "f32", f("f32", False), xr),
+            (fused, "delta f32, H+ysq", "f32", f("f32", False, True), xr),
+            (moments, "f32", "f32", mom(), xr),
+            (moments, "f32, H+ysq", "f32", mom(True), xr),
+            (moments, "bf16 X, H+ysq", "bf16", mom(True), xr16),
+            (loglik, "f32, ysq", "f32", ll(True), xr),
+            (loglik, "bf16 X", "bf16", ll(False), xr16),
         ]:
-            _hold(rows, fused, K.rotated_fused_sums_plain, label, tier, make, m_new_r,
-                  m_old_r, xx)
+            _hold(rows, kern, plain_of[kern], label, tier, make, m_new_r, m_old_r, xx)
         del xr, xr16
         torch.cuda.empty_cache()
     return rows
@@ -1114,7 +1129,6 @@ def phase5b_exhibit():
     return launches
 
 
-_CORE_SOURCE = "picard_ica_tpu_torch/csrc/rotated_sums.cu"
 _TC_SOURCE = "picard_ica_tpu_torch/csrc/rotated_fused_tc.cu"
 _STATS_SOURCE = "picard_ica_tpu_torch/csrc/covariance_sums.cu"
 _STREAM_SOURCE = "picard_ica_tpu_torch/csrc/streaming_sums.cu"
@@ -1124,8 +1138,8 @@ _PALLAS = "picard_ica_tpu/ops/pallas_kernels.py"
 # phase-2 case (label, or label and shape) whose numbers head the entry)
 _KERNELS = {
     "rotated_fused_sums": (_TC_SOURCE, 922, "delta f32"),
-    "rotated_moments_sums": (_CORE_SOURCE, 366, "f32"),
-    "rotated_loglik_sums": (_CORE_SOURCE, 702, "f32"),
+    "rotated_moments_sums": (_TC_SOURCE, 366, "f32"),
+    "rotated_loglik_sums": (_TC_SOURCE, 702, "f32"),
     "row_sums": (_STATS_SOURCE, 422, "f32"),
     "centered_covariance_sums": (_STATS_SOURCE, 635, "f32"),
     "covariance_sums": (_STATS_SOURCE, 598, "f32"),

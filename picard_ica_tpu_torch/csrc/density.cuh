@@ -1,6 +1,6 @@
-// Device functions shared by the core-loop kernels (rotated_sums.cu and
-// streaming_sums.cu): the dot-product tiers and the f32 density formulas
-// of picard_ica_tpu/ops/densities.py.
+// Device functions shared by the core-loop kernels (rotated_fused_tc.cu,
+// streaming_sums.cu and streaming_fused_tc.cu): the dot-product tiers and
+// the f32 density formulas of picard_ica_tpu/ops/densities.py.
 //
 // Tiers (scalar arithmetic): F32 = exact f32 FMAs; BF16 = both operands
 // rounded to bf16 (__float2bfloat16_rn), f32 accumulation; BF16X3 = the

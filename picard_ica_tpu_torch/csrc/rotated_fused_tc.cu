@@ -1,10 +1,22 @@
-// Hand-written Hopper (sm_90a) kernel for every tier of
-// picard_rotated_fused_sums (rotated_sums.cu checks the shape and hands
-// over). It replaces picard_ica_tpu/ops/pallas_kernels.py
-// rotated_fused_sums / _rotated_fused_kernel, which runs its tiers on the
-// TPU's matrix unit: one line-search try (the loss delta or absolute
-// log-lik of M_new X, and the candidate's G, sum psi', H, sum Y^2) in ONE
-// read of X.
+// Hand-written Hopper (sm_90a) kernel for the three data passes of the
+// Picard-O core loop at N <= 64, and their C entries. One tensor-core
+// kernel in four modes serves them all:
+//
+//   picard_rotated_fused_sums   replaces picard_ica_tpu/ops/pallas_kernels.py
+//                               rotated_fused_sums / _rotated_fused_kernel:
+//                               one line-search try (the loss delta or the
+//                               absolute log-lik of M_new X, and the
+//                               candidate's G, sum psi', H, sum Y^2) in ONE
+//                               read of X; MODE_DELTA and MODE_PLAIN;
+//   picard_rotated_moments_sums replaces rotated_moments_sums /
+//                               _rotated_moments_kernel (G, sum psi', H,
+//                               sum Y^2 of Y = W X); MODE_MOMENTS, the
+//                               plain mode without the log-lik;
+//   picard_rotated_loglik_sums  replaces rotated_loglik_sums /
+//                               _rotated_loglik_kernel (sum log_lik(M X),
+//                               sum (M X)^2 per row); MODE_LOGLIK, the
+//                               rotation and a log-lik epilogue, no
+//                               contraction.
 //
 // What bounds it on the card, at N = 64 and 2M columns: the tiers are
 // exact bf16 products with f32 sums, so the products belong on the tensor
@@ -13,8 +25,11 @@
 // ms), against 256 bytes of f32 X a column (0.15 ms of HBM): products.
 // Delta bf16x3: 3 products each, 37 K FMAs (0.15 ms): at the ridge. Plain
 // bf16 on bf16 X: 8 K FMAs against 128 bytes (0.03 / 0.08 ms): bytes.
-// Beside them, 1.3e8 density evaluations (tanh / exp / log1p on the FP32
-// pipes and the SFU) that no tensor core lifts.
+// The moments on f32 X: 1 rotation + 1 contraction at 6 products (0.20
+// ms): products; the log-lik on f32 X: 1 rotation at 6 (0.10 ms) against
+// 0.15 ms of HBM: bytes, and on bf16 X 0.08 ms of HBM. Beside them, 1.3e8
+// density evaluations (tanh / exp / log1p on the FP32 pipes and the SFU)
+// that no tensor core lifts.
 //
 // What the design does about it.
 //   * Rotation and contraction on mma.sync m16n8k16 bf16 (mma_tiers.cuh):
@@ -38,6 +53,12 @@
 //     splits psi and Y elementwise and sums each 16-column step's six
 //     products (small first, hi*hi last) in a fresh accumulator that is
 //     added to G in f32, to nearest.
+//   * The tier pairs (rotation, contraction) of the TPU kernels: the fused
+//     pass's (bf16, bf16) on f32 or bf16 X, (bf16x3, bf16x3) and (f32,
+//     f32) on f32 X, (bf16, bf16x3) on bf16 X; the moments' (f32, f32) on
+//     f32 X and (bf16, f32) on bf16 X (the single-pass bf16 rotation of
+//     w.astype(x.dtype), contractions at HIGHEST); the log-lik's f32 on
+//     f32 X and bf16 on bf16 X.
 //   * X comes through a 2-stage cp.async ring (16-byte copies where every
 //     row is 16-byte aligned, else 4-byte ones; bf16 X with unaligned rows
 //     takes plain loads), zero-filled past N and T, so the next sub-tile
@@ -52,21 +73,30 @@
 //     go to shared memory as bf16 part tiles, Y into the ring stage whose
 //     X was just consumed; the contraction G += psi Y^T reads them with
 //     ldmatrix, and each warp holds its 16 x 32 share of G (and H) in
-//     registers across the block's columns.
+//     registers across the block's columns. The log-lik mode stores no
+//     tile and has no contraction: one barrier a sub-tile (three at the
+//     f32 tier), against three (five) in the other modes.
 //   * 8 warps a block, 2 blocks an SM (1 with H at bf16x3, whose tiles
-//     take 96 KB besides the ring, and at f32, 198 KB). The f32 tier
-//     without H (the main path's final stage) takes 32-column sub-tiles
-//     with 16 rows a warp in the rotation: its three tiles an operand then
+//     take 96 KB besides the ring, and with H at an f32 contraction, 198
+//     KB). An f32 contraction without H (the main path's final stage and
+//     its moments) takes 32-column sub-tiles with 16 rows a warp in the
+//     rotation, and so does the f32 log-lik: three tiles an operand then
 //     take 103 KB and 128 registers, so two blocks, 16 warps, share an SM
-//     and one's density runs while another's products do. Three barriers
-//     a sub-tile (five at the f32 tier, whose split of X takes two).
+//     and one's density runs while another's products do. The log-lik
+//     mode's blocks take 62 KB at the f32 tier and 31 KB at bf16, so 3
+//     and 4 of them share an SM.
 //   * Tiles of 16 rows past N are skipped; padded rows and columns are
 //     zeros, and psi', log_lik (nonzero at 0) are masked at padded columns.
-//     The f32 tier runs all 64 rows, so that its loops unroll and its
+//     The f32 rotation runs all 64 rows, so that its loops unroll and its
 //     independent MMA chains interleave.
 //
-// One partial per COLS columns (as the scalar kernels), written at
-// out + block * stride, so the caller can fold all outputs in one pass.
+// One partial per COLS columns, written at out + block * stride (the
+// outputs side by side in one buffer), so the caller can fold all
+// outputs in one pass. No float atomics.
+//
+// Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3
+//        -shared -Xcompiler -fPIC (picard_ica_tpu_torch/ops/_build.py).
+// Every C entry returns cudaGetLastError() (0 on success).
 
 #include <cuda_runtime.h>
 
@@ -79,6 +109,7 @@ namespace {
 
 constexpr int NMAX = 64;
 constexpr int COLS = 2048;        // columns per partial (COLS_PER_BLOCK)
+constexpr int GROUP_COLS = 256;   // columns of a group of the moments' G sums
 constexpr int WARPS = 8;
 constexpr int THREADS = 32 * WARPS;
 constexpr int LDB = 72;           // row stride (elements) of a W tile: 144 B
@@ -87,11 +118,17 @@ constexpr int STAGES = 2;                 // X sub-tiles in the cp.async ring
 constexpr int SM_SMEM = 233472;           // shared memory of an SM for its blocks
 constexpr int BLOCK_RESERVED = 1024;      // kept by the system per block
 
+// What a launch computes (the table of the header).
+enum Mode { MODE_DELTA = 0, MODE_PLAIN = 1, MODE_MOMENTS = 2, MODE_LOGLIK = 3 };
+
+__host__ __device__ constexpr bool contracts(int mode) { return mode != MODE_LOGLIK; }
+
 // The rotation's warp shape: RG row groups of 64 / RG rows (MI 16-row
 // m-tiles) x CGS column groups of 16 columns. 2 row groups over 64-column
-// sub-tiles; the f32 tier without H takes 4 row groups over 32-column
-// sub-tiles, whose tiles are half as wide, so that two blocks (16 warps)
-// share an SM.
+// sub-tiles; an f32 contraction without H takes 4 row groups over
+// 32-column sub-tiles, whose tiles are half as wide, so that two blocks
+// (16 warps) share an SM. The log-lik mode, which has no contraction,
+// takes the shape of its rotation tier (CT = ROT).
 template <int CT, bool NEED_H>
 struct Shape {
   static constexpr int RG = CT == F32 && !NEED_H ? 4 : 2;
@@ -107,9 +144,12 @@ struct Shape {
                 "the row grids of W and dm, and the column maxima of X, fit the row-sum space");
 };
 
-// Blocks an SM: 2, but 1 with H at the f32 tier and at bf16x3 (three
-// tiles, or pairs of tiles, for each of psi, psi', Y, Y^2).
-constexpr int blocks_per_sm(bool need_h, int ct) {
+// Blocks an SM: 2, but 1 with H at an f32 or bf16x3 contraction (three
+// tiles, or pairs of tiles, for each of psi, psi', Y, Y^2). The log-lik
+// mode, whose blocks hold no contraction's tiles, takes 3 at the f32
+// tier and 4 at bf16 (in turns on an H100, 9 % and 13 % faster than 2).
+constexpr int blocks_per_sm(int mode, bool need_h, int ct) {
+  if (!contracts(mode)) return ct == BF16 ? 4 : 3;
   return need_h && ct != BF16 ? 1 : 2;
 }
 
@@ -118,7 +158,7 @@ struct TcParams {
   long long t;
   int need_ysq, vec;
   float a, m2a, mha;  // the density's constants, as in density.cuh
-  const float* w;     // (n, n): M_old in delta mode, M_new in plain mode
+  const float* w;     // (n, n): M_old in delta mode, else M_new (W)
   const float* dm;    // (n, n): M_new - M_old (delta mode)
   const void* x;      // (n, t) f32 or bf16, row-major
   float *ll, *dysq, *g, *pm, *h, *ysq;  // partial b at + b * stride
@@ -126,22 +166,28 @@ struct TcParams {
 };
 
 // ROT, CT: the tiers (density.cuh) of the rotation and the contraction;
-// an operand at a tier is parts(tier) bf16 tiles.
-template <bool DELTA, int ROT, int CT, bool XB, bool NEED_H>
+// an operand at a tier is parts(tier) bf16 tiles. The psi space holds the
+// psi (psi', Y^2) tiles, and at the f32 rotation tier the split of X
+// before them; the log-lik mode stores no other tile.
+template <int MODE, int ROT, int CT, bool XB, bool NEED_H>
 struct TcLayout {
   using Sh = Shape<CT, NEED_H>;
   static_assert(!(XB && ROT != BF16), "bf16 X rotates at the bf16 tier");
-  static constexpr int W_TILES = (DELTA ? 2 : 1) * parts(ROT);
+  static_assert(contracts(MODE) || (CT == ROT && !NEED_H),
+                "the log-lik mode takes its rotation tier's shape and no H");
+  static constexpr int W_TILES = (MODE == MODE_DELTA ? 2 : 1) * parts(ROT);
   static constexpr int CT_TILES = parts(CT);
   static constexpr int T_BYTES = Sh::TILE * 2;
   static constexpr int X_BYTES = XB ? T_BYTES : NMAX * Sh::LDX * 4;
-  static constexpr int Y_BYTES = CT_TILES * T_BYTES;
+  static constexpr int Y_BYTES = contracts(MODE) ? CT_TILES * T_BYTES : 0;
   static constexpr int STAGE = X_BYTES > Y_BYTES ? X_BYTES : Y_BYTES;
   static constexpr int RING = W_TILES * TILE_W * 2;
   static constexpr int PSI = RING + STAGES * STAGE;
-  static constexpr int RED = PSI + (NEED_H ? 3 : 1) * CT_TILES * T_BYTES;
+  static constexpr int PSI_TILES = contracts(MODE) ? (NEED_H ? 3 : 1) * CT_TILES * T_BYTES : 0;
+  static constexpr int X_PARTS = ROT == F32 ? 3 * T_BYTES : 0;
+  static constexpr int RED = PSI + (PSI_TILES > X_PARTS ? PSI_TILES : X_PARTS);
   static constexpr int BYTES = RED + Sh::RED_FLOATS * 4;
-  static_assert(blocks_per_sm(NEED_H, CT) * (BYTES + BLOCK_RESERVED) <= SM_SMEM,
+  static_assert(blocks_per_sm(MODE, NEED_H, CT) * (BYTES + BLOCK_RESERVED) <= SM_SMEM,
                 "the blocks an SM fit its shared memory");
 };
 
@@ -270,11 +316,14 @@ __device__ __forceinline__ void split_x_parts(const float* xs, __nv_bfloat16* xp
 // (MI 16-row m-tiles) and sub-tile columns 16 (w % CGS) .. + 15 (two
 // 8-column n-tiles); in the contraction, rows 16 (w % 4) .. + 15 of G and
 // columns 32 (w / 4) .. + 31 (four n-tiles).
-template <bool DELTA, int ROT, int CT, bool XB, int D, bool NEED_H>
-__global__ void __launch_bounds__(THREADS, blocks_per_sm(NEED_H, CT))
+template <int MODE, int ROT, int CT, bool XB, int D, bool NEED_H>
+__global__ void __launch_bounds__(THREADS, blocks_per_sm(MODE, NEED_H, CT))
     rotated_fused_tc_kernel(TcParams p) {
-  using L = TcLayout<DELTA, ROT, CT, XB, NEED_H>;
+  using L = TcLayout<MODE, ROT, CT, XB, NEED_H>;
   using Sh = Shape<CT, NEED_H>;
+  constexpr bool DELTA = MODE == MODE_DELTA, CONTRACT = contracts(MODE);
+  constexpr bool LL = MODE != MODE_MOMENTS;       // log-lik row sums
+  constexpr bool FUSED = MODE <= MODE_PLAIN;      // the dysq output
   constexpr int S = STAGES, BT = Sh::BT, CGS = Sh::CGS, MI = Sh::MI;
   constexpr int LDT = Sh::LDT, TILE = Sh::TILE, LDX = Sh::LDX;
   constexpr int RP = parts(ROT), CP = parts(CT);
@@ -338,6 +387,13 @@ __global__ void __launch_bounds__(THREADS, blocks_per_sm(NEED_H, CT))
   // Row sums over the block's columns: [m-tile][row g / g + 8].
   float rs_ll[MI][2] = {}, rs_pm[MI][2] = {}, rs_ysq[MI][2] = {}, rs_dysq[MI][2] = {};
   float g_acc[4][4] = {}, h_acc[4][4] = {};
+  // The moments mode sums G (H) in two levels: each 16-column step into a
+  // group's sum (g_grp), each group of GROUP_COLS columns into G; 8 + 16
+  // rounded f32 adds a partial, not 128.
+  constexpr bool GROUPED = MODE == MODE_MOMENTS;
+  constexpr int GROUP_SUBS = GROUP_COLS / BT;  // sub-tiles a group
+  static_assert(GROUP_COLS % BT == 0 && COLS % GROUP_COLS == 0, "");
+  float g_grp[4][4] = {}, h_grp[4][4] = {};
 
   for (int s = 0; s < n_sub; ++s) {
     cp_async_wait<S - 2>();
@@ -417,7 +473,9 @@ __global__ void __launch_bounds__(THREADS, blocks_per_sm(NEED_H, CT))
         }
       }
     }
-    __syncthreads();  // every read of this stage's X is done
+    // The log-lik mode writes no tile, so the next sub-tile's first
+    // barrier is the only one it needs.
+    if constexpr (CONTRACT) __syncthreads();  // every read of this stage's X is done
 
     // Density on the fragments, masked row sums, and the bf16 tiles: Y
     // into this stage, psi (psi', Y^2) into theirs.
@@ -436,21 +494,27 @@ __global__ void __launch_bounds__(THREADS, blocks_per_sm(NEED_H, CT))
           for (int e = 0; e < 2; ++e) {
             const int f = 2 * hh + e;
             const bool valid = c0 + col + e < p.t;
-            float y, psi, psid, ll, dysq = 0.f;
+            float y, psi = 0.f, psid = 0.f, ll = 0.f, dysq = 0.f;
             // The f32 tier: the small products' sum, then hi*hi's.
             const float y0 = ROT == F32 ? accs[mi][nt][f] + acc[mi][nt][f] : acc[mi][nt][f];
-            if (DELTA) {
+            if constexpr (DELTA) {
               const float dy = ROT == F32 ? accds[mi][nt][f] + accd[mi][nt][f] : accd[mi][nt][f];
               y = y0 + dy;
               score_der_loglik_delta<D>(p, y0, dy, psi, psid, ll);
               dysq = (2.f * y0 + dy) * dy;
-            } else {
+            } else if constexpr (MODE == MODE_PLAIN) {
               y = y0;
               score_der_loglik<D>(p, y, psi, psid, ll);
+            } else if constexpr (MODE == MODE_MOMENTS) {
+              y = y0;
+              score_der<D>(p, y, psi, psid);
+            } else {
+              y = y0;
+              ll = log_lik<D>(p, y);
             }
             if (valid) {
-              rs_ll[mi][hh] += ll;
-              rs_pm[mi][hh] += psid;
+              if (LL) rs_ll[mi][hh] += ll;
+              if (CONTRACT) rs_pm[mi][hh] += psid;
               if (p.need_ysq) {
                 rs_ysq[mi][hh] += y * y;
                 if (DELTA) rs_dysq[mi][hh] += dysq;
@@ -460,24 +524,27 @@ __global__ void __launch_bounds__(THREADS, blocks_per_sm(NEED_H, CT))
             ps[e] = psi;  // psi(0) == 0 at padded columns
             pd[e] = valid ? psid : 0.f;
           }
-          const int off = row * LDT + col;
-          store_pair<CT, TILE>(y_s, off, yv[0], yv[1]);
-          store_pair<CT, TILE>(psi_s, off, ps[0], ps[1]);
-          if (NEED_H) {
-            store_pair<CT, TILE>(psid_s, off, pd[0], pd[1]);
-            store_pair<CT, TILE>(y2_s, off, yv[0] * yv[0], yv[1] * yv[1]);
+          if constexpr (CONTRACT) {
+            const int off = row * LDT + col;
+            store_pair<CT, TILE>(y_s, off, yv[0], yv[1]);
+            store_pair<CT, TILE>(psi_s, off, ps[0], ps[1]);
+            if (NEED_H) {
+              store_pair<CT, TILE>(psid_s, off, pd[0], pd[1]);
+              store_pair<CT, TILE>(y2_s, off, yv[0] * yv[0], yv[1] * yv[1]);
+            }
           }
         }
       }
     }
-    __syncthreads();  // the tiles are complete
+    if constexpr (CONTRACT) __syncthreads();  // the tiles are complete
 
     // Contraction: G += psi Y^T (H += psi' (Y^2)^T) over the sub-tile.
     // Every tier sums each 16-column step's six (three, one) products in a
     // fresh accumulator and adds it to G in f32, to nearest: a block's
     // 2,048 columns chained into G would be 384 MMAs at bf16x3 and 128 at
-    // bf16, each rounded toward zero.
-    if (16 * cm < nr) {
+    // bf16, each rounded toward zero. The moments mode adds it to its
+    // group's sum instead, and that to G at the group's end.
+    if (CONTRACT && 16 * cm < nr) {
 #pragma unroll
       for (int ks = 0; ks < BT / 16; ++ks) {
         const int a_off = 16 * cm * LDT + 16 * ks;
@@ -512,10 +579,24 @@ __global__ void __launch_bounds__(THREADS, blocks_per_sm(NEED_H, CT))
             }
           };
           load_b(y_s);
-          contract(g_acc, a);
+          contract(GROUPED ? g_grp : g_acc, a);
           if (NEED_H) {
             load_b(y2_s);
-            contract(h_acc, ad);
+            contract(GROUPED ? h_grp : h_acc, ad);
+          }
+        }
+      }
+      if (GROUPED && ((s + 1) % GROUP_SUBS == 0 || s + 1 == n_sub)) {
+#pragma unroll
+        for (int nt = 0; nt < 4; ++nt) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            g_acc[nt][e] += g_grp[nt][e];
+            g_grp[nt][e] = 0.f;
+            if (NEED_H) {
+              h_acc[nt][e] += h_grp[nt][e];
+              h_grp[nt][e] = 0.f;
+            }
           }
         }
       }
@@ -553,14 +634,14 @@ __global__ void __launch_bounds__(THREADS, blocks_per_sm(NEED_H, CT))
 #pragma unroll
       for (int c = 1; c < CGS; ++c) v[k] += r[c * NMAX];
     }
-    p.ll[base + tid] = v[0];
-    p.pm[base + tid] = v[1];
+    if (LL) p.ll[base + tid] = v[0];
+    if (CONTRACT) p.pm[base + tid] = v[1];
     if (p.need_ysq) {
       p.ysq[base + tid] = v[2];
-      p.dysq[base + tid] = DELTA ? v[3] : v[2];
+      if (FUSED) p.dysq[base + tid] = DELTA ? v[3] : v[2];
     }
   }
-  if (16 * cm < nr) {
+  if (CONTRACT && 16 * cm < nr) {
 #pragma unroll
     for (int nt = 0; nt < 4; ++nt) {
 #pragma unroll
@@ -577,10 +658,10 @@ __global__ void __launch_bounds__(THREADS, blocks_per_sm(NEED_H, CT))
 
 constexpr int MAX_DEVICES = 64;
 
-template <bool DELTA, int ROT, int CT, bool XB, int D, bool NEED_H>
+template <int MODE, int ROT, int CT, bool XB, int D, bool NEED_H>
 cudaError_t launch_tc(const TcParams& p, int nb, cudaStream_t st) {
-  constexpr int smem = TcLayout<DELTA, ROT, CT, XB, NEED_H>::BYTES;
-  auto kernel = rotated_fused_tc_kernel<DELTA, ROT, CT, XB, D, NEED_H>;
+  constexpr int smem = TcLayout<MODE, ROT, CT, XB, NEED_H>::BYTES;
+  auto kernel = rotated_fused_tc_kernel<MODE, ROT, CT, XB, D, NEED_H>;
   // The shared-memory opt-in, once per device.
   static bool opted_in[MAX_DEVICES] = {};
   int device = 0;
@@ -595,49 +676,42 @@ cudaError_t launch_tc(const TcParams& p, int nb, cudaStream_t st) {
   return cudaGetLastError();
 }
 
-template <bool DELTA, int ROT, int CT, bool XB, bool NEED_H>
+template <int MODE, int ROT, int CT, bool XB, bool NEED_H>
 cudaError_t by_density(int dens, const TcParams& p, int nb, cudaStream_t st) {
   switch (dens) {
-    case TANH: return launch_tc<DELTA, ROT, CT, XB, TANH, NEED_H>(p, nb, st);
-    case EXP: return launch_tc<DELTA, ROT, CT, XB, EXP, NEED_H>(p, nb, st);
-    case CUBE: return launch_tc<DELTA, ROT, CT, XB, CUBE, NEED_H>(p, nb, st);
+    case TANH: return launch_tc<MODE, ROT, CT, XB, TANH, NEED_H>(p, nb, st);
+    case EXP: return launch_tc<MODE, ROT, CT, XB, EXP, NEED_H>(p, nb, st);
+    case CUBE: return launch_tc<MODE, ROT, CT, XB, CUBE, NEED_H>(p, nb, st);
   }
   return cudaErrorInvalidValue;
 }
 
-template <bool DELTA, int ROT, int CT, bool XB>
+template <int MODE, int ROT, int CT, bool XB>
 cudaError_t by_h(int need_h, int dens, const TcParams& p, int nb, cudaStream_t st) {
-  return need_h ? by_density<DELTA, ROT, CT, XB, true>(dens, p, nb, st)
-                : by_density<DELTA, ROT, CT, XB, false>(dens, p, nb, st);
+  return need_h ? by_density<MODE, ROT, CT, XB, true>(dens, p, nb, st)
+                : by_density<MODE, ROT, CT, XB, false>(dens, p, nb, st);
 }
 
-// The tier pairs the wrapper sends: (BF16, BF16) on f32 or bf16 X,
-// (BF16X3, BF16X3) and (F32, F32) on f32 X, (BF16, BF16X3) on bf16 X.
-template <bool DELTA>
-cudaError_t by_tiers(int rot, int ct, int x_bf16, int need_h, int dens, const TcParams& p,
-                     int nb, cudaStream_t st) {
+// The fused pass's tier pairs: (BF16, BF16) on f32 or bf16 X, (BF16X3,
+// BF16X3) and (F32, F32) on f32 X, (BF16, BF16X3) on bf16 X.
+template <int MODE>
+cudaError_t fused_tiers(int rot, int ct, int x_bf16, int need_h, int dens, const TcParams& p,
+                        int nb, cudaStream_t st) {
   if (rot == BF16 && ct == BF16)
-    return x_bf16 ? by_h<DELTA, BF16, BF16, true>(need_h, dens, p, nb, st)
-                  : by_h<DELTA, BF16, BF16, false>(need_h, dens, p, nb, st);
+    return x_bf16 ? by_h<MODE, BF16, BF16, true>(need_h, dens, p, nb, st)
+                  : by_h<MODE, BF16, BF16, false>(need_h, dens, p, nb, st);
   if (rot == BF16X3 && ct == BF16X3 && !x_bf16)
-    return by_h<DELTA, BF16X3, BF16X3, false>(need_h, dens, p, nb, st);
+    return by_h<MODE, BF16X3, BF16X3, false>(need_h, dens, p, nb, st);
   if (rot == F32 && ct == F32 && !x_bf16)
-    return by_h<DELTA, F32, F32, false>(need_h, dens, p, nb, st);
+    return by_h<MODE, F32, F32, false>(need_h, dens, p, nb, st);
   if (rot == BF16 && ct == BF16X3 && x_bf16)
-    return by_h<DELTA, BF16, BF16X3, true>(need_h, dens, p, nb, st);
+    return by_h<MODE, BF16, BF16X3, true>(need_h, dens, p, nb, st);
   return cudaErrorInvalidValue;
 }
 
-}  // namespace
-
-// Called by picard_rotated_fused_sums (rotated_sums.cu) for every tier
-// pair; its arguments, already checked there.
-int rotated_fused_tc(int delta, int rot_tier, int ct_tier, int density, int need_h,
-                     int need_ysq, double alpha, int n, long long t, int x_bf16,
-                     const float* w, const float* dm, const void* x, float* dll,
-                     float* dysq, float* g, float* pm, float* h, float* ysq,
-                     long long stride, int nb, void* stream) {
-  TcParams p;
+TcParams make_params(int n, long long t, int need_ysq, int x_bf16, double alpha,
+                     const float* w, const void* x, long long stride) {
+  TcParams p = {};
   p.n = n;
   p.nr = (n + 15) / 16 * 16;
   p.t = t;
@@ -648,18 +722,89 @@ int rotated_fused_tc(int delta, int rot_tier, int ct_tier, int density, int need
   p.m2a = (float)(-2.0 * alpha);
   p.mha = (float)(-alpha / 2.0);
   p.w = w;
-  p.dm = dm;
   p.x = x;
+  p.stride = stride;
+  return p;
+}
+
+bool bad_shape(int n, long long t, int nb, long long stride) {
+  return n < 1 || n > NMAX || t < 1 || stride < 1 || (long long)nb != (t + COLS - 1) / COLS;
+}
+
+}  // namespace
+
+extern "C" {
+
+int picard_max_n() { return NMAX; }
+
+int picard_cols_per_block() { return COLS; }
+
+const char* picard_error_string(int code) { return cudaGetErrorString((cudaError_t)code); }
+
+// Fused line-search try. delta = 1: dll = sum [log_lik(M_new x) -
+// log_lik(M_old x)] (analytic form), dysq = sum (2 y_old + dy) dy, with w
+// = M_old and dm = M_new - M_old. delta = 0 (plain): dll = sum
+// log_lik(M_new x), dysq = sum (M_new x)^2, with w = M_new (dm unused).
+// Block b writes its partials at out + b * stride.
+int picard_rotated_fused_sums(int delta, int rot_tier, int ct_tier, int density, int need_h,
+                              int need_ysq, double alpha, int n, long long t, int x_bf16,
+                              const float* w, const float* dm, const void* x, float* dll,
+                              float* dysq, float* g, float* pm, float* h, float* ysq,
+                              long long stride, int nb, void* stream) {
+  if (bad_shape(n, t, nb, stride)) return (int)cudaErrorInvalidValue;
+  TcParams p = make_params(n, t, need_ysq, x_bf16, alpha, w, x, stride);
+  p.dm = dm;
   p.ll = dll;
   p.dysq = dysq;
   p.g = g;
   p.pm = pm;
   p.h = h;
   p.ysq = ysq;
-  p.stride = stride;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   cudaError_t e = delta
-      ? by_tiers<true>(rot_tier, ct_tier, x_bf16, need_h, density, p, nb, st)
-      : by_tiers<false>(rot_tier, ct_tier, x_bf16, need_h, density, p, nb, st);
+      ? fused_tiers<MODE_DELTA>(rot_tier, ct_tier, x_bf16, need_h, density, p, nb, st)
+      : fused_tiers<MODE_PLAIN>(rot_tier, ct_tier, x_bf16, need_h, density, p, nb, st);
   return (int)e;
 }
+
+// Moments of Y = W x: rot_tier F32 on f32 X, BF16 on bf16 X (W rounded
+// to bf16); the contractions at the f32 tier, as the TPU kernel's
+// HIGHEST dots.
+int picard_rotated_moments_sums(int rot_tier, int density, int need_h, int need_ysq,
+                                double alpha, int n, long long t, int x_bf16, const float* w,
+                                const void* x, float* g, float* pm, float* h, float* ysq,
+                                long long stride, int nb, void* stream) {
+  if (bad_shape(n, t, nb, stride)) return (int)cudaErrorInvalidValue;
+  TcParams p = make_params(n, t, need_ysq, x_bf16, alpha, w, x, stride);
+  p.g = g;
+  p.pm = pm;
+  p.h = h;
+  p.ysq = ysq;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  cudaError_t e = cudaErrorInvalidValue;
+  if (rot_tier == F32 && !x_bf16)
+    e = by_h<MODE_MOMENTS, F32, F32, false>(need_h, density, p, nb, st);
+  else if (rot_tier == BF16 && x_bf16)
+    e = by_h<MODE_MOMENTS, BF16, F32, true>(need_h, density, p, nb, st);
+  return (int)e;
+}
+
+// Row sums of log_lik(M x) and (optionally) (M x)^2: rot_tier F32 on
+// f32 X, BF16 on bf16 X.
+int picard_rotated_loglik_sums(int rot_tier, int density, int need_ysq, double alpha, int n,
+                               long long t, int x_bf16, const float* m, const void* x,
+                               float* ll, float* ysq, long long stride, int nb, void* stream) {
+  if (bad_shape(n, t, nb, stride)) return (int)cudaErrorInvalidValue;
+  TcParams p = make_params(n, t, need_ysq, x_bf16, alpha, m, x, stride);
+  p.ll = ll;
+  p.ysq = ysq;
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  cudaError_t e = cudaErrorInvalidValue;
+  if (rot_tier == F32 && !x_bf16)
+    e = by_density<MODE_LOGLIK, F32, F32, false, false>(density, p, nb, st);
+  else if (rot_tier == BF16 && x_bf16)
+    e = by_density<MODE_LOGLIK, BF16, BF16, true, false>(density, p, nb, st);
+  return (int)e;
+}
+
+}  // extern "C"

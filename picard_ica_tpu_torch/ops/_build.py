@@ -27,8 +27,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("rotated_sums.cu", "rotated_fused_tc.cu", "covariance_sums.cu",
-           "streaming_sums.cu", "streaming_fused_tc.cu")
+SOURCES = ("rotated_fused_tc.cu", "covariance_sums.cu", "streaming_sums.cu",
+           "streaming_fused_tc.cu")
 HEADERS = ("density.cuh", "mma_tiers.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -1,18 +1,21 @@
 """The data passes of a fit: CUDA kernels and plain versions.
 
 Counterpart of ``picard_ica_tpu/ops/pallas_kernels.py``: every kernel
-the JAX package writes in Pallas. The core loop up to N = 64
-(``csrc/rotated_fused_tc.cu`` and ``csrc/rotated_sums.cu``):
+the JAX package writes in Pallas. The core loop up to N = 64, one
+tensor-core kernel in four modes (``csrc/rotated_fused_tc.cu``), whose
+f32 tier is the TPU's ``Precision.HIGHEST``, six bf16 products of
+three-way splits, against the plain versions' exact f32 products:
 
   * :func:`rotated_fused_sums`   — one line-search try in one read of X
-    (replaces ``rotated_fused_sums``, pallas_kernels.py:838-955), every
-    tier on the tensor cores (``csrc/rotated_fused_tc.cu``): the f32
-    tier as the TPU's ``Precision.HIGHEST``, six bf16 products of
-    three-way splits, against the plain version's exact f32 products;
+    (replaces ``rotated_fused_sums``, pallas_kernels.py:838-955), its
+    delta and plain modes, every tier;
   * :func:`rotated_moments_sums` — moments of Y = W X at stage
-    boundaries (replaces ``rotated_moments_sums``, :306-395);
+    boundaries (replaces ``rotated_moments_sums``, :306-395), the plain
+    mode without the log-lik: on f32 X rotation and contractions at the
+    f32 tier, on bf16 X a bf16 rotation and f32 contractions;
   * :func:`rotated_loglik_sums`  — loss re-baselines (replaces
-    ``rotated_loglik_sums``, :674-719).
+    ``rotated_loglik_sums``, :674-719), the rotation (f32 tier on f32 X,
+    bf16 on bf16 X) and a log-lik epilogue, no contraction.
 
 The core loop above N = 64 (``csrc/streaming_sums.cu``), where W no
 longer fits whole in shared memory:
@@ -100,11 +103,11 @@ from .precision import _bf16, _dot_bf16x3_presplit, _kernel_dot, _split3_bf16, _
 _pad = torch.nn.functional.pad
 
 # The kernels' capacity in components: W and dm are staged whole in
-# shared memory and each thread's register tiles are sized for N <= 64
-# (csrc/rotated_sums.cu NMAX). A capacity, not a speed crossover.
+# shared memory and the warps' tiles are sized for N <= 64
+# (csrc/rotated_fused_tc.cu NMAX). A capacity, not a speed crossover.
 KERNEL_MAX_N = 64
-# Columns of X each CUDA block reduces into one partial (BT * SUBTILES
-# in csrc/rotated_sums.cu).
+# Columns of X each CUDA block reduces into one partial (COLS in
+# csrc/rotated_fused_tc.cu).
 COLS_PER_BLOCK = 2048
 # Columns of X per partial of the whitening kernels (CHUNK in
 # csrc/covariance_sums.cu); the plain versions chunk alike by default.

@@ -14,6 +14,9 @@ after, before; each turn measures, with ``chip_smoke.py``'s helpers:
     time (median of 10) and 10 calls back to back (median of 5); and
     delta f32 at ``chip_smoke.py``'s ragged shapes (17 and 63 rows,
     1,000,003 columns);
+  * ``rotated_moments_sums`` (kernel 2) on the same f32 X, without and
+    with H and Y^2, and ``rotated_loglik_sums`` (kernel 3) on f32 X and
+    on its bf16 copy, at 64 x 2,000,000, timed the same two ways;
   * ``streaming_fused_sums`` (``chip_smoke.py``'s unit-variance Laplace
     inputs) at 256 x 2,000,000 and 1024 x 200,000 in the cases of the
     default schedule's passes, plain mode at the bf16 tier on bf16 X,
@@ -36,10 +39,12 @@ four turns, also written to ``--out`` (default
 ``chiprun_out/turns.json``). Needs one CUDA card and nvcc.
 
 With ``--kernels-only`` the turns time the kernels alone, without the
-fits. With ``--large-n`` they take only the kernels (the
-``rotated_fused_sums`` cases at 64 x 2,000,000 and the streaming
-kernels' cases) and, unless ``--kernels-only`` is given too, phase 5's
-data fitted through the streaming kernels twice, at the default staged
+fits; with ``--core-only`` only the resident core kernels' cases at
+64 x 2,000,000 (kernel 1's three tiers, kernels 2 and 3). With
+``--large-n`` they take only the kernels (the ``rotated_fused_sums``,
+moments and log-lik cases at 64 x 2,000,000 and the streaming kernels'
+cases) and, unless ``--kernels-only`` is given too, phase 5's data
+fitted through the streaming kernels twice, at the default staged
 schedule and in the exact f32 tier (``kernel_precision="f32"``, phase
 5's fit): core seconds, iterations, stage exits, launches by route and
 tier.
@@ -83,6 +88,12 @@ CASES = [  # (label, precision, absolute_ll, bf16 X)
     ("delta bf16x3", "bf16x3", False, False),
     ("delta f32", "f32", False, False),
 ]
+CORE_CASES = [  # (label, wrapper, H and Y^2, bf16 X) of kernels 2 and 3
+    ("moments f32", "rotated_moments_sums", False, False),
+    ("moments f32, H+ysq", "rotated_moments_sums", True, False),
+    ("loglik f32", "rotated_loglik_sums", False, False),
+    ("loglik bf16 X", "rotated_loglik_sums", False, True),
+]
 RAGGED_F32_ROWS = (17, 63)
 # (N, T, seed of chip_smoke._stream_inputs) of the streaming fused
 # kernel's cases.
@@ -117,7 +128,8 @@ def _count_tiers(core, kernels):
     return by_tier
 
 
-def one_turn(tree: str, kernels_only: bool = False, large_n: bool = False) -> dict:
+def one_turn(tree: str, kernels_only: bool = False, large_n: bool = False,
+             core_only: bool = False) -> dict:
     import numpy as np
     import torch
 
@@ -152,8 +164,17 @@ def one_turn(tree: str, kernels_only: bool = False, large_n: bool = False) -> di
         turn["kernel"][label] = {"ms": ms, "ms_stream": ms_stream}
         sm._log(f"[{tree}] rotated_fused_sums [{label}] {sm.N} x {sm.T}: "
                 f"{sm._fmt_pair((ms, ms_stream))}")
-    del x, x16
+    for label, name, flags, bf16_x in CORE_CASES:
+        xx = x16 if bf16_x else x
+        kern = getattr(K, name)
+        args = (flags, flags) if name == "rotated_moments_sums" else (flags,)
+        ms, ms_stream = sm._time_both(lambda: kern(m_new, xx, Tanh(), *args))
+        turn["kernel"][label] = {"ms": ms, "ms_stream": ms_stream}
+        sm._log(f"[{tree}] {name} [{label}] {sm.N} x {sm.T}: {sm._fmt_pair((ms, ms_stream))}")
+    del x, x16, xx
     torch.cuda.empty_cache()
+    if core_only:
+        return turn
     if large_n:
         _stream_turn(sm, K, tree, turn)
         if not kernels_only:
@@ -393,6 +414,8 @@ def main(argv=None):
                     help="with --staged-fit, fit on the torch path")
     ap.add_argument("--f32", action="store_true",
                     help="with --staged-fit, fit in the exact f32 tier instead")
+    ap.add_argument("--core-only", action="store_true",
+                    help="turns of the resident core kernels' cases at 64 x 2M only")
     ap.add_argument("--large-n", action="store_true",
                     help="turns of the streaming fused kernel's cases and the staged fit only")
     args = ap.parse_args(argv)
@@ -406,7 +429,7 @@ def main(argv=None):
     if args.one:
         # Only the turn's tree provides the package, not this script's.
         sys.path[:] = [args.one] + [p for p in sys.path if p and Path(p).resolve() != HERE]
-        print(json.dumps(one_turn(args.one, args.kernels_only, args.large_n)))
+        print(json.dumps(one_turn(args.one, args.kernels_only, args.large_n, args.core_only)))
         return 0
     if len(args.trees) != 2:
         ap.error("give the BEFORE and AFTER directories")
@@ -417,7 +440,8 @@ def main(argv=None):
         env = dict(os.environ, PYTHONPATH=tree)
         proc = subprocess.run([sys.executable, __file__, "--one", tree]
                               + ["--kernels-only"] * args.kernels_only
-                              + ["--large-n"] * args.large_n, env=env,
+                              + ["--large-n"] * args.large_n
+                              + ["--core-only"] * args.core_only, env=env,
                               cwd=tree, capture_output=True, text=True)
         sys.stdout.write(proc.stdout.rsplit("\n", 2)[0] + "\n")
         if proc.returncode != 0:

@@ -16,6 +16,7 @@ the exact-f32 plain version to RTOL, and at the main path's width its
 error against f64 to F32_ERR_FACTOR times the plain version's.
 """
 
+import functools
 import math
 
 import numpy as np
@@ -332,26 +333,145 @@ def test_fused_launches_by_tier(dev):
     assert K.rotated_fused_sums.launches == 5
 
 
+# Kernels 2 and 3 (the moments and log-lik modes of the tensor-core
+# kernel): N short of, at and one past a 16-row tile and the full width;
+# T of one column, short of and one past a 2,048-column partial, and the
+# main path's length with a ragged tail. The aligned cases round T up to
+# a multiple of 8, so that every row is 16-byte aligned on both dtypes.
+CORE_NS = [1, 17, 33, 63, 64]
+CORE_TS = [1, 2047, 2049, 1_000_003]
+
+
+@functools.lru_cache(maxsize=2)
+def _core_inputs(n, t, seed):
+    """Unit-variance Laplace X (n, t) made on the card, and weights near
+    the identity whose rows keep unit scale (chip_smoke.py's inputs)."""
+    from picard_ica_tpu_torch.utils.datagen import laplace_sources_device
+
+    rng = np.random.default_rng(seed)
+    x = laplace_sources_device(n, t, seed, "cuda").mul_(float(1.0 / np.sqrt(2.0)))
+    w = np.eye(n) + 0.8 / np.sqrt(n) * rng.standard_normal((n, n))
+    return x, torch.from_numpy(w).float().cuda()
+
+
+def _core_x(n, t, aligned, bf16_x, seed):
+    if aligned:
+        t += -t % 8
+    x, w = _core_inputs(n, t, seed)
+    if bf16_x:
+        x = x.to(torch.bfloat16)
+    assert (t * x.element_size() % 16 == 0 and x.data_ptr() % 16 == 0) == aligned
+    return x, w
+
+
 @pytest.mark.parametrize("density", DENSITIES, ids=str)
 @pytest.mark.parametrize("flags", [(False, False), (True, True)], ids=["min", "h+ysq"])
 @pytest.mark.parametrize("bf16_x", [False, True], ids=["f32x", "bf16x"])
-def test_moments_matches_plain(dev, density, flags, bf16_x):
-    x, m_old, _ = _inputs(dev, 33, 2049, seed=2)
-    if bf16_x:
-        x = x.to(torch.bfloat16)
-    args = (m_old, x, density, *flags)
-    _close(K.rotated_moments_sums(*args), K.rotated_moments_sums_plain(*args))
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "unaligned"])
+@pytest.mark.parametrize("t", CORE_TS)
+@pytest.mark.parametrize("n", CORE_NS)
+def test_moments_matches_plain(dev, n, t, aligned, bf16_x, flags, density):
+    """Kernel 2 against the exact-f32 plain version: f32 contractions on
+    both dtypes, an f32 (bf16 X: bf16) rotation."""
+    x, w = _core_x(n, t, aligned, bf16_x, seed=2)
+    args = (w, x, density, *flags)
+    before = K.rotated_moments_sums.launches
+    out_k = K.rotated_moments_sums(*args)
+    assert K.rotated_moments_sums.launches == before + 1
+    _close(out_k, K.rotated_moments_sums_plain(*args))
 
 
 @pytest.mark.parametrize("density", DENSITIES, ids=str)
 @pytest.mark.parametrize("need_ysq", [False, True])
 @pytest.mark.parametrize("bf16_x", [False, True], ids=["f32x", "bf16x"])
-def test_loglik_matches_plain(dev, density, need_ysq, bf16_x):
-    x, m_old, _ = _inputs(dev, 64, 255, seed=3)
+@pytest.mark.parametrize("aligned", [True, False], ids=["aligned", "unaligned"])
+@pytest.mark.parametrize("t", CORE_TS)
+@pytest.mark.parametrize("n", CORE_NS)
+def test_loglik_matches_plain(dev, n, t, aligned, bf16_x, need_ysq, density):
+    """Kernel 3 against the exact-f32 plain version, log_lik(0) != 0
+    masked at the padded columns."""
+    x, w = _core_x(n, t, aligned, bf16_x, seed=3)
+    args = (w, x, density, need_ysq)
+    before = K.rotated_loglik_sums.launches
+    out_k = K.rotated_loglik_sums(*args)
+    assert K.rotated_loglik_sums.launches == before + 1
+    _close(out_k, K.rotated_loglik_sums_plain(*args))
+
+
+def _f64_operands(w, x):
+    """f64 copies of a core kernel's operands: bf16 X's weights rounded to
+    bf16 first, as the kernel and the plain version round them."""
+    if x.dtype == torch.bfloat16:
+        w = K._bf16(w)
+    return w.double(), x.double()
+
+
+@pytest.mark.parametrize("bf16_x", [False, True], ids=["f32x", "bf16x"])
+def test_moments_drift_against_f64(dev, bf16_x):
+    """Kernel 2 at the main path's width, 64 x 2,000,000 (128 16-column
+    steps a partial, 2M-column row sums): G, pm and ysq against f64 sums
+    of the same operands, within DRIFT_FACTOR of the plain version."""
+    x, _, w = _inputs(dev, 64, 2_000_000, seed=17)
     if bf16_x:
         x = x.to(torch.bfloat16)
-    args = (m_old, x, density, need_ysq)
-    _close(K.rotated_loglik_sums(*args), K.rotated_loglik_sums_plain(*args))
+    args = (w, x, Tanh(), False, True)
+    out_k = K.rotated_moments_sums(*args)
+    out_p = K.rotated_moments_sums_plain(*args)
+    ref = K.rotated_moments_sums_plain(*_f64_operands(w, x), Tanh(), False, True)
+    for i in (0, 1, 3):
+        _drift(out_k[i], out_p[i], ref[i])
+
+
+@pytest.mark.parametrize("bf16_x", [False, True], ids=["f32x", "bf16x"])
+def test_loglik_drift_against_f64(dev, bf16_x):
+    """Kernel 3 at 64 x 2,000,000: the ll and ysq row sums over 2,048
+    columns a partial against f64 sums of the same operands, within
+    DRIFT_FACTOR of the plain version."""
+    x, _, w = _inputs(dev, 64, 2_000_000, seed=18)
+    if bf16_x:
+        x = x.to(torch.bfloat16)
+    out_k = K.rotated_loglik_sums(w, x, Tanh(), True)
+    out_p = K.rotated_loglik_sums_plain(w, x, Tanh(), True)
+    ref = K.rotated_loglik_sums_plain(*_f64_operands(w, x), Tanh(), True)
+    for k, p, r in zip(out_k, out_p, ref):
+        _drift(k, p, r)
+
+
+# The tensor-core kernel's mode of each wrapper (csrc/rotated_fused_tc.cu
+# Mode), as the first template argument of its name.
+TC_MODES = {"moments": 2, "loglik": 3}
+
+
+@pytest.mark.parametrize("bf16_x", [False, True], ids=["f32x", "bf16x"])
+@pytest.mark.parametrize("wrapper", list(TC_MODES))
+def test_core_wrappers_launch_the_tensor_core_kernel(dev, wrapper, bf16_x):
+    """``torch.profiler`` sees the wrapper's call launch the mma.sync
+    kernel in its mode (and the fold), and the built library holds no
+    scalar resident kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from picard_ica_tpu_torch.ops import _build
+
+    x, m_old, _ = _inputs(dev, 40, 10_001, seed=19)
+    if bf16_x:
+        x = x.to(torch.bfloat16)
+    call = (lambda: K.rotated_moments_sums(m_old, x, Tanh(), True, True)) \
+        if wrapper == "moments" else (lambda: K.rotated_loglik_sums(m_old, x, Tanh(), True))
+    call()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        call()
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages() if e.device_time_total > 0]
+    mode = TC_MODES[wrapper]
+    tc = [k for k in names if f"rotated_fused_tc_kernel<{mode}," in k
+          or f"rotated_fused_tc_kernelILi{mode}E" in k]
+    assert len(tc) == 1, names
+    assert not any("rotated_sums_kernel" in k for k in names), names
+    lib = _build.library_path()
+    assert b"rotated_sums_kernel" not in lib.read_bytes()
+    assert not any("rotated_sums_kernel" in k[0]
+                   for ks in _build.resource_report().values() for k in ks)
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(dev):
