@@ -58,39 +58,41 @@ prints no result line):
   5c. phase 5's 256 x 2,000,000 tensor fitted with ``use_kernels=True`` at
      the default staged schedule: converged at tol 1e-7, Amari to the
      mixing and to phase 5's torch-path fit, the tensor-core route
-     launched at its four (mode, tier) pairs (the bf16 stage's plain
-     passes on bf16 X, the bf16x3 and f32 stages' delta passes on f32 X,
-     the plain moments at the bf16x3 and f32 stage boundaries), the
-     loglik kernel on the tensor cores (on the bf16 stage's bf16 X at
-     least), and the scalar kernel never; core seconds beside
-     phase 5's f32-only kernel fit;
-  5d. the same tensor fitted for 3 iterations with the tier pinned to
-     bf16 (``kernel_precision="bf16"``), the one fit that still reaches
-     the scalar streaming kernel (``csrc/streaming_sums.cu``: its tries,
-     delta bf16 on f32 X), which must launch there.
+     launched at its four (mode, tier) pairs of a default fit (the bf16
+     stage's plain passes on bf16 X, the bf16x3 and f32 stages' delta
+     passes on f32 X, the plain moments at the bf16x3 and f32 stage
+     boundaries) and the loglik kernel on the tensor cores (on the bf16
+     stage's bf16 X at least); core seconds beside phase 5's f32-only
+     kernel fit;
+  5d. the same tensor fitted with the tier pinned to bf16
+     (``kernel_precision="bf16"``), whose tries run delta bf16 on f32 X:
+     3 iterations, every try on the tensor-core route (as many delta bf16
+     launches as line-search passes), then a run to tol 1e-4 or 30
+     iterations, whichever comes first; Amari to the mixing and to phase
+     5's torch-path fit.
 
 Phase 2 also holds the streaming kernels against their plain versions:
-``streaming_fused_sums`` at 256 x 2,000,000 (every mode and tier the
-path runs), 306 x 1,000,003 and 1024 x 200,000, ``streaming_loglik_sums``
-at 256 x 2,000,000 and 1024 x 200,000 on both X dtypes. Its plain bf16
-cases on bf16 X and its delta bf16x3, delta f32 and plain f32 cases on
-f32 X run the tensor-core route, which must launch at that tier, and
-make a row each of their own in the ``kernels`` line
-(``streaming_fused_sums/tc``, launches counted in phase 5b;
-``streaming_fused_sums/tc_bf16x3``, launches counted in phase 5c;
-``streaming_fused_sums/tc_f32`` and ``streaming_fused_sums/tc_plain_f32``,
-launches counted in phase 5, their f32 cases held to f64 like every f32
-case); the scalar kernel's row keeps its delta bf16 case on f32 X (phase
-5d's passes). The loglik kernel runs on the tensor cores on both dtypes,
-a row each (``streaming_loglik_sums/tc_f32``, launches counted in phase
-5, held to f64; ``streaming_loglik_sums/tc_bf16``, launches counted in
-phase 5c).
+``streaming_fused_sums`` at 256 x 2,000,000 (every mode and tier a fit
+runs), 306 x 1,000,003 (delta f32, and the five pairs only a direct call
+takes) and 1024 x 200,000, ``streaming_loglik_sums`` at 256 x 2,000,000
+and 1024 x 200,000 on both X dtypes. Every case runs the tensor-core
+route, which must launch at its mode and tier. A row each in the
+``kernels`` line: ``streaming_fused_sums/tc`` (plain bf16 on bf16 X,
+launches counted in phase 5b), ``streaming_fused_sums/tc_bf16x3``
+(launches counted in phase 5c), ``streaming_fused_sums/tc_f32`` and
+``streaming_fused_sums/tc_plain_f32`` (launches counted in phase 5,
+their f32 cases held to f64 like every f32 case) and
+``streaming_fused_sums/tc_bf16`` (delta bf16 on f32 X, launches counted
+in phase 5d; the five direct-call pairs are its further cases). The
+loglik kernel runs on the tensor cores on both dtypes, a row each
+(``streaming_loglik_sums/tc_f32``, launches counted in phase 5, held to
+f64; ``streaming_loglik_sums/tc_bf16``, launches counted in phase 5c).
 
 The line before the last is a JSON object describing every kernel:
 launches on its path (phase 3 for the resident core kernels, phase 4
 for the whitening kernels, 4b for the grouped one, 5 for the streaming
 kernels' f32 routes, 5b and 5c for the bf16 and bf16x3 routes, 5d for
-the scalar streaming kernel; the fused pass's tensor-core kernel counts
+delta bf16 on f32 X; the fused pass's tensor-core kernel counts
 the launches of its three tiers in phase 4, ``launches_by_tier``), error
 against the plain version (and, for every f32 case, against f64), and
 the numbers of its headline case (``_KERNELS``): ``ms`` and ``plain_ms``
@@ -190,6 +192,8 @@ def phase1_build():
         if src in ("rotated_fused_tc.cu", "streaming_fused_tc.cu"):
             for name, r, st, ld in kernels:
                 _log(f"  {name}: {r} registers, spill stores {st} B, loads {ld} B")
+    if any("streaming_kernel" in k[0] for ks in _build.resource_report().values() for k in ks):
+        raise AssertionError("the library holds a scalar streaming kernel")
     return seconds
 
 
@@ -251,15 +255,11 @@ _BF16_PASSES = {"bf16": 1, "bf16x3": 3, "bf16x6": 6}
 def _core_fmas(name, args, tensor_cores=True):
     """(f32 FMAs, bf16 products) a core kernel's call needs: N^2 per
     column for each rotation and each contraction it computes, tripled
-    at the bf16x3 tier. The resident kernels (the fused pass, the moments
-    and the log-lik) run every tier on the tensor cores, and so do the
-    streaming fused kernel's route and the streaming log-lik kernel:
-    their f32 tier as six bf16 products ("bf16x6"); with
-    ``tensor_cores=False`` that tier counts as f32 FMAs, the scalar
+    at the bf16x3 tier. Every core kernel runs every tier on the tensor
+    cores, its f32 tier as six bf16 products ("bf16x6"); with
+    ``tensor_cores=False`` that tier counts as f32 FMAs, a scalar FP32
     kernel's work. The density's elementwise work is not counted."""
     import torch
-
-    from picard_ica_tpu_torch.ops import kernels as K
 
     if name.endswith("fused_sums"):
         _, _, x, _, need_h, _, precision, absolute_ll = args
@@ -268,8 +268,7 @@ def _core_fmas(name, args, tensor_cores=True):
         else:
             rot = con = precision
         work = [(rot, 1 if absolute_ll else 2), (con, 1 + need_h)]
-        on_tc = name == "rotated_fused_sums" or K._tc_route(x, con, absolute_ll)
-        if on_tc and tensor_cores:
+        if tensor_cores:
             work = [("bf16x6" if tier == "f32" else tier, k) for tier, k in work]
     elif name == "rotated_moments_sums":
         _, x, _, need_h, _ = args
@@ -454,7 +453,7 @@ def _hold(rows, kern, plain, label, tier, make, m_new, m_old, xx, key=None):
     bound_ms, bound_by = _bound(n_bytes, *_core_fmas(name, args))
     bound_fp32 = _bound(n_bytes, *_core_fmas(name, args, False))[0]
     if bound_fp32 != bound_ms:
-        # The tensor-core f32 tier: the scalar FP32 kernel's bound for the
+        # The tensor-core f32 tier: a scalar FP32 kernel's bound for the
         # same work, kept beside.
         extra["bound_fp32_ms"] = bound_fp32
         detail += f", FP32 bound {bound_fp32:.3f} ms"
@@ -515,54 +514,73 @@ def phase2_streaming_kernels():
     def ll(need_ysq):
         return lambda m1, m0, xx: (m0, xx, d, need_ysq)
 
-    # (kernel, label, tier, args, bf16 X) — the main path's modes first.
-    # The plain bf16 cases on bf16 X (TC_LABEL) and the delta bf16x3
-    # (TC3_LABEL), delta f32 (TC_F32_LABEL) and plain f32 (TC_PF32_LABEL,
-    # the moments hand-off) cases on f32 X run the tensor-core route; the
-    # delta bf16 case on f32 X (SCALAR_LABEL, a kernel_precision="bf16"
-    # fit's passes) runs the scalar kernel. Every loglik case runs on the
-    # tensor cores.
+    # (kernel, label, tier, args, bf16 X, row) — the main path's modes
+    # first: a fit's plain bf16 passes on bf16 X (TC_ROW) and its delta
+    # bf16x3 (TC3_ROW), delta f32 (TC_F32_ROW), plain f32 (TC_PF32_ROW,
+    # the moments hand-off) and delta bf16 (TC_BF16_ROW, a
+    # kernel_precision="bf16" fit's tries) passes on f32 X; the five pairs
+    # only a direct call takes, as cases of TC_BF16_ROW. Every case runs
+    # the tensor-core route.
     plans = [
         ((N5, T5, 5), [
-            (fused, TC_F32_LABEL, "f32", f("f32", False), False),
-            (fused, TC3_LABEL, "bf16x3", f("bf16x3", False), False),
-            (fused, TC3_LABEL + ", H+ysq", "bf16x3", f("bf16x3", False, True), False),
-            (fused, TC_LABEL, "bf16", f("bf16", True), True),
-            (fused, TC_LABEL + ", H+ysq", "bf16", f("bf16", True, True), True),
-            (fused, TC_PF32_LABEL, "f32", f("f32", True), False),
-            (fused, TC_PF32_LABEL + ", H+ysq", "f32", f("f32", True, True), False),
-            (fused, TC_F32_LABEL + ", H+ysq", "f32", f("f32", False, True), False),
-            (fused, SCALAR_LABEL, "bf16", f("bf16", False), False),
-            (loglik, LL_F32_LABEL, "f32", ll(False), False),
-            (loglik, LL_F32_LABEL + ", ysq", "f32", ll(True), False),
-            (loglik, LL_BF16_LABEL, "bf16", ll(False), True),
+            (fused, TC_F32_LABEL, "f32", f("f32", False), False, TC_F32_ROW),
+            (fused, TC3_LABEL, "bf16x3", f("bf16x3", False), False, TC3_ROW),
+            (fused, TC3_LABEL + ", H+ysq", "bf16x3", f("bf16x3", False, True), False, TC3_ROW),
+            (fused, TC_LABEL, "bf16", f("bf16", True), True, TC_ROW),
+            (fused, TC_LABEL + ", H+ysq", "bf16", f("bf16", True, True), True, TC_ROW),
+            (fused, TC_PF32_LABEL, "f32", f("f32", True), False, TC_PF32_ROW),
+            (fused, TC_PF32_LABEL + ", H+ysq", "f32", f("f32", True, True), False, TC_PF32_ROW),
+            (fused, TC_F32_LABEL + ", H+ysq", "f32", f("f32", False, True), False, TC_F32_ROW),
+            (fused, TC_BF16_LABEL, "bf16", f("bf16", False), False, TC_BF16_ROW),
+            (fused, TC_BF16_LABEL + ", H+ysq", "bf16", f("bf16", False, True), False,
+             TC_BF16_ROW),
+            (loglik, LL_F32_LABEL, "f32", ll(False), False, LL_F32_ROW),
+            (loglik, LL_F32_LABEL + ", ysq", "f32", ll(True), False, LL_F32_ROW),
+            (loglik, LL_BF16_LABEL, "bf16", ll(False), True, LL_BF16_ROW),
         ]),
         ((N_MEG, T_MEG, 6), [
-            (fused, TC_F32_LABEL, "f32", f("f32", False), False),
+            (fused, TC_F32_LABEL, "f32", f("f32", False), False, TC_F32_ROW),
+            (fused, "plain bf16, f32 X", "bf16", f("bf16", True), False, TC_BF16_ROW),
+            (fused, "plain bf16x3, f32 X", "bf16x3", f("bf16x3", True), False, TC_BF16_ROW),
+            (fused, "delta bf16, bf16 X", "bf16", f("bf16", False), True, TC_BF16_ROW),
+            (fused, "delta bf16x3, bf16 X", "bf16x3", f("bf16x3", False), True, TC_BF16_ROW),
+            (fused, "plain bf16x3, bf16 X", "bf16x3", f("bf16x3", True), True, TC_BF16_ROW),
         ]),
         ((N5B, T5B, 7), [
-            (fused, TC_F32_LABEL, "f32", f("f32", False), False),
-            (fused, TC_LABEL, "bf16", f("bf16", True), True),
-            (fused, TC3_LABEL, "bf16x3", f("bf16x3", False), False),
-            (fused, TC_PF32_LABEL, "f32", f("f32", True), False),
-            (loglik, LL_F32_LABEL, "f32", ll(False), False),
-            (loglik, LL_BF16_LABEL, "bf16", ll(False), True),
+            (fused, TC_F32_LABEL, "f32", f("f32", False), False, TC_F32_ROW),
+            (fused, TC_LABEL, "bf16", f("bf16", True), True, TC_ROW),
+            (fused, TC3_LABEL, "bf16x3", f("bf16x3", False), False, TC3_ROW),
+            (fused, TC_PF32_LABEL, "f32", f("f32", True), False, TC_PF32_ROW),
+            (loglik, LL_F32_LABEL, "f32", ll(False), False, LL_F32_ROW),
+            (loglik, LL_BF16_LABEL, "bf16", ll(False), True, LL_BF16_ROW),
         ]),
     ]
     rows = {}
     for (n, t, seed), cases in plans:
         x, m_old, m_new = _stream_inputs(n, t, seed)
         x16 = x.to(torch.bfloat16)
-        for kern, label, tier, make, bf16_x in cases:
-            key = next(row for lab, row in _ROW_OF_LABEL if label.startswith(lab))
-            before = _count(key, _launches())
-            _hold(rows, kern, plain_of[kern], label, tier, make, m_new, m_old,
-                  x16 if bf16_x else x, key=key)
-            if _count(key, _launches()) == before:
-                raise AssertionError(f"[{label}] did not run its kernel ({key})")
+        for kern, label, tier, make, bf16_x, key in cases:
+            xx = x16 if bf16_x else x
+            before = _case_launches(kern, make(m_new, m_old, xx))
+            _hold(rows, kern, plain_of[kern], label, tier, make, m_new, m_old, xx, key=key)
+            if _case_launches(kern, make(m_new, m_old, xx)) == before:
+                raise AssertionError(f"[{label}] did not run its kernel at its mode and tier")
         del x, x16
         torch.cuda.empty_cache()
     return rows
+
+
+def _case_launches(kern, args):
+    """The launches so far of a streaming case's kernel at its mode and
+    contraction tier (the fused kernel) or X's tier (the loglik kernel)."""
+    import torch
+
+    from picard_ica_tpu_torch.ops import kernels as K
+
+    if kern is K.streaming_loglik_sums:
+        return kern.launches_by_tier["bf16" if args[1].dtype == torch.bfloat16 else "f32"]
+    mode = "plain" if args[7] else "delta"
+    return kern.launches_by_mode[mode][K._tiers(args[2], args[6])[0]]
 
 
 def _f32_check(name, label, x, fmas, run, plain, run64, library):
@@ -700,9 +718,8 @@ def _fit(x, use_kernels, **config):
 
 
 _CORE_KERNELS = ("rotated_fused_sums", "rotated_moments_sums", "rotated_loglik_sums")
-# The tensor-core route of the streaming fused kernel: its phase-2 labels
-# and its rows in the kernels line, one a tier (plain mode at bf16 on bf16
-# X; delta mode at bf16x3 on f32 X).
+# The tensor-core route of the streaming fused kernel: the phase-2 labels
+# of a fit's five (mode, tier) pairs and their rows in the kernels line.
 TC_LABEL = "plain bf16, bf16 X"
 TC_ROW = "streaming_fused_sums/tc"
 TC3_LABEL = "delta bf16x3"
@@ -711,22 +728,20 @@ TC_F32_LABEL = "delta f32"
 TC_F32_ROW = "streaming_fused_sums/tc_f32"
 TC_PF32_LABEL = "plain f32 (moments)"
 TC_PF32_ROW = "streaming_fused_sums/tc_plain_f32"
-# The route's rows by tier: tc_f32 and tc_plain_f32 share one, so _count
-# tells them apart by mode (stream_by_mode).
-_TC_TIER = {TC_ROW: "bf16", TC3_ROW: "bf16x3", TC_F32_ROW: "f32", TC_PF32_ROW: "f32"}
-# The scalar streaming kernel's case: a kernel_precision="bf16" fit's
-# delta pass on f32 X.
-SCALAR_LABEL = "delta bf16, f32 X"
-SCALAR_ROW = "streaming_fused_sums"
+# A kernel_precision="bf16" fit's tries.
+TC_BF16_LABEL = "delta bf16, f32 X"
+TC_BF16_ROW = "streaming_fused_sums/tc_bf16"
+# The route's rows by (mode, contraction tier), as launches_by_mode
+# counts them.
+_TC_PAIR = {TC_ROW: ("plain", "bf16"), TC3_ROW: ("delta", "bf16x3"),
+            TC_F32_ROW: ("delta", "f32"), TC_PF32_ROW: ("plain", "f32"),
+            TC_BF16_ROW: ("delta", "bf16")}
 # The loglik kernel on the route, a row per X dtype.
 LL_F32_LABEL = "loglik f32"
 LL_F32_ROW = "streaming_loglik_sums/tc_f32"
 LL_BF16_LABEL = "loglik bf16 X"
 LL_BF16_ROW = "streaming_loglik_sums/tc_bf16"
 _LL_TIER = {LL_F32_ROW: "f32", LL_BF16_ROW: "bf16"}
-_ROW_OF_LABEL = ((TC_LABEL, TC_ROW), (TC3_LABEL, TC3_ROW), (TC_F32_LABEL, TC_F32_ROW),
-                 (TC_PF32_LABEL, TC_PF32_ROW), (SCALAR_LABEL, SCALAR_ROW),
-                 (LL_F32_LABEL, LL_F32_ROW), (LL_BF16_LABEL, LL_BF16_ROW))
 # The fused pass's kernel and the tiers it serves: the tensor-core kernel
 # (csrc/rotated_fused_tc.cu) runs all three.
 TIER_ROWS = {"rotated_fused_sums": ("bf16", "bf16x3", "f32")}
@@ -736,12 +751,9 @@ def _count(name, launches):
     """A kernel's launches in one phase's counts (``_launches``)."""
     if name in TIER_ROWS:
         return sum(launches["by_tier"][t] for t in TIER_ROWS[name])
-    if name == SCALAR_ROW:  # its scalar kernel; the tensor-core route's rows by tier
-        return launches["stream_by_route"]["scalar"]
-    if name in (TC_F32_ROW, TC_PF32_ROW):
-        return launches["stream_by_mode"]["plain" if name == TC_PF32_ROW else "delta"]["f32"]
-    if name in _TC_TIER:
-        return launches["stream_by_tier"]["tc"][_TC_TIER[name]]
+    if name in _TC_PAIR:
+        mode, tier = _TC_PAIR[name]
+        return launches["stream_by_mode"][mode][tier]
     if name in _LL_TIER:
         return launches["loglik_by_tier"][_LL_TIER[name]]
     return launches.get(name, 0)
@@ -802,18 +814,16 @@ def phase3_slice():
 
 def _launches():
     """Every kernel's launches, the fused pass's by tier and the
-    streaming fused kernel's by route and by route and tier."""
+    streaming fused kernel's by tier and by mode and tier."""
     from picard_ica_tpu_torch.ops import kernels as K
 
     counts = {k.__name__: k.launches for k in K.KERNELS}
     counts["by_tier"] = dict(K.rotated_fused_sums.launches_by_tier)
-    counts["stream_by_route"] = dict(K.streaming_fused_sums.launches_by_route)
-    counts["stream_by_tier"] = {route: dict(tiers) for route, tiers in
-                                K.streaming_fused_sums.launches_by_tier.items()}
+    counts["stream_by_tier"] = dict(K.streaming_fused_sums.launches_by_tier)
     counts["stream_by_mode"] = {mode: dict(tiers) for mode, tiers in
                                 K.streaming_fused_sums.launches_by_mode.items()}
     counts["loglik_by_tier"] = dict(K.streaming_loglik_sums.launches_by_tier)
-    for row in (*_TC_TIER, *_LL_TIER):
+    for row in (*_TC_PAIR, *_LL_TIER):
         counts[row] = _count(row, counts)
     return counts
 
@@ -990,7 +1000,7 @@ def phase5_large_n():
                + (TC_F32_ROW, TC_PF32_ROW, LL_F32_ROW) if launches[k] == 0]
     if missing:
         raise AssertionError(f"kernels never launched in the large-N fit: {missing}")
-    _no_scalar_launch("large-N slice", launches)
+    _counted_on_route("large-N slice", launches)
     resident = {k: launches[k] for k in _CORE_KERNELS if launches[k]}
     if resident:
         raise AssertionError(f"resident core kernels ran at N = {N5}: {resident}")
@@ -1035,9 +1045,8 @@ def phase5c_staged(x, a, w_torch, f32_core):
     _log(f"{label}: amari {amari:.3e}, amari(W_staged, inv(W_torch)) = {agree:.3e}, "
          f"negative signs {int((r.signs < 0).sum()) if r.signs is not None else None}")
     _log(f"{label}: core {r.core_seconds:.4f} s against the f32-only kernel fit's "
-         f"{f32_core:.4f} s; streaming fused launches by route "
-         f"{launches['stream_by_route']}, by mode and tier {launches['stream_by_mode']}, "
-         f"loglik by tier {launches['loglik_by_tier']}")
+         f"{f32_core:.4f} s; streaming fused launches by mode and tier "
+         f"{launches['stream_by_mode']}, loglik by tier {launches['loglik_by_tier']}")
     if not r.converged:
         raise AssertionError("the staged streaming-kernel fit did not converge at tol 1e-7")
     if not amari < 5e-3:
@@ -1048,45 +1057,58 @@ def phase5c_staged(x, a, w_torch, f32_core):
         raise AssertionError("sources are not finite (N, T)")
     # Its bf16 stage re-baselines the loss on bf16 X; on f32 X only where
     # a sign flips in a later stage (phase 5 runs that row's path).
-    missing = [row for row in (*_TC_TIER, LL_BF16_ROW) if launches[row] == 0]
+    missing = [row for row in (TC_ROW, TC3_ROW, TC_F32_ROW, TC_PF32_ROW, LL_BF16_ROW)
+               if launches[row] == 0]
     if missing:
         raise AssertionError(f"the tensor-core route never launched in the staged fit: {missing}")
-    _no_scalar_launch(label, launches)
+    _counted_on_route(label, launches)
     return launches
 
 
-def _no_scalar_launch(label, launches):
-    """Every streaming pass of a default or f32 fit runs on the tensor
-    cores: the scalar kernel never launched, and every loglik launch is
-    counted by the route's tiers."""
-    if launches["stream_by_route"]["scalar"] != 0:
-        raise AssertionError(f"{label}: the scalar streaming kernel launched "
-                             f"{launches['stream_by_route']['scalar']} times")
+def _counted_on_route(label, launches):
+    """Every streaming pass of a fit is counted by the tensor-core route's
+    modes and tiers, and every loglik launch by its tiers."""
+    by_mode = sum(sum(tiers.values()) for tiers in launches["stream_by_mode"].values())
+    if by_mode != launches["streaming_fused_sums"]:
+        raise AssertionError(f"{label}: fused launches off the tensor-core route")
     if sum(launches["loglik_by_tier"].values()) != launches["streaming_loglik_sums"]:
         raise AssertionError(f"{label}: loglik launches off the tensor cores")
 
 
-def phase5d_pinned_bf16(x):
-    """Phase 5's tensor fitted for 3 iterations with the tier pinned to
-    bf16: its tries, delta bf16 on f32 X, are the one route of a fit that
-    still runs the scalar streaming kernel (its moments and loss
-    baselines run on the tensor cores)."""
+def phase5d_pinned_bf16(x, a, w_torch):
+    """Phase 5's tensor with the tier pinned to bf16: its tries, delta
+    bf16 on f32 X, run the tensor-core route (its moments and loss
+    baselines too). 3 iterations, each try counted as a delta bf16
+    launch; then a run to tol 1e-4 or 30 iterations, whichever comes
+    first. Amari to the mixing and to phase 5's torch-path fit are
+    reported, not gated: the bf16 tier alone is not held to tol 1e-7."""
+    import numpy as np
     import torch
 
     from picard_ica_tpu_torch.ops import kernels as K
+    from picard_ica_tpu_torch.utils.metrics import amari_distance
 
-    torch.cuda.empty_cache()
-    K.reset_launch_counts()
-    r, wall = _fit(x, True, kernel_precision="bf16", max_iter=3)
-    launches = _launches()
-    label = "large-N slice, pinned bf16 (kernels)"
-    _report_fit(label, r, wall, T5)
-    _log(f"{label}: streaming fused launches by route {launches['stream_by_route']}, "
-         f"by mode and tier {launches['stream_by_mode']}")
-    if not bool(torch.isfinite(r.unmixing).all()) or tuple(r.unmixing.shape) != (N5, N5):
-        raise AssertionError(f"{label}: the unmixing is not a finite ({N5}, {N5}) matrix")
-    if launches["stream_by_route"]["scalar"] == 0:
-        raise AssertionError(f"{label}: the scalar streaming kernel never launched")
+    launches = None
+    for caps in ({"max_iter": 3}, {"max_iter": 30, "tol": 1e-4}):
+        torch.cuda.empty_cache()
+        K.reset_launch_counts()
+        r, wall = _fit(x, True, kernel_precision="bf16", **caps)
+        counts = _launches()
+        label = f"large-N slice, pinned bf16, {caps} (kernels)"
+        _report_fit(label, r, wall, T5)
+        w = r.full_unmixing().double().cpu().numpy()
+        finite = bool(np.isfinite(w).all()) and tuple(r.unmixing.shape) == (N5, N5)
+        _log(f"{label}: amari {amari_distance(w, a) if finite else float('nan'):.3e}, "
+             f"amari(W_pinned, inv(W_torch)) = "
+             f"{amari_distance(w, np.linalg.inv(w_torch)) if finite else float('nan'):.3e}, "
+             f"streaming fused launches by mode and tier {counts['stream_by_mode']}")
+        if not finite:
+            raise AssertionError(f"{label}: the unmixing is not a finite ({N5}, {N5}) matrix")
+        _counted_on_route(label, counts)
+        tries = counts["stream_by_mode"]["delta"]["bf16"]
+        if tries != r.ls_calls or tries == 0:
+            raise AssertionError(f"{label}: {tries} delta bf16 launches for {r.ls_calls} tries")
+        launches = launches or counts
     return launches
 
 
@@ -1124,14 +1146,13 @@ def phase5b_exhibit():
     if missing:
         raise AssertionError(f"kernels never launched at N = {N5B}: {missing}")
     _log(f"exhibit: kernel core {r.core_seconds:.4f} s against the torch path's "
-         f"{r_t.core_seconds:.4f} s; streaming fused launches by route "
-         f"{launches['stream_by_route']}")
+         f"{r_t.core_seconds:.4f} s; streaming fused launches by mode and tier "
+         f"{launches['stream_by_mode']}")
     return launches
 
 
 _TC_SOURCE = "picard_ica_tpu_torch/csrc/rotated_fused_tc.cu"
 _STATS_SOURCE = "picard_ica_tpu_torch/csrc/covariance_sums.cu"
-_STREAM_SOURCE = "picard_ica_tpu_torch/csrc/streaming_sums.cu"
 _STREAM_TC_SOURCE = "picard_ica_tpu_torch/csrc/streaming_fused_tc.cu"
 _PALLAS = "picard_ica_tpu/ops/pallas_kernels.py"
 # name -> (source, pallas_call line of the TPU kernel it replaces, the
@@ -1144,7 +1165,7 @@ _KERNELS = {
     "centered_covariance_sums": (_STATS_SOURCE, 635, "f32"),
     "covariance_sums": (_STATS_SOURCE, 598, "f32"),
     "_grouped_covariance": (_STATS_SOURCE, 531, "centered"),
-    SCALAR_ROW: (_STREAM_SOURCE, 1149, f"{SCALAR_LABEL}, {N5} x {T5}"),
+    TC_BF16_ROW: (_STREAM_TC_SOURCE, 1149, f"{TC_BF16_LABEL}, {N5} x {T5}"),
     TC_ROW: (_STREAM_TC_SOURCE, 1149, f"{TC_LABEL}, {N5B} x {T5B}"),
     TC3_ROW: (_STREAM_TC_SOURCE, 1149, f"{TC3_LABEL}, {N5} x {T5}"),
     TC_F32_ROW: (_STREAM_TC_SOURCE, 1149, f"{TC_F32_LABEL}, {N5} x {T5}"),
@@ -1154,7 +1175,7 @@ _KERNELS = {
 }
 # The fit whose launches each row reports.
 _PATH_OF = {**dict.fromkeys(_CORE_KERNELS, "phase3"), **dict.fromkeys(TIER_ROWS, "phase4"),
-            "_grouped_covariance": "phase4b", SCALAR_ROW: "phase5d", TC_ROW: "phase5b",
+            "_grouped_covariance": "phase4b", TC_BF16_ROW: "phase5d", TC_ROW: "phase5b",
             TC3_ROW: "phase5c", TC_F32_ROW: "phase5", TC_PF32_ROW: "phase5",
             LL_F32_ROW: "phase5", LL_BF16_ROW: "phase5c"}
 
@@ -1171,7 +1192,7 @@ def main():
                "phase4b": phase4b_grouped()}
     by_path["phase5"], large_n = phase5_large_n()
     by_path["phase5c"] = phase5c_staged(*large_n)
-    by_path["phase5d"] = phase5d_pinned_bf16(large_n[0])
+    by_path["phase5d"] = phase5d_pinned_bf16(*large_n[:3])
     del large_n
     by_path["phase5b"] = phase5b_exhibit()
     kernels = []

@@ -1,12 +1,12 @@
-// Device functions shared by the core-loop kernels (rotated_fused_tc.cu,
-// streaming_sums.cu and streaming_fused_tc.cu): the dot-product tiers and
-// the f32 density formulas of picard_ica_tpu/ops/densities.py.
+// Device functions shared by the core-loop kernels (rotated_fused_tc.cu
+// and streaming_fused_tc.cu): the dot-product tiers and the f32 density
+// formulas of picard_ica_tpu/ops/densities.py.
 //
-// Tiers (scalar arithmetic): F32 = exact f32 FMAs; BF16 = both operands
-// rounded to bf16 (__float2bfloat16_rn), f32 accumulation; BF16X3 = the
-// hi/lo split, hi*hi + lo*hi + hi*lo, f32 accumulation. Products of bf16
-// values are exact in f32, so only the order of the sums differs from
-// the plain PyTorch versions in ops/kernels.py.
+// Tiers: F32 = exact f32 products; BF16 = both operands rounded to bf16
+// (__float2bfloat16_rn), f32 accumulation; BF16X3 = the hi/lo split, hi*hi
+// + lo*hi + hi*lo, f32 accumulation (split: an operand's parts at the
+// tier). Products of bf16 values are exact in f32, so only the order of
+// the sums differs from the plain PyTorch versions in ops/kernels.py.
 //
 // The density functions take any parameter struct P with the f32 fields
 // a (alpha), m2a (f32(-2 alpha)) and mha (f32(-alpha / 2)).
@@ -42,16 +42,6 @@ __device__ __forceinline__ Sp split(float v) {
     s.lo = bf16_round(v - s.hi);
   }
   return s;
-}
-
-template <int TIER>
-__device__ __forceinline__ float mac(Sp a, Sp b, float acc) {
-  acc = fmaf(a.hi, b.hi, acc);
-  if (TIER == BF16X3) {
-    acc = fmaf(a.lo, b.hi, acc);
-    acc = fmaf(a.hi, b.lo, acc);
-  }
-  return acc;
 }
 
 // ---- densities: the f32 formulas of picard_ica_tpu/ops/densities.py ----

@@ -1,51 +1,63 @@
-// Hand-written Hopper (sm_90a) kernels for four routes of
-// picard_streaming_fused_sums at N > 64, every pass of the default staged
-// schedule: the plain mode (absolute log-lik) at the bf16 tier on bf16 X
-// (the first stage, and the moments hand-off on its X), the delta mode at
-// the bf16x3 tier on f32 X (the second stage), the delta mode at the f32
-// tier on f32 X (the last stage, and the whole of a kernel_precision="f32"
-// fit) and the plain mode at the f32 tier on f32 X (the moments hand-off
-// at the f32 stage boundary and at an f32 fit's start). They replace, for
-// those routes, picard_ica_tpu/ops/pallas_kernels.py streaming_fused_sums
-// / _streaming_fused_kernel; every other mode and tier stays on
-// streaming_sums.cu's scalar kernel. Launch A alone, with a log-lik
-// epilogue and no workspace, is also picard_streaming_loglik_tc: it
-// replaces streaming_loglik_sums / _streaming_loglik_kernel on both X
-// dtypes (below).
+// Hand-written Hopper (sm_90a) kernels for picard_streaming_fused_sums at
+// N > 64, in all ten of its (mode, rotation tier, contraction tier, X
+// dtype) pairs, and for picard_streaming_loglik_tc. They replace
+// picard_ica_tpu/ops/pallas_kernels.py streaming_fused_sums /
+// _streaming_fused_kernel and streaming_loglik_sums /
+// _streaming_loglik_kernel. The pairs (ROT, CT: the tiers of the rotation
+// and of the contraction; on bf16 X the rotation runs at the bf16 tier,
+// the weights rounded to bf16 by the caller, as in the TPU kernel):
+//   * plain, ROT = CT = BF16, bf16 X: the default staged schedule's first
+//     stage, and the moments hand-off on its X (rotate_density_kernel);
+//   * delta, ROT = CT = BF16X3, f32 X: the second stage;
+//   * delta, ROT = CT = F32, f32 X: the last stage, and every try of a
+//     kernel_precision="f32" fit;
+//   * plain, ROT = CT = F32, f32 X: the moments at the f32 stage boundary
+//     and at an f32 fit's start;
+//   * delta, ROT = CT = BF16, f32 X: every try of a fit pinned to
+//     kernel_precision="bf16"; plain at the same tiers on f32 X, and plain
+//     at BF16X3 on f32 X, are direct calls;
+//   * delta, ROT = CT = BF16, bf16 X (also an f32 request on bf16 X), and
+//     delta and plain with ROT = BF16, CT = BF16X3 on bf16 X: direct calls.
+// Every pair but the first runs rotate_split_kernel<MODE, ROT, CT, XB>.
+// Launch A alone, with a log-lik epilogue and no workspace, is also
+// picard_streaming_loglik_tc, on both X dtypes (below).
 //
 // What they compute, with f32 sums of exact bf16 products:
-//   * plain bf16: Y = bf16(M_new) X on bf16 X; the row sums dll = sum
-//     log_lik(Y), pm = sum psi'(Y) (both masked at columns >= T) and,
-//     with need_ysq, ysq = dysq = sum Y^2; G = bf16(psi(Y)) bf16(Y)^T and,
-//     with need_h, H = bf16(psi'(Y)) bf16(Y^2)^T. The TPU kernel keeps Y in
-//     f32 and rounds psi, Y and Y^2 to bf16 only inside its contraction,
-//     so storing them as bf16 computes the same function.
-//   * delta bf16x3: X split once into hi / lo bf16 (hi = bf16(v), lo =
-//     bf16(v - hi)), shared by Y_old = M_old X and dY = (M_new - M_old) X,
-//     each the three products hi*hi + lo*hi + hi*lo; Y = Y_old + dY in
-//     f32; the row sums of the delta density, dll, pm (masked at columns
-//     >= T) and, with need_ysq, dysq = sum (2 Y_old + dY) dY and ysq = sum
-//     Y^2; G (H) as the three products of the hi / lo splits of psi(Y) and
-//     Y (psi'(Y) and Y^2), psi and psi' those of the f32 Y.
-//   * delta f32, the TPU's HIGHEST: the same with every operand split
-//     three ways (hi = bf16(v), mid = bf16(v - hi), lo = bf16(v - hi -
-//     mid), elementwise) and each product the six bf16 products whose
+//   * the rotation at ROT: BF16, one product of bf16(W) and bf16(X)
+//     (rounded as X is staged); BF16X3, X split once into hi / lo bf16
+//     (hi = bf16(v), lo = bf16(v - hi)) and W passed split, the three
+//     products hi*hi + lo*hi + hi*lo; F32, the TPU's HIGHEST, every
+//     operand split three ways (hi = bf16(v), mid = bf16(v - hi), lo =
+//     bf16(v - hi - mid), elementwise) and the six bf16 products whose
 //     terms are at least 2^-16 of hi*hi (mma_tiers.cuh mma_tier<F32>).
-//   * plain f32: Y = M_new X as one rotation of the f32 tier (M_new and X
-//     split three ways), the plain mode's row sums and f32 psi, Y (psi',
-//     Y^2) for the contraction, as delta f32's.
+//   * plain mode: Y = M_new X; the row sums dll = sum log_lik(Y), pm = sum
+//     psi'(Y) (both masked at columns >= T) and, with need_ysq, ysq = dysq
+//     = sum Y^2.
+//   * delta mode: Y_old = M_old X and dY = (M_new - M_old) X from the one
+//     staged X, Y = Y_old + dY in f32; the row sums of the delta density,
+//     dll, pm (masked at columns >= T) and, with need_ysq, dysq = sum (2
+//     Y_old + dY) dY and ysq = sum Y^2.
+//   * the contraction at CT: G = psi(Y) Y^T and, with need_h, H = psi'(Y)
+//     (Y^2)^T, psi and psi' those of the f32 Y; BF16 rounds psi and Y
+//     (psi', Y^2) to bf16, BF16X3 takes their hi / lo splits, F32 their
+//     three-way splits. The TPU kernel keeps Y in f32 and rounds only
+//     inside its contraction, so storing the rounded or split planes
+//     computes the same function.
 //   * loglik (picard_streaming_loglik_tc): Y = M X as plain bf16's
 //     rotation on bf16 X (M rounded to bf16) or plain f32's on f32 X, and
 //     only the row sums ll = sum log_lik(Y), masked at columns >= T, and,
 //     with need_ysq, ysq = sum Y^2.
 //
 // What bounds them on the card: bf16 FMAs on the tensor cores, N^2 T a
-// product: 2 N^2 T plain (3 with H), 9 N^2 T delta bf16x3 (12 with H), 18
-// N^2 T delta f32 (24 with H), 12 N^2 T plain f32 (18 with H), loglik N^2
-// T on bf16 X and 6 N^2 T on f32 X; at 256 x 2M 0.53, 2.39, 4.77, 3.18,
-// 0.27 and 1.59 ms of the tensor cores' 494.5 T FMA/s, against X's bytes
-// read once (bf16 1 GB, 0.31 ms; f32 2 GB, 0.61 ms); beside them N T
-// density evaluations on the FP32 pipes and the SFU.
+// product: 2 N^2 T plain bf16 (3 with H), 9 N^2 T delta bf16x3 (12 with
+// H), 18 N^2 T delta f32 (24 with H), 12 N^2 T plain f32 (18 with H), 3
+// N^2 T delta bf16 on either X (4 with H), 6 N^2 T plain bf16x3 on f32 X
+// (9), 5 and 4 N^2 T delta and plain bf16x3 on bf16 X (8 and 7), loglik
+// N^2 T on bf16 X and 6 N^2 T on f32 X; at 256 x 2M 0.53, 2.39, 4.77,
+// 3.18, 0.80, 1.59, 1.33, 1.06, 0.27 and 1.59 ms of the tensor cores'
+// 494.5 T FMA/s, against X's bytes read once (bf16 1 GB, 0.31 ms; f32 2
+// GB, 0.61 ms); beside them N T density evaluations on the FP32 pipes and
+// the SFU.
 //
 // What the design does about it: two GEMM-shaped launches, each a plain
 // tile loop on mma.sync m16n8k16 (mma_tiers.cuh) fed by a cp.async ring,
@@ -67,7 +79,7 @@
 //     so launch B needs no mask and psi'(0) != 0 never reaches H. 128 x
 //     128 tiles at one block an SM, and 32-deep stages, measured slower
 //     (PERF.md).
-//   * Launch A, delta bf16x3 (rotate_split_kernel<BF16X3, MODE_DELTA>):
+//   * Launch A, delta bf16x3 (rotate_split_kernel<MODE_DELTA, BF16X3, BF16X3>):
 //     the same walk with two accumulator sets a warp (Y_old, dY). The
 //     caller passes M_old and dM already split, four zero-padded bf16
 //     planes; X comes in as f32, and
@@ -84,7 +96,7 @@
 //     registers, no spills) with four 32-deep or two 64-deep stages
 //     measured slower (PERF.md). The workspace holds the hi / lo planes
 //     of psi and Y (psi' and Y^2 with H).
-//   * Launch A, delta f32 (rotate_split_kernel<F32, MODE_DELTA>): the
+//   * Launch A, delta f32 (rotate_split_kernel<MODE_DELTA, F32, F32>): the
 //     same kernel with three parts an operand, six W planes (M_old and dM,
 //     hi, mid, lo) and six products a 16-deep k step into the fresh
 //     accumulator. Six W planes make a 16-deep stage as large as bf16x3's
@@ -94,7 +106,7 @@
 //     accumulator per step already keeps every MMA chain six links long.
 //     The workspace holds psi and Y (psi' and Y^2 with H) as f32 planes,
 //     8 bytes a column element as at bf16x3.
-//   * Launch A, plain f32 (rotate_split_kernel<F32, MODE_PLAIN>): the same
+//   * Launch A, plain f32 (rotate_split_kernel<MODE_PLAIN, F32, F32>): the same
 //     kernel with one accumulator set and three W planes (M_new's hi, mid,
 //     lo), not delta mode with M_old = 0, which would double the products
 //     and give the delta density's dll. The three planes free half of the
@@ -102,8 +114,18 @@
 //     barrier) at the same two blocks an SM. Its density is the plain
 //     score_der_loglik, as rotate_density_kernel's; the workspace is delta
 //     f32's.
+//   * Launch A, the other six pairs: the same kernel, its template's
+//     rotation tier, contraction tier and X dtype apart, as kernel 1's
+//     (rotated_fused_tc.cu). At ROT = BF16 on f32 X a stage holds one W
+//     plane a set and f32 X, rounded once into a bf16 tile as it is split
+//     (one product a 16-deep step); on bf16 X (XB) the landed X tile is
+//     read as it is, with no split. ROT = BF16X3 in plain mode is delta
+//     bf16x3's kernel with one W set. Each of them keeps the fresh
+//     accumulator per 16-deep step. The workspace follows CT: one bf16
+//     plane an operand (contract_kernel<BF16>, as plain bf16's launch B),
+//     hi / lo at BF16X3, f32 at F32.
 //   * Loglik (picard_streaming_loglik_tc): launch A alone, in MODE_LOGLIK,
-//     rotate_density_kernel on bf16 X and rotate_split_kernel<F32> (one
+//     rotate_density_kernel on bf16 X and rotate_split_kernel<MODE_LOGLIK, F32, F32> (one
 //     set) on f32 X: log_lik on the fragments, the two row sums kept as
 //     the plain mode keeps them, no workspace and no launch B. Its groups
 //     are narrower (ops/kernels.py STREAM_TC_LOGLIK_COLS): with only (N,)
@@ -122,7 +144,7 @@
 //     f32) and added to the tile in f32, to nearest.
 //   * Both launches cut T into the same n_parts groups, so the caller's
 //     packed partial buffer and its one fold launch (ops/kernels.py
-//     _fold_outputs) are those of the scalar kernel. Where the workspace
+//     _fold_outputs) are those of the resident kernels. Where the workspace
 //     for all of T would pass the caller's cap, the C entry runs A then B
 //     per chunk of `groups_per_chunk` whole groups.
 //
@@ -135,9 +157,12 @@
 #include "density.cuh"
 #include "mma_tiers.cuh"
 
-extern "C" int picard_stream_max_n();
-
 namespace {
+
+// The port's declared capacity in components (ops/kernels.py
+// STREAM_MAX_N). W streams through both launches in row blocks and k
+// stages, so no buffer of either launch grows with N.
+constexpr int STREAM_MAX_N = 1344;
 
 constexpr int TILE = 128;          // W rows of a block of A; B's output tile edge
 constexpr int WARPS = 8;
@@ -172,31 +197,35 @@ constexpr int BLOCK_RESERVED = 1024;     // kept by the system per block
 // the log-lik row sums alone (kernel 9: no workspace).
 enum AMode { MODE_PLAIN = 0, MODE_DELTA = 1, MODE_LOGLIK = 2 };
 
-// Launch A on f32 X at TIER (BF16X3 or F32) with SETS accumulator sets
-// (2 in delta mode, else 1): the same tile and warps; k in KC-deep stages
-// of a D_STAGES ring. A stage holds the SETS P W planes (M_old's parts,
-// then dM's; or M's: [row][k] each) and the f32 X tile ([k][column]);
-// each landed X tile is split into P bf16 [k][column] part tiles (stride
-// LDN). Then the row sums (4 sums x A_WC warps x TILE rows) in f64, added
-// to once a tile, so the group's sums carry no error of their order. At
-// bf16x3 the layout fills the 115,712 bytes a block may take at two
-// blocks an SM; the six W planes of delta f32 take 16-deep stages, the
-// three of one set 32-deep ones.
+// Split launch A (rotate_split_kernel) at rotation tier ROT with SETS
+// accumulator sets (2 in delta mode, else 1), on f32 X or, with XB, bf16
+// X: the same tile and warps; k in KC-deep stages of a D_STAGES ring. A
+// stage holds the SETS P W planes (M_old's parts, then dM's; or M's:
+// [row][k] each) and the X tile ([k][column]: f32, or bf16 at stride LDN
+// with XB); each landed f32 X tile is split into P bf16 [k][column] part
+// tiles (stride LDN), a landed bf16 one is read as it is. Then the row
+// sums (4 sums x A_WC warps x TILE rows) in f64, added to once a tile, so
+// the group's sums carry no error of their order. At bf16x3 the layout
+// fills the 115,712 bytes a block may take at two blocks an SM; the six W
+// planes of delta f32 take 16-deep stages, every other set of planes
+// 32-deep ones.
 constexpr int D_STAGES = 2;
 constexpr int LDX = A_BT;  // row stride (floats) of the f32 X stage tile
-template <int TIER, int SETS>
+template <int ROT, int SETS, bool XB>
 struct DCfg {
-  static constexpr int P = parts(TIER);
-  static constexpr int KC = TIER == F32 && SETS == 2 ? 16 : 32;
+  static constexpr int P = parts(ROT);
+  static constexpr int KC = ROT == F32 && SETS == 2 ? 16 : 32;
   static constexpr int LDK = KC + 8;
   static constexpr int W_PLANE = TILE * LDK;             // elements
   static constexpr int W_BYTES = SETS * P * W_PLANE * 2;
-  static constexpr int STAGE = W_BYTES + KC * LDX * 4;  // bytes
+  static constexpr int STAGE = W_BYTES + (XB ? KC * LDN * 2 : KC * LDX * 4);  // bytes
   static constexpr int SPLIT = D_STAGES * STAGE;
-  static constexpr int RED = SPLIT + P * KC * LDN * 2;
+  static constexpr int RED = SPLIT + (XB ? 0 : P * KC * LDN * 2);
   static constexpr int BYTES = RED + 4 * A_WC * TILE * 8;
+  static_assert(!XB || ROT == BF16, "bf16 X rotates at the bf16 tier");
   static_assert(STAGE % 16 == 0 && W_BYTES % 16 == 0 && RED % 8 == 0, "aligned stages");
   static_assert(KC % 16 == 0, "stage depth");
+  static_assert(BLOCKS * (BYTES + BLOCK_RESERVED) <= SM_SMEM, "two blocks fit an SM");
 };
 
 // Launch B: a warp's 64 x 32 share of the output tile, 4 m-tiles x 4
@@ -222,9 +251,6 @@ struct BCfg {
 };
 static_assert(A_KC % 16 == 0, "stage depths");
 static_assert(BLOCKS * (A_BYTES + BLOCK_RESERVED) <= SM_SMEM &&
-                  BLOCKS * (DCfg<BF16X3, 2>::BYTES + BLOCK_RESERVED) <= SM_SMEM &&
-                  BLOCKS * (DCfg<F32, 2>::BYTES + BLOCK_RESERVED) <= SM_SMEM &&
-                  BLOCKS * (DCfg<F32, 1>::BYTES + BLOCK_RESERVED) <= SM_SMEM &&
                   BLOCKS * (BCfg<BF16>::BYTES + BLOCK_RESERVED) <= SM_SMEM &&
                   BLOCKS * (BCfg<BF16X3>::BYTES + BLOCK_RESERVED) <= SM_SMEM &&
                   BLOCKS * (BCfg<F32>::BYTES + BLOCK_RESERVED) <= SM_SMEM,
@@ -249,14 +275,16 @@ struct DParams {
   long long t;
   int need_ysq, vec;
   float a, m2a, mha;
-  // SETS P (n_pad, kp) bf16 planes: M_old's parts, then dM's (hi, lo at
-  // bf16x3; hi, mid, lo at f32); in plain and loglik mode M's
+  // SETS P (n_pad, kp) bf16 planes: M_old's parts, then dM's (one at
+  // bf16; hi, lo at bf16x3; hi, mid, lo at f32); in plain and loglik mode
+  // M's
   const __nv_bfloat16* w;
   long long w_plane;  // n_pad * kp
-  const float* x;     // (n, t) f32, row-major
-  // workspace, (n_pad, ws_cols) each: at bf16x3 the bf16 planes psi hi,
-  // lo, Y hi, lo (with H psi' hi, lo, Y^2 hi, lo); at f32 the f32 planes
-  // psi, Y (with H psi', Y^2)
+  const void* x;      // (n, t) f32, or bf16 with XB, row-major
+  // workspace, (n_pad, ws_cols) each, by the contraction's tier: at bf16
+  // the bf16 planes psi, Y (with H psi', Y^2); at bf16x3 psi hi, lo, Y
+  // hi, lo (with H psi' hi, lo, Y^2 hi, lo); at f32 the f32 planes psi, Y
+  // (with H psi', Y^2)
   __nv_bfloat16* ws[8];
   float* wsf[4];
   long long ws_cols;
@@ -459,10 +487,10 @@ __global__ void __launch_bounds__(THREADS, BLOCKS) rotate_density_kernel(AParams
 
 // Start split launch A's copies for ring step `it` (tile it / n_kc,
 // k-stage it % n_kc) into stage `st`; the caller commits.
-template <int TIER, int SETS>
+template <int ROT, int SETS, bool XB>
 __device__ __forceinline__ void load_d(const DParams& p, unsigned char* st, int it,
                                        long long col0) {
-  using C = DCfg<TIER, SETS>;
+  using C = DCfg<ROT, SETS, XB>;
   constexpr int KC = C::KC;
   const int tid = threadIdx.x;
   const int tile = it / p.n_kc, k0 = (it % p.n_kc) * KC;
@@ -475,33 +503,55 @@ __device__ __forceinline__ void load_d(const DParams& p, unsigned char* st, int 
     cp_async16_zfill(ws + m * C::W_PLANE + r * C::LDK + c,
                      w + m * p.w_plane + (long long)r * p.kp + c, true);
   }
+  const long long c0 = col0 + (long long)tile * A_BT;
+  if constexpr (XB) {
+    // X: KC rows x A_BT bf16 columns, zero past n and t, as load_a's.
+    __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(st + C::W_BYTES);
+    const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(p.x);
+    if (p.vec) {  // t % 8 == 0: an 8-column piece is all in or all out
+      for (int u = tid; u < KC * (A_BT / 8); u += THREADS) {
+        const int kr = u / (A_BT / 8), c = (u % (A_BT / 8)) * 8;
+        const bool in = k0 + kr < p.n && c0 + c < p.t;
+        cp_async16_zfill(xs + kr * LDN + c, in ? x + (long long)(k0 + kr) * p.t + c0 + c : x,
+                         in);
+      }
+    } else {  // rows not 16-byte aligned: plain loads
+      for (int u = tid; u < KC * A_BT; u += THREADS) {
+        const int kr = u / A_BT, c = u % A_BT;
+        const bool in = k0 + kr < p.n && c0 + c < p.t;
+        xs[kr * LDN + c] = in ? x[(long long)(k0 + kr) * p.t + c0 + c] : __float2bfloat16_rn(0.f);
+      }
+    }
+    return;
+  }
   // X: KC rows x A_BT f32 columns, zero past n and t.
   float* xs = reinterpret_cast<float*>(st + C::W_BYTES);
-  const long long c0 = col0 + (long long)tile * A_BT;
+  const float* x = static_cast<const float*>(p.x);
   if (p.vec) {  // t % 4 == 0: a 4-column piece is all in or all out
     for (int u = tid; u < KC * (A_BT / 4); u += THREADS) {
       const int kr = u / (A_BT / 4), c = (u % (A_BT / 4)) * 4;
       const bool in = k0 + kr < p.n && c0 + c < p.t;
-      cp_async16_zfill(xs + kr * LDX + c, in ? p.x + (long long)(k0 + kr) * p.t + c0 + c : p.x,
-                       in);
+      cp_async16_zfill(xs + kr * LDX + c, in ? x + (long long)(k0 + kr) * p.t + c0 + c : x, in);
     }
   } else {  // rows not 16-byte aligned: 4-byte copies
     for (int u = tid; u < KC * A_BT; u += THREADS) {
       const int kr = u / A_BT, c = u % A_BT;
       const bool in = k0 + kr < p.n && c0 + c < p.t;
-      cp_async4_zfill(xs + kr * LDX + c, in ? p.x + (long long)(k0 + kr) * p.t + c0 + c : p.x, in);
+      cp_async4_zfill(xs + kr * LDX + c, in ? x + (long long)(k0 + kr) * p.t + c0 + c : x, in);
     }
   }
 }
 
-// Launch A on f32 X with split operands at the bf16x3 or the f32 tier
-// (TIER), in MODE: delta (two accumulator sets), plain or loglik (one);
-// warps as in launch A's plain mode.
-template <int TIER, int MODE, int D, bool NEED_H>
+// Launch A with the rotation at tier ROT (on bf16 X, XB, the bf16 tier),
+// in MODE: delta (two accumulator sets), plain or loglik (one); the
+// workspace planes of the contraction's tier CT. Warps as in launch A's
+// plain mode.
+template <int MODE, int ROT, int CT, bool XB, int D, bool NEED_H>
 __global__ void __launch_bounds__(THREADS, BLOCKS) rotate_split_kernel(DParams p) {
   constexpr int SETS = MODE == MODE_DELTA ? 2 : 1;
-  using C = DCfg<TIER, SETS>;
+  using C = DCfg<ROT, SETS, XB>;
   constexpr int P = C::P, KC = C::KC;
+  static_assert(MODE != MODE_LOGLIK || CT == ROT, "the log-lik mode has no contraction");
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* xsplit = reinterpret_cast<__nv_bfloat16*>(smem + C::SPLIT);  // P part tiles
   double* red = reinterpret_cast<double*>(smem + C::RED);
@@ -519,7 +569,7 @@ __global__ void __launch_bounds__(THREADS, BLOCKS) rotate_split_kernel(DParams p
   for (int u = tid; u < 4 * A_WC * TILE; u += THREADS) red[u] = 0.0;
 #pragma unroll
   for (int i = 0; i < D_STAGES - 1; ++i) {
-    if (i < total) load_d<TIER, SETS>(p, smem + i * C::STAGE, i, col0);
+    if (i < total) load_d<ROT, SETS, XB>(p, smem + i * C::STAGE, i, col0);
     cp_async_commit_group();
   }
 
@@ -530,23 +580,29 @@ __global__ void __launch_bounds__(THREADS, BLOCKS) rotate_split_kernel(DParams p
     __syncthreads();  // step it landed everywhere; the split tiles and stage (it - 1) are free
     const int ahead = it + D_STAGES - 1;
     if (ahead < total)
-      load_d<TIER, SETS>(p, smem + (ahead % D_STAGES) * C::STAGE, ahead, col0);
+      load_d<ROT, SETS, XB>(p, smem + (ahead % D_STAGES) * C::STAGE, ahead, col0);
     cp_async_commit_group();
 
     const unsigned char* st = smem + (it % D_STAGES) * C::STAGE;
     const __nv_bfloat16* ws = reinterpret_cast<const __nv_bfloat16*>(st);
-    const float* xs = reinterpret_cast<const float*>(st + C::W_BYTES);
-    // The X tile's split into its parts, once for every warp.
-    for (int u = tid; u < KC * (A_BT / 2); u += THREADS) {
-      const int kr = u / (A_BT / 2), c = 2 * (u % (A_BT / 2));
-      const float2 v = *reinterpret_cast<const float2*>(xs + kr * LDX + c);
-      uint32_t parts_of[P];
-      split_parts<TIER>(v.x, v.y, parts_of);
+    // The X parts the products read: a landed bf16 tile as it is, or the
+    // landed f32 tile's split into its parts, once for every warp.
+    const __nv_bfloat16* xparts = xsplit;
+    if constexpr (XB) {
+      xparts = reinterpret_cast<const __nv_bfloat16*>(st + C::W_BYTES);
+    } else {
+      const float* xs = reinterpret_cast<const float*>(st + C::W_BYTES);
+      for (int u = tid; u < KC * (A_BT / 2); u += THREADS) {
+        const int kr = u / (A_BT / 2), c = 2 * (u % (A_BT / 2));
+        const float2 v = *reinterpret_cast<const float2*>(xs + kr * LDX + c);
+        uint32_t parts_of[P];
+        split_parts<ROT>(v.x, v.y, parts_of);
 #pragma unroll
-      for (int part = 0; part < P; ++part)
-        *reinterpret_cast<uint32_t*>(xsplit + part * KC * LDN + kr * LDN + c) = parts_of[part];
+        for (int part = 0; part < P; ++part)
+          *reinterpret_cast<uint32_t*>(xsplit + part * KC * LDN + kr * LDN + c) = parts_of[part];
+      }
+      __syncthreads();
     }
-    __syncthreads();
 
 #pragma unroll
     for (int ks = 0; ks < KC / 16; ++ks) {
@@ -556,7 +612,7 @@ __global__ void __launch_bounds__(THREADS, BLOCKS) rotate_split_kernel(DParams p
 #pragma unroll
         for (int np = 0; np < NI / 2; ++np) {
           uint32_t r[4];
-          ldmatrix_x4_trans(r, ldm_a_addr(xsplit + part * KC * LDN + 16 * ks * LDN + 32 * wc +
+          ldmatrix_x4_trans(r, ldm_a_addr(xparts + part * KC * LDN + 16 * ks * LDN + 32 * wc +
                                               16 * np,
                                           LDN, lane));
           b[2 * np][part][0] = r[0], b[2 * np][part][1] = r[1];
@@ -577,7 +633,7 @@ __global__ void __launch_bounds__(THREADS, BLOCKS) rotate_split_kernel(DParams p
           // to nearest.
           float t4[NI][4] = {};
 #pragma unroll
-          for (int nt = 0; nt < NI; ++nt) mma_tier<TIER>(t4[nt], t4[nt], a, b[nt]);
+          for (int nt = 0; nt < NI; ++nt) mma_tier<ROT>(t4[nt], t4[nt], a, b[nt]);
 #pragma unroll
           for (int nt = 0; nt < NI; ++nt)
 #pragma unroll
@@ -589,8 +645,8 @@ __global__ void __launch_bounds__(THREADS, BLOCKS) rotate_split_kernel(DParams p
 
     // The tile is done: the density on the fragments, the row sums into
     // shared memory, and (but in loglik mode) the workspace planes (stores
-    // of column pairs: 4-byte hi / lo pairs at bf16x3, 8-byte f32 pairs at
-    // f32).
+    // of column pairs: 4-byte bf16 pairs at bf16, 4-byte hi / lo pairs at
+    // bf16x3, 8-byte f32 pairs at f32).
     const int tile = it / n_kc;
     const long long c0 = col0 + (long long)tile * A_BT;
     const long long wcol = ws0 + (long long)tile * A_BT;
@@ -649,13 +705,21 @@ __global__ void __launch_bounds__(THREADS, BLOCKS) rotate_split_kernel(DParams p
           const long long off = (long long)row * p.ws_cols + wcol + cl;
           if constexpr (MODE == MODE_LOGLIK) {
             // no workspace
-          } else if constexpr (TIER == F32) {
+          } else if constexpr (CT == F32) {
             *reinterpret_cast<float2*>(p.wsf[0] + off) = make_float2(ps[0], ps[1]);
             *reinterpret_cast<float2*>(p.wsf[1] + off) = make_float2(yv[0], yv[1]);
             if (NEED_H) {
               *reinterpret_cast<float2*>(p.wsf[2] + off) = make_float2(pd[0], pd[1]);
               *reinterpret_cast<float2*>(p.wsf[3] + off) =
                   make_float2(yv[0] * yv[0], yv[1] * yv[1]);
+            }
+          } else if constexpr (CT == BF16) {
+            *reinterpret_cast<uint32_t*>(p.ws[0] + off) = pack_bf16(ps[0], ps[1]);
+            *reinterpret_cast<uint32_t*>(p.ws[1] + off) = pack_bf16(yv[0], yv[1]);
+            if (NEED_H) {
+              *reinterpret_cast<uint32_t*>(p.ws[2] + off) = pack_bf16(pd[0], pd[1]);
+              *reinterpret_cast<uint32_t*>(p.ws[3] + off) =
+                  pack_bf16(yv[0] * yv[0], yv[1] * yv[1]);
             }
           } else {
             uint32_t hi, lo;
@@ -881,31 +945,56 @@ cudaError_t launch_a(int dens, dim3 grid, const AParams& p, cudaStream_t st) {
   return cudaErrorInvalidValue;
 }
 
-template <int TIER, int MODE, bool NEED_H>
+template <int MODE, int ROT, int CT, bool XB, bool NEED_H>
 cudaError_t launch_d(int dens, dim3 grid, const DParams& p, cudaStream_t st) {
-  constexpr int bytes = DCfg<TIER, MODE == MODE_DELTA ? 2 : 1>::BYTES;
+  using C = DCfg<ROT, MODE == MODE_DELTA ? 2 : 1, XB>;
+  DParams q = p;
+  q.n_kc = (p.n + C::KC - 1) / C::KC;
   switch (dens) {
-    case TANH: return launch(rotate_split_kernel<TIER, MODE, TANH, NEED_H>, bytes, grid, p, st);
-    case EXP: return launch(rotate_split_kernel<TIER, MODE, EXP, NEED_H>, bytes, grid, p, st);
-    case CUBE: return launch(rotate_split_kernel<TIER, MODE, CUBE, NEED_H>, bytes, grid, p, st);
+    case TANH:
+      return launch(rotate_split_kernel<MODE, ROT, CT, XB, TANH, NEED_H>, C::BYTES, grid, q, st);
+    case EXP:
+      return launch(rotate_split_kernel<MODE, ROT, CT, XB, EXP, NEED_H>, C::BYTES, grid, q, st);
+    case CUBE:
+      return launch(rotate_split_kernel<MODE, ROT, CT, XB, CUBE, NEED_H>, C::BYTES, grid, q, st);
   }
   return cudaErrorInvalidValue;
 }
 
-// Split launch A in MODE (delta or plain) then B, at TIER, for one chunk.
-template <int TIER, int MODE>
+// Split launch A then B for one chunk, in MODE (delta or plain) at the
+// rotation tier ROT and the contraction tier CT, on f32 or (XB) bf16 X.
+template <int MODE, int ROT, int CT, bool XB>
 cudaError_t launch_split(int dens, bool need_h, dim3 grid_a, const DParams& d, dim3 grid_b,
                          const BParams& b, cudaStream_t st) {
-  cudaError_t e = need_h ? launch_d<TIER, MODE, true>(dens, grid_a, d, st)
-                         : launch_d<TIER, MODE, false>(dens, grid_a, d, st);
+  cudaError_t e = need_h ? launch_d<MODE, ROT, CT, XB, true>(dens, grid_a, d, st)
+                         : launch_d<MODE, ROT, CT, XB, false>(dens, grid_a, d, st);
   if (e != cudaSuccess) return e;
-  return launch(contract_kernel<TIER>, BCfg<TIER>::BYTES, grid_b, b, st);
+  return launch(contract_kernel<CT>, BCfg<CT>::BYTES, grid_b, b, st);
 }
 
-// The stage depth of split launch A at the tier, in delta mode or not.
-int split_kc(int tier, bool delta) {
-  if (tier == F32) return delta ? DCfg<F32, 2>::KC : DCfg<F32, 1>::KC;
-  return DCfg<BF16X3, 2>::KC;
+// The fused pass's pairs on the split launch, as rotated_fused_tc.cu's
+// fused_tiers: (BF16, BF16) and (BF16X3, BF16X3) in either mode on f32 X,
+// (F32, F32) in either mode on f32 X, (BF16, BF16) in delta mode and
+// (BF16, BF16X3) in either mode on bf16 X. Plain (BF16, BF16) on bf16 X
+// is rotate_density_kernel's (the C entry); any other pair is refused
+// before a launch.
+template <int MODE>
+cudaError_t split_pairs(int rot, int ct, int x_bf16, int dens, bool need_h, dim3 grid_a,
+                        const DParams& d, dim3 grid_b, const BParams& b, cudaStream_t st) {
+  if (!x_bf16) {
+    if (rot == BF16 && ct == BF16)
+      return launch_split<MODE, BF16, BF16, false>(dens, need_h, grid_a, d, grid_b, b, st);
+    if (rot == BF16X3 && ct == BF16X3)
+      return launch_split<MODE, BF16X3, BF16X3, false>(dens, need_h, grid_a, d, grid_b, b, st);
+    if (rot == F32 && ct == F32)
+      return launch_split<MODE, F32, F32, false>(dens, need_h, grid_a, d, grid_b, b, st);
+  } else if (rot == BF16) {
+    if (ct == BF16X3)
+      return launch_split<MODE, BF16, BF16X3, true>(dens, need_h, grid_a, d, grid_b, b, st);
+    if (ct == BF16 && MODE == MODE_DELTA)
+      return launch_split<MODE_DELTA, BF16, BF16, true>(dens, need_h, grid_a, d, grid_b, b, st);
+  }
+  return cudaErrorInvalidValue;
 }
 
 // The fields launch A's two parameter sets share, from the C entries'
@@ -928,8 +1017,10 @@ void fill_common(Params& a, int n, long long t, int need_ysq, double alpha, int 
   a.stride = stride;
 }
 
-// Launch A's parameters on bf16 X (w: the (n_pad, kp) bf16 plane) and on
-// f32 X (w: the planes of split_kc's tier and mode, n_pad * kp apart).
+// Launch A's parameters: rotate_density_kernel's (w: the (n_pad, kp) bf16
+// plane; bf16 X) and the split launch's (w: the planes of its tiers and
+// mode, n_pad * kp apart; f32 X, or bf16 X with x_bf16; launch_d sets the
+// stage count n_kc).
 AParams a_params(int n, long long t, int need_ysq, double alpha, int cols, const void* w,
                  const void* x, float* ll, float* dysq, float* pm, float* ysq, long long stride) {
   AParams a{};
@@ -940,23 +1031,21 @@ AParams a_params(int n, long long t, int need_ysq, double alpha, int cols, const
   return a;
 }
 
-DParams d_params(int tier, bool delta, int n, long long t, int need_ysq, double alpha, int cols,
+DParams d_params(int x_bf16, int n, long long t, int need_ysq, double alpha, int cols,
                  const void* w, const void* x, float* ll, float* dysq, float* pm, float* ysq,
                  long long stride) {
   DParams d{};
   fill_common(d, n, t, need_ysq, alpha, cols, ll, dysq, pm, ysq, stride);
-  const int kc = split_kc(tier, delta);
-  d.n_kc = (n + kc - 1) / kc;
-  d.vec = t % 4 == 0 && reinterpret_cast<std::uintptr_t>(x) % 16 == 0;
+  d.vec = (t * (x_bf16 ? 2 : 4)) % 16 == 0 && reinterpret_cast<std::uintptr_t>(x) % 16 == 0;
   d.w = static_cast<const __nv_bfloat16*>(w);
   d.w_plane = (long long)(n + TILE - 1) / TILE * TILE * d.kp;
-  d.x = static_cast<const float*>(x);
+  d.x = x;
   return d;
 }
 
 bool bad_shape(int n, long long t, int cols, int n_parts, int density, long long stride,
                const void* w) {
-  return n < 1 || n > picard_stream_max_n() || t < 1 || cols < TILE || cols % TILE != 0 ||
+  return n < 1 || n > STREAM_MAX_N || t < 1 || cols < TILE || cols % TILE != 0 ||
          (long long)n_parts != (t + cols - 1) / cols || density < TANH || density > CUBE ||
          stride < 1 || reinterpret_cast<std::uintptr_t>(w) % 16 != 0;
 }
@@ -965,6 +1054,8 @@ bool bad_shape(int n, long long t, int cols, int n_parts, int density, long long
 
 extern "C" {
 
+int picard_stream_max_n() { return STREAM_MAX_N; }
+
 // The tile edge (W rows of a block of A, B's output tile edge) and the k
 // depth the caller pads W to: the caller pads W to (n_pad, kp) with n_pad
 // a multiple of the first and kp of the second, and sizes groups in whole
@@ -972,50 +1063,47 @@ extern "C" {
 int picard_stream_tc_tile() { return TILE; }
 int picard_stream_tc_kc() { return A_KC; }
 
-// A line-search try of picard_streaming_fused_sums on the tensor cores, in
-// one of four (mode, tier) pairs:
-//   * delta = 0, tier = BF16: plain mode at the bf16 tier on bf16 X (rot =
-//     ct = BF16, x_bf16 = 1); w: the (n_pad, kp) zero-padded bf16 copy of
-//     M_new; x: (n, t) bf16; ws: 2 (4 with H) bf16 planes;
-//   * delta = 1, tier = BF16X3: delta mode at the bf16x3 tier on f32 X; w:
-//     4 (n_pad, kp) zero-padded bf16 planes, the hi / lo splits of M_old
-//     and of dM = M_new - M_old; x: (n, t) f32; ws: 4 (8 with H) bf16
-//     planes;
-//   * delta = 1, tier = F32: delta mode at the f32 tier on f32 X; w: 6
-//     (n_pad, kp) zero-padded bf16 planes, the hi / mid / lo splits of
-//     M_old and of dM; x: (n, t) f32; ws: 2 (4 with H) f32 planes;
-//   * delta = 0, tier = F32: plain mode at the f32 tier on f32 X; w: 3
-//     (n_pad, kp) zero-padded bf16 planes, the hi / mid / lo splits of
-//     M_new; x: (n, t) f32; ws: 2 (4 with H) f32 planes.
-// The workspace planes are (n_pad, groups_per_chunk * cols) each. T is cut
-// into n_parts groups of `cols` columns; group g's partial of each output
-// is at out + g * stride.
-int picard_streaming_fused_tc(int delta, int tier, int density, int need_h, int need_ysq,
-                              double alpha, int n, long long t, int cols, int n_parts,
-                              int groups_per_chunk, const void* w, const void* x, void* ws,
-                              float* dll, float* dysq, float* g, float* pm, float* h, float* ysq,
-                              long long stride, void* stream) {
-  if (!((delta == 0 && (tier == BF16 || tier == F32)) ||
-        (delta == 1 && (tier == BF16X3 || tier == F32))) ||
-      bad_shape(n, t, cols, n_parts, density, stride, w) || groups_per_chunk < 1 ||
-      groups_per_chunk > MAX_GRID_Y || (need_ysq && (!dysq || !ysq)) || (need_h && !h) ||
-      reinterpret_cast<std::uintptr_t>(ws) % 16 != 0)
+// A line-search try of picard_streaming_fused_sums on the tensor cores:
+// delta = 1 (delta mode, with M_old and dM = M_new - M_old) or 0 (plain
+// mode, with M_new), the rotation at rot_tier and the contraction at
+// ct_tier, on f32 X or (x_bf16 = 1) bf16 X, in one of the ten pairs of
+// split_pairs and rotate_density_kernel (an unknown pair returns
+// cudaErrorInvalidValue and launches nothing). w: the weights' zero-padded
+// (n_pad, kp) bf16 planes, each matrix's parts at rot_tier in order (one
+// at BF16; hi, lo at BF16X3; hi, mid, lo at F32), M_old's then dM's in
+// delta mode; x: (n, t) f32 or bf16; ws: the workspace, 2 (4 with H)
+// operand planes at ct_tier (bf16; hi and lo bf16 at BF16X3; f32 at F32),
+// each (n_pad, groups_per_chunk * cols). T is cut into n_parts groups of
+// `cols` columns; group g's partial of each output is at out + g *
+// stride.
+int picard_streaming_fused_tc(int delta, int rot_tier, int ct_tier, int x_bf16, int density,
+                              int need_h, int need_ysq, double alpha, int n, long long t, int cols,
+                              int n_parts, int groups_per_chunk, const void* w, const void* x,
+                              void* ws, float* dll, float* dysq, float* g, float* pm, float* h,
+                              float* ysq, long long stride, void* stream) {
+  if (ct_tier < F32 || ct_tier > BF16 || bad_shape(n, t, cols, n_parts, density, stride, w) ||
+      groups_per_chunk < 1 || groups_per_chunk > MAX_GRID_Y || (need_ysq && (!dysq || !ysq)) ||
+      (need_h && !h) || reinterpret_cast<std::uintptr_t>(ws) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   const int n_pad = (n + TILE - 1) / TILE * TILE;
   const long long ws_cols = (long long)groups_per_chunk * cols;
   const long long mat = (long long)n_pad * ws_cols;
   // Workspace plane (matrix * 2 + operand) * P + part: psi, Y (psi', Y^2),
-  // each as hi (and lo) bf16 planes, or at f32 as one f32 plane (P = 1).
-  const int P = tier == F32 ? 1 : parts(tier);
+  // each as one bf16 plane, hi and lo bf16 planes, or at f32 as one f32
+  // plane (P = 1).
+  const int P = ct_tier == F32 ? 1 : parts(ct_tier);
   const int n_planes = 2 * (1 + need_h) * P;
   __nv_bfloat16* base = static_cast<__nv_bfloat16*>(ws);
   float* base_f = static_cast<float*>(ws);
-  auto plane = [&](int i) { return i < n_planes && tier != F32 ? base + i * mat : nullptr; };
-  auto plane_f = [&](int i) { return i < n_planes && tier == F32 ? base_f + i * mat : nullptr; };
+  auto plane = [&](int i) { return i < n_planes && ct_tier != F32 ? base + i * mat : nullptr; };
+  auto plane_f = [&](int i) { return i < n_planes && ct_tier == F32 ? base_f + i * mat : nullptr; };
 
+  // Plain bf16 on bf16 X runs rotate_density_kernel; every other pair the
+  // split launch.
+  const bool dense = !delta && rot_tier == BF16 && ct_tier == BF16 && x_bf16;
   AParams a{};
   DParams d{};
-  if (tier == BF16) {
+  if (dense) {
     a = a_params(n, t, need_ysq, alpha, cols, w, x, dll, dysq, pm, ysq, stride);
     a.psi = plane(0);
     a.y = plane(1);
@@ -1023,7 +1111,7 @@ int picard_streaming_fused_tc(int delta, int tier, int density, int need_h, int 
     a.y2 = plane(3);
     a.ws_cols = ws_cols;
   } else {
-    d = d_params(tier, delta, n, t, need_ysq, alpha, cols, w, x, dll, dysq, pm, ysq, stride);
+    d = d_params(x_bf16, n, t, need_ysq, alpha, cols, w, x, dll, dysq, pm, ysq, stride);
     for (int i = 0; i < 8; ++i) d.ws[i] = plane(i);
     for (int i = 0; i < 4; ++i) d.wsf[i] = plane_f(i);
     d.ws_cols = ws_cols;
@@ -1049,15 +1137,15 @@ int picard_streaming_fused_tc(int delta, int tier, int density, int need_h, int 
     a.g0 = d.g0 = b.g0 = g0;
     const dim3 grid_a(n_pad / TILE, ng), grid_b(b.edge * b.edge, ng, need_h ? 2 : 1);
     cudaError_t e;
-    if (tier == BF16) {
+    if (dense) {
       e = need_h ? launch_a<MODE_PLAIN, true>(density, grid_a, a, st)
                  : launch_a<MODE_PLAIN, false>(density, grid_a, a, st);
       if (e == cudaSuccess) e = launch(contract_kernel<BF16>, BCfg<BF16>::BYTES, grid_b, b, st);
-    } else if (tier == F32) {
-      e = delta ? launch_split<F32, MODE_DELTA>(density, need_h, grid_a, d, grid_b, b, st)
-                : launch_split<F32, MODE_PLAIN>(density, need_h, grid_a, d, grid_b, b, st);
     } else {
-      e = launch_split<BF16X3, MODE_DELTA>(density, need_h, grid_a, d, grid_b, b, st);
+      e = delta ? split_pairs<MODE_DELTA>(rot_tier, ct_tier, x_bf16, density, need_h, grid_a, d,
+                                          grid_b, b, st)
+                : split_pairs<MODE_PLAIN>(rot_tier, ct_tier, x_bf16, density, need_h, grid_a, d,
+                                          grid_b, b, st);
     }
     if (e != cudaSuccess) return (int)e;
   }
@@ -1084,10 +1172,9 @@ int picard_streaming_loglik_tc(int tier, int density, int need_ysq, double alpha
         density, grid, a_params(n, t, need_ysq, alpha, cols, w, x, ll, nullptr, nullptr, ysq,
                                 stride),
         st);
-  return (int)launch_d<F32, MODE_LOGLIK, false>(
+  return (int)launch_d<MODE_LOGLIK, F32, F32, false, false>(
       density, grid,
-      d_params(F32, false, n, t, need_ysq, alpha, cols, w, x, ll, nullptr, nullptr, ysq, stride),
-      st);
+      d_params(0, n, t, need_ysq, alpha, cols, w, x, ll, nullptr, nullptr, ysq, stride), st);
 }
 
 }  // extern "C"

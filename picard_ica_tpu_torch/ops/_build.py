@@ -27,8 +27,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("rotated_fused_tc.cu", "covariance_sums.cu", "streaming_sums.cu",
-           "streaming_fused_tc.cu")
+SOURCES = ("rotated_fused_tc.cu", "covariance_sums.cu", "streaming_fused_tc.cu")
 HEADERS = ("density.cuh", "mma_tiers.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -60,15 +59,10 @@ _SIGNATURES = {
     "picard_covariance_sums": [_I, _LL, _P, _P, _I, _P, _I, _P, _P],
     "picard_fold_pairwise": [_I, _LL, _P, _P, _P],
     "picard_stream_max_n": [],
-    "picard_stream_tile": [_I],
-    "picard_streaming_fused_sums": [
-        _I, _I, _I, _I, _I, _I, _D, _I, _LL, _I, _I,
-        _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _P,
-    ],
     "picard_stream_tc_tile": [],
     "picard_stream_tc_kc": [],
     "picard_streaming_fused_tc": [
-        _I, _I, _I, _I, _I, _D, _I, _LL, _I, _I, _I,
+        _I, _I, _I, _I, _I, _I, _I, _D, _I, _LL, _I, _I, _I,
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _P,
     ],
     "picard_streaming_loglik_tc": [

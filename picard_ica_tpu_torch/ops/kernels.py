@@ -17,19 +17,17 @@ three-way splits, against the plain versions' exact f32 products:
     ``rotated_loglik_sums``, :674-719), the rotation (f32 tier on f32 X,
     bf16 on bf16 X) and a log-lik epilogue, no contraction.
 
-The core loop above N = 64 (``csrc/streaming_sums.cu``), where W no
-longer fits whole in shared memory:
+The core loop above N = 64 (``csrc/streaming_fused_tc.cu``), where W
+no longer fits whole in shared memory:
 
   * :func:`streaming_fused_sums` — kernel 1's outputs with W in row
-    blocks and a contraction phase over the parked Y tile (replaces
-    ``streaming_fused_sums``, :1061-1183); every pass of the default
-    schedule, its plain mode at the bf16 tier on bf16 X and at the f32
-    tier on f32 X and its delta mode at the bf16x3 and the f32 tier on
-    f32 X, runs as two GEMM-shaped tensor-core launches instead
-    (``csrc/streaming_fused_tc.cu``, planned by :func:`stream_tc_plan`):
-    the rotation with the density and row sums into a workspace of psi /
-    Y planes (bf16; hi and lo at bf16x3; f32 at f32, split three ways by
-    the contraction), then G (H) over it;
+    blocks (replaces ``streaming_fused_sums``, :1061-1183), in every
+    (mode, tier, X dtype) pair as two GEMM-shaped tensor-core launches
+    planned by :func:`stream_tc_plan`: the rotation at the rotation tier
+    (bf16 on bf16 X) with the density and row sums into a workspace of
+    psi / Y planes at the contraction tier (bf16; hi and lo at bf16x3;
+    f32 at f32, split three ways by the contraction), then G (H) over
+    it;
   * :func:`streaming_loglik_sums` — kernel 3's outputs for large N
     (replaces ``streaming_loglik_sums``, :1205-1274), on the tensor
     cores: the route's rotation launch alone with a log-lik epilogue
@@ -69,10 +67,10 @@ reduce across devices first). For each there is:
     tests and ``chip_smoke.py`` hold the kernels against it;
   * a launch counter, ``<wrapper>.launches``, raised by one at each
     kernel launch and nowhere else (``rotated_fused_sums`` also counts
-    by tier, ``launches_by_tier``; ``streaming_fused_sums`` by route,
-    ``launches_by_route``, by route and tier, ``launches_by_tier``, and
-    by mode and tier, ``launches_by_mode``; ``streaming_loglik_sums`` by
-    X's tier, ``launches_by_tier``);
+    by tier, ``launches_by_tier``; ``streaming_fused_sums`` by contraction
+    tier, ``launches_by_tier``, and by mode and tier,
+    ``launches_by_mode``; ``streaming_loglik_sums`` by X's tier,
+    ``launches_by_tier``);
   * the fold of the kernel's per-block partials on the card, in
     :func:`ops.moments.fold_pairwise`'s order and bitwise equal to it:
     the core kernels write all their outputs side by side into one
@@ -122,17 +120,18 @@ COV_GROUP = 16
 COV_RESIDENT_MAX_N = 512
 RESIDENT_PARTIALS_MAX = 2 * 1024**3
 
-# The streaming kernels (csrc/streaming_sums.cu). Their capacity in
-# components: the largest N whose (ceil(N/64)*64, 32) Y tile and staging
-# fit the 227 KB of shared memory a block may use (picard_stream_max_n).
+# The streaming kernels' declared capacity in components
+# (csrc/streaming_fused_tc.cu picard_stream_max_n).
 STREAM_MAX_N = 1344
 # Height of the zero-padded W row blocks of the plain versions (the JAX
 # package's _STREAM_NB).
 STREAM_ROWS = 128
-# Tiles of X per G/H partial (the JAX package's _STREAM_GROUP).
+# Tiles of X per G/H partial of the fused plain version (the JAX
+# package's _STREAM_GROUP).
 STREAM_GROUP = 16
-# More tiles go to a partial when the (n_groups, N, N) f32 partials of
-# one call would pass this many bytes (1024 x 200,000: 25 tiles).
+# More tiles go to a partial of the plain version, and more columns to a
+# group of the tensor-core route, when the (n_groups, N, N) f32 partials
+# of one call would pass this many bytes (1024 x 200,000: 25 tiles).
 STREAM_PARTIALS_MAX = 1024**3
 # Columns per tile of the loglik plain version, which parks no Y tile.
 STREAM_LOGLIK_TILE = 128
@@ -157,8 +156,9 @@ STREAM_TC_WORKSPACE_MAX = 2 * 1024**3
 STREAM_TC_LOGLIK_COLS = 1024
 # Groups one launch may take (a CUDA grid's y extent).
 _MAX_GRID_Y = 65535
-# The fused kernel's shared-memory model (csrc/streaming_sums.cu:
-# SMEM_MAX, KC, PASS_ELEMS, CB).
+# The fused plain version's tile rule (stream_tile): a model of a Y tile
+# of ceil(N/64)*64 rows and its staging under a block's 227 KB of shared
+# memory, which fixes the order of that version's sums.
 _STREAM_SMEM_MAX = 232448
 _STREAM_KC, _STREAM_PASS, _STREAM_CB = 16, 8192, 64
 
@@ -346,10 +346,10 @@ def grouped_covariance_plain(x, mean=None):
 
 
 def stream_tile(n: int) -> int:
-    """Columns of X per tile of the streaming fused kernel: the largest of
-    128, 64 and 32 whose Y tile and staging fit in shared memory (N <= 256
-    -> 128, <= 704 -> 64, <= 1344 -> 32; csrc/streaming_sums.cu
-    choose_bt)."""
+    """Columns of X per tile of the fused plain version: the largest of
+    128, 64 and 32 whose Y tile and staging fit the shared-memory model
+    (N <= 256 -> 128, <= 704 -> 64, <= 1344 -> 32). Only the order of the
+    plain version's sums follows from it."""
     ny = -(-n // _STREAM_CB) * _STREAM_CB
     for bt in (128, 64, 32):
         rot = 2 * (_STREAM_PASS // bt) * _STREAM_KC + _STREAM_KC * bt
@@ -361,8 +361,9 @@ def stream_tile(n: int) -> int:
 
 
 def stream_group(n_tiles: int, n: int, n_mats: int) -> int:
-    """Tiles per partial: :data:`STREAM_GROUP`, or more when ``n_mats``
-    (N, N) partials per group would pass :data:`STREAM_PARTIALS_MAX`."""
+    """Tiles per partial of the fused plain version: :data:`STREAM_GROUP`,
+    or more when ``n_mats`` (N, N) partials per group would pass
+    :data:`STREAM_PARTIALS_MAX`."""
     group = min(STREAM_GROUP, n_tiles)
     if n_mats:
         max_groups = max(1, STREAM_PARTIALS_MAX // (n_mats * n * n * 4))
@@ -552,8 +553,6 @@ def _lib():
             or lib.picard_cols_per_block() != COLS_PER_BLOCK
             or lib.picard_cov_chunk() != COV_CHUNK
             or lib.picard_stream_max_n() != STREAM_MAX_N
-            or any(lib.picard_stream_tile(n) != stream_tile(n)
-                   for n in (65, 256, 257, 704, 705, STREAM_MAX_N))
             or lib.picard_stream_tc_tile() != STREAM_TC_TILE
             or lib.picard_stream_tc_kc() != STREAM_TC_KC):
         raise RuntimeError("csrc/ and ops/kernels.py disagree on NMAX / "
@@ -652,12 +651,12 @@ def _fused_outputs(n, need_h, need_ysq):
             (vec, need_ysq)]
 
 
-def _fused_launch(entry, group_args, n_parts, m_new, m_old, x, density,
-                  need_h, need_ysq, precision, absolute_ll):
-    """Launch a fused kernel (``entry``) with ``n_parts`` partials per
-    output and fold them: the weights of the mode (delta mode takes
-    dm = M_new - M_old in f32), the tiers of X's dtype, and the six
-    outputs, zeros where a flag is off."""
+def _fused_launch(entry, n_parts, m_new, m_old, x, density, need_h, need_ysq,
+                  precision, absolute_ll):
+    """Launch the resident fused kernel (``entry``) with ``n_parts``
+    partials per output and fold them: the weights of the mode (delta
+    mode takes dm = M_new - M_old in f32), the tiers of X's dtype, and
+    the six outputs, zeros where a flag is off."""
     n, t = x.shape
     precision, rot = _tiers(x, precision)
     code, alpha = _density_code(density)
@@ -672,8 +671,8 @@ def _fused_launch(entry, group_args, n_parts, m_new, m_old, x, density,
     def launch(ptrs, stride):
         _run(entry, int(not absolute_ll), _TIERS[rot], _TIERS[precision], code,
              int(need_h), int(need_ysq), alpha, n, t, int(x.dtype == torch.bfloat16),
-             *group_args, w.data_ptr(), _ptr(dm), x.data_ptr(), *ptrs, stride,
-             n_parts, device=x.device)
+             w.data_ptr(), _ptr(dm), x.data_ptr(), *ptrs, stride, n_parts,
+             device=x.device)
 
     return _fold_outputs(n_parts, outputs, x, launch)
 
@@ -689,8 +688,8 @@ def rotated_fused_sums(m_new, m_old, x, density, need_h: bool, need_ysq: bool,
         return rotated_fused_sums_plain(m_new, m_old, x, density, need_h,
                                         need_ysq, precision, absolute_ll)
     _, _, nb = _check_cuda(x, m_new) if absolute_ll else _check_cuda(x, m_new, m_old)
-    out = _fused_launch(_lib().picard_rotated_fused_sums, (), nb, m_new, m_old,
-                        x, density, need_h, need_ysq, precision, absolute_ll)
+    out = _fused_launch(_lib().picard_rotated_fused_sums, nb, m_new, m_old, x,
+                        density, need_h, need_ysq, precision, absolute_ll)
     rotated_fused_sums.launches += 1
     rotated_fused_sums.launches_by_tier[_tiers(x, precision)[0]] += 1
     return out
@@ -769,39 +768,21 @@ def streaming_fused_sums(m_new, m_old, x, density, need_h: bool,
                          need_ysq: bool, precision: str = "f32",
                          absolute_ll: bool = False):
     """:func:`rotated_fused_sums` for N up to :data:`STREAM_MAX_N` (see
-    :func:`streaming_fused_sums_plain`); the same return tuple."""
+    :func:`streaming_fused_sums_plain`); the same return tuple. On the
+    card every (mode, tier, X dtype) pair runs the tensor-core route."""
     _stream_cap(x)
     if x.device.type == "cpu":
         return streaming_fused_sums_plain(m_new, m_old, x, density, need_h,
                                           need_ysq, precision, absolute_ll)
     mats = (m_new,) if absolute_ll else (m_new, m_old)
-    n, t, _ = _check_cuda(x, *mats, cap=STREAM_MAX_N)
+    _check_cuda(x, *mats, cap=STREAM_MAX_N)
+    out = _streaming_fused_tc(m_new, m_old, x, density, need_h, need_ysq, precision,
+                              absolute_ll)
     tier = _tiers(x, precision)[0]
-    if _tc_route(x, tier, absolute_ll):
-        out = _streaming_fused_tc(m_new, m_old, x, density, need_h, need_ysq, tier,
-                                  absolute_ll)
-        route = "tc"
-    else:
-        n_tiles = _n_chunks(t, stream_tile(n))
-        group = stream_group(n_tiles, n, 1 + need_h)
-        out = _fused_launch(_lib().picard_streaming_fused_sums, (group,),
-                            _n_chunks(n_tiles, group), m_new, m_old, x, density,
-                            need_h, need_ysq, precision, absolute_ll)
-        route = "scalar"
     streaming_fused_sums.launches += 1
-    streaming_fused_sums.launches_by_route[route] += 1
-    streaming_fused_sums.launches_by_tier[route][tier] += 1
+    streaming_fused_sums.launches_by_tier[tier] += 1
     streaming_fused_sums.launches_by_mode["plain" if absolute_ll else "delta"][tier] += 1
     return out
-
-
-def _tc_route(x, tier: str, absolute_ll: bool) -> bool:
-    """The (mode, contraction tier, X dtype) pairs of the tensor-core
-    route: plain bf16 on bf16 X, plain f32 on f32 X, and delta bf16x3 and
-    delta f32 on f32 X (whose rotation tier is the contraction's)."""
-    if absolute_ll:
-        return (tier, x.dtype) in (("bf16", torch.bfloat16), ("f32", torch.float32))
-    return tier in ("bf16x3", "f32") and x.dtype == torch.float32
 
 
 def _tc_weights(planes, n: int, n_pad: int, device):
@@ -814,33 +795,36 @@ def _tc_weights(planes, n: int, n_pad: int, device):
     return w
 
 
-def _streaming_fused_tc(m_new, m_old, x, density, need_h, need_ysq, tier, absolute_ll):
-    """The tensor-core route at ``tier``: the weights as zero-padded (n_pad,
-    kp) bf16 planes (plain bf16: M_new; plain f32: M_new's hi / mid / lo
-    splits, ``_split3_bf16``; delta bf16x3: the hi / lo splits of M_old
-    and of dM = M_new - M_old in f32, as the plain version's
-    ``_split_bf16``; delta f32: their hi / mid / lo splits), one workspace
-    of :func:`stream_tc_plan`'s size, both launches per chunk in one C
-    call, and the packed partials folded as the scalar kernel's."""
+# A weight matrix's bf16 parts at each rotation tier: itself rounded, its
+# hi / lo split, its hi / mid / lo split.
+_PARTS = {"bf16": lambda m: [_bf16(m)], "bf16x3": _split_bf16, "f32": _split3_bf16}
+
+
+def _streaming_fused_tc(m_new, m_old, x, density, need_h, need_ysq, precision, absolute_ll):
+    """The tensor-core route: the weights in X's working dtype (rounded to
+    bf16 on bf16 X, :func:`_mats`) as zero-padded (n_pad, kp) bf16 planes
+    of their parts at the rotation tier (:data:`_PARTS`), M_new's in plain
+    mode, M_old's then dM = M_new - M_old's (in f32) in delta mode; one
+    workspace of :func:`stream_tc_plan`'s size at the contraction tier;
+    both launches per chunk in one C call; the packed partials folded as
+    the resident kernels'."""
     n, t = x.shape
+    tier, rot = _tiers(x, precision)
     plan = stream_tc_plan(n, t, need_h, tier)
     code, alpha = _density_code(density)
-    if tier == "bf16":
-        planes = _mats(x, m_new)
-    elif absolute_ll:
-        planes = _split3_bf16(m_new.to(torch.float32))
+    if absolute_ll:
+        mats = _mats(x, m_new)
     else:
-        split = _split_bf16 if tier == "bf16x3" else _split3_bf16
-        m_old = m_old.to(torch.float32)
-        planes = [*split(m_old), *split(m_new.to(torch.float32) - m_old)]
-    w = _tc_weights(planes, n, plan.n_pad, x.device)
+        m_new, m_old = _mats(x, m_new, m_old)
+        mats = [m_old, m_new - m_old]
+    w = _tc_weights([p for m in mats for p in _PARTS[rot](m)], n, plan.n_pad, x.device)
     ws = torch.empty(plan.ws_bytes, dtype=torch.uint8, device=x.device)
 
     def launch(ptrs, stride):
-        _run(_lib().picard_streaming_fused_tc, int(not absolute_ll), _TIERS[tier], code,
-             int(need_h), int(need_ysq), alpha, n, t, plan.cols_per_group, plan.n_parts,
-             plan.groups_per_chunk, w.data_ptr(), x.data_ptr(), ws.data_ptr(), *ptrs, stride,
-             device=x.device)
+        _run(_lib().picard_streaming_fused_tc, int(not absolute_ll), _TIERS[rot], _TIERS[tier],
+             int(x.dtype == torch.bfloat16), code, int(need_h), int(need_ysq), alpha, n, t,
+             plan.cols_per_group, plan.n_parts, plan.groups_per_chunk, w.data_ptr(),
+             x.data_ptr(), ws.data_ptr(), *ptrs, stride, device=x.device)
 
     return _fold_outputs(plan.n_parts, _fused_outputs(n, need_h, need_ysq), x, launch)
 
@@ -858,8 +842,7 @@ def streaming_loglik_sums(m, x, density, need_ysq: bool):
     tier = "bf16" if x.dtype == torch.bfloat16 else "f32"
     plan = stream_tc_plan(n, t, False, planes=False)
     code, alpha = _density_code(density)
-    planes = _mats(x, m) if tier == "bf16" else _split3_bf16(m.to(torch.float32))
-    w = _tc_weights(planes, n, plan.n_pad, x.device)
+    w = _tc_weights(_PARTS[tier](_mats(x, m)[0]), n, plan.n_pad, x.device)
 
     def launch(ptrs, stride):
         _run(_lib().picard_streaming_loglik_tc, _TIERS[tier], code, int(need_ysq), alpha, n, t,
@@ -977,20 +960,16 @@ KERNELS = (rotated_fused_sums, rotated_moments_sums, rotated_loglik_sums,
 
 
 def reset_launch_counts() -> None:
-    """Set every kernel's launch counter, ``rotated_fused_sums``'s counts
-    by tier (keyed by the tier of its contractions),
-    ``streaming_fused_sums``'s by route ("tc": the tensor-core route,
-    "scalar": every other mode and tier), by route and tier (the tier of
-    its contractions) and by mode ("plain", "delta") and tier, and
-    ``streaming_loglik_sums``'s by tier ("bf16" on bf16 X, "f32" on f32
-    X) to 0."""
+    """Set every kernel's launch counter, ``rotated_fused_sums``'s and
+    ``streaming_fused_sums``'s counts by tier (keyed by the tier of their
+    contractions), ``streaming_fused_sums``'s by mode ("plain", "delta")
+    and tier, and ``streaming_loglik_sums``'s by tier ("bf16" on bf16 X,
+    "f32" on f32 X) to 0."""
     for k in KERNELS:
         k.launches = 0
     rotated_fused_sums.launches_by_tier = dict.fromkeys(_TIERS, 0)
     streaming_loglik_sums.launches_by_tier = dict.fromkeys(("bf16", "f32"), 0)
-    streaming_fused_sums.launches_by_route = dict.fromkeys(("scalar", "tc"), 0)
-    streaming_fused_sums.launches_by_tier = {
-        route: dict.fromkeys(_TIERS, 0) for route in ("scalar", "tc")}
+    streaming_fused_sums.launches_by_tier = dict.fromkeys(_TIERS, 0)
     streaming_fused_sums.launches_by_mode = {
         mode: dict.fromkeys(_TIERS, 0) for mode in ("plain", "delta")}
 

@@ -27,7 +27,7 @@ from .config import PicardConfig
 from .errors import InvalidConfigError, InvalidDimensionsError, SingularMatrixError
 from .models.core import CoreOptions, _precision_stages, run_core
 from .ops.densities import Tanh
-from .ops.kernels import KERNEL_MAX_N, STREAM_MAX_N
+from .ops.kernels import STREAM_MAX_N
 from .ops.linalg import _SYM_DECORR_MIN_EIG, rotate_rows_inplace, sym_decorrelation_with_mineig
 from .ops.whitening import _HOST_F64_MAX_ELEMENTS, center_whiten, preprocess_f64
 from .results import PicardResult
@@ -47,6 +47,23 @@ def _resolve_device(x, device) -> torch.device:
             "available; pass device='cpu' to fit on the CPU"
         )
     return torch.device("cuda")
+
+
+# Auto (use_kernels=None) hands an f32 fit on the card to the kernels up
+# to this many components: the largest N of port_turns.py --crossover's
+# sweep (96 to 1344 at T = 1M), at every N of which the kernel path's core
+# seconds per iteration beat the torch path's at the staged schedule and
+# in the f32 tier on an H100 (PERF.md). It is STREAM_MAX_N; above
+# KERNEL_MAX_N the streaming kernels run.
+AUTO_KERNELS_MAX_N = 1344
+
+
+def _auto_use_kernels(device: torch.device, dtype: torch.dtype, n_components: int) -> bool:
+    """use_kernels=None's rule: the kernels take an f32 fit on the card
+    up to :data:`AUTO_KERNELS_MAX_N` components; everything else runs the
+    torch path."""
+    return (device.type == "cuda" and dtype == torch.float32
+            and n_components <= AUTO_KERNELS_MAX_N)
 
 
 def _resolve_dtype(config: PicardConfig) -> torch.dtype:
@@ -213,12 +230,7 @@ class Picard:
         on_cuda = device.type == "cuda"
         use_kernels = config.use_kernels
         if use_kernels is None:
-            # Auto: the resident kernels take an f32 fit on the card up to
-            # their capacity; everything else runs the torch path. Above
-            # it the streaming kernels run on request only, as the JAX
-            # package's streaming kernels do (use_pallas=True).
-            use_kernels = (on_cuda and dtype == torch.float32
-                           and actual_components <= KERNEL_MAX_N)
+            use_kernels = _auto_use_kernels(device, dtype, actual_components)
         elif use_kernels:
             if on_cuda and dtype != torch.float32:
                 raise InvalidConfigError(

@@ -18,12 +18,12 @@ after, before; each turn measures, with ``chip_smoke.py``'s helpers:
     with H and Y^2, and ``rotated_loglik_sums`` (kernel 3) on f32 X and
     on its bf16 copy, at 64 x 2,000,000, timed the same two ways;
   * ``streaming_fused_sums`` (``chip_smoke.py``'s unit-variance Laplace
-    inputs) at 256 x 2,000,000 and 1024 x 200,000 in the cases of the
-    default schedule's passes, plain mode at the bf16 tier on bf16 X,
-    delta mode at the bf16x3 and the f32 tier on f32 X and plain mode at
-    the f32 tier on f32 X (the moments hand-off), and
-    ``streaming_loglik_sums`` on f32 X and on bf16 X at both shapes, timed
-    the same two ways;
+    inputs) at 256 x 2,000,000 and 1024 x 200,000 in the cases of a fit's
+    passes, plain mode at the bf16 tier on bf16 X, delta mode at the
+    bf16x3 and the f32 tier on f32 X, plain mode at the f32 tier on f32 X
+    (the moments hand-off) and delta mode at the bf16 tier on f32 X (a
+    kernel_precision="bf16" fit's tries), and ``streaming_loglik_sums`` on
+    f32 X and on bf16 X at both shapes, timed the same two ways;
   * ``chip_smoke.py``'s phase-3 fit (64 x 2,000,000 mixed mixture, f64
     NumPy input) and phase-4 fits (the bench 64 x 4,000,000 made on the
     card) at the default staged schedule and in the exact f32 tier: core
@@ -44,18 +44,32 @@ fits; with ``--core-only`` only the resident core kernels' cases at
 ``--large-n`` they take only the kernels (the ``rotated_fused_sums``,
 moments and log-lik cases at 64 x 2,000,000 and the streaming kernels'
 cases) and, unless ``--kernels-only`` is given too, phase 5's data
-fitted through the streaming kernels twice, at the default staged
-schedule and in the exact f32 tier (``kernel_precision="f32"``, phase
-5's fit): core seconds, iterations, stage exits, launches by route and
-tier.
+fitted through the streaming kernels three times, at the default staged
+schedule, in the exact f32 tier (``kernel_precision="f32"``, phase 5's
+fit) and 3 iterations pinned to bf16 (phase 5d's first fit): core
+seconds, iterations, stage exits, launches by mode and tier; the pinned
+fit's unmixing goes to ``chiprun_out/pinned_bf16_<tree>.npy``, and the
+Amari distance between the two trees' is printed and kept in the output.
 
     python3 port_turns.py --profile [TREE]
 
-traces one tree's ``streaming_fused_sums`` calls of the default
-schedule's passes (plain bf16 on bf16 X, delta bf16x3, delta f32 and
-plain f32 on f32 X) at both shapes, with the tanh and cube densities, in
+traces one tree's ``streaming_fused_sums`` calls of a fit's passes
+(plain bf16 on bf16 X, delta bf16x3, delta f32, plain f32 and delta bf16
+on f32 X) at both shapes, with the tanh and cube densities, in
 ``torch.profiler`` and prints each CUDA kernel's device ms a call (mean
 of 5 calls).
+
+    python3 port_turns.py --crossover [TREE]
+
+measures where ``use_kernels=None`` should hand a fit to the kernels: the
+bench mixture made on the card (``generate_bench_data_device``, seed 42)
+at T = 1,000,000 and N in CROSSOVER_N, fitted 10 iterations at tol 1e-4
+on the kernel path and on the torch path, at the default staged schedule
+and in the f32 tier, after warm-up fits (a draw the whitening finds
+singular is logged and the next seed's fitted instead, up to seed 45; a
+fit out of the card's memory is logged and loses); prints each fit's
+core seconds per iteration and writes the rows to
+``chiprun_out/crossover.json``.
 
     python3 port_turns.py --staged-fit [TREE]
 
@@ -103,7 +117,11 @@ STREAM_CASES = [  # (label, precision, absolute_ll, bf16 X)
     ("delta bf16x3", "bf16x3", False, False),
     ("delta f32", "f32", False, False),
     ("plain f32", "f32", True, False),
+    ("delta bf16, f32 X", "bf16", False, False),
 ]
+# The crossover sweep's widths and columns.
+CROSSOVER_N = (96, 128, 192, 256, 384, 512, 768, 1024, 1344)
+CROSSOVER_T = 1_000_000
 
 
 def _smoke():
@@ -181,6 +199,9 @@ def one_turn(tree: str, kernels_only: bool = False, large_n: bool = False,
             x5, a5 = _large_n_data(sm)
             for label, precision in (("staged 256 x 2M", "auto"), ("f32 256 x 2M", "f32")):
                 turn["fits"][label] = large_n_fit(tree, sm, x5, a5, precision=precision)
+            turn["fits"]["pinned bf16 256 x 2M, 3 iterations"] = large_n_fit(
+                tree, sm, x5, a5, precision="bf16", max_iter=3,
+                save=HERE / "chiprun_out" / f"pinned_bf16_{Path(tree).name}.npy")
         return turn
     for n in RAGGED_F32_ROWS:
         xr, mr_old, mr_new = sm._stream_inputs(n, sm.T_RAGGED, n)
@@ -339,10 +360,14 @@ def _large_n_data(sm):
 
 
 def large_n_fit(tree: str, sm=None, x=None, a=None, trace: bool = False,
-                use_kernels: bool = True, precision: str = "auto") -> dict:
+                use_kernels: bool = True, precision: str = "auto", save=None,
+                **caps) -> dict:
     """Phase 5's 256 x 2,000,000 data (made here unless ``x`` and ``a`` are
     given) fitted once through the streaming kernels, at the default
-    staged schedule or in one tier (``precision``)."""
+    staged schedule or in one tier (``precision``), with the config's
+    ``caps`` (e.g. ``max_iter``); the unmixing is saved to ``save`` when
+    given."""
+    import numpy as np
     import torch
 
     if sm is None:
@@ -357,7 +382,7 @@ def large_n_fit(tree: str, sm=None, x=None, a=None, trace: bool = False,
         x, a = _large_n_data(sm)
     rows = _trace_iterations(core) if trace else None
     K.reset_launch_counts()
-    r, wall = sm._fit(x, use_kernels, kernel_precision=precision)
+    r, wall = sm._fit(x, use_kernels, kernel_precision=precision, **caps)
     path = "kernels" if use_kernels else "torch path"
     schedule = "staged" if precision == "auto" else precision
     sm._report_fit(f"[{tree}] {schedule} {sm.N5} x {sm.T5} ({path})", r, wall, sm.T5)
@@ -365,6 +390,9 @@ def large_n_fit(tree: str, sm=None, x=None, a=None, trace: bool = False,
         sm._log(f"[{tree}] iteration: tier {row[0]}, it {row[1]}, gradient norm "
                 f"{row[2]:.4e}, since_improve {row[3]}, consec_fallbacks {row[4]}, "
                 f"ls_calls {row[5]}")
+    if save is not None:
+        Path(save).parent.mkdir(parents=True, exist_ok=True)
+        np.save(save, r.full_unmixing().double().cpu().numpy())
     result = {"converged": r.converged, "n_iterations": r.n_iterations,
               "stage_exits": list(r.stage_exits or ()), "core_seconds": r.core_seconds,
               "gradient_norm": r.gradient_norm,
@@ -384,6 +412,98 @@ def large_n_fit(tree: str, sm=None, x=None, a=None, trace: bool = False,
     torch.cuda.empty_cache()
     sm._log(f"[{tree}] {schedule} fit: {result}")
     return result
+
+
+def crossover(tree: str) -> list:
+    """The kernel path against the torch path for ``use_kernels=None``'s
+    rule (module docstring): one row per (N, schedule, path) with core
+    seconds per iteration."""
+    import torch
+
+    sm = _smoke()
+    sm.phase0_env()
+    from picard_ica_tpu_torch.errors import SingularMatrixError
+    from picard_ica_tpu_torch.ops import kernels as K
+    from picard_ica_tpu_torch.utils.datagen import generate_bench_data_device
+
+    assert Path(K.__file__).resolve().is_relative_to(Path(tree).resolve()), K.__file__
+    caps = {"tol": 1e-4, "max_iter": 10}
+    schedules = (("staged", "auto"), ("f32", "f32"))
+    paths = (("kernels", True), ("torch path", False))
+    # Warm-up fits of every (schedule, path), so no timed fit pays a first
+    # call's costs (the kernels' library, cuBLAS, the host's eigh).
+    xw = generate_bench_data_device(CROSSOVER_N[0], 100_000, 1, "cuda")
+    for _, precision in schedules:
+        for _, use_kernels in paths:
+            sm._fit(xw, use_kernels, kernel_precision=precision, **caps)
+    del xw
+    rows = []
+    for n in CROSSOVER_N:
+        # A draw whose mixing the f32 covariance cannot resolve (at
+        # 1024 x 1M seed 42's has condition number 3.1e4, seed 43's 1.1e5)
+        # stops both paths in the whitening: it is logged, and the next
+        # seed's draw is fitted.
+        for seed in range(sm.SEED4, sm.SEED4 + 4):
+            x = generate_bench_data_device(n, CROSSOVER_T, seed, "cuda")
+            try:
+                rows += [_crossover_fit(sm, K, tree, x, n, seed, schedule, precision, path,
+                                        use_kernels, caps)
+                         for schedule, precision in schedules for path, use_kernels in paths]
+                break
+            except SingularMatrixError:
+                sm._log(f"[{tree}] crossover N={n}: seed {seed}'s mixture is singular to the "
+                        "whitening")
+            finally:
+                del x
+                torch.cuda.empty_cache()
+    for n in CROSSOVER_N:
+        per = {(r["schedule"], r["path"]): r["core_s_per_iteration"] for r in rows if r["n"] == n}
+        if not per:
+            continue
+        wins = [per[(s, "kernels")] < per[(s, "torch path")] for s, _ in schedules]
+        sm._log(f"[{tree}] crossover N={n}: kernel path wins at staged {wins[0]}, f32 {wins[1]}")
+    out = HERE / "chiprun_out" / "crossover.json"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    out.write_text(json.dumps(rows, indent=1))
+    return rows
+
+
+def _crossover_fit(sm, K, tree, x, n, seed, schedule, precision, path, use_kernels, caps):
+    """One fit of the crossover sweep and its row; a fit that runs out of
+    the card's memory gets a row without times, and loses."""
+    import torch
+
+    row = {"n": n, "t": CROSSOVER_T, "seed": seed, "schedule": schedule, "path": path}
+    K.reset_launch_counts()
+    try:
+        r, wall = sm._fit(x, use_kernels, kernel_precision=precision, **caps)
+    except torch.OutOfMemoryError:
+        r = None
+    if r is None:  # the failed fit's tensors are freed once the exception is gone
+        torch.cuda.empty_cache()
+        sm._log(f"[{tree}] crossover N={n} seed {seed} {schedule} {path}: out of memory")
+        return {**row, "out_of_memory": True, "core_s_per_iteration": float("inf")}
+    row.update({"n_iterations": r.n_iterations, "core_seconds": r.core_seconds,
+                "core_s_per_iteration": r.core_seconds / r.n_iterations, "fit_seconds": wall,
+                "streaming_fused_launches": K.streaming_fused_sums.launches})
+    sm._log(f"[{tree}] crossover N={n} seed {seed} {schedule} {path}: {r.n_iterations} "
+            f"iterations, core {r.core_seconds:.4f} s, "
+            f"{row['core_s_per_iteration']:.5f} s/iteration, fit {wall:.3f} s")
+    return row
+
+
+def _pinned_agreement(before: str, after: str):
+    """Amari distance between the two trees' pinned-bf16 unmixings, where
+    both turns saved one."""
+    import numpy as np
+
+    from picard_ica_tpu_torch.utils.metrics import amari_distance
+
+    files = [HERE / "chiprun_out" / f"pinned_bf16_{Path(t).name}.npy" for t in (before, after)]
+    if not all(f.exists() for f in files):
+        return None
+    w_before, w_after = (np.load(f) for f in files)
+    return amari_distance(w_after, np.linalg.inv(w_before))
 
 
 def _build_all(trees):
@@ -418,7 +538,14 @@ def main(argv=None):
                     help="turns of the resident core kernels' cases at 64 x 2M only")
     ap.add_argument("--large-n", action="store_true",
                     help="turns of the streaming fused kernel's cases and the staged fit only")
+    ap.add_argument("--crossover", action="store_true",
+                    help="sweep N on both paths for use_kernels=None's rule")
     args = ap.parse_args(argv)
+    if args.crossover:
+        tree = str(Path(args.trees[0] if args.trees else HERE).resolve())
+        sys.path[:] = [tree] + [p for p in sys.path if p and Path(p).resolve() != HERE]
+        print(json.dumps(crossover(tree)))
+        return 0
     if args.staged_fit or args.profile:
         tree = str(Path(args.trees[0] if args.trees else HERE).resolve())
         sys.path[:] = [tree] + [p for p in sys.path if p and Path(p).resolve() != HERE]
@@ -448,6 +575,10 @@ def main(argv=None):
             sys.stderr.write(proc.stderr[-4000:])
             raise SystemExit(f"the turn of {tree} failed")
         turns.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+    if args.large_n and not args.kernels_only:
+        agree = _pinned_agreement(before, after)
+        print(f"pinned bf16, 3 iterations: amari(W_after, inv(W_before)) = {agree}")
+        turns.append({"pinned_bf16_amari_after_vs_before": agree})
     Path(args.out).parent.mkdir(parents=True, exist_ok=True)
     Path(args.out).write_text(json.dumps(turns, indent=1))
     print(json.dumps(turns))

@@ -325,3 +325,21 @@ def test_fit_restores_the_tf32_flags_when_it_raises(mixture, monkeypatch, tf32_o
         P.Picard.fit(x, P.PicardConfig(random_state=0, use_kernels=True), device="cpu")
     assert seen == [(False, False)]
     assert _tf32_flags() == (True, True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_auto_use_kernels_rule(dtype):
+    """use_kernels=None hands an f32 fit on the card to the kernels up to
+    AUTO_KERNELS_MAX_N components (past the resident kernels' capacity
+    the streaming ones take it) and never an f64 fit or a fit on the
+    CPU."""
+    from picard_ica_tpu_torch.ops.kernels import KERNEL_MAX_N, STREAM_MAX_N
+
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    cap = solver.AUTO_KERNELS_MAX_N
+    f32 = dtype == torch.float32
+    assert KERNEL_MAX_N <= cap <= STREAM_MAX_N
+    for n in (2, KERNEL_MAX_N, KERNEL_MAX_N + 1, cap):
+        assert solver._auto_use_kernels(cuda, dtype, n) is f32
+        assert solver._auto_use_kernels(cpu, dtype, n) is False
+    assert solver._auto_use_kernels(cuda, dtype, cap + 1) is False

@@ -1,41 +1,43 @@
 """The tensor-core route of streaming_fused_sums and streaming_loglik_sums,
 on the CPU.
 
-The route (``csrc/streaming_fused_tc.cu``: plain mode at the bf16 tier on
-bf16 X and at the f32 tier on f32 X, delta mode at the bf16x3 and the f32
-tier on f32 X; the loglik kernel, the rotation launch alone with a log-lik
-epilogue, on bf16 X at the bf16 tier and on f32 X at the f32 tier) runs
-only on the card. What surrounds it is held here:
+The route (``csrc/streaming_fused_tc.cu``: every (mode, tier, X dtype)
+pair of the fused kernel, the rotation at the rotation tier, bf16 on bf16
+X, and the workspace and contraction at the contraction tier; the loglik
+kernel, the rotation launch alone with a log-lik epilogue, on bf16 X at
+the bf16 tier and on f32 X at the f32 tier) runs only on the card. What
+surrounds it is held here:
 
   * :func:`ops.kernels.stream_tc_plan`'s invariants at every tier: the
     groups cover T once in whole tiles, a chunk is whole groups, and the
     workspace stays under its cap;
   * a torch emulation of the two launches (the plan's groups and chunks;
-    the workspace planes, bf16 psi and Y, with H psi' and Y^2, each as hi
-    and lo at bf16x3 and as f32 at f32, exact zeros at padded rows and
+    X split once at the rotation tier and shared by both rotations; the
+    workspace planes, bf16 psi and Y, with H psi' and Y^2, each as hi and
+    lo at bf16x3 and as f32 at f32, exact zeros at padded rows and
     columns; per-group row sums and products; the groups folded
     pairwise) against the JAX package's ``streaming_fused_sums(...,
-    interpret=True)`` (``picard_ica_tpu.ops.pallas_kernels``;
-    ``precision="bf16", absolute_ll=True`` on bf16 X;
-    ``precision="bf16x3"`` and ``precision="f32"``,
-    ``absolute_ll=False``, and ``precision="f32", absolute_ll=True``, on
-    f32 X) and against ``streaming_fused_sums_plain``. At f32 the
+    interpret=True)`` (``picard_ica_tpu.ops.pallas_kernels``) in all ten
+    pairs, and against ``streaming_fused_sums_plain``. At f32 the
     emulation splits every operand three ways (hi / mid / lo) and sums the
     six products of each 16-deep step, small first and hi*hi last, before
     adding the step to its f32 sum, as the kernels' fresh accumulators do;
+  * the wrapper's launch of every pair on tensors on the meta device (the
+    C entry replaced by a recorder): the mode, both tiers, X's dtype, the
+    weights' planes and the plan;
   * a torch emulation of the loglik kernel (the ``planes=False`` plan's
     groups, the rotation of either tier, the masked log-lik and Y^2 row
     sums per group, the groups folded pairwise) against the JAX package's
     ``streaming_loglik_sums(..., interpret=True)`` and
-    ``streaming_loglik_sums_plain``, and the wrapper's launch on a tensor
-    on the meta device (the C entry replaced by a recorder).
+    ``streaming_loglik_sums_plain``, and its wrapper's launch on the meta
+    device.
 
-Tolerances: in plain bf16, 1e-3 of each output's largest entry, the
-bf16-X rule of tests/test_torch_streaming.py (psi and Y are rounded to
-bf16 after rotations whose f32 sums are ordered differently); in delta
-bf16x3, delta f32 and plain f32, 2e-5 of each output's largest entry,
-that file's f32 and bf16x3 rule (the splits keep ~16 or ~24 bits, and
-only the order of the f32 sums differs). The loglik kernel rounds nothing
+Tolerances: with a bf16 contraction, 1e-3 of each output's largest
+entry, the bf16 rule of tests/test_torch_streaming.py (psi and Y are
+rounded to bf16 after rotations whose f32 sums are ordered differently);
+with a bf16x3 or an f32 contraction, 2e-5 of each output's largest
+entry, that file's f32 and bf16x3 rule (the splits keep ~16 or ~24 bits,
+and only the order of the f32 sums differs). The loglik kernel rounds nothing
 to bf16 after its rotation, so both its tiers are held to 2e-5 too
 (LL_TOL): only the order of the f32 sums differs. The CUDA kernels are held against the plain
 version on the card by tests/test_torch_stream_tc_cuda.py and
@@ -130,35 +132,49 @@ def _x6_contract(a, b):
     return out
 
 
+# A matrix's bf16 parts at each tier: itself rounded, hi / lo, hi / mid / lo.
+PARTS = {"bf16": lambda v: (K._bf16(v),), "bf16x3": K._split_bf16, "f32": K._split3_bf16}
+
+
+def _rotate(w_parts, x_parts, rot):
+    """W X at the rotation tier from the parts of both."""
+    if rot == "f32":
+        return _x6_rotate(w_parts, x_parts)
+    if rot == "bf16x3":
+        return _x3(w_parts, x_parts)
+    return w_parts[0] @ x_parts[0]  # bf16: products of bf16 values are exact in f32
+
+
 def _emulate(m_new, x, density, need_h, need_ysq, m_old=None, tier=None):
     """The route's two launches in torch, on the CPU: per chunk of whole
     groups, launch A's workspace and its row sums per group, launch B's
-    products per group; every output's groups folded pairwise. Plain mode
-    at the bf16 tier (``m_old`` None, bf16 X): bf16 psi and Y, with H
-    psi' and Y^2. Delta mode at bf16x3 (f32 X, the default with
-    ``m_old``): hi / lo of M_old, dM and of each chunk of X, Y_old and dY
-    as three products each, Y = Y_old + dY, the delta density's row sums,
-    and the hi / lo planes of psi and Y (psi' and Y^2) with three
-    products per group. Delta mode at ``tier="f32"``: the same with hi /
-    mid / lo splits, six products per 16-deep step in a fresh sum (the
-    rotation's k steps, the contraction's column steps), and f32 planes
-    of psi and Y (psi' and Y^2) that the contraction splits. Plain mode at
-    ``tier="f32"`` (``m_old`` None, f32 X): one such rotation of M_new,
-    the plain density's row sums and the same f32 planes. Zeros at padded
-    rows and columns, psi' masked there."""
+    products per group; every output's groups folded pairwise.
+
+    ``tier`` is the request (default: bf16x3 with ``m_old``, else bf16);
+    on bf16 X the rotation runs at the bf16 tier and an f32 request at
+    bf16, as ``K._tiers``. The weights in X's working dtype (rounded to
+    bf16 on bf16 X) as zero-padded planes of their parts at the rotation
+    tier: M_new's in plain mode (``m_old`` None), M_old's and dM's in
+    delta mode. Each chunk of X split once at the rotation tier (rounded
+    to bf16 at bf16, hi / lo at bf16x3, hi / mid / lo at f32, where each
+    16-deep k step's six products form a fresh sum) and shared by both
+    rotations; in delta mode Y = Y_old + dY and the delta density's row
+    sums, in plain mode the plain density's. The workspace planes of psi
+    and Y (psi' and Y^2 with H) at the contraction tier: bf16, hi / lo at
+    bf16x3, f32 at f32 (the contraction splits them three ways and sums
+    each 16-column step's six products fresh). Zeros at padded rows and
+    columns, psi' masked there."""
     n, t = x.shape
     delta = m_old is not None
-    tier = tier or ("bf16x3" if delta else "bf16")
+    tier, rot = K._tiers(x, tier or ("bf16x3" if delta else "bf16"))
     plan = K.stream_tc_plan(n, t, need_h, tier)
     cols = plan.cols_per_group
-    if tier == "f32" and delta:
-        w = _padded_planes([*K._split3_bf16(m_old), *K._split3_bf16(m_new - m_old)], plan.n_pad)
-    elif tier == "f32":
-        w = _padded_planes(K._split3_bf16(m_new), plan.n_pad)
-    elif delta:
-        w = _padded_planes([*K._split_bf16(m_old), *K._split_bf16(m_new - m_old)], plan.n_pad)
+    if delta:
+        mn, mo = K._mats(x, m_new, m_old)
+        mats = [mo, mn - mo]
     else:
-        w = _padded_planes([K._bf16(m_new.float())], plan.n_pad)
+        mats = K._mats(x, m_new)
+    w = [_padded_planes(PARTS[rot](m), plan.n_pad) for m in mats]
     xf = x.float()
     live = (torch.arange(plan.n_pad) < n)[:, None]
     parts = [[] for _ in range(6)]
@@ -167,33 +183,22 @@ def _emulate(m_new, x, density, need_h, need_ysq, m_old=None, tier=None):
         c0, c1 = g0 * cols, g1 * cols
         xc = torch.nn.functional.pad(xf[:, c0:min(c1, t)], (0, c1 - min(c1, t)))
         valid = live & (torch.arange(c0, c1) < t)[None]
-        if tier == "f32":
-            x_parts = K._split3_bf16(xc)  # one split shared by both rotations
-            y_old = _x6_rotate(w[:3], x_parts)  # plain mode: Y
-            if delta:
-                dy = _x6_rotate(w[3:], x_parts)
-        elif delta:
-            x_pair = K._split_bf16(xc)  # one split shared by both rotations
-            y_old = _x3((w[0], w[1]), x_pair)
-            dy = _x3((w[2], w[3]), x_pair)
+        x_parts = PARTS[rot](xc)  # one split shared by both rotations
         if delta:
+            y_old = _rotate(w[0], x_parts, rot)
+            dy = _rotate(w[1], x_parts, rot)
             y = y_old + dy
             _, pm_el, ll = density.score_der_loglik_delta(y_old, dy)
             dysq = (2.0 * y_old + dy) * dy
             psi, psid = density.score_and_der(y)
-            split = (lambda v: (v,)) if tier == "f32" else K._split_bf16  # noqa: E731
         else:
-            # bf16: products of bf16 values are exact in f32
-            y = y_old if tier == "f32" else w[0] @ xc
+            y = _rotate(w[0], x_parts, rot)
             psi, psid, ll = density.score_der_loglik(y)
             pm_el, dysq = psid, y * y
-            if tier == "f32":
-                split = lambda v: (v,)  # noqa: E731
-            else:
-                split = lambda v: (K._bf16(v),)  # noqa: E731
         ll = torch.where(valid, ll, 0.0)
         pm_el = torch.where(valid, pm_el, 0.0)
         psid = torch.where(valid, psid, 0.0)
+        split = (lambda v: (v,)) if tier == "f32" else PARTS[tier]  # noqa: E731
         ops = [split(psi), split(y)] + ([split(psid), split(y * y)] if need_h else [])
         elem = 4 if tier == "f32" else 2  # bytes of a workspace element of one plane
         assert sum(map(len, ops)) * plan.n_pad * (c1 - c0) * elem <= plan.ws_bytes
@@ -204,7 +209,7 @@ def _emulate(m_new, x, density, need_h, need_ysq, m_old=None, tier=None):
             if tier == "f32":
                 return _x6_contract(a[0][:n, s], b[0][:n, s])
             a, b = [u[:n, s] for u in a], [u[:n, s].T for u in b]
-            return _x3(a, b) if delta else a[0] @ b[0]  # bf16x3 or bf16
+            return _x3(a, b) if tier == "bf16x3" else a[0] @ b[0]
 
         for g in range(g1 - g0):
             s = slice(g * cols, (g + 1) * cols)
@@ -339,8 +344,7 @@ def test_cpu_wrapper_runs_the_plain_version_in_delta_bf16x3():
     ref = K.streaming_fused_sums_plain(tm, to, tx, td.Tanh(), True, True, "bf16x3", False)
     assert all(torch.equal(a, b) for a, b in zip(out, ref))
     assert K.streaming_fused_sums.launches == 0
-    assert K.streaming_fused_sums.launches_by_tier == {
-        route: {"f32": 0, "bf16x3": 0, "bf16": 0} for route in ("scalar", "tc")}
+    assert K.streaming_fused_sums.launches_by_tier == {"f32": 0, "bf16x3": 0, "bf16": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -412,26 +416,7 @@ def test_cpu_wrapper_runs_the_plain_version_in_delta_f32():
     ref = K.streaming_fused_sums_plain(tm, to, tx, td.Tanh(), False, True, "f32", False)
     assert all(torch.equal(a, b) for a, b in zip(out, ref))
     assert K.streaming_fused_sums.launches == 0
-    assert K.streaming_fused_sums.launches_by_route == {"scalar": 0, "tc": 0}
-
-
-def test_tc_route_takes_delta_f32_on_f32_x():
-    """The routes of the tensor-core kernels, by (mode, tier, X dtype):
-    delta f32 and plain f32 on f32 X are two of them; delta f32 on bf16 X
-    (which runs the bf16 tier), delta bf16 on f32 X (a
-    kernel_precision="bf16" fit), plain bf16 on f32 X and plain bf16x3
-    are not."""
-    x32 = torch.zeros((80, 8))
-    x16 = x32.to(torch.bfloat16)
-    assert K._tc_route(x32, "f32", False)
-    assert K._tc_route(x32, "bf16x3", False)
-    assert K._tc_route(x16, "bf16", True)
-    assert K._tc_route(x32, "f32", True)
-    assert not K._tc_route(x16, K._tiers(x16, "f32")[0], False)
-    assert not K._tc_route(x32, "bf16", False)
-    assert not K._tc_route(x32, "bf16", True)
-    assert not K._tc_route(x32, "bf16x3", True)
-    assert not K._tc_route(x16, "bf16x3", True)
+    assert K.streaming_fused_sums.launches_by_tier == {"f32": 0, "bf16x3": 0, "bf16": 0}
 
 
 def test_cpu_wrapper_runs_the_plain_version():
@@ -444,7 +429,7 @@ def test_cpu_wrapper_runs_the_plain_version():
     ref = K.streaming_fused_sums_plain(tm, tm, tx, td.Tanh(), True, True, "bf16", True)
     assert all(torch.equal(a, b) for a, b in zip(out, ref))
     assert K.streaming_fused_sums.launches == 0
-    assert K.streaming_fused_sums.launches_by_route == {"scalar": 0, "tc": 0}
+    assert K.streaming_fused_sums.launches_by_tier == {"f32": 0, "bf16x3": 0, "bf16": 0}
 
 
 def _col_bytes(plan, need_h, tier="bf16"):
@@ -602,7 +587,7 @@ def test_cpu_wrapper_runs_the_plain_version_in_plain_f32():
     ref = K.streaming_fused_sums_plain(tm, tm, tx, td.Tanh(), True, True, "f32", True)[2:]
     assert all(torch.equal(a, b) for a, b in zip(out, ref))
     assert K.streaming_fused_sums.launches == 0
-    assert K.streaming_fused_sums.launches_by_route == {"scalar": 0, "tc": 0}
+    assert K.streaming_fused_sums.launches_by_tier == {"f32": 0, "bf16x3": 0, "bf16": 0}
 
 
 # ---------------------------------------------------------------------------
@@ -806,8 +791,167 @@ def test_plain_f32_wrapper_takes_the_route(recorder):
     plan = K.stream_tc_plan(n, t, True, "f32")
     (name, args), (fold, _) = recorder.calls
     assert name == "picard_streaming_fused_tc" and fold == "picard_fold_pairwise"
-    assert args[:2] == (0, K._TIERS["f32"])
-    assert args[7:11] == (t, plan.cols_per_group, plan.n_parts, plan.groups_per_chunk)
+    assert args[:4] == (0, K._TIERS["f32"], K._TIERS["f32"], 0)
+    assert args[9:13] == (t, plan.cols_per_group, plan.n_parts, plan.groups_per_chunk)
     assert len(recorder.planes[0]) == 3
-    assert K.streaming_fused_sums.launches_by_tier["tc"]["f32"] == 1
-    assert K.streaming_fused_sums.launches_by_route == {"scalar": 0, "tc": 1}
+    assert K.streaming_fused_sums.launches_by_tier == {"f32": 1, "bf16x3": 0, "bf16": 0}
+
+
+# Every (mode, requested tier, X dtype) of the wrapper: (absolute_ll,
+# precision, bf16 X) -> (rotation tier, contraction tier, weight planes).
+ALL_PAIRS = [
+    (True, "bf16", True, "bf16", "bf16", 1),
+    (True, "f32", True, "bf16", "bf16", 1),
+    (True, "bf16x3", True, "bf16", "bf16x3", 1),
+    (False, "bf16", True, "bf16", "bf16", 2),
+    (False, "f32", True, "bf16", "bf16", 2),
+    (False, "bf16x3", True, "bf16", "bf16x3", 2),
+    (True, "bf16", False, "bf16", "bf16", 1),
+    (True, "bf16x3", False, "bf16x3", "bf16x3", 2),
+    (True, "f32", False, "f32", "f32", 3),
+    (False, "bf16", False, "bf16", "bf16", 2),
+    (False, "bf16x3", False, "bf16x3", "bf16x3", 4),
+    (False, "f32", False, "f32", "f32", 6),
+]
+
+
+def test_tc_route_takes_delta_f32_on_f32_x(recorder):
+    """A non-CPU tensor takes the tensor-core entry in every (mode, tier,
+    X dtype) pair, delta f32 on f32 X among them: the mode, the rotation
+    tier (bf16 on bf16 X), the contraction tier (bf16 for an f32 request
+    on bf16 X) and X's dtype passed to the entry, the weights' parts at
+    the rotation tier, the plan of the contraction tier's workspace, and
+    the launch counted by mode and contraction tier."""
+    n, t = 130, 3001
+    (m_new, m_old, x), _ = _delta_case(n, t, 15)
+    tm, to = (_meta(torch.from_numpy(v)) for v in (m_new, m_old))
+    for absolute_ll, precision, bf16_x, rot, ct, n_planes in ALL_PAIRS:
+        tx = torch.from_numpy(x).to(torch.bfloat16 if bf16_x else torch.float32)
+        recorder.calls.clear()
+        recorder.planes.clear()
+        K.reset_launch_counts()
+        out = K.streaming_fused_sums(tm, to, _meta(tx), td.Tanh(), True, True, precision,
+                                     absolute_ll)
+        assert [tuple(v.shape) for v in out] == [(n,), (n,), (n, n), (n,), (n, n), (n,)]
+        plan = K.stream_tc_plan(n, t, True, ct)
+        (name, args), (fold, _) = recorder.calls
+        assert name == "picard_streaming_fused_tc" and fold == "picard_fold_pairwise"
+        assert args[:4] == (int(not absolute_ll), K._TIERS[rot], K._TIERS[ct], int(bf16_x))
+        assert args[9:13] == (t, plan.cols_per_group, plan.n_parts, plan.groups_per_chunk)
+        assert len(recorder.planes[0]) == n_planes
+        assert K.streaming_fused_sums.launches == 1
+        assert K.streaming_fused_sums.launches_by_tier[ct] == 1
+        mode = "plain" if absolute_ll else "delta"
+        assert K.streaming_fused_sums.launches_by_mode[mode][ct] == 1
+
+
+# ---------------------------------------------------------------------------
+# The six other pairs: delta and plain bf16 on f32 X (a kernel_precision=
+# "bf16" fit's tries, and a direct call), plain bf16x3 on f32 X, delta bf16
+# on bf16 X, delta and plain bf16x3 on bf16 X (the rotation at the bf16
+# tier, the contraction at bf16x3).
+# ---------------------------------------------------------------------------
+
+# (id, precision, absolute_ll, bf16 X)
+OTHER_PAIRS = [
+    ("delta-bf16-f32x", "bf16", False, False),
+    ("plain-bf16-f32x", "bf16", True, False),
+    ("plain-bf16x3-f32x", "bf16x3", True, False),
+    ("delta-bf16-bf16x", "bf16", False, True),
+    ("delta-bf16x3-bf16x", "bf16x3", False, True),
+    ("plain-bf16x3-bf16x", "bf16x3", True, True),
+]
+PAIR_IDS = [p[0] for p in OTHER_PAIRS]
+
+
+def _pair_case(n, t, seed, bf16_x):
+    """M_new, M_old near the identity and X (bf16 with ``bf16_x``), as
+    NumPy f32 and as torch tensors."""
+    m_new, m_old, x = _delta_inputs(n, t, seed)
+    tx = torch.from_numpy(x)
+    return (m_new, m_old, x), (torch.from_numpy(m_new), torch.from_numpy(m_old),
+                               tx.to(torch.bfloat16) if bf16_x else tx)
+
+
+def _jax_pair(m_new, m_old, x, dens, need_h, need_ysq, precision, absolute_ll, bf16_x):
+    xj = jnp.asarray(x).astype(jnp.bfloat16) if bf16_x else jnp.asarray(x)
+    return pk.streaming_fused_sums(jnp.asarray(m_new), jnp.asarray(m_old), xj, DENS[dens][0],
+                                   need_h, need_ysq, interpret=True, precision=precision,
+                                   absolute_ll=absolute_ll)
+
+
+def _pair_tol(precision):
+    """1e-3 for a bf16 contraction, 2e-5 for a bf16x3 one."""
+    return BF16_TOL if precision == "bf16" else X3_TOL
+
+
+def _run_pair(tm, to, tx, density, need_h, need_ysq, precision, absolute_ll):
+    return _emulate(tm, tx, density, need_h, need_ysq, m_old=None if absolute_ll else to,
+                    tier=precision)
+
+
+@pytest.mark.parametrize("dens", list(DENS))
+@pytest.mark.parametrize("n,t", WIDE_SHAPES)
+@pytest.mark.parametrize("pair", OTHER_PAIRS, ids=PAIR_IDS)
+def test_emulated_other_pairs_match_jax_and_plain(pair, n, t, dens):
+    _, precision, absolute_ll, bf16_x = pair
+    (m_new, m_old, x), (tm, to, tx) = _pair_case(n, t, n + t + 3, bf16_x)
+    tden = DENS[dens][1]
+    got = _run_pair(tm, to, tx, tden, True, True, precision, absolute_ll)
+    tol = _pair_tol(precision)
+    _check(_jax_pair(m_new, m_old, x, dens, True, True, precision, absolute_ll, bf16_x), got,
+           tol)
+    _check(K.streaming_fused_sums_plain(tm, to, tx, tden, True, True, precision, absolute_ll),
+           got, tol)
+
+
+@pytest.mark.parametrize("need_ysq", [False, True], ids=["no-ysq", "ysq"])
+@pytest.mark.parametrize("need_h", [False, True], ids=["no-h", "h"])
+@pytest.mark.parametrize("pair", OTHER_PAIRS, ids=PAIR_IDS)
+def test_emulated_other_pairs_flags(pair, need_h, need_ysq):
+    _, precision, absolute_ll, bf16_x = pair
+    (m_new, m_old, x), (tm, to, tx) = _pair_case(80, 1001, 16, bf16_x)
+    got = _run_pair(tm, to, tx, td.Tanh(), need_h, need_ysq, precision, absolute_ll)
+    _check(_jax_pair(m_new, m_old, x, "tanh", need_h, need_ysq, precision, absolute_ll,
+                     bf16_x), got, _pair_tol(precision))
+    if not need_h:
+        assert not got[4].any()
+    if not need_ysq:
+        assert not got[1].any() and not got[5].any()
+    elif absolute_ll:
+        assert torch.equal(got[1], got[5])  # plain mode: dysq = ysq = sum Y^2
+
+
+@pytest.mark.parametrize("need_h", [False, True], ids=["no-h", "h"])
+@pytest.mark.parametrize("pair", OTHER_PAIRS, ids=PAIR_IDS)
+def test_emulated_other_pairs_in_chunks(monkeypatch, pair, need_h):
+    """Groups of 128 columns and a workspace of two groups of the
+    contraction tier's planes: 2,049 columns in 17 groups run as 9
+    chunks, and give the unchunked sums."""
+    _, precision, absolute_ll, bf16_x = pair
+    (m_new, m_old, x), (tm, to, tx) = _pair_case(80, 2049, 17, bf16_x)
+    monkeypatch.setattr(K, "STREAM_TC_GROUP_COLS", 128)
+    whole = _run_pair(tm, to, tx, td.Exp(0.5), need_h, True, precision, absolute_ll)
+    ct = K._tiers(tx, precision)[0]
+    monkeypatch.setattr(K, "STREAM_TC_WORKSPACE_MAX",
+                        2 * 128 * 2 * (1 + need_h) * 128 * K._TC_ELEM_BYTES[ct])
+    plan = K.stream_tc_plan(80, 2049, need_h, ct)
+    assert (plan.cols_per_group, plan.n_parts, plan.groups_per_chunk) == (128, 17, 2)
+    chunked = _run_pair(tm, to, tx, td.Exp(0.5), need_h, True, precision, absolute_ll)
+    _check(whole, chunked, 1e-6)
+    _check(_jax_pair(m_new, m_old, x, "exp0.5", need_h, True, precision, absolute_ll, bf16_x),
+           chunked, _pair_tol(precision))
+
+
+@pytest.mark.parametrize("pair", OTHER_PAIRS, ids=PAIR_IDS)
+def test_cpu_wrapper_runs_the_plain_version_in_other_pairs(pair):
+    """On a CPU tensor each of the six pairs runs the plain version and
+    launches nothing."""
+    _, precision, absolute_ll, bf16_x = pair
+    _, (tm, to, tx) = _pair_case(80, 1001, 18, bf16_x)
+    K.reset_launch_counts()
+    out = K.streaming_fused_sums(tm, to, tx, td.Tanh(), True, True, precision, absolute_ll)
+    ref = K.streaming_fused_sums_plain(tm, to, tx, td.Tanh(), True, True, precision,
+                                       absolute_ll)
+    assert all(torch.equal(a, b) for a, b in zip(out, ref))
+    assert K.streaming_fused_sums.launches == 0

@@ -2,29 +2,30 @@
 against their plain versions.
 
 The route (``csrc/streaming_fused_tc.cu``) serves, at 64 < N <=
-STREAM_MAX_N, the plain mode at the bf16 tier on bf16 X and at the f32
-tier on f32 X, and the delta mode at the bf16x3 and the f32 tier on f32
-X: a rotation-and-density launch into a workspace of psi / Y planes, then
-a contraction launch; and the loglik kernel, the rotation launch alone
-with a log-lik epilogue, on bf16 X and on f32 X. Needs an NVIDIA GPU
-(Hopper, sm_90a): every test here is marked ``cuda`` and skips without
-one. Imports no JAX:
+STREAM_MAX_N, every (mode, tier, X dtype) pair of streaming_fused_sums:
+a rotation-and-density launch into a workspace of psi / Y planes, then a
+contraction launch; and the loglik kernel, the rotation launch alone with
+a log-lik epilogue, on bf16 X and on f32 X. Needs an NVIDIA GPU (Hopper,
+sm_90a): every test here is marked ``cuda`` and skips without one.
+Imports no JAX:
 
     python -m pytest --noconftest tests/test_torch_stream_tc_cuda.py -q
 
-Tolerances: RTOL_BF16 of each output's largest entry, as the scalar
-kernel's bf16 tier (tests/test_torch_cuda.py): psi, Y (psi', Y^2) are
-rounded to bf16 after a rotation whose f32 sums are ordered differently,
-so a few roundings flip by 2^-8. Where T is a few columns, one term is a
-large share of an entry of G or H, and one flipped rounding of it can
-pass that (at 1344 x 31 a flip of one Y^2 near 100 moved H by 0.133
-against 0.116 = 1e-3 of its largest entry): the shape test adds to G and
-H the largest move one flip in each operand can make, 2^-7 of the
+Tolerances of a bf16 contraction: RTOL_BF16 of each output's largest
+entry, as kernel 1's bf16 tier (tests/test_torch_cuda.py): psi, Y (psi',
+Y^2) are rounded to bf16 after a rotation whose f32 sums are ordered
+differently, so a few roundings flip by 2^-8. Where T is a few columns,
+one term is a large share of an entry of G or H, and one flipped rounding
+of it can pass that (at 1344 x 31 a flip of one Y^2 near 100 moved H by
+0.133 against 0.116 = 1e-3 of its largest entry): the shape tests add to
+G and H the largest move one flip in each operand can make, 2^-7 of the
 largest |psi| |Y| (|psi'| |Y^2|). G's drift against f64 sums of the same
 bf16 operands may be DRIFT_FACTOR times the plain version's, plus
-DRIFT_FLOOR of G's largest entry.
+DRIFT_FLOOR of G's largest entry; so may delta bf16's rotation sums (dysq
+and ysq) on f32 X.
 
-Delta bf16x3 on f32 X: RTOL_X3 = 2e-5 of each output's largest entry,
+A bf16x3 contraction (delta bf16x3 on f32 X, and the bf16x3 pairs of the
+other direct calls): RTOL_X3 = 2e-5 of each output's largest entry,
 the bf16x3 rule of tests/test_torch_streaming.py (the hi / lo splits keep
 ~16 bits, so a flipped rounding of a lo part moves a term by at most
 2^-17 of each operand). The drift of its rotation (dysq and ysq against
@@ -112,10 +113,11 @@ def _flips(m_new, x, density):
 def _run_tc(args):
     K.reset_launch_counts()
     out = K.streaming_fused_sums(*args)
-    assert K.streaming_fused_sums.launches_by_route == {"scalar": 0, "tc": 1}
     assert K.streaming_fused_sums.launches == 1
     tier = K._tiers(args[2], args[6])[0]
-    assert K.streaming_fused_sums.launches_by_tier["tc"][tier] == 1
+    assert K.streaming_fused_sums.launches_by_tier[tier] == 1
+    mode = "plain" if args[7] else "delta"
+    assert K.streaming_fused_sums.launches_by_mode[mode][tier] == 1
     return out
 
 
@@ -175,12 +177,13 @@ def test_moments_hand_off_takes_the_tc_route(dev):
     x, m_old, _ = _inputs(dev, 130, 5000, seed=5)
     K.reset_launch_counts()
     out = K.rotated_moments_sums(m_old, x, Tanh(), True, True)
-    assert K.streaming_fused_sums.launches_by_route == {"scalar": 0, "tc": 1}
+    assert K.streaming_fused_sums.launches_by_mode["plain"]["bf16"] == 1
     _close(out, K.rotated_moments_sums_plain(m_old, x, Tanh(), True, True))
 
 
-# Every other (mode, tier, X dtype) stays on the scalar kernel.
-SCALAR_ROUTES = [
+# The six pairs no default fit takes but a kernel_precision="bf16" fit's
+# tries (delta bf16 on f32 X): (label, precision, absolute_ll, bf16 X).
+OTHER_PAIRS = [
     ("delta bf16, bf16 X", "bf16", False, True),
     ("delta bf16x3, bf16 X", "bf16x3", False, True),
     ("plain bf16x3, bf16 X", "bf16x3", True, True),
@@ -190,18 +193,99 @@ SCALAR_ROUTES = [
 ]
 
 
-@pytest.mark.parametrize("label,precision,absolute_ll,bf16_x", SCALAR_ROUTES,
-                         ids=[r[0] for r in SCALAR_ROUTES])
-def test_other_routes_stay_on_the_scalar_kernel(dev, label, precision, absolute_ll, bf16_x):
-    x, m_old, m_new = _inputs(dev, 130, 3001, seed=6)
-    if not bf16_x:
-        x = x.float()
-    args = (m_new, m_old, x, Tanh(), True, True, precision, absolute_ll)
-    K.reset_launch_counts()
-    out = K.streaming_fused_sums(*args)
-    assert K.streaming_fused_sums.launches_by_route == {"scalar": 1, "tc": 0}
+def _pair_args(dev, n, t, seed, precision, absolute_ll, bf16_x, flags=True):
+    x, m_old, m_new = _inputs(dev, n, t, seed, torch.bfloat16 if bf16_x else torch.float32)
+    return (m_new, m_old, x, Tanh(), flags, flags, precision, absolute_ll)
+
+
+def _pair_flips(args):
+    """A bf16 contraction's flip allowance (_flips, Y ~ M_new X in either
+    mode); none at bf16x3."""
+    m_new, _, x, density, _, _, precision, _ = args
+    return _flips(m_new, x, density) if precision == "bf16" else (0.0,) * 6
+
+
+@pytest.mark.parametrize("label,precision,absolute_ll,bf16_x", OTHER_PAIRS,
+                         ids=[r[0] for r in OTHER_PAIRS])
+def test_other_pairs_take_the_tc_route(dev, label, precision, absolute_ll, bf16_x):
+    """Each of the six pairs launches the tensor-core route (counted by
+    mode and contraction tier) and matches its plain version."""
+    args = _pair_args(dev, 130, 3001, 6, precision, absolute_ll, bf16_x)
+    out = _run_tc(args)
     _close(out, K.streaming_fused_sums_plain(*args),
-           RTOL_BF16 if precision == "bf16" else 2e-5)
+           RTOL_BF16 if precision == "bf16" else RTOL_X3, _pair_flips(args))
+
+
+@pytest.mark.parametrize("flags", [False, True], ids=["min", "h+ysq"])
+@pytest.mark.parametrize("t", [1, 2047, 1_000_003])
+@pytest.mark.parametrize("n", [65, 130, 257, 705])
+@pytest.mark.parametrize("label,precision,absolute_ll,bf16_x", OTHER_PAIRS,
+                         ids=[r[0] for r in OTHER_PAIRS])
+def test_other_pairs_ragged_shapes_match_plain(dev, label, precision, absolute_ll, bf16_x, n,
+                                               t, flags):
+    """The six pairs at the edges of the 128-row blocks and the 32-deep k
+    stages, ragged T (rows not 16-byte aligned: plain bf16 loads, 4-byte
+    f32 copies), with and without H and the Y^2 sums."""
+    args = _pair_args(dev, n, t, n + t + 40, precision, absolute_ll, bf16_x, flags)
+    out = _run_tc(args)
+    _close(out, K.streaming_fused_sums_plain(*args),
+           RTOL_BF16 if precision == "bf16" else RTOL_X3, _pair_flips(args))
+    if not flags:
+        assert not out[4].any() and not out[1].any() and not out[5].any()
+    elif absolute_ll:
+        assert torch.equal(out[1], out[5])  # plain mode: dysq = ysq = sum Y^2
+
+
+def test_delta_bf16_rotation_drift_against_f64(dev):
+    """Delta bf16 on f32 X (a kernel_precision="bf16" fit's tries) at
+    256 x 2,000,000: dysq = sum (2 Y_old + dY) dY and ysq = sum Y^2
+    against the same sums in f64 of the same bf16 operands (bf16(M_old),
+    bf16(dM), bf16(X)), within DRIFT_FACTOR of the plain version's error
+    plus DRIFT_FLOOR of the output's largest entry."""
+    args = _pair_args(dev, 256, 2_000_000, 41, "bf16", False, False, flags=False)
+    args = args[:5] + (True,) + args[6:]
+    m_new, m_old, x = args[:3]
+    out_k = _run_tc(args)
+    out_p = K.streaming_fused_sums_plain(*args)
+    x64 = K._bf16(x).double()
+    y_old = K._bf16(m_old).double() @ x64
+    dy = K._bf16(m_new - m_old).double() @ x64
+    del x64
+    dysq = ((2.0 * y_old + dy) * dy).sum(dim=1)
+    y_old += dy
+    ysq = (y_old * y_old).sum(dim=1)
+    del y_old, dy
+    _drift(out_k[1], out_p[1], dysq)
+    _drift(out_k[5], out_p[5], ysq)
+
+
+def test_library_holds_no_scalar_streaming_kernel(dev):
+    """The built library holds no scalar ``streaming_kernel`` (neither in
+    ptxas's report nor among its bytes) and no ``streaming_sums.cu``, and
+    in one torch.profiler session over the six direct-call pairs only the
+    route's kernels and the fold run."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from picard_ica_tpu_torch.ops import _build
+
+    K._lib()
+    report = _build.resource_report()
+    assert "streaming_sums.cu" not in report
+    assert not any("streaming_kernel" in k[0] for ks in report.values() for k in ks)
+    assert b"streaming_kernel" not in _build.library_path().read_bytes()
+    calls = [_pair_args(dev, 130, 3001, 42, precision, absolute_ll, bf16_x)
+             for _, precision, absolute_ll, bf16_x in OTHER_PAIRS]
+    for args in calls:
+        K.streaming_fused_sums(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for args in calls:
+            K.streaming_fused_sums(*args)
+        torch.cuda.synchronize()
+    names = {e.key for e in prof.key_averages() if e.device_time_total > 0}
+    assert any("rotate_split_kernel" in k for k in names), names
+    assert any("contract_kernel" in k for k in names), names
+    assert not any("streaming_kernel" in k for k in names), names
 
 
 def test_stream_tc_g_drift_against_f64(dev):
@@ -287,8 +371,7 @@ def test_rotated_hand_off_takes_the_x3_route(dev):
     args = (m_new, m_old, x, Tanh(), False, True, "bf16x3", False)
     K.reset_launch_counts()
     out = K.rotated_fused_sums(*args)
-    assert K.streaming_fused_sums.launches_by_route == {"scalar": 0, "tc": 1}
-    assert K.streaming_fused_sums.launches_by_tier["tc"]["bf16x3"] == 1
+    assert K.streaming_fused_sums.launches_by_tier["bf16x3"] == 1
     _close(out, K.rotated_fused_sums_plain(*args), RTOL_X3)
 
 
@@ -414,13 +497,11 @@ def test_rotated_hand_off_takes_the_f32_route(dev):
     args = (m_new, m_old, x, Tanh(), False, True, "f32", False)
     K.reset_launch_counts()
     out = K.rotated_fused_sums(*args)
-    assert K.streaming_fused_sums.launches_by_route == {"scalar": 0, "tc": 1}
-    assert K.streaming_fused_sums.launches_by_tier["tc"]["f32"] == 1
+    assert K.streaming_fused_sums.launches_by_tier["f32"] == 1
     _close(out, K.rotated_fused_sums_plain(*args), RTOL_F32)
     K.reset_launch_counts()
     mom = K.rotated_moments_sums(m_old, x, Tanh(), False, True)
-    assert K.streaming_fused_sums.launches_by_route == {"scalar": 0, "tc": 1}
-    assert K.streaming_fused_sums.launches_by_tier["tc"]["f32"] == 1
+    assert K.streaming_fused_sums.launches_by_tier["f32"] == 1
     _close(mom, K.rotated_moments_sums_plain(m_old, x, Tanh(), False, True), RTOL_F32)
 
 
@@ -640,12 +721,27 @@ def test_staged_fit_makes_no_scalar_launch(dev):
     _, _, x = generate_mixed_kurtosis_data(256, 100_000, 2)
     K.reset_launch_counts()
     r = Picard.fit(x, PicardConfig(random_state=0, use_kernels=True))
-    route = K.streaming_fused_sums.launches_by_route
-    tiers = K.streaming_fused_sums.launches_by_tier["tc"]
+    tiers = K.streaming_fused_sums.launches_by_tier
     print(f"iterations {r.n_iterations}, stage exits {r.stage_exits}, fused {tiers}, "
           f"loglik {K.streaming_loglik_sums.launches_by_tier}")
     assert bool(torch.isfinite(r.unmixing).all())
-    assert route["scalar"] == 0 and route["tc"] == K.streaming_fused_sums.launches > 0
+    assert sum(tiers.values()) == K.streaming_fused_sums.launches > 0
     assert tiers["bf16"] > 0
     assert K.streaming_loglik_sums.launches == sum(
         K.streaming_loglik_sums.launches_by_tier.values())
+
+
+def test_auto_takes_the_streaming_kernels(dev):
+    """use_kernels=None at N = 80 (past the resident kernels' 64): an f32
+    fit on the card runs the streaming kernels, as the measured auto rule
+    (solver.AUTO_KERNELS_MAX_N) says, and converges (the data of
+    tests/test_torch_cuda.py's use_kernels=True fit)."""
+    from picard_ica_tpu_torch import Picard, PicardConfig
+    from picard_ica_tpu_torch.utils import amari_distance, generate_mixed_kurtosis_data
+
+    _, a, x = generate_mixed_kurtosis_data(80, 60_000, 5)
+    K.reset_launch_counts()
+    r = Picard.fit(x, PicardConfig(random_state=0))
+    assert K.streaming_fused_sums.launches > 0 and K.rotated_fused_sums.launches == 0
+    assert r.converged
+    assert amari_distance(r.full_unmixing().double().cpu().numpy(), a) < 5e-3

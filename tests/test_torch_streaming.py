@@ -12,11 +12,12 @@ Tolerances:
     tests/test_streaming.py holds the streaming kernels to the resident
     ones (the two packages cut T into other tiles, so sums are ordered
     differently).
-  * f32 and bf16x3: 2e-5 of each output's largest entry — f32 sums over
-    a few thousand columns in another order.
-  * bf16 X: 1e-3 of each output's largest entry — psi and Y are rounded
-    to bf16 after a rotation whose f32 sums are ordered differently, so
-    a few roundings flip by 2^-8 (tests/test_torch_cuda.py RTOL_BF16).
+  * f32 and bf16x3 contractions: 2e-5 of each output's largest entry —
+    f32 sums over a few thousand columns in another order.
+  * a bf16 contraction (the bf16 tier, or an f32 request on bf16 X): 1e-3
+    of each output's largest entry — psi and Y are rounded to bf16 after
+    a rotation whose f32 sums are ordered differently, so a few roundings
+    flip by 2^-8 (tests/test_torch_cuda.py RTOL_BF16).
 """
 
 import jax.numpy as jnp
@@ -96,25 +97,37 @@ def test_fused_flags_off_give_zeros(flags, absolute_ll):
         assert not t[1].any() and not t[5].any()
 
 
-@pytest.mark.parametrize("precision", ["f32", "bf16x3"])
+@pytest.mark.parametrize("precision", ["f32", "bf16x3", "bf16"])
 @pytest.mark.parametrize("absolute_ll", [False, True], ids=["delta", "plain"])
 def test_fused_plain_version_matches_jax_streaming_tiers_f32(precision, absolute_ll):
+    """f32 X at every tier; at bf16 (a kernel_precision="bf16" fit's
+    tries, and plain mode's direct call) X and the weights are rounded to
+    bf16 inside the rotation, and psi and Y inside the contraction."""
     m_new, m_old, x = _inputs(130, 2049, 3, np.float32)
     j, t = _fused(m_new, m_old, x, "tanh", True, True, precision, absolute_ll)
     for v in t:
         assert v.dtype == torch.float32
-    _check(j, t, F32_TOL)
+    _check(j, t, BF16_TOL if precision == "bf16" else F32_TOL)
 
 
-@pytest.mark.parametrize("precision", ["f32", "bf16"])
-def test_fused_plain_version_matches_jax_streaming_bf16_x(precision):
-    """bf16 X in plain mode (the bf16 tier's copy): the weights are
-    rounded to bf16 and an f32 request runs the bf16 tier."""
+# (precision, absolute_ll) on bf16 X; the ids of the plain-mode cases
+# name only the precision.
+BF16_X_CASES = [("f32", True), ("bf16", True), ("bf16x3", True),
+                ("f32", False), ("bf16", False), ("bf16x3", False)]
+
+
+@pytest.mark.parametrize("precision,absolute_ll", BF16_X_CASES,
+                         ids=["f32", "bf16", "plain-bf16x3", "delta-f32", "delta-bf16",
+                              "delta-bf16x3"])
+def test_fused_plain_version_matches_jax_streaming_bf16_x(precision, absolute_ll):
+    """bf16 X (the bf16 tier's copy): the weights are rounded to bf16, the
+    rotation runs the bf16 tier and an f32 request runs the bf16 tier;
+    a bf16x3 request keeps the hi / lo contraction."""
     m_new, m_old, x = _inputs(130, 2049, 4, np.float32)
-    j, t = _fused(m_new, m_old, x, "tanh", True, True, precision, True, x_bf16=True)
+    j, t = _fused(m_new, m_old, x, "tanh", True, True, precision, absolute_ll, x_bf16=True)
     for v in t:
         assert v.dtype == torch.float32
-    _check(j, t, BF16_TOL)
+    _check(j, t, F32_TOL if precision == "bf16x3" else BF16_TOL)
 
 
 def test_group_boundaries_match_jax(monkeypatch):
