@@ -69,7 +69,24 @@ prints no result line):
      3 iterations, every try on the tensor-core route (as many delta bf16
      launches as line-search passes), then a run to tol 1e-4 or 30
      iterations, whichever comes first; Amari to the mixing and to phase
-     5's torch-path fit.
+     5's torch-path fit;
+  6. BASELINE config 4 at full size (``benchmarks/suite.py:519-552``):
+     ``generate_mixed_kurtosis_data(128, 1_000_000, seed=7)`` as float64
+     NumPy, fitted with ``PicardConfig(jade_it=50, random_state=0,
+     tol=1e-7, max_iter=200)`` on the card (auto: kernels 8 and 9) and
+     again on the torch path; the seconds of host-f64 whitening, the JADE
+     Gram and its sweeps (the port's own functions on the same whitened
+     data) and the core, the sweep count, Amari to the mixing (< 5e-3)
+     and between the two fits (< 1e-3), convergence, kernel 8 launched
+     and kernel 9 too where a sign is negative;
+  6b. the same input with a FastICA(10) warm start at the same settings:
+     converged, Amari to the mixing (< 5e-3) and to phase 6's kernel fit
+     (< 1e-3);
+  6c. phase 6's result saved with and without sources and loaded onto
+     the card (unmixing, whitening, mean, signs and sources bit-equal),
+     ``transform`` from the file against the fit's sources (to 3 cond(A)
+     f32 eps of their largest entry), and a fit resumed from the file
+     with ``resume_config``, which must converge.
 
 Phase 2 also holds the streaming kernels against their plain versions:
 ``streaming_fused_sums`` at 256 x 2,000,000 (every mode and tier a fit
@@ -92,7 +109,8 @@ The line before the last is a JSON object describing every kernel:
 launches on its path (phase 3 for the resident core kernels, phase 4
 for the whitening kernels, 4b for the grouped one, 5 for the streaming
 kernels' f32 routes, 5b and 5c for the bf16 and bf16x3 routes, 5d for
-delta bf16 on f32 X; the fused pass's tensor-core kernel counts
+delta bf16 on f32 X; ``launches_by_path`` adds every other fit's,
+phases 6 and 6b among them; the fused pass's tensor-core kernel counts
 the launches of its three tiers in phase 4, ``launches_by_tier``), error
 against the plain version (and, for every f32 case, against f64), and
 the numbers of its headline case (``_KERNELS``): ``ms`` and ``plain_ms``
@@ -142,6 +160,10 @@ K_RESIDUAL_MAX = 1e-3
 N5, T5 = 256, 2_000_000
 N_MEG, T_MEG = 306, 1_000_003
 N5B, T5B, SEED5B = 1024, 200_000, 42
+# BASELINE config 4 (benchmarks/suite.py:519-552): JADE(50) -> Picard on a
+# 128 x 1,000,000 mixed mixture, float64 NumPy, seed 7.
+N6, T6, SEED6, JADE_IT6 = 128, 1_000_000, 7, 50
+CONFIG6 = {"jade_it": JADE_IT6, "tol": 1e-7, "max_iter": 200}
 # Ragged columns for the tensor-core kernel's phase-2 cases.
 T_RAGGED = 1_000_003
 # Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): HBM
@@ -708,13 +730,19 @@ def phase2_whitening_kernels():
 def _fit(x, use_kernels, **config):
     import torch
 
-    from picard_ica_tpu_torch import Picard, PicardConfig
+    from picard_ica_tpu_torch import Picard
 
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    r = Picard.fit(x, PicardConfig(random_state=0, use_kernels=use_kernels, **config))
+    r = Picard.fit(x, _config(use_kernels=use_kernels, **config))
     torch.cuda.synchronize()
     return r, time.perf_counter() - t0
+
+
+def _config(**config):
+    from picard_ica_tpu_torch import PicardConfig
+
+    return PicardConfig(**{"random_state": 0, **config})
 
 
 _CORE_KERNELS = ("rotated_fused_sums", "rotated_moments_sums", "rotated_loglik_sums")
@@ -1151,6 +1179,182 @@ def phase5b_exhibit():
     return launches
 
 
+def _amari_inv(w, w_other):
+    import numpy as np
+
+    from picard_ica_tpu_torch.utils.metrics import amari_distance
+
+    return amari_distance(w, np.linalg.inv(w_other))
+
+
+def _synced_seconds(fn):
+    """(fn's result, host seconds between two device synchronisations)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase6_jade_warm():
+    """BASELINE config 4 at full size (benchmarks/suite.py:519-552): JADE(50)
+    warm start -> Picard on 128 x 1,000,000 float64 NumPy (host-f64
+    whitening, an f32 core through the streaming kernels), then the same
+    on the torch path. The seconds of whitening, the JADE Gram and its
+    sweeps come from the port's own functions on the same whitened data.
+    Returns the kernel fit's launch counts and what phases 6b and 6c
+    compare with."""
+    import numpy as np
+    import torch
+
+    from picard_ica_tpu_torch.models.jade import _jacobi_sweeps, compute_cumulant_matrices
+    from picard_ica_tpu_torch.ops import kernels as K
+    from picard_ica_tpu_torch.ops.whitening import preprocess_f64
+    from picard_ica_tpu_torch.utils.datagen import generate_mixed_kurtosis_data
+    from picard_ica_tpu_torch.utils.metrics import amari_distance
+
+    torch.cuda.empty_cache()
+    _, a, x = generate_mixed_kurtosis_data(N6, T6, SEED6)
+    label = f"config 4, JADE({JADE_IT6}) -> {N6} x {T6}"
+
+    K.reset_launch_counts()
+    r, wall = _fit(x, None, **CONFIG6)
+    launches = _launches()
+    _report_fit(f"{label} (kernels)", r, wall, T6)
+    w_k = r.full_unmixing().double().cpu().numpy()
+    finite = bool(np.isfinite(w_k).all()) and bool(torch.isfinite(r.sources).all())
+    amari = amari_distance(w_k, a) if finite else float("nan")
+    _log(f"{label} (kernels): amari {amari:.3e}, streaming fused launches by mode and "
+         f"tier {launches['stream_by_mode']}, loglik by tier {launches['loglik_by_tier']}")
+
+    (x1_64, _, _), whiten_s = _synced_seconds(lambda: preprocess_f64(x, N6, True, True))
+    x1 = torch.from_numpy(x1_64.astype(np.float32)).cuda()
+    del x1_64
+    cum, gram_s = _synced_seconds(lambda: compute_cumulant_matrices(x1))
+    (_, sweeps), sweeps_s = _synced_seconds(
+        lambda: _jacobi_sweeps(cum, N6, JADE_IT6, 1e-6, False))
+    del cum, x1
+    torch.cuda.empty_cache()
+    _log(f"{label}: whitening (host f64) {whiten_s:.4f} s, JADE Gram and cumulants "
+         f"{gram_s:.4f} s, {sweeps} sweeps {sweeps_s:.4f} s "
+         f"({sweeps_s / max(sweeps, 1):.4f} s a sweep), core {r.core_seconds:.4f} s, "
+         f"fit {wall:.3f} s")
+
+    if not finite or tuple(r.sources.shape) != (N6, T6):
+        raise AssertionError(f"{label}: the result is not finite ({N6}, {T6})")
+    if not r.converged:
+        raise AssertionError(f"{label}: the kernel fit did not converge at tol 1e-7")
+    if not amari < 5e-3:
+        raise AssertionError(f"{label}: amari {amari} >= 5e-3")
+    if launches["streaming_fused_sums"] == 0:
+        raise AssertionError(f"{label}: kernel 8 never launched")
+    # A negative sign at the end was negative at iteration 0 or flipped
+    # later; either re-baselines the loss through kernel 9.
+    if bool((r.signs < 0).any()) and launches["streaming_loglik_sums"] == 0:
+        raise AssertionError(f"{label}: signs flipped but kernel 9 never launched")
+    _counted_on_route(label, launches)
+    result = r
+    del r
+
+    r_t, wall_t = _fit(x, False, **CONFIG6)
+    _report_fit(f"{label} (torch path)", r_t, wall_t, T6)
+    w_t = r_t.full_unmixing().double().cpu().numpy()
+    agree = _amari_inv(w_k, w_t)
+    _log(f"{label}: amari(W_kernels, inv(W_torch)) = {agree:.3e}, torch path "
+         f"amari {amari_distance(w_t, a):.3e}")
+    if not r_t.converged:
+        raise AssertionError(f"{label}: the torch-path fit did not converge at tol 1e-7")
+    if not agree < 1e-3:
+        raise AssertionError(f"{label}: kernel and torch fits disagree: amari {agree}")
+    del r_t
+    torch.cuda.empty_cache()
+    return launches, (x, a, result)
+
+
+def phase6b_fastica(x, a, jade_fit):
+    """The same NumPy input with a FastICA(10) warm start at phase 6's
+    settings, on the kernel path (auto)."""
+    from picard_ica_tpu_torch.ops import kernels as K
+    from picard_ica_tpu_torch.utils.metrics import amari_distance
+
+    label = f"config 4 data, FastICA(10) -> {N6} x {T6}"
+    cfg = {**CONFIG6, "jade_it": None, "fastica_it": 10}
+    K.reset_launch_counts()
+    r, wall = _fit(x, None, **cfg)
+    launches = _launches()
+    _report_fit(f"{label} (kernels)", r, wall, T6)
+    w = r.full_unmixing().double().cpu().numpy()
+    amari = amari_distance(w, a)
+    agree = _amari_inv(w, jade_fit.full_unmixing().double().cpu().numpy())
+    _log(f"{label}: amari {amari:.3e}, amari(W_fastica, inv(W_jade)) = {agree:.3e}, "
+         f"streaming fused launches by mode and tier {launches['stream_by_mode']}")
+    if not r.converged:
+        raise AssertionError(f"{label}: did not converge at tol 1e-7")
+    if not amari < 5e-3:
+        raise AssertionError(f"{label}: amari {amari} >= 5e-3")
+    if not agree < 1e-3:
+        raise AssertionError(f"{label}: the FastICA and JADE fits disagree: amari {agree}")
+    if launches["streaming_fused_sums"] == 0:
+        raise AssertionError(f"{label}: kernel 8 never launched")
+    _counted_on_route(label, launches)
+    return launches
+
+
+def phase6c_checkpoints(x, a, fit):
+    """Phase 6's result through save_result / load_result on the card,
+    transform from the loaded file, and a fit resumed from it."""
+    import os
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from picard_ica_tpu_torch import Picard, load_result, resume_config, save_result
+
+    label = "config 4 checkpoints"
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = {}
+        for sources in (True, False):
+            paths[sources] = os.path.join(tmp, f"fit_{sources}.npz")
+            _, save_s = _synced_seconds(
+                lambda: save_result(paths[sources], fit, include_sources=sources))
+            _log(f"{label}: save_result(include_sources={sources}) {save_s:.3f} s, "
+                 f"{os.path.getsize(paths[sources])} bytes")
+        loaded = {sources: load_result(path) for sources, path in paths.items()}
+    for sources, res in loaded.items():
+        for name in ("unmixing", "whitening", "mean", "signs") + (("sources",) if sources else ()):
+            got = getattr(res, name)
+            if got.device.type != "cuda" or not torch.equal(got, getattr(fit, name)):
+                raise AssertionError(f"{label}: {name} (sources={sources}) is not bit-equal "
+                                     "on the card")
+        if not sources and res.sources is not None:
+            raise AssertionError(f"{label}: a file without sources loaded sources")
+    # transform from the file: f32 rounding of the raw input, amplified by
+    # the mixing's condition, against the fit's path through host-f64
+    # whitening.
+    rtol = 3.0 * float(np.linalg.cond(a)) * float(np.finfo(np.float32).eps)
+    y, transform_s = _synced_seconds(lambda: Picard.transform(x, loaded[False]))
+    scale = float(fit.sources.abs().max())
+    err = float((y - fit.sources).abs().max())
+    del y
+    _log(f"{label}: transform {transform_s:.4f} s, max |Y - sources| {err:.3e} "
+         f"(<= {rtol:.3e} x {scale:.3f})")
+    if not err <= rtol * scale:
+        raise AssertionError(f"{label}: transform from the file misses the sources: {err}")
+
+    cfg = resume_config(loaded[False], _config(**CONFIG6))
+    if not isinstance(cfg.w_init, np.ndarray) or cfg.jade_it is not None:
+        raise AssertionError(f"{label}: resume_config kept JADE or a device w_init")
+    r, wall = _synced_seconds(lambda: Picard.fit(x, cfg))
+    _report_fit(f"{label}, resumed", r, wall, T6)
+    _log(f"{label}: resumed fit {r.n_iterations} iterations against phase 6's "
+         f"{fit.n_iterations}")
+    if not r.converged:
+        raise AssertionError(f"{label}: the resumed fit did not converge at tol 1e-7")
+
+
 _TC_SOURCE = "picard_ica_tpu_torch/csrc/rotated_fused_tc.cu"
 _STATS_SOURCE = "picard_ica_tpu_torch/csrc/covariance_sums.cu"
 _STREAM_TC_SOURCE = "picard_ica_tpu_torch/csrc/streaming_fused_tc.cu"
@@ -1195,6 +1399,10 @@ def main():
     by_path["phase5d"] = phase5d_pinned_bf16(*large_n[:3])
     del large_n
     by_path["phase5b"] = phase5b_exhibit()
+    by_path["phase6"], config4 = phase6_jade_warm()
+    by_path["phase6b"] = phase6b_fastica(*config4)
+    phase6c_checkpoints(*config4)
+    del config4
     kernels = []
     for name, (source, line, headline) in _KERNELS.items():
         row = rows[name]

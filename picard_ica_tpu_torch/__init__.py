@@ -4,9 +4,10 @@ The PyTorch + CUDA port of ``picard_ica_tpu`` (the JAX package beside
 it, which stays the reference): the same ``Picard.fit`` /
 ``fit_with_config`` / ``transform`` facade, configuration, densities and
 core loop (Picard and Picard-O, L-BFGS, extended sign logic, the staged
-bf16 -> bf16x3 -> f32 schedule), with the three data passes of the core
-loop as hand-written CUDA kernels for Hopper (``csrc/``, bound in
-``ops/kernels.py``). Fits run on a CUDA device by default; pass
+bf16 -> bf16x3 -> f32 schedule), the JADE and FastICA warm starts and
+checkpoints (``save_result`` / ``load_result`` / ``resume_config``),
+with the three data passes of the core loop as hand-written CUDA
+kernels for Hopper (``csrc/``, bound in ``ops/kernels.py``). Fits run on a CUDA device by default; pass
 ``device="cpu"`` to run on the CPU, where the kernels' plain PyTorch
 versions stand in.
 
@@ -34,7 +35,8 @@ from .ops.densities import Cube, Density, DensityType, Exp, Tanh
 from .results import PicardResult
 from .solver import Picard
 
-from . import ops, utils  # noqa: E402  (public subpackages)
+from . import checkpoint, ops, utils  # noqa: E402  (public subpackages)
+from .checkpoint import load_result, resume_config, save_result
 
 __version__ = "0.1.0"
 
@@ -57,4 +59,8 @@ __all__ = [
     "Cube",
     "ops",
     "utils",
+    "checkpoint",
+    "save_result",
+    "load_result",
+    "resume_config",
 ]

@@ -11,15 +11,34 @@ passes for mantissa bits:
 Every tier is exact at f64, where bf16 splitting would lose precision.
 A bf16-rounded value multiplied by another is exact in f32, so each
 tier is written as f32 matrix products of rounded operands; "exact
-f32" assumes TF32 is off (the solver turns it off for the duration of
-``fit`` and ``transform``). The fused kernel computes its f32 tier as
-six bf16 products of three-way splits (``csrc/rotated_fused_tc.cu``);
-its plain version keeps these exact f32 products.
+f32" assumes TF32 is off (:func:`exact_f32` turns it off for the
+duration of ``fit``, ``transform`` and the warm starts). The fused
+kernel computes its f32 tier as six bf16 products of three-way splits
+(``csrc/rotated_fused_tc.cu``); its plain version keeps these exact
+f32 products.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
+
+
+@contextlib.contextmanager
+def exact_f32():
+    """"f32" is exact f32: TF32 off in matmuls and convolutions for the
+    duration of a call, and the caller's flags restored after it, also
+    when it raises (the JAX package asks each product for HIGHEST and
+    changes no global state). Usable as a decorator."""
+    matmul = torch.backends.cuda.matmul
+    cudnn = torch.backends.cudnn
+    saved = (matmul.allow_tf32, cudnn.allow_tf32)
+    matmul.allow_tf32 = cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        matmul.allow_tf32, cudnn.allow_tf32 = saved
 
 
 def _bf16(v):

@@ -8,13 +8,11 @@ orchestration is eager Python around the device tensors of one
 whitening run in NumPy f64 on the host or on the device
 (``ops/whitening.py``; ``PicardConfig.whiten_precision`` chooses).
 
-Not ported yet (``NotImplementedError``): the JADE and FastICA warm
-starts (``jade_it``, ``fastica_it``) and sample-sharded fits (``mesh``).
+Not ported yet (``NotImplementedError``): sample-sharded fits (``mesh``).
 """
 
 from __future__ import annotations
 
-import contextlib
 import sys
 import time
 import warnings
@@ -26,9 +24,12 @@ import torch
 from .config import PicardConfig
 from .errors import InvalidConfigError, InvalidDimensionsError, SingularMatrixError
 from .models.core import CoreOptions, _precision_stages, run_core
+from .models.fastica import ica_par
+from .models.jade import jade
 from .ops.densities import Tanh
 from .ops.kernels import STREAM_MAX_N
 from .ops.linalg import _SYM_DECORR_MIN_EIG, rotate_rows_inplace, sym_decorrelation_with_mineig
+from .ops.precision import exact_f32
 from .ops.whitening import _HOST_F64_MAX_ELEMENTS, center_whiten, preprocess_f64
 from .results import PicardResult
 
@@ -73,22 +74,6 @@ def _resolve_dtype(config: PicardConfig) -> torch.dtype:
     return dtype
 
 
-@contextlib.contextmanager
-def _exact_f32():
-    """"f32" is exact f32: TF32 off in matmuls and convolutions for the
-    duration of a call, and the caller's flags restored after it, also
-    when it raises (the JAX package asks each product for HIGHEST and
-    changes no global state)."""
-    matmul = torch.backends.cuda.matmul
-    cudnn = torch.backends.cudnn
-    saved = (matmul.allow_tf32, cudnn.allow_tf32)
-    matmul.allow_tf32 = cudnn.allow_tf32 = False
-    try:
-        yield
-    finally:
-        matmul.allow_tf32, cudnn.allow_tf32 = saved
-
-
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -103,17 +88,12 @@ class Picard:
         return Picard.fit_with_config(x, config or PicardConfig(), device=device)
 
     @staticmethod
-    @_exact_f32()
+    @exact_f32()
     def fit_with_config(x, config: PicardConfig, device=None, mesh=None) -> PicardResult:
         config.validate()
         if mesh is not None:
             raise NotImplementedError(
                 "sample-sharded fits (mesh) are not ported yet (ROADMAP.md queue 1)"
-            )
-        if config.jade_it is not None or config.fastica_it is not None:
-            raise NotImplementedError(
-                "the JADE and FastICA warm starts are not ported yet "
-                "(ROADMAP.md queue 1)"
             )
         device = _resolve_device(x, device)
         dtype = _resolve_dtype(config)
@@ -215,6 +195,24 @@ class Picard:
                 raise SingularMatrixError()
             w_init = w_init.to(device=device, dtype=dtype)
 
+        # Warm starts, mutually exclusive (solver.rs:124-137), on the
+        # whitened data's device; JADE overrides w_init.
+        if config.jade_it is not None:
+            if config.verbose:
+                print(f"Running {config.jade_it} iterations of JADE...", file=sys.stderr)
+            w_init, min_eig = jade(x1, config.jade_it, 1e-6, config.verbose)
+            if float(min_eig) < _SYM_DECORR_MIN_EIG:
+                raise SingularMatrixError()
+        elif config.fastica_it is not None:
+            if config.verbose:
+                print(f"Running {config.fastica_it} iterations of FastICA...",
+                      file=sys.stderr)
+            w_init, min_eig = ica_par(x1, config.density, config.fastica_it, w_init)
+            if float(min_eig) < _SYM_DECORR_MIN_EIG:
+                raise SingularMatrixError()
+            if config.verbose:
+                print("FastICA pre-iterations complete.", file=sys.stderr)
+
         # Pre-rotate the data in place (solver.rs:140); x1 is ours.
         x1 = rotate_rows_inplace(w_init, x1)
 
@@ -308,7 +306,7 @@ class Picard:
         )
 
     @staticmethod
-    @_exact_f32()
+    @exact_f32()
     def transform(x, result: PicardResult) -> torch.Tensor:
         """Apply a fitted model to new data (solver.rs:199-214), in exact
         f32 whatever the caller's TF32 flags."""

@@ -1,4 +1,5 @@
-"""Evaluation utilities: Amari distance and permutation alignment.
+"""Evaluation utilities: Amari distance, permutation alignment and the
+density check.
 
 Copy of ``picard_ica_tpu/utils/metrics.py`` (the reference's eval
 helpers, src/utils.rs). These are
@@ -10,6 +11,9 @@ compiler-friendly form.
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+from ..solver import _resolve_device
 
 
 def amari_distance(w, a) -> float:
@@ -59,3 +63,32 @@ def permute(a, scale: bool = True):
     col_sums = np.abs(a).sum(axis=0)
     order = np.argsort(col_sums, kind="stable")
     return a[np.ix_(order, order)]
+
+
+def check_density(density, tol: float = None, dtype=torch.float64, device=None) -> bool:
+    """Finite-difference check: score == d/dy log_lik (utils.rs:110-137).
+
+    The JAX package picks the precision from its x64 flag; here it is
+    ``dtype``. At float64 the reference's eps = 1e-7 and tol = 1e-5; at
+    float32 eps = 1e-7 is below the resolution at the test points
+    (spacing at y = 2 is 2.4e-7), so the check takes the f32-optimal
+    central-difference step ~cbrt(eps_f32), 5e-3, and tol = 1e-3.
+    ``device`` follows the fit's rule: CUDA unless given.
+    """
+    if dtype == torch.float64:
+        eps, default_tol = 1e-7, 1e-5
+    elif dtype == torch.float32:
+        eps, default_tol = 5e-3, 1e-3
+    else:
+        raise ValueError(f"check_density runs at float32 or float64, not {dtype}")
+    tol = default_tol if tol is None else tol
+    device = _resolve_device(None, device)
+
+    for y in (-2.0, -1.0, -0.5, 0.0, 0.5, 1.0, 2.0):
+        ll_plus = float(density.log_lik(torch.tensor(y + eps, dtype=dtype, device=device)))
+        ll_minus = float(density.log_lik(torch.tensor(y - eps, dtype=dtype, device=device)))
+        numerical = (ll_plus - ll_minus) / (2.0 * eps)
+        score, _ = density.score_and_der(torch.tensor([[y]], dtype=dtype, device=device))
+        if abs(numerical - float(score[0, 0])) > tol:
+            return False
+    return True
