@@ -86,7 +86,25 @@ prints no result line):
      the card (unmixing, whitening, mean, signs and sources bit-equal),
      ``transform`` from the file against the fit's sources (to 3 cond(A)
      f32 eps of their largest entry), and a fit resumed from the file
-     with ``resume_config``, which must converge.
+     with ``resume_config``, which must converge;
+  7. BASELINE config 5, sample-sharded: the bench mixture (bench.py's
+     generator and seed 42) at 256 x 10,000,000 f32 made on the card,
+     fitted at the default config in this process, then on two gloo
+     ranks that share the card (``torch.multiprocessing`` spawn, a file
+     store in a temporary directory, a timeout): each makes the data,
+     keeps its column block (``parallel.shard_samples``), frees the rest
+     and fits it with ``mesh=parallel.sample_mesh("cuda")`` (the mesh
+     must run gloo: NCCL refuses two ranks on one card). Fails when a
+     rank exits non-zero or times out, W differs between the ranks in
+     any bit, a fit does not converge, Amari between the sharded and the
+     unsharded unmixing is >= 1e-3 or to the mixing >= 5e-3; prints per
+     rank the whitening, core and fit seconds, iterations, stage exits,
+     the all-reduces' count, bytes and seconds, and samples*iter/s beside
+     the unsharded fit's;
+  7b. bench.py's configuration (64 x 4,000,000, seed 42) through a
+     one-rank NCCL mesh: bit-identical to the unsharded fit of the same
+     tensor in W, sources and iterations (a one-rank all-reduce is the
+     identity); the group is destroyed after the phase.
 
 Phase 2 also holds the streaming kernels against their plain versions:
 ``streaming_fused_sums`` at 256 x 2,000,000 (every mode and tier a fit
@@ -110,7 +128,7 @@ launches on its path (phase 3 for the resident core kernels, phase 4
 for the whitening kernels, 4b for the grouped one, 5 for the streaming
 kernels' f32 routes, 5b and 5c for the bf16 and bf16x3 routes, 5d for
 delta bf16 on f32 X; ``launches_by_path`` adds every other fit's,
-phases 6 and 6b among them; the fused pass's tensor-core kernel counts
+phases 6 and 6b among them, and phase 7's counted on rank 0; the fused pass's tensor-core kernel counts
 the launches of its three tiers in phase 4, ``launches_by_tier``), error
 against the plain version (and, for every f32 case, against f64), and
 the numbers of its headline case (``_KERNELS``): ``ms`` and ``plain_ms``
@@ -130,6 +148,7 @@ Needs one CUDA card.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -164,6 +183,13 @@ N5B, T5B, SEED5B = 1024, 200_000, 42
 # 128 x 1,000,000 mixed mixture, float64 NumPy, seed 7.
 N6, T6, SEED6, JADE_IT6 = 128, 1_000_000, 7, 50
 CONFIG6 = {"jade_it": JADE_IT6, "tol": 1e-7, "max_iter": 200}
+# BASELINE config 5 (EEG/MEG scale, 256 x 10,000,000, sample-sharded) on
+# two gloo ranks that share the one card: the bench mixture, bench.py's
+# seed. And bench.py's configuration (bench.py:88-99) on one NCCL rank.
+N7, T7, SEED7, RANKS7 = 256, 10_000_000, 42, 2
+N7B, T7B, SEED7B = 64, 4_000_000, 42
+# Seconds phase 7's ranks may take, and their process group's timeout.
+PHASE7_TIMEOUT = 420
 # Ragged columns for the tensor-core kernel's phase-2 cases.
 T_RAGGED = 1_000_003
 # Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): HBM
@@ -1187,15 +1213,27 @@ def _amari_inv(w, w_other):
     return amari_distance(w, np.linalg.inv(w_other))
 
 
-def _synced_seconds(fn):
-    """(fn's result, host seconds between two device synchronisations)."""
+def _synced_seconds(fn, device="cuda"):
+    """(fn's result, host seconds between two synchronisations of
+    ``device``)."""
     import torch
 
-    torch.cuda.synchronize()
+    def sync():
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize()
+
+    sync()
     t0 = time.perf_counter()
     out = fn()
-    torch.cuda.synchronize()
+    sync()
     return out, time.perf_counter() - t0
+
+
+def _fit_default(x, mesh=None, device=None):
+    """``Picard.fit`` of ``x`` at the default config (tol 1e-7)."""
+    from picard_ica_tpu_torch import Picard
+
+    return Picard.fit(x, _config(), device=device, mesh=mesh)
 
 
 def phase6_jade_warm():
@@ -1355,6 +1393,205 @@ def phase6c_checkpoints(x, a, fit):
         raise AssertionError(f"{label}: the resumed fit did not converge at tol 1e-7")
 
 
+def _phase7_rank(rank, ranks, store, out_dir, n, t, seed, device):
+    """One rank of phase 7: joins the gloo world through the file store,
+    makes the bench data on the card, keeps its block, whitens it once
+    to time the sharded whitening, then fits it on the mesh. Writes its
+    unmixing and its numbers to ``out_dir``; any failure raises, and the
+    process exits non-zero."""
+    import datetime
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from picard_ica_tpu_torch.ops import kernels as K
+    from picard_ica_tpu_torch.ops.whitening import center_whiten
+    from picard_ica_tpu_torch.parallel import distributed_init, sample_mesh, shard_samples
+    from picard_ica_tpu_torch.parallel import sharding
+    from picard_ica_tpu_torch.utils.datagen import generate_bench_data_device
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # The ranks share the host's cores: idle threads of one spin while
+    # the other computes.
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // ranks))
+    distributed_init(backend="gloo", init_method=f"file://{store}", rank=rank,
+                     world_size=ranks, timeout=datetime.timedelta(seconds=PHASE7_TIMEOUT))
+    mesh = sample_mesh(torch.device(device).type)
+    backend = dist.get_backend(mesh.get_group())
+    if backend != "gloo":
+        raise AssertionError(f"rank {rank}: the mesh runs {backend}, not gloo")
+    x = generate_bench_data_device(n, t, seed, device)
+    xs = shard_samples(x, mesh)
+    del x
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()
+    shards = sharding.SampleShards.of(mesh, t)
+    _, whiten_s = _synced_seconds(
+        lambda: center_whiten(xs.to_local(), n, data_sharding=shards), device)
+    K.reset_launch_counts()
+    sharding.reset_collective_counts()
+    r, wall = _synced_seconds(lambda: _fit_default(xs, mesh), device)
+    local = r.sources.to_local()
+    info = {
+        "rank": rank, "backend": backend, "converged": bool(r.converged),
+        "n_iterations": r.n_iterations, "stage_exits": list(r.stage_exits),
+        "ls_calls": r.ls_calls, "gradient_norm": r.gradient_norm,
+        "whiten_s": whiten_s, "core_s": r.core_seconds, "fit_s": wall,
+        "all_reduces": sharding.counts.calls, "all_reduce_bytes": sharding.counts.bytes,
+        "all_reduce_s": sharding.counts.seconds,
+        "sources_local": list(local.shape),
+        "sources_finite": bool(torch.isfinite(local).all()),
+        "launches": _launches(),
+    }
+    np.savez(os.path.join(out_dir, f"rank{rank}.npz"),
+             w=r.unmixing.cpu().numpy(), full=r.full_unmixing().double().cpu().numpy())
+    with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+        json.dump(info, f)
+    dist.destroy_process_group()
+
+
+def phase7_sharded(n=N7, t=T7, seed=SEED7, ranks=RANKS7, device="cuda"):
+    """BASELINE config 5 (256 x 10M, sample-sharded) on ``ranks`` gloo
+    ranks that share the one card, against the unsharded fit of the same
+    data in this process. Returns rank 0's launch counts."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.multiprocessing
+
+    from picard_ica_tpu_torch.ops import kernels as K
+    from picard_ica_tpu_torch.utils.datagen import (
+        generate_bench_data_device,
+        reference_mixing_matrix,
+    )
+    from picard_ica_tpu_torch.utils.metrics import amari_distance
+
+    label = f"sharded {n} x {t} on {ranks} gloo ranks"
+    a = reference_mixing_matrix(n, t, seed)
+    x = generate_bench_data_device(n, t, seed, device)
+    K.reset_launch_counts()
+    r, wall = _synced_seconds(lambda: _fit_default(x, device=device), device)
+    single = {"full": r.full_unmixing().double().cpu().numpy(), "it": r.n_iterations,
+              "core": r.core_seconds, "converged": r.converged}
+    _report_fit(f"{label}, unsharded", r, wall, t)
+    del r, x
+    if torch.device(device).type == "cuda":
+        torch.cuda.empty_cache()  # the ranks' 80 GB hold no buffer of this process
+
+    ctx = torch.multiprocessing.get_context("spawn")
+    with tempfile.TemporaryDirectory() as tmp:
+        store = os.path.join(tmp, "store")
+        procs = [ctx.Process(target=_phase7_rank,
+                             args=(rank, ranks, store, tmp, n, t, seed, device))
+                 for rank in range(ranks)]
+        for p in procs:
+            p.start()
+        try:
+            deadline = time.monotonic() + PHASE7_TIMEOUT
+            for p in procs:
+                p.join(max(deadline - time.monotonic(), 1.0))
+        finally:
+            hung = [p for p in procs if p.is_alive()]
+            for p in hung:
+                p.kill()
+                p.join()
+        if hung:
+            raise AssertionError(f"{label}: {len(hung)} rank(s) timed out")
+        failed = [rank for rank, p in enumerate(procs) if p.exitcode != 0]
+        if failed:
+            raise AssertionError(f"{label}: rank(s) {failed} exited non-zero")
+        infos, ws = [], []
+        for rank in range(ranks):
+            with open(os.path.join(tmp, f"rank{rank}.json")) as f:
+                infos.append(json.load(f))
+            with np.load(os.path.join(tmp, f"rank{rank}.npz")) as z:
+                ws.append((z["w"], z["full"]))
+    for info in infos:
+        _log(f"{label}, rank {info['rank']} ({info['backend']}): converged="
+             f"{info['converged']} n_iterations={info['n_iterations']} stage_exits="
+             f"{tuple(info['stage_exits'])} ls_calls={info['ls_calls']} gradient_norm="
+             f"{info['gradient_norm']:.3e}; whitening {info['whiten_s']:.4f} s, core "
+             f"{info['core_s']:.4f} s, fit {info['fit_s']:.3f} s; {info['all_reduces']} "
+             f"all-reduces, {info['all_reduce_bytes']} bytes, {info['all_reduce_s']:.4f} s "
+             f"in them; {t * info['n_iterations'] / info['core_s']:.4e} samples*iter/s "
+             f"(core) against the unsharded fit's "
+             f"{t * single['it'] / single['core']:.4e} ({single['it']} iterations, core "
+             f"{single['core']:.4f} s)")
+    amari = amari_distance(ws[0][1], a)
+    agree = amari_distance(ws[0][1], np.linalg.inv(single["full"]))
+    _log(f"{label}: amari to the mixing {amari:.3e} (< 5e-3), amari(W_sharded, "
+         f"inv(W_unsharded)) = {agree:.3e} (< 1e-3); rank 0 launches {infos[0]['launches']}")
+    if any(not np.array_equal(w, ws[0][0]) for w, _ in ws[1:]):
+        raise AssertionError(f"{label}: W differs between the ranks")
+    if not single["converged"] or not all(i["converged"] for i in infos):
+        raise AssertionError(f"{label}: a fit did not converge at tol 1e-7")
+    if any(i["sources_local"] != [n, t // ranks] or not i["sources_finite"] for i in infos):
+        raise AssertionError(f"{label}: a rank's sources are not finite ({n}, {t // ranks})")
+    if not agree < 1e-3:
+        raise AssertionError(f"{label}: sharded and unsharded fits disagree: amari {agree}")
+    if not amari < 5e-3:
+        raise AssertionError(f"{label}: amari {amari} >= 5e-3")
+    launches = infos[0]["launches"]
+    missing = [k for k in ("streaming_fused_sums",) + _WHITENING_KERNELS if launches[k] == 0]
+    if torch.device(device).type == "cuda" and missing:
+        raise AssertionError(f"{label}: kernels never launched on rank 0: {missing}")
+    return launches
+
+
+def phase7b_nccl(n=N7B, t=T7B, seed=SEED7B):
+    """bench.py's configuration through a one-rank NCCL mesh: a one-rank
+    all-reduce is the identity, so the fit must equal the unsharded fit
+    of the same tensor bit for bit (W, sources, iterations). Returns the
+    sharded fit's launch counts."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from picard_ica_tpu_torch.ops import kernels as K
+    from picard_ica_tpu_torch.parallel import distributed_init, sample_mesh, sharding
+    from picard_ica_tpu_torch.utils.datagen import generate_bench_data_device
+
+    label = f"one NCCL rank, {n} x {t}"
+    x = generate_bench_data_device(n, t, seed, "cuda")
+    r1, _ = _synced_seconds(lambda: _fit_default(x))
+    with tempfile.TemporaryDirectory() as tmp:
+        distributed_init(backend="nccl", init_method=f"file://{tmp}/store", rank=0,
+                         world_size=1)
+        try:
+            mesh = sample_mesh("cuda")
+            backend = dist.get_backend(mesh.get_group())
+            K.reset_launch_counts()
+            sharding.reset_collective_counts()
+            rm, wall = _synced_seconds(lambda: _fit_default(x, mesh=mesh))
+            launches = _launches()
+            counts = sharding.counts
+        finally:
+            dist.destroy_process_group()
+    _report_fit(f"{label} ({backend})", rm, wall, t)
+    same = (torch.equal(rm.unmixing, r1.unmixing)
+            and torch.equal(rm.sources.to_local(), r1.sources)
+            and rm.n_iterations == r1.n_iterations)
+    _log(f"{label}: bitwise equal to the unsharded fit {same} ({rm.n_iterations} and "
+         f"{r1.n_iterations} iterations); {counts.calls} all-reduces, {counts.bytes} "
+         f"bytes, {counts.seconds:.4f} s in them; launches {launches}")
+    if backend != "nccl":
+        raise AssertionError(f"{label}: the mesh runs {backend}")
+    if not rm.converged:
+        raise AssertionError(f"{label}: did not converge at tol 1e-7")
+    if not same:
+        raise AssertionError(f"{label}: the one-rank mesh fit differs from the unsharded fit")
+    missing = [k for k in _PHASE4_KERNELS + tuple(TIER_ROWS) if _count(k, launches) == 0]
+    if missing:
+        raise AssertionError(f"{label}: kernels never launched: {missing}")
+    return launches
+
+
+
+
 _TC_SOURCE = "picard_ica_tpu_torch/csrc/rotated_fused_tc.cu"
 _STATS_SOURCE = "picard_ica_tpu_torch/csrc/covariance_sums.cu"
 _STREAM_TC_SOURCE = "picard_ica_tpu_torch/csrc/streaming_fused_tc.cu"
@@ -1403,6 +1640,8 @@ def main():
     by_path["phase6b"] = phase6b_fastica(*config4)
     phase6c_checkpoints(*config4)
     del config4
+    by_path["phase7"] = phase7_sharded()
+    by_path["phase7b"] = phase7b_nccl()
     kernels = []
     for name, (source, line, headline) in _KERNELS.items():
         row = rows[name]

@@ -9,7 +9,8 @@ checkpoints (``save_result`` / ``load_result`` / ``resume_config``),
 with the three data passes of the core loop as hand-written CUDA
 kernels for Hopper (``csrc/``, bound in ``ops/kernels.py``). Fits run on a CUDA device by default; pass
 ``device="cpu"`` to run on the CPU, where the kernels' plain PyTorch
-versions stand in.
+versions stand in. ``Picard.fit(x, config, mesh=parallel.sample_mesh())``
+shards the samples over a ``torch.distributed`` world (``parallel``).
 
 Example::
 
@@ -35,7 +36,7 @@ from .ops.densities import Cube, Density, DensityType, Exp, Tanh
 from .results import PicardResult
 from .solver import Picard
 
-from . import checkpoint, ops, utils  # noqa: E402  (public subpackages)
+from . import checkpoint, ops, parallel, utils  # noqa: E402  (public subpackages)
 from .checkpoint import load_result, resume_config, save_result
 
 __version__ = "0.1.0"
@@ -58,6 +59,7 @@ __all__ = [
     "Exp",
     "Cube",
     "ops",
+    "parallel",
     "utils",
     "checkpoint",
     "save_result",

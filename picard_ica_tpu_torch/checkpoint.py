@@ -34,7 +34,13 @@ _FORMAT_VERSION = 2
 
 
 def _host(v) -> np.ndarray:
-    """A tensor (on any device) or array as a host NumPy array."""
+    """A tensor (on any device) or array as a host NumPy array. A
+    ``DTensor`` (a sharded fit's sources) is gathered whole first: a
+    collective that every rank of its mesh calls."""
+    from torch.distributed.tensor import DTensor
+
+    if isinstance(v, DTensor):
+        v = v.full_tensor()
     if isinstance(v, torch.Tensor):
         return v.detach().cpu().numpy()
     return np.asarray(v)
@@ -46,6 +52,8 @@ def save_result(path, result: PicardResult, include_sources: bool = True) -> Non
     ``include_sources=False`` drops the (n_components, n_samples)
     sources matrix — for large T the unmixing matrices are what a
     resume needs and the sources can be recomputed with ``transform``.
+    The sources of a sample-sharded fit are gathered into the file, so
+    every rank of its mesh calls this (each may write its own path).
     """
     payload = {
         "format_version": np.asarray(_FORMAT_VERSION),

@@ -52,7 +52,9 @@
 //     accumulator of their own, added last to nearest. The contraction
 //     splits psi and Y elementwise and sums each 16-column step's six
 //     products (small first, hi*hi last) in a fresh accumulator that is
-//     added to G in f32, to nearest.
+//     added in f32, to nearest, to its 256-column group's sum, and the
+//     groups to G: 16 + 8 rounded adds a partial, not 128, in every mode
+//     whose contraction runs at the f32 tier.
 //   * The tier pairs (rotation, contraction) of the TPU kernels: the fused
 //     pass's (bf16, bf16) on f32 or bf16 X, (bf16x3, bf16x3) and (f32,
 //     f32) on f32 X, (bf16, bf16x3) on bf16 X; the moments' (f32, f32) on
@@ -109,7 +111,7 @@ namespace {
 
 constexpr int NMAX = 64;
 constexpr int COLS = 2048;        // columns per partial (COLS_PER_BLOCK)
-constexpr int GROUP_COLS = 256;   // columns of a group of the moments' G sums
+constexpr int GROUP_COLS = 256;   // columns of a group of the f32 tier's G sums
 constexpr int WARPS = 8;
 constexpr int THREADS = 32 * WARPS;
 constexpr int LDB = 72;           // row stride (elements) of a W tile: 144 B
@@ -387,10 +389,11 @@ __global__ void __launch_bounds__(THREADS, blocks_per_sm(MODE, NEED_H, CT))
   // Row sums over the block's columns: [m-tile][row g / g + 8].
   float rs_ll[MI][2] = {}, rs_pm[MI][2] = {}, rs_ysq[MI][2] = {}, rs_dysq[MI][2] = {};
   float g_acc[4][4] = {}, h_acc[4][4] = {};
-  // The moments mode sums G (H) in two levels: each 16-column step into a
-  // group's sum (g_grp), each group of GROUP_COLS columns into G; 8 + 16
-  // rounded f32 adds a partial, not 128.
-  constexpr bool GROUPED = MODE == MODE_MOMENTS;
+  // An f32-tier contraction (the moments, and the fused modes' f32 tier)
+  // sums G (H) in two levels: each 16-column step into a group's sum
+  // (g_grp), each group of GROUP_COLS columns into G; 8 + 16 rounded f32
+  // adds a partial, not 128.
+  constexpr bool GROUPED = CONTRACT && CT == F32;
   constexpr int GROUP_SUBS = GROUP_COLS / BT;  // sub-tiles a group
   static_assert(GROUP_COLS % BT == 0 && COLS % GROUP_COLS == 0, "");
   float g_grp[4][4] = {}, h_grp[4][4] = {};

@@ -25,6 +25,15 @@ up to N = 64 and the streaming kernels above (``streaming_fused_sums``
 for the tries and the moments, ``streaming_loglik_sums`` for the loss
 re-baselines, the bf16 copy of X included), so this loop is the same at
 every N.
+
+Under a samples mesh (``CoreOptions.data_sharding``, a
+``parallel.sharding.SampleShards``) X is this rank's column block: every
+data pass's sums over the local T are all-reduced and divided by the
+global T, and the N x N state stays replicated, so every branch reads
+only all-reduced values. A fused pass reduces its accept payload (dll,
+dysq) first and on its own, and its moment payload asynchronously
+(:class:`PendingMoments`), waited on where the moments are first read
+(the JAX package's ``_shard_mapped(critical_first=2)``).
 """
 
 from __future__ import annotations
@@ -37,8 +46,16 @@ import torch
 from ..ops.densities import Density
 from ..ops.kernels import rotated_fused_sums, rotated_loglik_sums, rotated_moments_sums, work_dtype
 from ..ops.linalg import expm_pow2_chain, matrix_exp, rotate_rows_inplace, skew_symmetric
-from ..ops.moments import RawMoments, _row_mean, compute_raw_moments, loglik_rowmeans
+from ..ops.moments import (
+    RawMoments,
+    _row_mean,
+    _row_sum,
+    compute_raw_moments,
+    loglik_rowmeans,
+    raw_moment_sums,
+)
 from ..ops.precision import matmul_tiered
+from ..parallel.sharding import all_reduced, n_samples
 
 # Penalty loss for singular/failed evaluations (core.rs:90-96).
 _SINGULAR_LOSS = 1e15
@@ -79,6 +96,9 @@ class CoreOptions:
     # The caller hands over X and does not reuse it: the final
     # Y = W @ X is then written in place through X's buffer.
     donate_data: bool = False
+    # parallel.sharding.SampleShards of a sample-sharded fit (X is this
+    # rank's column block), or None.
+    data_sharding: Any = None
 
 
 @dataclasses.dataclass
@@ -136,6 +156,36 @@ def _scalar(v, like):
     return torch.tensor(v, dtype=like.dtype, device=like.device)
 
 
+class PendingMoments:
+    """The moment sums of a sharded fused pass, all-reduced in the
+    background; :meth:`wait` gives their ``RawMoments`` (computed once)."""
+
+    def __init__(self, pending, inv_t: float):
+        self._pending, self._inv_t = pending, inv_t
+        self._moments = None
+
+    def wait(self) -> RawMoments:
+        if self._moments is None:
+            self._moments = RawMoments(*(v * self._inv_t for v in self._pending.wait()))
+        return self._moments
+
+
+def _ready(moments) -> RawMoments:
+    """``moments`` with its all-reduce waited on (a pass-through for the
+    RawMoments of an unsharded fit). Also settles a superseded try's
+    reduction, so a failed collective raises."""
+    return moments.wait() if isinstance(moments, PendingMoments) else moments
+
+
+def _reduce_fused(shards, inv_t, dll, dysq, moment_sums):
+    """A sharded fused pass's sums all-reduced: the accept payload
+    (dll, dysq), ~2N floats, first and on its own, since only it feeds
+    the line search's host sync; the moment payload (G, pm, H, ysq)
+    after it, asynchronously."""
+    dll, dysq = shards.reduce([dll, dysq])
+    return dll * inv_t, dysq * inv_t, PendingMoments(shards.reduce_async(moment_sums), inv_t)
+
+
 # ---------------------------------------------------------------------------
 # Data passes: rotate + score/log-lik + reduce over T.
 # ---------------------------------------------------------------------------
@@ -144,25 +194,35 @@ def _scalar(v, like):
 def data_moments(w, x, opts: CoreOptions, need_h: bool, need_ysq: bool) -> RawMoments:
     """Normalized moments of Y = W @ X: G = E[psi(Y) Y^T], pm =
     E[psi'(Y)], H = E[psi'(Y) (Y^2)^T], ysq = E[Y^2]."""
-    t = x.shape[1]
+    shards = opts.data_sharding
     if opts.use_kernels:
-        inv_t = 1.0 / t
-        g, pm, h, ysq = rotated_moments_sums(w, x, opts.density, need_h, need_ysq)
-        return RawMoments(g * inv_t, pm * inv_t, h * inv_t, ysq * inv_t)
-    return compute_raw_moments(w @ x, opts.density, need_h, need_ysq)
+        sums = rotated_moments_sums(w, x, opts.density, need_h, need_ysq)
+    elif shards is None:
+        return compute_raw_moments(w @ x, opts.density, need_h, need_ysq)
+    else:
+        sums = raw_moment_sums(w @ x, opts.density, need_h, need_ysq)
+    if shards is not None:
+        sums = shards.reduce(sums)
+    inv_t = 1.0 / n_samples(x, shards)
+    return RawMoments(*(v * inv_t for v in sums))
 
 
 def data_loglik(m, x, opts: CoreOptions, need_ysq: bool):
     """(E[log_lik(M X)] per row, E[(M X)^2] per row) in one pass."""
-    t = x.shape[1]
+    shards = opts.data_sharding
     if opts.use_kernels:
-        inv_t = 1.0 / t
         ll, ysq = rotated_loglik_sums(m, x, opts.density, need_ysq)
-        return ll * inv_t, ysq * inv_t
-    y = m @ x
-    ll = loglik_rowmeans(y, opts.density)
-    ysq = _row_mean(y * y) if need_ysq else torch.zeros_like(ll)
-    return ll, ysq
+    else:
+        y = m @ x
+        if shards is None:
+            ll = loglik_rowmeans(y, opts.density)
+            return ll, (_row_mean(y * y) if need_ysq else torch.zeros_like(ll))
+        ll = _row_sum(opts.density.log_lik(y))
+        ysq = _row_sum(y * y) if need_ysq else torch.zeros_like(ll)
+    if shards is not None:
+        ll, ysq = shards.reduce([ll, ysq])
+    inv_t = 1.0 / n_samples(x, shards)
+    return ll * inv_t, ysq * inv_t
 
 
 def data_fused_step(m_new, m_old, x, opts: CoreOptions, need_h: bool, need_ysq: bool):
@@ -171,17 +231,21 @@ def data_fused_step(m_new, m_old, x, opts: CoreOptions, need_h: bool, need_ysq: 
     Returns ``(dll_means, dysq_means, RawMoments(of M_new @ X))`` from
     one pass over X: the loss change (delta mode) or the candidate's
     absolute log-lik (``opts.plain_ls``), and the raw moments of the
-    candidate, which an accepted try hands to the next iteration.
+    candidate, which an accepted try hands to the next iteration. Under a
+    samples mesh the moments come as :class:`PendingMoments`.
     """
-    n, t = x.shape
+    n = x.shape[0]
     dtype = work_dtype(x)
-    inv_t = 1.0 / t
+    shards = opts.data_sharding
+    inv_t = 1.0 / n_samples(x, shards)
 
     if opts.use_kernels:
         dll, dysq, g, pm, h, ysq = rotated_fused_sums(
             m_new, m_old, x, opts.density, need_h, need_ysq,
             precision=opts.kernel_precision, absolute_ll=opts.plain_ls,
         )
+        if shards is not None:
+            return _reduce_fused(shards, inv_t, dll, dysq, (g, pm, h, ysq))
         return (
             dll * inv_t,
             dysq * inv_t,
@@ -191,31 +255,35 @@ def data_fused_step(m_new, m_old, x, opts: CoreOptions, need_h: bool, need_ysq: 
     # Torch path: the same formulations. Delta mode rotates the current
     # matrix and the candidate delta and evaluates the loss change
     # analytically from (y_old, dy); plain mode evaluates absolute row
-    # means. The N x N x T products run at the stage's tier.
+    # means. The N x N x T products run at the stage's tier. Sharded, the
+    # same quantities are taken as sums and reduced before the division.
     def tdot(a, b):
         return matmul_tiered(a, b, dtype, opts.kernel_precision)
 
+    row = _row_mean if shards is None else _row_sum
     zeros_n = torch.zeros((n,), dtype=dtype, device=x.device)
     if opts.plain_ls:
         y_new = tdot(m_new, x)
         psi, psi_d, ll_el = opts.density.score_der_loglik(y_new)
-        dll = _row_mean(ll_el)
-        dysq = _row_mean(y_new * y_new) if need_ysq else zeros_n
+        dll = row(ll_el)
+        dysq = row(y_new * y_new) if need_ysq else zeros_n
     else:
         y_old = tdot(m_old, x)
         dy = tdot(m_new - m_old, x)
         y_new = y_old + dy
         psi, psi_d, dll_el = opts.density.score_der_loglik_delta(y_old, dy)
-        dll = _row_mean(dll_el)
-        dysq = _row_mean((2.0 * y_old + dy) * dy) if need_ysq else zeros_n
-    g = tdot(psi, y_new.T) * inv_t
-    pm = _row_mean(psi_d)
+        dll = row(dll_el)
+        dysq = row((2.0 * y_old + dy) * dy) if need_ysq else zeros_n
+    g = tdot(psi, y_new.T)
+    pm = row(psi_d)
     if need_h:
-        h = tdot(psi_d, (y_new * y_new).T) * inv_t
+        h = tdot(psi_d, (y_new * y_new).T)
     else:
         h = torch.zeros((n, n), dtype=dtype, device=x.device)
-    ysq_new_mean = _row_mean(y_new * y_new) if need_ysq else zeros_n
-    return dll, dysq, RawMoments(g, pm, h, ysq_new_mean)
+    ysq_new = row(y_new * y_new) if need_ysq else zeros_n
+    if shards is not None:
+        return _reduce_fused(shards, inv_t, dll, dysq, (g, pm, h, ysq_new))
+    return dll, dysq, RawMoments(g * inv_t, pm, h * inv_t, ysq_new)
 
 
 def _logdet_penalized(m, like):
@@ -394,7 +462,10 @@ def line_search(x, w, direction, signs, current_loss, ls_tries: int,
     delta = _scalar(0.0, current_loss)
     moments = None
     while not success and tries < ls_tries:
-        w_new, delta, moments = try_alpha(alpha, tries)
+        w_new, delta, try_moments = try_alpha(alpha, tries)
+        if moments is not None:
+            _ready(moments)  # the superseded try's moment all-reduce
+        moments = try_moments
         success = bool(delta < accept_slack)
         if not success:
             alpha = alpha / 2.0
@@ -467,6 +538,7 @@ def _iteration_update(st: CoreState, x, g, h, h_off, signs, old_signs,
         # Gradient-descent fallback (core.rs:349-364): clear memory and
         # retry from the PRE-search state along -G; take its result even
         # if it also fails.
+        _ready(new_moments)
         _, new_w, new_loss, step, new_moments, fb_tries, _ = line_search(
             x, st.w, -g, signs, current_loss, opts.fallback_ls_tries, opts,
             accept_slack=accept_slack, max_tries=opts.fallback_ls_tries,
@@ -515,7 +587,7 @@ def _iteration_body(st: CoreState, x, covariance, tol, lambda_min,
     n = st.w.shape[0]
     dtype = work_dtype(x)
 
-    moments = st.moments
+    moments = _ready(st.moments)
     g = moments.g_raw
     pm0 = moments.pm_raw
 
@@ -595,7 +667,7 @@ def init_state(x, covariance, opts: CoreOptions, x_stage=None):
     loss and moments come from the SAME copy that stage's accept tests
     read. The extended covariance seed always uses the full ``x``.
     """
-    n, t = x.shape
+    n = x.shape[0]
     dtype = x.dtype
     dev = x.device
     xs = x if x_stage is None else x_stage
@@ -618,8 +690,10 @@ def init_state(x, covariance, opts: CoreOptions, x_stage=None):
         moments0 = data_moments(w, xs, opts, need_h, need_ysq)
     initial_singular = bool(loss >= _SINGULAR_LOSS)
 
-    if opts.extended:
-        c = covariance if opts.has_cov else (x @ x.T) / t
+    if opts.extended and opts.has_cov:
+        c = covariance
+    elif opts.extended:
+        c = all_reduced(x @ x.T, opts.data_sharding) / n_samples(x, opts.data_sharding)
     else:
         c = torch.eye(n, dtype=dtype, device=dev)
 
@@ -723,6 +797,7 @@ def run_core(x, covariance, tol, lambda_min, max_iter, opts: CoreOptions) -> Cor
         if idx > 0:
             # Re-measure the moments at the new tier (skipped when the
             # iteration budget is spent) and reset the stall state.
+            _ready(state.moments)
             if state.it < max_iter:
                 moments = data_moments(state.w, x, stage_opts, need_h, need_ysq)
             else:
@@ -757,6 +832,7 @@ def run_core(x, covariance, tol, lambda_min, max_iter, opts: CoreOptions) -> Cor
         x_stage = None  # the stage's bf16 copy is freed here
 
     # Materialize the sources once, at the end.
+    _ready(state.moments)
     if opts.donate_data:
         y = rotate_rows_inplace(state.w, x)
     else:

@@ -16,8 +16,10 @@ rather than the reference's (src/jade.rs):
     orientation fix (``docs/JADE_ORIENTATION.md``).
 
 Everything runs on ``x``'s device in its dtype, every product in exact
-f32 (or f64). Sample-sharded cumulants (the JAX package's
-``data_sharding``) are not ported.
+f32 (or f64). Sample-sharded (``data_sharding``, a
+``parallel.sharding.SampleShards``), each rank's Gram over its own
+columns is all-reduced before the division by the global T: one
+(P, N^2) all-reduce, the JAX package's psum.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ import torch
 
 from ..ops.linalg import sym_decorrelation_with_mineig
 from ..ops.precision import exact_f32
+from ..parallel.sharding import all_reduced, n_samples
 
 _ANGLE_EPS = 1e-15  # jade.rs:175
 
@@ -96,18 +99,20 @@ def _pair_product_gram(x, chunk_size: int = 4096):
     return gram
 
 
-def compute_cumulant_matrices(x, chunk_size: int = 4096):
+def compute_cumulant_matrices(x, chunk_size: int = 4096, data_sharding=None):
     """Symmetrized cumulant matrices for all pairs i <= j, shape (P, N, N).
 
     Assumes whitened input, i.e. E[x_a x_b] = delta_ab, exactly like the
-    reference (jade.rs:83-86).
+    reference (jade.rs:83-86). With ``data_sharding`` ``x`` is this
+    rank's column block and the Gram is all-reduced.
     """
-    n, t = x.shape
+    n = x.shape[0]
     pair_i, pair_j = _pair_indices(n)
     p_count = pair_i.shape[0]
     # Row p of the half-pair Gram is E[x_i x_j x_k x_l] * T over (k, l).
-    q = _pair_product_gram(x, chunk_size).reshape(p_count, n, n)
-    q /= t
+    q = all_reduced(_pair_product_gram(x, chunk_size), data_sharding)
+    q = q.reshape(p_count, n, n)
+    q /= n_samples(x, data_sharding)
 
     # Whitened-data delta corrections (jade.rs:114-120), applied sparsely:
     #   - delta_ij delta_kl: subtract I for diagonal pairs (i == j)
@@ -195,20 +200,23 @@ def _jacobi_sweeps(cumulants, n: int, max_iter: int, tol: float, verbose: bool):
 
 
 @exact_f32()
-def jade(x, max_iter: int, tol: float = 1e-6, verbose: bool = False):
+def jade(x, max_iter: int, tol: float = 1e-6, verbose: bool = False,
+         data_sharding=None):
     """Run JADE on whitened data; returns (W, min_eig) (jade.rs:22-72).
 
     ``min_eig`` is the minimum eigenvalue of the final symmetric
     decorrelation, for the caller's singularity check. W is the
     decorrelated V^T: V's columns span the whitened mixing basis, so its
     transpose unmixes (the JAX package's fix; the reference returns V).
+    With ``data_sharding`` the cumulant Gram is sample-sharded; the
+    sweeps run on every rank on the same reduced cumulants.
     """
     n = x.shape[0]
     if n < 2:
         return (torch.eye(n, dtype=x.dtype, device=x.device),
                 torch.ones((), dtype=x.dtype, device=x.device))
 
-    cumulants = compute_cumulant_matrices(x)
+    cumulants = compute_cumulant_matrices(x, data_sharding=data_sharding)
     if verbose:
         print(f"JADE: {cumulants.shape[0]} cumulant matrices computed", file=sys.stderr)
     v, _ = _jacobi_sweeps(cumulants, n, max_iter, tol, verbose)

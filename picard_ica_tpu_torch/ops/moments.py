@@ -9,7 +9,10 @@ optimizer needs (reference: core.rs:211-276):
   * ``ysq_rowmean = mean(Y*Y, axis=1)``    — extended non-ortho loss term
 
 The sign/+1/skew fix-ups of extended mode are N x N algebra applied in
-models/core.py, which keeps these passes sign-independent.
+models/core.py, which keeps these passes sign-independent. A
+sample-sharded fit takes the sum forms (:func:`raw_moment_sums`,
+:func:`_row_sum`), all-reduces them and divides by the global T
+(``parallel/sharding.py``).
 """
 
 from __future__ import annotations
@@ -50,6 +53,12 @@ def _row_mean(m):
     return m.sum(dim=1) * (1.0 / m.shape[1])
 
 
+def _row_sum(m):
+    """``sum(m, axis=1)``: the row means' sum form, over this rank's
+    columns, for the sharded callers to all-reduce before they divide."""
+    return m.sum(dim=1)
+
+
 def compute_raw_moments(y, density, need_h: bool, need_ysq_mean: bool) -> RawMoments:
     """Moments of ``y`` (the torch path's moments pass).
 
@@ -80,3 +89,19 @@ def loglik_rowmeans(y, density):
     """Per-component mean log-likelihood ``mean(log_lik(Y), axis=1)``;
     the loss's density term is ``sum(signs * loglik_rowmeans)``."""
     return _row_mean(density.log_lik(y))
+
+
+def raw_moment_sums(y, density, need_h: bool, need_ysq: bool) -> RawMoments:
+    """The sums of :func:`compute_raw_moments` over ``y``'s columns, not
+    divided by T (zeros for the outputs not needed)."""
+    n = y.shape[0]
+    psi, psi_d = density.score_and_der(y)
+    zeros_nn = torch.zeros((n, n), dtype=y.dtype, device=y.device)
+    zeros_n = torch.zeros((n,), dtype=y.dtype, device=y.device)
+    ysq = y * y
+    return RawMoments(
+        psi @ y.T,
+        _row_sum(psi_d),
+        psi_d @ ysq.T if need_h else zeros_nn,
+        _row_sum(ysq) if need_ysq else zeros_n,
+    )

@@ -36,6 +36,14 @@ kernel stages 64-row slabs, so N has no shared-memory cap and there is
 no fallback to warn about. Its jit packaging of the stats step
 (``_prepare_stats`` / ``_center_jit``) serves the TPU and eager torch
 does not need it.
+
+Sample-sharded (``data_sharding``, a ``parallel.sharding.SampleShards``),
+X is this rank's column block and the device route works in two steps:
+the row sums over the local T, all-reduced, over the global T; then the
+centered covariance over the local T, all-reduced (the refinement's
+covariance too). The same kernels run per shard; the global T chooses
+the route and the chunk length, and the host-f64 eigh on every rank
+gives every rank the same K.
 """
 
 from __future__ import annotations
@@ -53,6 +61,7 @@ from .kernels import (
     row_sums,
     row_sums_plain,
 )
+from ..parallel.sharding import all_reduced, n_samples as _n_samples
 from .linalg import rotate_rows_inplace
 
 # Reject singular values below this (whitening.rs:77).
@@ -179,60 +188,63 @@ def _chunk_len(t: int) -> int:
     return max(512, min(8192, t // 512))
 
 
-def _chunked_mean(x):
-    """Per-row mean from chunk sums folded pairwise (error ~eps*log(T/bt)
-    instead of ~eps*sqrt(T); the mean feeds the covariance)."""
-    t = x.shape[1]
-    return row_sums_plain(x, _chunk_len(t)) / t
-
-
-def _impl_for(x) -> str:
+def _impl_for(x, shards=None) -> str:
     """``"plain"``, ``"kernel"`` or ``"chunked"`` for the mean and the
     covariance of ``x`` (see the module docstring)."""
-    if x.dtype == torch.float64 or x.shape[1] <= _PLAIN_MAX_T:
+    if x.dtype == torch.float64 or _n_samples(x, shards) <= _PLAIN_MAX_T:
         return "plain"
     return "kernel" if x.device.type == "cuda" else "chunked"
 
 
-def _mean_impl(x, impl: str):
+def _mean_impl(x, impl: str, shards=None):
+    """Per-row mean. The chunked route sums per chunk and folds pairwise
+    (error ~eps*log(T/bt) instead of ~eps*sqrt(T); the mean feeds the
+    covariance)."""
+    t = _n_samples(x, shards)
     if impl == "kernel":
-        return row_sums(x) / x.shape[1]
-    if impl == "chunked":
-        return _chunked_mean(x)
-    return x.mean(dim=1)
+        sums = row_sums(x)
+    elif impl == "chunked":
+        sums = row_sums_plain(x, _chunk_len(t))
+    elif shards is None:
+        return x.mean(dim=1)
+    else:
+        sums = x.sum(dim=1)
+    return all_reduced(sums, shards) / t
 
 
-def _covariance_impl(x, impl: str):
+def _covariance_impl(x, impl: str, shards=None):
     if impl == "kernel":
-        return covariance_sums(x)
-    if impl == "chunked":
-        return covariance_sums_plain(x, _chunk_len(x.shape[1]))
-    return x @ x.T
+        cov = covariance_sums(x)
+    elif impl == "chunked":
+        cov = covariance_sums_plain(x, _chunk_len(_n_samples(x, shards)))
+    else:
+        cov = x @ x.T
+    return all_reduced(cov, shards)
 
 
 def _to_host(cov) -> np.ndarray:
     return cov.to(torch.float64).cpu().numpy()
 
 
-def center(x) -> Tuple[torch.Tensor, torch.Tensor]:
+def center(x, data_sharding=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Subtract the per-row (per-feature) mean (whitening.rs:24-35).
     Returns ``(centered, mean)``; the centered data is a new tensor."""
-    mean = _mean_impl(x, _impl_for(x))
+    mean = _mean_impl(x, _impl_for(x, data_sharding), data_sharding)
     return x - mean[:, None], mean
 
 
-def _covariance(x):
+def _covariance(x, shards=None):
     """``X X^T`` (unnormalized), chunked for f32 at scale."""
-    return _covariance_impl(x, _impl_for(x))
+    return _covariance_impl(x, _impl_for(x, shards), shards)
 
 
-def _should_refine(x) -> bool:
+def _should_refine(x, shards=None) -> bool:
     """Refine f32 data at scale: the f64 covariance is exact to input
     precision, and tiny-T fits are quantization-dominated anyway."""
-    return x.dtype == torch.float32 and x.shape[1] > _PLAIN_MAX_T
+    return x.dtype == torch.float32 and _n_samples(x, shards) > _PLAIN_MAX_T
 
 
-def _refine_whitening(x1, k: np.ndarray, n_samples: int):
+def _refine_whitening(x1, k: np.ndarray, n_samples: int, shards=None):
     """One step of re-whitening in the whitened basis (f32 device path).
 
     An ill-conditioned mixture amplifies norm-scale covariance noise by
@@ -248,7 +260,7 @@ def _refine_whitening(x1, k: np.ndarray, n_samples: int):
     ``(x1, k_refined)``; on numerical trouble in the refinement eigh the
     inputs come back unchanged (the first K is already rank-checked).
     """
-    cov2 = _to_host(_covariance(x1)) / float(n_samples)
+    cov2 = _to_host(_covariance(x1, shards)) / float(n_samples)
     try:
         w, u = np.linalg.eigh(cov2)
     except np.linalg.LinAlgError:
@@ -265,31 +277,32 @@ def _refine_whitening(x1, k: np.ndarray, n_samples: int):
     return rotate_rows_inplace(rs, x1), k_ref
 
 
-def whiten(x, n_components: int) -> WhiteningResult:
+def whiten(x, n_components: int, data_sharding=None) -> WhiteningResult:
     """PCA-whiten centered data (raises on singular data).
 
     ``x`` is (n_features, n_samples); the output has unit variance per
     component (scaled by sqrt(T) as in whitening.rs:83).
     """
-    n_features, n_samples = x.shape
+    n_features = x.shape[0]
+    n_samples = _n_samples(x, data_sharding)
     _check_components(n_features, n_components)
-    k = _whitening_matrix(_to_host(_covariance(x)), n_samples, n_components)
+    k = _whitening_matrix(_to_host(_covariance(x, data_sharding)), n_samples, n_components)
     x1 = torch.as_tensor(k, dtype=x.dtype, device=x.device) @ x
-    if _should_refine(x):
-        x1, k = _refine_whitening(x1, k, n_samples)
+    if _should_refine(x, data_sharding):
+        x1, k = _refine_whitening(x1, k, n_samples, data_sharding)
     return WhiteningResult(x1, torch.as_tensor(k, dtype=x.dtype, device=x.device))
 
 
-def _prepare_stats(x, impl: str, centering: bool):
+def _prepare_stats(x, impl: str, centering: bool, shards=None):
     """Mean of ``x`` and the covariance of the centered data. The kernel
     route subtracts the mean inside the covariance's tile load, so no
     centered copy of X is made for it."""
     if not centering:
-        return None, _covariance_impl(x, impl)
-    mean = _mean_impl(x, impl)
+        return None, _covariance_impl(x, impl, shards)
+    mean = _mean_impl(x, impl, shards)
     if impl == "kernel":
-        return mean, centered_covariance_sums(x, mean)
-    return mean, _covariance_impl(x - mean[:, None], impl)
+        return mean, all_reduced(centered_covariance_sums(x, mean), shards)
+    return mean, _covariance_impl(x - mean[:, None], impl, shards)
 
 
 def _project_centered(k, x, mean, centering: bool):
@@ -306,6 +319,7 @@ def center_whiten(
     centering: bool = True,
     whiten_flag: bool = True,
     ensure_owned: bool = False,
+    data_sharding=None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]:
     """Center and whiten ``x`` on its device: ``(x1, mean, K)``.
 
@@ -319,18 +333,20 @@ def center_whiten(
     ``x1`` a buffer the caller owns (safe to rotate in place): every
     transforming branch returns a new tensor already, and the one
     passthrough branch (``centering=False, whiten_flag=False``) copies.
+    ``data_sharding``: ``x`` is this rank's column block of a sharded fit.
     """
     if not whiten_flag:
         if centering:
-            x1, mean = center(x)
+            x1, mean = center(x, data_sharding)
             return x1, mean, None
         return (x.clone() if ensure_owned else x), None, None
-    n_features, n_samples = x.shape
+    n_features = x.shape[0]
+    n_samples = _n_samples(x, data_sharding)
     _check_components(n_features, n_components)
-    mean, cov = _prepare_stats(x, _impl_for(x), centering)
+    mean, cov = _prepare_stats(x, _impl_for(x, data_sharding), centering, data_sharding)
     k = _whitening_matrix(_to_host(cov), n_samples, n_components)
     x1 = _project_centered(torch.as_tensor(k, dtype=x.dtype, device=x.device),
                            x, mean, centering)
-    if _should_refine(x):
-        x1, k = _refine_whitening(x1, k, n_samples)
+    if _should_refine(x, data_sharding):
+        x1, k = _refine_whitening(x1, k, n_samples, data_sharding)
     return x1, mean, torch.as_tensor(k, dtype=x.dtype, device=x.device)

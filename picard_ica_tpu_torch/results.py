@@ -23,7 +23,8 @@ class PicardResult:
     whitening: Optional[torch.Tensor]
     # Unmixing matrix W (n_components, n_components).
     unmixing: torch.Tensor
-    # Estimated sources (n_components, n_samples).
+    # Estimated sources (n_components, n_samples); a DTensor placed
+    # Shard(1) after a sample-sharded fit.
     sources: torch.Tensor
     # Per-feature mean (n_features,); None if centering=False.
     mean: Optional[torch.Tensor]

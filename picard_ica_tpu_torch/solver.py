@@ -8,7 +8,11 @@ orchestration is eager Python around the device tensors of one
 whitening run in NumPy f64 on the host or on the device
 (``ops/whitening.py``; ``PicardConfig.whiten_precision`` chooses).
 
-Not ported yet (``NotImplementedError``): sample-sharded fits (``mesh``).
+Sample-sharded fits (``mesh``, a 1-D ``DeviceMesh`` from
+``parallel.sample_mesh``): each rank holds a column block of X, every
+reduction over T is all-reduced over the mesh's group and divided by the
+global T, and all N x N state stays replicated (``parallel/sharding.py``);
+the sources come back as a ``DTensor`` placed ``Shard(1)``.
 """
 
 from __future__ import annotations
@@ -31,6 +35,8 @@ from .ops.kernels import STREAM_MAX_N
 from .ops.linalg import _SYM_DECORR_MIN_EIG, rotate_rows_inplace, sym_decorrelation_with_mineig
 from .ops.precision import exact_f32
 from .ops.whitening import _HOST_F64_MAX_ELEMENTS, center_whiten, preprocess_f64
+from .parallel.mesh import local_block, local_device
+from .parallel.sharding import SampleShards
 from .results import PicardResult
 
 
@@ -79,23 +85,59 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _check_mesh(mesh) -> None:
+    from torch.distributed.device_mesh import DeviceMesh
+
+    if not isinstance(mesh, DeviceMesh) or mesh.ndim != 1:
+        raise InvalidConfigError(
+            "mesh", "must be a 1-D torch.distributed DeviceMesh (parallel.sample_mesh)")
+
+
+def _local_input(x, mesh):
+    """This rank's column block of a sharded fit's input: the local
+    tensor of a ``DTensor`` placed ``Shard(1)`` on ``mesh``, else a view
+    of the whole array's block (identical input on every rank)."""
+    from torch.distributed.tensor import DTensor, Shard
+
+    if not isinstance(x, DTensor):
+        return local_block(x, mesh)
+    if tuple(x.placements) != (Shard(1),) or x.device_mesh.get_group() != mesh.get_group():
+        raise InvalidDimensionsError(
+            "a DTensor input must be placed Shard(1) on the fit's mesh")
+    local = x.to_local()
+    if local.shape[1] * mesh.size() != x.shape[1]:
+        raise InvalidDimensionsError(
+            f"n_samples ({x.shape[1]}) must be divisible by the mesh size "
+            f"({mesh.size()}) to shard the samples axis, in equal blocks")
+    return local
+
+
 class Picard:
     """Static-method facade, mirroring the reference's ``Picard`` struct."""
 
     @staticmethod
-    def fit(x, config: Optional[PicardConfig] = None, device=None) -> PicardResult:
+    def fit(x, config: Optional[PicardConfig] = None, device=None, mesh=None) -> PicardResult:
         """Fit ICA on ``x`` of shape (n_features, n_samples)."""
-        return Picard.fit_with_config(x, config or PicardConfig(), device=device)
+        return Picard.fit_with_config(x, config or PicardConfig(), device=device, mesh=mesh)
 
     @staticmethod
     @exact_f32()
     def fit_with_config(x, config: PicardConfig, device=None, mesh=None) -> PicardResult:
+        """Fit ICA on ``x`` of shape (n_features, n_samples).
+
+        ``mesh``: a 1-D samples mesh (``parallel.sample_mesh``), called
+        on every rank. ``x`` is then either the whole array, identical on
+        every rank (NumPy or a tensor), of which each rank takes its
+        column block, or a ``DTensor`` placed ``Shard(1)`` on the mesh.
+        The fit runs on this rank's device of the mesh unless ``device``
+        is given.
+        """
         config.validate()
         if mesh is not None:
-            raise NotImplementedError(
-                "sample-sharded fits (mesh) are not ported yet (ROADMAP.md queue 1)"
-            )
-        device = _resolve_device(x, device)
+            _check_mesh(mesh)
+            device = local_device(mesh) if device is None else torch.device(device)
+        else:
+            device = _resolve_device(x, device)
         dtype = _resolve_dtype(config)
 
         if not isinstance(x, torch.Tensor):
@@ -105,6 +147,11 @@ class Picard:
         n, p = x.shape
         if n == 0 or p == 0:
             raise InvalidDimensionsError("Input matrix cannot be empty")
+        shards = None
+        if mesh is not None:
+            # This rank's columns; the global T divides every sum.
+            x_local = _local_input(x, mesh)
+            shards = SampleShards.of(mesh, p)
 
         # Host-f64 preprocessing: when the caller hands over float64
         # NumPy data of moderate size and the core runs in f32, the
@@ -144,9 +191,13 @@ class Picard:
             )
 
         if host_f64:
+            # Sharded, every rank whitens the whole array on its host and
+            # keeps its block (the JAX package's rule).
             x1_64, mean_64, k_64 = preprocess_f64(
                 x_host, n_components, config.centering, config.whiten
             )
+            if mesh is not None:
+                x1_64 = local_block(x1_64, mesh)
             np_dtype = np.float32 if dtype == torch.float32 else np.float64
             x1 = torch.from_numpy(np.ascontiguousarray(x1_64, np_dtype)).to(device)
             del x1_64
@@ -157,17 +208,20 @@ class Picard:
             # device. NumPy input is cast on the host and then moved; a
             # tensor is cast on its own device. x1 is a buffer the solver
             # owns (ensure_owned): the caller's data are never written.
-            if isinstance(x, torch.Tensor):
-                x_dev = x.to(dtype=dtype).to(device)
+            # Sharded, only this rank's block is cast and moved.
+            xs = x if mesh is None else x_local
+            if isinstance(xs, torch.Tensor):
+                x_dev = xs.to(dtype=dtype).to(device)
             else:
                 np_dtype = np.float32 if dtype == torch.float32 else np.float64
-                x_dev = torch.from_numpy(np.ascontiguousarray(x, np_dtype)).to(device)
+                x_dev = torch.from_numpy(np.ascontiguousarray(xs, np_dtype)).to(device)
+            del xs
             x1, x_mean, k_matrix = center_whiten(
                 x_dev.contiguous(), n_components, config.centering, config.whiten,
-                ensure_owned=True,
+                ensure_owned=True, data_sharding=shards,
             )
             del x_dev
-        x = x_host = None  # noqa: F841  (the input is not read again)
+        x = x_host = x_local = None  # noqa: F841  (the input is not read again)
         actual_components = x1.shape[0]
 
         # W_init: user-provided (shape-checked, solver.rs:98-111) or the
@@ -200,14 +254,16 @@ class Picard:
         if config.jade_it is not None:
             if config.verbose:
                 print(f"Running {config.jade_it} iterations of JADE...", file=sys.stderr)
-            w_init, min_eig = jade(x1, config.jade_it, 1e-6, config.verbose)
+            w_init, min_eig = jade(x1, config.jade_it, 1e-6, config.verbose,
+                                   data_sharding=shards)
             if float(min_eig) < _SYM_DECORR_MIN_EIG:
                 raise SingularMatrixError()
         elif config.fastica_it is not None:
             if config.verbose:
                 print(f"Running {config.fastica_it} iterations of FastICA...",
                       file=sys.stderr)
-            w_init, min_eig = ica_par(x1, config.density, config.fastica_it, w_init)
+            w_init, min_eig = ica_par(x1, config.density, config.fastica_it, w_init,
+                                      data_sharding=shards)
             if float(min_eig) < _SYM_DECORR_MIN_EIG:
                 raise SingularMatrixError()
             if config.verbose:
@@ -254,13 +310,14 @@ class Picard:
             # x1 is the solver's own pre-rotation product and is not read
             # again: the final Y is written through its buffer.
             donate_data=True,
+            data_sharding=shards,
         )
         _sync(device)
         t0 = time.perf_counter()
         core = run_core(x1, covariance, config.tol, config.lambda_min,
                         config.max_iter, opts)
         _sync(device)
-        core_seconds = time.perf_counter() - t0
+        core_seconds = time.perf_counter() - t0  # this rank's, after its device sync
 
         # Compose transforms (solver.rs:169).
         w = core.w @ w_init
@@ -289,10 +346,15 @@ class Picard:
                     file=sys.stderr,
                 )
 
+        sources = core.y
+        if mesh is not None:
+            from torch.distributed.tensor import DTensor, Shard
+
+            sources = DTensor.from_local(sources, mesh, (Shard(1),), run_check=False)
         return PicardResult(
             whitening=k_matrix,
             unmixing=w,
-            sources=core.y,
+            sources=sources,
             mean=x_mean,
             n_iterations=core.n_iterations,
             converged=core.converged,
@@ -309,7 +371,16 @@ class Picard:
     @exact_f32()
     def transform(x, result: PicardResult) -> torch.Tensor:
         """Apply a fitted model to new data (solver.rs:199-214), in exact
-        f32 whatever the caller's TF32 flags."""
+        f32 whatever the caller's TF32 flags. A ``DTensor`` placed
+        ``Shard(1)`` gives a ``DTensor`` of the same placement, each rank's
+        block transformed where it lies."""
+        from torch.distributed.tensor import DTensor, Shard
+
+        if isinstance(x, DTensor):
+            if tuple(x.placements) != (Shard(1),):
+                raise InvalidDimensionsError("a DTensor input must be placed Shard(1)")
+            y = Picard.transform(x.to_local(), result)
+            return DTensor.from_local(y, x.device_mesh, x.placements, run_check=False)
         u = result.unmixing
         if not isinstance(x, torch.Tensor):
             x = np.asarray(x)

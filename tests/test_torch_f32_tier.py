@@ -8,10 +8,16 @@ hi*hi, on ``mma.sync`` with f32 accumulation -- the TPU's
 row of the weights and per column of X, so that its hi*hi sums are
 exact (the tensor cores round an accumulation toward zero); the
 contraction splits elementwise. The small products are summed first
-and hi*hi last.
+and hi*hi last. The contraction sums each 16-column step's six products
+in a fresh f32 sum, adds the steps in order to their 256-column group's
+sum and the groups to their 2,048-column block's partial, as the
+moments mode does (tests/test_torch_core_tc.py), and folds the blocks'
+partials pairwise. Added straight into the block's partial, 128 steps
+a block, the steps' sums failed the bound below (N = 1, 15 and 64).
 
 This file emulates that arithmetic in torch (the split, the six f32
-products of bf16-valued operands, small products first) and runs it
+products of bf16-valued operands, small products first, the step and
+block order of the contraction) and runs it
 through ``rotated_fused_sums_plain`` in place of the exact-f32 products
 of its ``"f32"`` tier:
   * the split itself: exact elementwise, on the grid for the rotation;
@@ -36,6 +42,7 @@ from picard_ica_tpu.ops import pallas_kernels as pk
 from picard_ica_tpu_torch import Picard, PicardConfig
 from picard_ica_tpu_torch.ops import densities as td
 from picard_ica_tpu_torch.ops import kernels as K
+from picard_ica_tpu_torch.ops.moments import fold_pairwise
 from picard_ica_tpu_torch.utils import amari_distance, generate_mixed_kurtosis_data
 
 torch.set_num_threads(2)
@@ -47,6 +54,10 @@ F32_SCALE_FLOOR = 1e-7
 F32_TOL = 2e-5
 # One column past the first 2,048-column partial.
 T_EDGE = 2049
+# The contraction's block partial, group and step (columns).
+COLS = K.COLS_PER_BLOCK
+GROUP = 256
+STEP = 16
 
 DENS = {"tanh": (jd.Tanh(), td.Tanh()), "exp0.5": (jd.Exp(0.5), td.Exp(0.5)),
         "cube": (jd.Cube(), td.Cube())}
@@ -95,17 +106,41 @@ def six_pass_dot(a, b, grid):
     return small + ah @ bh
 
 
+def stepped_contraction(a, b):
+    """``a @ b`` over T ((N, T) times (T, N)) as the fused kernel sums it:
+    six products of elementwise splits a 16-column step, the steps' sums
+    added in order in f32 to their 256-column group's sum and the groups
+    to their 2,048-column block's partial, the blocks' partials folded
+    pairwise. Padded columns are zeros."""
+    n, t = a.shape
+    t_pad = -(-t // COLS) * COLS
+    a = torch.nn.functional.pad(a, (0, t_pad - t)).reshape(n, t_pad // STEP, STEP)
+    b = torch.nn.functional.pad(b, (0, 0, 0, t_pad - t)).reshape(t_pad // STEP, STEP, -1)
+    steps = six_pass_dot(a.transpose(0, 1), b, grid=False)
+    steps = steps.reshape(t_pad // COLS, COLS // GROUP, GROUP // STEP, n, b.shape[2])
+    acc = torch.zeros_like(steps[:, 0, 0])
+    for g in range(COLS // GROUP):
+        group = torch.zeros_like(acc)
+        for k in range(GROUP // STEP):
+            group = group + steps[:, g, k]
+        acc = acc + group
+    return fold_pairwise(acc)
+
+
 def _emulated_kernel_dot(real):
     """``ops.kernels._kernel_dot`` with its f32-tier products as the
     kernel's: the rotations ((N, N) weights times (N, T) X) on the grid,
-    the contractions ((N, T) times (T, N)) elementwise."""
+    the contractions ((N, T) times (T, N)) elementwise, in the kernel's
+    order of steps and blocks."""
 
     def dot(a, b, acc, precision):
         if precision != "f32" or acc != torch.float32:
             return real(a, b, acc, precision)
         rotation = a.shape[0] == a.shape[1]
         assert rotation != (b.shape[1] == a.shape[0]), "ambiguous at T == N"
-        return six_pass_dot(a.float(), b.float(), rotation)
+        if rotation:
+            return six_pass_dot(a.float(), b.float(), True)
+        return stepped_contraction(a.float(), b.float())
 
     return dot
 

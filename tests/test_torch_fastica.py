@@ -106,6 +106,6 @@ def test_fastica_singular_start_raises(monkeypatch):
 
     _, _, x = generate_test_data(3, 1000, 4)
     monkeypatch.setattr(solver, "ica_par",
-                        lambda x1, d, it, w: (w, torch.zeros((), dtype=w.dtype)))
+                        lambda x1, d, it, w, data_sharding: (w, torch.zeros((), dtype=w.dtype)))
     with pytest.raises(P.SingularMatrixError):
         P.Picard.fit(x, P.PicardConfig(fastica_it=3, random_state=0), device="cpu")

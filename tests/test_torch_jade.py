@@ -231,7 +231,7 @@ def test_jade_singular_result_raises(monkeypatch):
     from picard_ica_tpu_torch import solver
 
     _, _, x = generate_test_data(3, 1000, 4)
-    monkeypatch.setattr(solver, "jade", lambda x1, it, tol, verbose: (
+    monkeypatch.setattr(solver, "jade", lambda x1, it, tol, verbose, data_sharding: (
         torch.eye(3, dtype=x1.dtype), torch.zeros((), dtype=x1.dtype)))
     with pytest.raises(P.SingularMatrixError):
         P.Picard.fit(x, P.PicardConfig(jade_it=5, random_state=0), device="cpu")

@@ -11,8 +11,8 @@ NumPy input):
     agree to Amari < 1e-5 (two f32 trajectories to tol 1e-7 from one f64
     whitening).
 Plus the routing between host and device whitening, the typed errors,
-the one part not ported yet (``mesh``), the device rule and the package's
-independence from JAX.
+the mesh check (sharded fits: tests/test_torch_parallel.py), the device
+rule and the package's independence from JAX.
 """
 
 import os
@@ -157,11 +157,16 @@ def test_typed_errors():
 
 
 def test_parts_not_ported_raise_not_implemented():
-    """Sample-sharded fits (``mesh``) are the one part not ported; the
-    warm starts run (tests/test_torch_jade.py, test_torch_fastica.py)."""
+    """Every part is ported: a ``mesh`` that is not a 1-D DeviceMesh is a
+    typed configuration error (sharded fits: tests/test_torch_parallel.py),
+    and the warm starts run (tests/test_torch_jade.py,
+    test_torch_fastica.py)."""
     x = np.random.default_rng(0).standard_normal((3, 200))
-    with pytest.raises(NotImplementedError, match="mesh"):
-        P.Picard.fit_with_config(x, P.PicardConfig(), device="cpu", mesh=object())
+    for mesh in (object(), "samples"):
+        with pytest.raises(P.InvalidConfigError, match="mesh"):
+            P.Picard.fit_with_config(x, P.PicardConfig(), device="cpu", mesh=mesh)
+        with pytest.raises(P.InvalidConfigError, match="1-D"):
+            P.Picard.fit(x, P.PicardConfig(), mesh=mesh)
     for cfg in (P.PicardConfig(jade_it=3), P.PicardConfig(fastica_it=3)):
         r = P.Picard.fit(x, cfg.replace(random_state=0, max_iter=2), device="cpu")
         assert r.n_iterations >= 1
@@ -259,7 +264,7 @@ def test_import_leaves_jax_out():
 
 
 def test_public_names_match_jax_package():
-    assert set(J.__all__) - {"parallel"} <= set(P.__all__)
+    assert set(J.__all__) <= set(P.__all__)
     for name in P.__all__:
         assert hasattr(P, name)
 
