@@ -46,14 +46,7 @@ import torch
 from ..ops.densities import Density
 from ..ops.kernels import rotated_fused_sums, rotated_loglik_sums, rotated_moments_sums, work_dtype
 from ..ops.linalg import expm_pow2_chain, matrix_exp, rotate_rows_inplace, skew_symmetric
-from ..ops.moments import (
-    RawMoments,
-    _row_mean,
-    _row_sum,
-    compute_raw_moments,
-    loglik_rowmeans,
-    raw_moment_sums,
-)
+from ..ops.moments import RawMoments, _row_sum, raw_moment_sums
 from ..ops.precision import matmul_tiered
 from ..parallel.sharding import all_reduced, n_samples
 
@@ -191,20 +184,21 @@ def _reduce_fused(shards, inv_t, dll, dysq, moment_sums):
 # ---------------------------------------------------------------------------
 
 
+def _all_reduced_sums(sums, shards):
+    """The sums of a data pass over the mesh: themselves unsharded."""
+    return list(sums) if shards is None else shards.reduce(sums)
+
+
 def data_moments(w, x, opts: CoreOptions, need_h: bool, need_ysq: bool) -> RawMoments:
     """Normalized moments of Y = W @ X: G = E[psi(Y) Y^T], pm =
     E[psi'(Y)], H = E[psi'(Y) (Y^2)^T], ysq = E[Y^2]."""
     shards = opts.data_sharding
     if opts.use_kernels:
         sums = rotated_moments_sums(w, x, opts.density, need_h, need_ysq)
-    elif shards is None:
-        return compute_raw_moments(w @ x, opts.density, need_h, need_ysq)
     else:
         sums = raw_moment_sums(w @ x, opts.density, need_h, need_ysq)
-    if shards is not None:
-        sums = shards.reduce(sums)
     inv_t = 1.0 / n_samples(x, shards)
-    return RawMoments(*(v * inv_t for v in sums))
+    return RawMoments(*(v * inv_t for v in _all_reduced_sums(sums, shards)))
 
 
 def data_loglik(m, x, opts: CoreOptions, need_ysq: bool):
@@ -214,13 +208,9 @@ def data_loglik(m, x, opts: CoreOptions, need_ysq: bool):
         ll, ysq = rotated_loglik_sums(m, x, opts.density, need_ysq)
     else:
         y = m @ x
-        if shards is None:
-            ll = loglik_rowmeans(y, opts.density)
-            return ll, (_row_mean(y * y) if need_ysq else torch.zeros_like(ll))
         ll = _row_sum(opts.density.log_lik(y))
         ysq = _row_sum(y * y) if need_ysq else torch.zeros_like(ll)
-    if shards is not None:
-        ll, ysq = shards.reduce([ll, ysq])
+    ll, ysq = _all_reduced_sums((ll, ysq), shards)
     inv_t = 1.0 / n_samples(x, shards)
     return ll * inv_t, ysq * inv_t
 
@@ -234,56 +224,53 @@ def data_fused_step(m_new, m_old, x, opts: CoreOptions, need_h: bool, need_ysq: 
     candidate, which an accepted try hands to the next iteration. Under a
     samples mesh the moments come as :class:`PendingMoments`.
     """
-    n = x.shape[0]
-    dtype = work_dtype(x)
     shards = opts.data_sharding
     inv_t = 1.0 / n_samples(x, shards)
-
     if opts.use_kernels:
-        dll, dysq, g, pm, h, ysq = rotated_fused_sums(
+        dll, dysq, *moment_sums = rotated_fused_sums(
             m_new, m_old, x, opts.density, need_h, need_ysq,
             precision=opts.kernel_precision, absolute_ll=opts.plain_ls,
         )
-        if shards is not None:
-            return _reduce_fused(shards, inv_t, dll, dysq, (g, pm, h, ysq))
-        return (
-            dll * inv_t,
-            dysq * inv_t,
-            RawMoments(g * inv_t, pm * inv_t, h * inv_t, ysq * inv_t),
-        )
+    else:
+        dll, dysq, moment_sums = _fused_sums_torch(m_new, m_old, x, opts, need_h, need_ysq)
+    if shards is not None:
+        return _reduce_fused(shards, inv_t, dll, dysq, moment_sums)
+    return dll * inv_t, dysq * inv_t, RawMoments(*(v * inv_t for v in moment_sums))
 
-    # Torch path: the same formulations. Delta mode rotates the current
-    # matrix and the candidate delta and evaluates the loss change
-    # analytically from (y_old, dy); plain mode evaluates absolute row
-    # means. The N x N x T products run at the stage's tier. Sharded, the
-    # same quantities are taken as sums and reduced before the division.
+
+def _fused_sums_torch(m_new, m_old, x, opts: CoreOptions, need_h: bool, need_ysq: bool):
+    """The torch path's fused pass, as sums over ``x``'s columns: the
+    kernels' formulations. Delta mode rotates the current matrix and the
+    candidate delta and evaluates the loss change analytically from
+    (y_old, dy); plain mode evaluates absolute row sums. The N x N x T
+    products run at the stage's tier."""
+    n = x.shape[0]
+    dtype = work_dtype(x)
+
     def tdot(a, b):
         return matmul_tiered(a, b, dtype, opts.kernel_precision)
 
-    row = _row_mean if shards is None else _row_sum
     zeros_n = torch.zeros((n,), dtype=dtype, device=x.device)
     if opts.plain_ls:
         y_new = tdot(m_new, x)
         psi, psi_d, ll_el = opts.density.score_der_loglik(y_new)
-        dll = row(ll_el)
-        dysq = row(y_new * y_new) if need_ysq else zeros_n
+        dll = _row_sum(ll_el)
+        dysq = _row_sum(y_new * y_new) if need_ysq else zeros_n
     else:
         y_old = tdot(m_old, x)
         dy = tdot(m_new - m_old, x)
         y_new = y_old + dy
         psi, psi_d, dll_el = opts.density.score_der_loglik_delta(y_old, dy)
-        dll = row(dll_el)
-        dysq = row((2.0 * y_old + dy) * dy) if need_ysq else zeros_n
+        dll = _row_sum(dll_el)
+        dysq = _row_sum((2.0 * y_old + dy) * dy) if need_ysq else zeros_n
     g = tdot(psi, y_new.T)
-    pm = row(psi_d)
+    pm = _row_sum(psi_d)
     if need_h:
         h = tdot(psi_d, (y_new * y_new).T)
     else:
         h = torch.zeros((n, n), dtype=dtype, device=x.device)
-    ysq_new = row(y_new * y_new) if need_ysq else zeros_n
-    if shards is not None:
-        return _reduce_fused(shards, inv_t, dll, dysq, (g, pm, h, ysq_new))
-    return dll, dysq, RawMoments(g * inv_t, pm, h * inv_t, ysq_new)
+    ysq_new = _row_sum(y_new * y_new) if need_ysq else zeros_n
+    return dll, dysq, (g, pm, h, ysq_new)
 
 
 def _logdet_penalized(m, like):

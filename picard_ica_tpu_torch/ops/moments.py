@@ -9,10 +9,10 @@ optimizer needs (reference: core.rs:211-276):
   * ``ysq_rowmean = mean(Y*Y, axis=1)``    — extended non-ortho loss term
 
 The sign/+1/skew fix-ups of extended mode are N x N algebra applied in
-models/core.py, which keeps these passes sign-independent. A
-sample-sharded fit takes the sum forms (:func:`raw_moment_sums`,
-:func:`_row_sum`), all-reduces them and divides by the global T
-(``parallel/sharding.py``).
+models/core.py, which keeps these passes sign-independent. The data
+passes take the sum forms (:func:`raw_moment_sums`, :func:`_row_sum`)
+and divide by T once; a sample-sharded fit all-reduces the sums first
+and divides by the global T (``parallel/sharding.py``).
 """
 
 from __future__ import annotations
@@ -45,63 +45,45 @@ def fold_pairwise(partials):
     return partials[0]
 
 
-def _row_mean(m):
-    """``mean(m, axis=1)``: ``torch.mean`` at f64, a row sum times
-    f32(1/T) at f32 (the JAX package's ones-vector dot)."""
-    if m.dtype == torch.float64:
-        return m.mean(dim=1)
-    return m.sum(dim=1) * (1.0 / m.shape[1])
-
-
 def _row_sum(m):
-    """``sum(m, axis=1)``: the row means' sum form, over this rank's
-    columns, for the sharded callers to all-reduce before they divide."""
+    """``sum(m, axis=1)``: the sum form of every row mean, over the
+    columns given (a sharded fit all-reduces it before it divides)."""
     return m.sum(dim=1)
 
 
-def compute_raw_moments(y, density, need_h: bool, need_ysq_mean: bool) -> RawMoments:
-    """Moments of ``y`` (the torch path's moments pass).
+def _row_mean(m):
+    """``mean(m, axis=1)`` as a row sum times 1/T (at f32 the JAX
+    package's ones-vector dot)."""
+    return _row_sum(m) * (1.0 / m.shape[1])
+
+
+def raw_moment_sums(y, density, need_h: bool, need_ysq: bool) -> RawMoments:
+    """The moments of ``y`` as sums over its columns, not divided by T
+    (zeros for the outputs not needed).
 
     ``need_h``: the Hessian moment is only needed in the non-orthogonal
     branch (core.rs:274).
     """
-    n, t = y.shape
-    inv_t = 1.0 / t
-
-    psi, psi_d = density.score_and_der(y)
-    g_raw = (psi @ y.T) * inv_t
-    pm_raw = _row_mean(psi_d)
-
-    if need_h:
-        h_raw = (psi_d @ (y * y).T) * inv_t
-    else:
-        h_raw = torch.zeros((n, n), dtype=y.dtype, device=y.device)
-
-    if need_ysq_mean:
-        ysq_rowmean = _row_mean(y * y)
-    else:
-        ysq_rowmean = torch.zeros((n,), dtype=y.dtype, device=y.device)
-
-    return RawMoments(g_raw, pm_raw, h_raw, ysq_rowmean)
-
-
-def loglik_rowmeans(y, density):
-    """Per-component mean log-likelihood ``mean(log_lik(Y), axis=1)``;
-    the loss's density term is ``sum(signs * loglik_rowmeans)``."""
-    return _row_mean(density.log_lik(y))
-
-
-def raw_moment_sums(y, density, need_h: bool, need_ysq: bool) -> RawMoments:
-    """The sums of :func:`compute_raw_moments` over ``y``'s columns, not
-    divided by T (zeros for the outputs not needed)."""
     n = y.shape[0]
     psi, psi_d = density.score_and_der(y)
     zeros_nn = torch.zeros((n, n), dtype=y.dtype, device=y.device)
     zeros_n = torch.zeros((n,), dtype=y.dtype, device=y.device)
-    ysq = y * y
+    ysq = y * y if need_h or need_ysq else None
     return RawMoments(
         psi @ y.T,
         _row_sum(psi_d),
         psi_d @ ysq.T if need_h else zeros_nn,
         _row_sum(ysq) if need_ysq else zeros_n,
     )
+
+
+def compute_raw_moments(y, density, need_h: bool, need_ysq_mean: bool) -> RawMoments:
+    """Moments of ``y``: :func:`raw_moment_sums` times 1/T."""
+    inv_t = 1.0 / y.shape[1]
+    return RawMoments(*(v * inv_t for v in raw_moment_sums(y, density, need_h, need_ysq_mean)))
+
+
+def loglik_rowmeans(y, density):
+    """Per-component mean log-likelihood ``mean(log_lik(Y), axis=1)``;
+    the loss's density term is ``sum(signs * loglik_rowmeans)``."""
+    return _row_mean(density.log_lik(y))

@@ -205,8 +205,6 @@ def _mean_impl(x, impl: str, shards=None):
         sums = row_sums(x)
     elif impl == "chunked":
         sums = row_sums_plain(x, _chunk_len(t))
-    elif shards is None:
-        return x.mean(dim=1)
     else:
         sums = x.sum(dim=1)
     return all_reduced(sums, shards) / t

@@ -10,8 +10,6 @@ gloo carries them on the CPU, and between ranks that share one card
 
 from __future__ import annotations
 
-from typing import Optional
-
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh
@@ -32,18 +30,22 @@ def distributed_init(**kwargs) -> None:
         dist.init_process_group(**kwargs)
 
 
-def sample_mesh(device_type: Optional[str] = None) -> DeviceMesh:
+def sample_mesh(device_type: str = "cuda") -> DeviceMesh:
     """1-D mesh named "samples" over the whole world, on the default
     process group's own backend.
 
-    ``device_type`` is where each rank's block lives: ``"cuda"`` or
-    ``"cpu"`` (default: ``"cuda"`` when CUDA is available). The mesh
-    wraps the default group rather than creating one: on a gloo world,
+    ``device_type`` is where each rank's block lives: ``"cuda"`` (the
+    default, as for an unsharded fit; raises when CUDA is not
+    available) or ``"cpu"``, which the caller asks for. The mesh wraps
+    the default group rather than creating one: on a gloo world,
     ``init_device_mesh("cuda", ...)`` would make an NCCL group for CUDA
     tensors, which two ranks on one card cannot form.
     """
-    if device_type is None:
-        device_type = "cuda" if torch.cuda.is_available() else "cpu"
+    if device_type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "sample_mesh builds a CUDA mesh by default and CUDA is not "
+            "available; pass device_type='cpu' to shard on the CPU"
+        )
     return DeviceMesh.from_group(dist.group.WORLD, device_type,
                                  mesh_dim_names=(SAMPLE_AXIS,))
 
@@ -55,7 +57,9 @@ def data_sharding(mesh: DeviceMesh):
     return (Shard(1),)
 
 
-def _check_divisible(t: int, size: int) -> None:
+def check_divisible(t: int, size: int) -> None:
+    """Raise ``InvalidDimensionsError`` unless ``t`` samples split into
+    ``size`` equal blocks."""
     if t % size:
         from ..errors import InvalidDimensionsError
 
@@ -70,7 +74,7 @@ def local_block(x, mesh: DeviceMesh):
     array or a tensor, as given: a view, not a copy). T must be
     divisible by the mesh size."""
     size, rank = mesh.size(), mesh.get_local_rank()
-    _check_divisible(x.shape[1], size)
+    check_divisible(x.shape[1], size)
     block = x.shape[1] // size
     return x[:, rank * block:(rank + 1) * block]
 

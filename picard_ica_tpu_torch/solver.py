@@ -35,7 +35,7 @@ from .ops.kernels import STREAM_MAX_N
 from .ops.linalg import _SYM_DECORR_MIN_EIG, rotate_rows_inplace, sym_decorrelation_with_mineig
 from .ops.precision import exact_f32
 from .ops.whitening import _HOST_F64_MAX_ELEMENTS, center_whiten, preprocess_f64
-from .parallel.mesh import local_block, local_device
+from .parallel.mesh import check_divisible, local_block, local_device
 from .parallel.sharding import SampleShards
 from .results import PicardResult
 
@@ -104,12 +104,20 @@ def _local_input(x, mesh):
     if tuple(x.placements) != (Shard(1),) or x.device_mesh.get_group() != mesh.get_group():
         raise InvalidDimensionsError(
             "a DTensor input must be placed Shard(1) on the fit's mesh")
-    local = x.to_local()
-    if local.shape[1] * mesh.size() != x.shape[1]:
-        raise InvalidDimensionsError(
-            f"n_samples ({x.shape[1]}) must be divisible by the mesh size "
-            f"({mesh.size()}) to shard the samples axis, in equal blocks")
-    return local
+    check_divisible(x.shape[1], mesh.size())
+    return x.to_local()
+
+
+def _agreed_seed(seed: int, mesh) -> int:
+    """The mesh's first rank's ``seed``, on every rank: a sharded fit
+    needs the same W_init everywhere, or each rank would rotate by its
+    own W and the all-reduced sums would mix different rotations."""
+    import torch.distributed as dist
+
+    group = mesh.get_group()
+    box = [seed]
+    dist.broadcast_object_list(box, src=dist.get_global_rank(group, 0), group=group)
+    return int(box[0])
 
 
 class Picard:
@@ -176,6 +184,8 @@ class Picard:
         seed = config.random_state
         if seed is None:
             seed = int(np.random.SeedSequence().entropy % (2**64))
+            if mesh is not None:
+                seed = _agreed_seed(seed, mesh)
 
         requested = min(n, p) if config.n_components is None else config.n_components
         n_components = min(requested, min(n, p))

@@ -1,15 +1,18 @@
 """Stage lengths of the port against the JAX package, on the CPU.
 
-    python tests/stage_lengths_vs_jax.py [N T [MAX_ITER]]
+    python tests/stage_lengths_vs_jax.py [N T [MAX_ITER [SEED]]]
 
-Fits ``generate_mixed_kurtosis_data(N, T, seed=7)`` (default 128 x
-200,000, float64 NumPy) with ``random_state=0`` at tol 1e-7 in both
+Fits ``generate_mixed_kurtosis_data(N, T, SEED)`` (default 128 x
+200,000, seed 7, float64 NumPy) with ``random_state=0`` at tol 1e-7 in both
 packages, which whiten it the same way (host f64) and draw the same
 w_init: the port with ``use_kernels=False, device="cpu"``, the JAX
 package with ``use_pallas=True`` (its Pallas kernels in interpret mode)
 and ``dtype=float32``. Prints each fit's iterations, stage exits and
-line-search passes, Amari distances, and both packages' gradient norm
-at every iteration (``verbose``). Not a test: it takes minutes.
+line-search passes, Amari distances, the bf16x3 stage's stall (where
+the gradient norm first nears the floor, its last 1 % improvement, which
+restarts the 10-iteration stall count, and the floor's median), and both
+packages' gradient norm at every iteration (``verbose``). Not a test: it
+takes minutes.
 """
 
 import contextlib
@@ -46,13 +49,34 @@ def _fit_logged(fit):
     return r, seconds, [(int(i), float(g)) for i, g in _GNORM.findall(buf.getvalue())]
 
 
-def main(n=128, t=200_000, max_iter=200):
-    _, a, x = generate_mixed_kurtosis_data(n, t, 7)
+def _plateau(trace, exits, tol=4e-7):
+    """The bf16x3 stage's stall: (first iteration near the floor, last
+    1 % improvement of the stage's best gradient norm, stage exit,
+    median gradient norm from the first near the floor to the exit).
+    "Near" is the stall rule's 20 x the stage's hand-off tolerance. The
+    stage logs iterations exits[0] to exits[1] - 1: the iteration that
+    ends a stage is logged by the next one, at its tier."""
+    start, end = int(exits[0]), int(exits[1])
+    stage = [(i, g) for i, g in trace if start <= i < end]
+    best, last = float("inf"), None
+    for i, g in stage:
+        if g < best * 0.99:
+            last = i
+        best = min(best, g)
+    near = [i for i, g in stage if g < 20 * tol]
+    first = near[0] if near else None
+    floor = [g for i, g in stage if first is not None and i >= first]
+    return first, last, end, float(np.median(floor)) if floor else float("nan")
+
+
+def main(n=128, t=200_000, max_iter=200, seed=7):
+    _, a, x = generate_mixed_kurtosis_data(n, t, seed)
     common = dict(random_state=0, tol=1e-7, max_iter=max_iter, verbose=True)
     rt, st, gt = _fit_logged(lambda: P.Picard.fit(
         x, P.PicardConfig(use_kernels=False, **common), device="cpu"))
     rj, sj, gj = _fit_logged(lambda: J.Picard.fit(
         x, J.PicardConfig(use_pallas=True, dtype=jnp.float32, **common)))
+    print(f"data seed {seed}, {n} x {t}")
     for name, r, s in (("port", rt, st), ("jax", rj, sj)):
         print(f"{name}: {int(r.n_iterations)} iterations, exits "
               f"{tuple(int(v) for v in r.stage_exits)}, {int(r.ls_calls)} passes (by stage "
@@ -63,6 +87,10 @@ def main(n=128, t=200_000, max_iter=200):
     print(f"amari to the mixing: port {amari_distance(wt, a):.4e}, jax "
           f"{amari_distance(wj, a):.4e}; between the fits "
           f"{amari_distance(wt, np.linalg.inv(wj)):.4e}")
+    for name, r, trace in (("port", rt, gt), ("jax", rj, gj)):
+        first, last, end, floor = _plateau(trace, r.stage_exits)
+        print(f"{name} bf16x3 stall: near the floor from {first}, last 1 % improvement "
+              f"at {last}, exit at {end}; median gradient norm there {floor:.3e}")
     for name, trace in (("port", gt), ("jax", gj)):
         print(f"{name} gradient norms:", " ".join(f"{i}:{g:.3e}" for i, g in trace))
 

@@ -14,8 +14,8 @@ they wrote, and the JAX package's mesh fits on the same data:
     mesh=sample_mesh(jax.devices()[:k]))``: full unmixing to 1e-8;
   * the explicit psum moments and log-lik, and the JADE cumulants, to
     their dense forms (1e-12, 1e-10);
-  * W bit-identical on every rank; a one-rank mesh bit-identical to the
-    unsharded fit;
+  * W bit-identical on every rank, with a seed or without one; a
+    one-rank mesh bit-identical to the unsharded fit;
   * the accept payload (dll, dysq) all-reduced first and on its own,
     then the moment payload.
 """
@@ -150,6 +150,19 @@ def test_w_bit_identical_on_every_rank(world, request):
                 np.testing.assert_array_equal(other[key], ranks[0][key], err_msg=key)
 
 
+@pytest.mark.parametrize("world", [2, 3])
+def test_unseeded_fit_agrees_on_every_rank(world, request):
+    """With random_state=None every rank draws its own seed; the fit
+    must still start from one W_init, so W is the same bits on every
+    rank and the sharded sums separate the mixture."""
+    ranks = request.getfixturevalue(f"world{world}")
+    _, a, _ = fit_data("mixed")
+    assert ranks[0]["unseeded/converged"]
+    for other in ranks[1:]:
+        np.testing.assert_array_equal(other["unseeded/w"], ranks[0]["unseeded/w"])
+    assert amari_distance(ranks[0]["unseeded/full"], a) < 5e-3
+
+
 def test_one_rank_mesh_is_the_unsharded_fit(world1):
     z = world1[0]
     assert int(z["bitwise/mesh/iters"]) == int(z["bitwise/single/iters"])
@@ -216,6 +229,16 @@ def test_checkpoint_gathers_sharded_sources(world2):
     z = world2[0]
     np.testing.assert_array_equal(z["checkpoint/sources"], z["fit/mesh/sources"])
     np.testing.assert_array_equal(z["checkpoint/unmixing"], z["fit/mesh/w"])
+
+
+def test_sample_mesh_defaults_to_cuda(monkeypatch):
+    """Like an unsharded fit, a mesh is on CUDA unless the caller asks
+    for the CPU: without CUDA ``sample_mesh()`` raises, no CPU mesh."""
+    from picard_ica_tpu_torch.parallel import sample_mesh
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device_type='cpu'"):
+        sample_mesh()
 
 
 def test_non_divisible_samples_rejected(world2):

@@ -100,6 +100,16 @@ def fits(names):
     return fitted if "fit" in names else None
 
 
+def unseeded():
+    """A fit with no random_state: each rank draws its own seed, and the
+    mesh's first rank's must win, or each rank starts from its own W."""
+    _, _, x = fit_data("mixed")
+    r = Picard.fit(x, PicardConfig(dtype=torch.float64), mesh=mesh)
+    put("unseeded/w", r.unmixing)
+    put("unseeded/full", r.full_unmixing())
+    put("unseeded/converged", r.converged)
+
+
 def one_rank_bitwise():
     """A one-rank mesh is the unsharded fit, bit for bit: the f32 fit on
     the kernels' plain versions and the chunked whitening."""
@@ -225,6 +235,7 @@ if world == 1:
     one_rank_bitwise()
 elif world == 3:
     fits(["fit"])
+    unseeded()
 else:
     x, r1, rm = fits(list(FITS))
     core_f64()
@@ -233,6 +244,7 @@ else:
     transform_and_checkpoint(x, r1, rm)
     accept_order()
     whitening_stats()
+    unseeded()
 np.savez(f"{out_dir}/rank{rank}.npz", **out)
 torch.distributed.destroy_process_group()
 print("RANK_OK", rank, flush=True)
