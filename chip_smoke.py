@@ -104,7 +104,24 @@ prints no result line):
   7b. bench.py's configuration (64 x 4,000,000, seed 42) through a
      one-rank NCCL mesh: bit-identical to the unsharded fit of the same
      tensor in W, sources and iterations (a one-rank all-reduce is the
-     identity); the group is destroyed after the phase.
+     identity); the group is destroyed after the phase;
+  8. profiling and the memory model (``utils/profiling.py``,
+     ``utils/memory_model.py``): (a) bench.py's fit profiled with
+     ``profile_fit`` after a warm-up fit: the trace's top device ops, its
+     launches of kernel 1 by tier and of kernels 2, 4, 5 and 6, which must
+     equal the wrappers' counters for the same fit, the card's busy share
+     of the core span, and ``fit_with_timing``'s rate; (b) the bench data
+     made on the card and fitted at 64 x 4,000,000 and 256 x 10,000,000
+     (kernel path) and at 64 x 4,000,000 and 128 x 1,000,000 (torch
+     path): each phase's ``max_memory_allocated`` beside
+     ``phase_peak_bytes`` (fails when the binding phase differs or a
+     phase is off the model by more than 10 %); (c) the whole pipeline at
+     N = 256 for 3 iterations in a fresh process at T = ``max_t(256)``,
+     which must run, and at ``max_t(256)`` + 1,000,000, which must raise
+     ``torch.cuda.OutOfMemoryError`` (any other exit fails).
+
+``python3 chip_smoke.py --phase8`` runs phases 0, 1 and 8 alone;
+``--maxt-rung N T`` is phase 8c's child.
 
 Phase 2 also holds the streaming kernels against their plain versions:
 ``streaming_fused_sums`` at 256 x 2,000,000 (every mode and tier a fit
@@ -1591,6 +1608,255 @@ def phase7b_nccl(n=N7B, t=T7B, seed=SEED7B):
 
 
 
+# Phase 8: the bench fit profiled, the memory model's phase peaks, and the
+# max-T boundary at N = 256. A rung's child exits with this code when, and
+# only when, the pipeline raised torch.cuda.OutOfMemoryError.
+OOM_EXIT = 75
+MAXT_N, MAXT_STEP, MAXT_ITER = 256, 1_000_000, 3
+MAXT_TIMEOUT = 300
+# A phase's measured peak may be off the model by this share of the model.
+PEAK_RTOL = 0.10
+# The fits whose phase peaks are held to the model: (n, t, config).
+PEAK_FITS = ((N4, T4, {}), (N7, T7, {}), (N4, T4, {"use_kernels": False}),
+             (128, 1_000_000, {"use_kernels": False}))
+# The fused pass's contraction tier in the tensor-core kernel's template
+# arguments (csrc/density.cuh Tier) and its modes (rotated_fused_tc.cu Mode).
+_CT_TIER = {0: "f32", 1: "bf16x3", 2: "bf16"}
+_MODE_DELTA, _MODE_PLAIN, _MODE_MOMENTS = 0, 1, 2
+
+
+def _trace_launches(ops):
+    """The wrappers' launches as the trace shows them, from the device
+    events' demangled names: kernel 1 by contraction tier (the modes
+    delta and plain of ``rotated_fused_tc_kernel<MODE, ROT, CT, ...>``),
+    kernel 2 (its moments mode), kernel 4 (``row_sums_kernel``) and kernels
+    5 and 6 (``cov_diag_kernel<CENTERED, ...>``, launched once a call; the
+    grouped covariance, kernel 7, launches it too, and is not on the bench
+    fit's path)."""
+    import re
+
+    out = {"by_tier": dict.fromkeys(_CT_TIER.values(), 0), "rotated_moments_sums": 0,
+           "row_sums": 0, "centered_covariance_sums": 0, "covariance_sums": 0}
+    for name, count in ops.items():
+        fused = re.search(r"rotated_fused_tc_kernel<([^>]*)>", name)
+        cov = re.search(r"cov_diag_kernel<\s*(true|false)", name)
+        if fused:
+            mode, _, ct = (int(v) for v in re.findall(r"-?\d+", fused.group(1))[:3])
+            if mode in (_MODE_DELTA, _MODE_PLAIN):
+                out["by_tier"][_CT_TIER[ct]] += count
+            elif mode == _MODE_MOMENTS:
+                out["rotated_moments_sums"] += count
+        elif "row_sums_kernel" in name:
+            out["row_sums"] += count
+        elif cov:
+            out["centered_covariance_sums" if cov.group(1) == "true" else "covariance_sums"] += count
+    return out
+
+
+def phase8a_profiling():
+    """bench.py's fit (64 x 4M, seed 42, default config) under
+    ``utils.profiling.profile_fit`` after a warm-up fit: the trace's top
+    device ops, its count of each kernel's launches against the wrappers'
+    counters for the same fit, the card's busy share of the core, and
+    ``fit_with_timing``'s rate."""
+    import tempfile
+
+    from picard_ica_tpu_torch.ops import kernels as K
+    from picard_ica_tpu_torch.utils.datagen import generate_bench_data_device
+    from picard_ica_tpu_torch.utils.profiling import (
+        device_op_counts,
+        device_trace_summary,
+        fit_with_timing,
+        profile_fit,
+        span_summary,
+    )
+
+    label = f"profiled bench fit {N4} x {T4}"
+    x = generate_bench_data_device(N4, T4, SEED4, "cuda")
+    _fit_default(x)
+    K.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        r, wall = _synced_seconds(lambda: profile_fit(x, _config(), trace_dir=tmp))
+        counted = _launches()
+        summary = device_trace_summary(tmp, "GPU", top_k=12)
+        ops = device_op_counts(tmp)
+        spans = span_summary(tmp)
+    fit_s = spans["picard.fit"]["wall_us"] / 1e6
+    _report_fit(label, r, fit_s, T4)
+    _log(f"{label}: profile_fit {wall:.3f} s with the trace's export; device total "
+         f"{summary['total_us']:.1f} us in {sum(ops.values())} events; top ops (us, events):")
+    for name, us in summary["by_op"].items():
+        _log(f"  {us:12.1f}  {ops.get(name, 0):5d}  {name}")
+    for name, span in spans.items():
+        _log(f"{label}: span {name}: wall {span['wall_us']:.1f} us, device "
+             f"{span['device_us']:.1f} us ({span['device_us'] / max(span['wall_us'], 1e-9):.4f} "
+             f"busy), {span['launches']} device events")
+    core = spans["picard.core"]
+    busy = core["device_us"] / core["wall_us"]
+    traced = _trace_launches(ops)
+    wanted = {"by_tier": {t: counted["by_tier"][t] for t in _CT_TIER.values()},
+              **{k: counted[k] for k in traced if k != "by_tier"}}
+    _log(f"{label}: launches in the trace {traced}, by the wrappers' counters {wanted}")
+    _log(f"{label}: device busy {core['device_us'] / 1e6:.4f} s of the core's "
+         f"{core['wall_us'] / 1e6:.4f} s host span ({busy:.4f}); fit {fit_s:.4f} s, "
+         f"device total {summary['total_us'] / 1e6:.4f} s")
+    if traced != wanted:
+        raise AssertionError(f"{label}: the trace's launches differ from the counters")
+    if not all(wanted["by_tier"].values()) or not all(wanted.values()):
+        raise AssertionError(f"{label}: a kernel of the path never launched: {wanted}")
+    if not r.converged or summary["total_us"] <= 0:
+        raise AssertionError(f"{label}: did not converge, or the trace holds no device time")
+    timing = fit_with_timing(x, _config(), reps=3)
+    _log(f"{label}: fit_with_timing best of 3 {timing['wall_s']:.4f} s, "
+         f"{timing['iterations']} iterations, {timing['samples_per_s']:.4e} samples*iter/s "
+         f"(whole fit), n_chips {timing['n_chips']}")
+    if not timing["converged"] or timing["n_chips"] != 1:
+        raise AssertionError(f"{label}: fit_with_timing's fit did not converge")
+    return {"trace": traced, "counters": wanted, "busy": busy, "total_us": summary["total_us"],
+            "fit_s": fit_s, "rate": timing["samples_per_s"]}
+
+
+def _phase_peaks(n, t, seed, **config):
+    """Peak device bytes of each phase of bench data made on the card and
+    fitted by ``Picard.fit``: ``max_memory_allocated`` above what was
+    allocated before, reset at each phase's start. The whitening's phases
+    are its functions (``_prepare_stats``, ``_project_centered``,
+    ``_refine_whitening``), wrapped for the one fit; the core is the
+    rest of the fit, from ``center_whiten``'s return."""
+    import torch
+
+    from picard_ica_tpu_torch import Picard, solver
+    from picard_ica_tpu_torch.ops import whitening
+    from picard_ica_tpu_torch.utils.datagen import generate_bench_data_device
+
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    peaks = {}
+
+    def start():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+
+    def stop(phase):
+        torch.cuda.synchronize()
+        peaks[phase] = torch.cuda.max_memory_allocated() - base
+
+    def measured(fn, phase):
+        # None: the core's measure starts where fn returns.
+        def run(*args, **kwargs):
+            if phase:
+                start()
+            out = fn(*args, **kwargs)
+            if phase:
+                stop(phase)
+            else:
+                start()
+            return out
+        return run
+
+    patched = [(whitening, "_prepare_stats", "stats"),
+               (whitening, "_project_centered", "projection"),
+               (whitening, "_refine_whitening", "refine"),
+               (solver, "center_whiten", None)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patched]
+    start()
+    x = generate_bench_data_device(n, t, seed, "cuda")
+    stop("datagen")
+    try:
+        for mod, name, phase in patched:
+            fn = getattr(mod, name)
+            setattr(mod, name, measured(fn, phase))
+        r = Picard.fit(x, _config(**config))
+        stop("core")
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    converged = r.converged
+    del r, x
+    torch.cuda.empty_cache()
+    return peaks, converged
+
+
+def phase8b_peaks():
+    """Each phase's measured peak beside ``memory_model.phase_peak_bytes``:
+    fails when the binding phase differs or a phase is off the model by
+    more than PEAK_RTOL of it."""
+    from picard_ica_tpu_torch.utils import memory_model as mm
+
+    rows = []
+    for n, t, config in PEAK_FITS:
+        label = f"phase peaks {n} x {t} {config or 'default'}"
+        peaks, converged = _phase_peaks(n, t, SEED4, **config)
+        model = mm.phase_peak_bytes(n, t, use_kernels=config.get("use_kernels", True))
+        for phase in model:
+            _log(f"{label}: {phase:10s} measured {peaks[phase]:>14,d} B, model "
+                 f"{model[phase]:>14,d} B ({peaks[phase] / model[phase] - 1:+.4f})")
+        binding = max(peaks, key=peaks.get)
+        _log(f"{label}: binding phase measured {binding}, model {mm.binding_phase(n, t, **config)}; "
+             f"fit converged {converged}")
+        off = {p: peaks[p] / model[p] - 1 for p in model if abs(peaks[p] / model[p] - 1) > PEAK_RTOL}
+        if binding != max(model, key=model.get) or off:
+            raise AssertionError(f"{label}: the memory model misses: binding {binding}, off {off}")
+        rows.append({"n": n, "t": t, "config": config, "measured": peaks, "model": model})
+    return rows
+
+
+def _maxt_rung(n, t):
+    """A max-T rung's child: bench data made on the card at (n, t) and
+    ``Picard.fit`` for MAXT_ITER iterations; prints one JSON line, and
+    exits OOM_EXIT when the pipeline runs out of device memory."""
+    import traceback
+
+    import torch
+
+    from picard_ica_tpu_torch import Picard
+    from picard_ica_tpu_torch.utils.datagen import generate_bench_data_device
+
+    total = torch.cuda.mem_get_info()[1]
+    try:
+        x = generate_bench_data_device(n, t, SEED7, "cuda")
+        r = Picard.fit(x, _config(max_iter=MAXT_ITER))
+        torch.cuda.synchronize()
+    except torch.cuda.OutOfMemoryError as e:
+        frames = [f.name for f in traceback.extract_tb(e.__traceback__)
+                  if "picard_ica_tpu_torch" in f.filename]
+        print(json.dumps({"t": t, "oom": True, "where": frames[-3:], "total": total,
+                          "error": str(e).splitlines()[0]}), flush=True)
+        return OOM_EXIT
+    print(json.dumps({"t": t, "oom": False, "n_iterations": r.n_iterations, "total": total,
+                      "peak": torch.cuda.max_memory_allocated()}), flush=True)
+    return 0
+
+
+def _run_rung(n, t):
+    """(exit code, the child's JSON line or None) of one rung in a fresh
+    process."""
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--maxt-rung", str(n),
+                           str(t)], capture_output=True, text=True, timeout=MAXT_TIMEOUT)
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    if proc.returncode not in (0, OOM_EXIT):
+        _log(proc.stdout[-2000:] + proc.stderr[-4000:])
+    return proc.returncode, json.loads(lines[-1]) if lines else None
+
+
+def phase8c_max_t():
+    """T = max_t(256) must run the whole pipeline (MAXT_ITER iterations)
+    and T = max_t(256) + MAXT_STEP must raise torch.cuda.OutOfMemoryError,
+    each in a fresh process; any other exit fails."""
+    from picard_ica_tpu_torch.utils import memory_model as mm
+
+    t_fit = mm.max_t(MAXT_N, step=MAXT_STEP)
+    rungs = []
+    for t, want in ((t_fit, 0), (t_fit + MAXT_STEP, OOM_EXIT)):
+        (rc, info), seconds = _synced_seconds(lambda: _run_rung(MAXT_N, t), "cpu")
+        _log(f"max-T rung {MAXT_N} x {t}: exit {rc} in {seconds:.1f} s, model peak "
+             f"{mm.fit_peak_bytes(MAXT_N, t):,d} B ({mm.binding_phase(MAXT_N, t)}); {info}")
+        if rc != want:
+            raise AssertionError(f"max-T rung {MAXT_N} x {t}: exit {rc}, wanted {want}")
+        rungs.append({"t": t, "rc": rc, "info": info, "seconds": seconds})
+    return rungs
+
 
 _TC_SOURCE = "picard_ica_tpu_torch/csrc/rotated_fused_tc.cu"
 _STATS_SOURCE = "picard_ica_tpu_torch/csrc/covariance_sums.cu"
@@ -1621,11 +1887,23 @@ _PATH_OF = {**dict.fromkeys(_CORE_KERNELS, "phase3"), **dict.fromkeys(TIER_ROWS,
             LL_F32_ROW: "phase5", LL_BF16_ROW: "phase5c"}
 
 
-def main():
+def phase8():
+    """Phase 8: profiling, the phase peaks against the memory model, the
+    max-T boundary."""
+    return {"profile": phase8a_profiling(), "peaks": phase8b_peaks(), "max_t": phase8c_max_t()}
+
+
+def main(argv=None):
     import torch
 
+    argv = sys.argv[1:] if argv is None else argv
+    if argv[:1] == ["--maxt-rung"]:
+        return _maxt_rung(int(argv[1]), int(argv[2]))
     phase0_env()
     phase1_build()
+    if argv[:1] == ["--phase8"]:
+        phase8()
+        return 0
     rows = phase2_kernels()
     rows.update(phase2_whitening_kernels())
     rows.update(phase2_streaming_kernels())
@@ -1642,6 +1920,7 @@ def main():
     del config4
     by_path["phase7"] = phase7_sharded()
     by_path["phase7b"] = phase7b_nccl()
+    phase8()
     kernels = []
     for name, (source, line, headline) in _KERNELS.items():
         row = rows[name]

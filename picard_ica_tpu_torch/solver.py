@@ -80,6 +80,13 @@ def _resolve_dtype(config: PicardConfig) -> torch.dtype:
     return dtype
 
 
+def _span(step: str):
+    """A profiler annotation ``picard.<step>`` around one step of a fit
+    (``utils.profiling.span_summary`` reads them); free when no profiler
+    runs."""
+    return torch.profiler.record_function(f"picard.{step}")
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -126,7 +133,8 @@ class Picard:
     @staticmethod
     def fit(x, config: Optional[PicardConfig] = None, device=None, mesh=None) -> PicardResult:
         """Fit ICA on ``x`` of shape (n_features, n_samples)."""
-        return Picard.fit_with_config(x, config or PicardConfig(), device=device, mesh=mesh)
+        with _span("fit"):
+            return Picard.fit_with_config(x, config or PicardConfig(), device=device, mesh=mesh)
 
     @staticmethod
     @exact_f32()
@@ -200,87 +208,93 @@ class Picard:
                 RuntimeWarning,
             )
 
-        if host_f64:
-            # Sharded, every rank whitens the whole array on its host and
-            # keeps its block (the JAX package's rule).
-            x1_64, mean_64, k_64 = preprocess_f64(
-                x_host, n_components, config.centering, config.whiten
-            )
-            if mesh is not None:
-                x1_64 = local_block(x1_64, mesh)
-            np_dtype = np.float32 if dtype == torch.float32 else np.float64
-            x1 = torch.from_numpy(np.ascontiguousarray(x1_64, np_dtype)).to(device)
-            del x1_64
-            x_mean = None if mean_64 is None else torch.as_tensor(mean_64, dtype=dtype, device=device)
-            k_matrix = None if k_64 is None else torch.as_tensor(k_64, dtype=dtype, device=device)
-        else:
-            # Center (solver.rs:77-82) + whiten (solver.rs:85-93) on the
-            # device. NumPy input is cast on the host and then moved; a
-            # tensor is cast on its own device. x1 is a buffer the solver
-            # owns (ensure_owned): the caller's data are never written.
-            # Sharded, only this rank's block is cast and moved.
-            xs = x if mesh is None else x_local
-            if isinstance(xs, torch.Tensor):
-                x_dev = xs.to(dtype=dtype).to(device)
-            else:
+        with _span("whiten"):
+            if host_f64:
+                # Sharded, every rank whitens the whole array on its host and
+                # keeps its block (the JAX package's rule).
+                x1_64, mean_64, k_64 = preprocess_f64(
+                    x_host, n_components, config.centering, config.whiten
+                )
+                if mesh is not None:
+                    x1_64 = local_block(x1_64, mesh)
                 np_dtype = np.float32 if dtype == torch.float32 else np.float64
-                x_dev = torch.from_numpy(np.ascontiguousarray(xs, np_dtype)).to(device)
-            del xs
-            x1, x_mean, k_matrix = center_whiten(
-                x_dev.contiguous(), n_components, config.centering, config.whiten,
-                ensure_owned=True, data_sharding=shards,
-            )
-            del x_dev
+                with _span("to_device"):
+                    x1 = torch.from_numpy(np.ascontiguousarray(x1_64, np_dtype)).to(device)
+                del x1_64
+                x_mean = None if mean_64 is None else torch.as_tensor(mean_64, dtype=dtype, device=device)
+                k_matrix = None if k_64 is None else torch.as_tensor(k_64, dtype=dtype, device=device)
+            else:
+                # Center (solver.rs:77-82) + whiten (solver.rs:85-93) on the
+                # device. NumPy input is cast on the host and then moved; a
+                # tensor is cast on its own device. x1 is a buffer the solver
+                # owns (ensure_owned): the caller's data are never written.
+                # Sharded, only this rank's block is cast and moved.
+                xs = x if mesh is None else x_local
+                with _span("to_device"):
+                    if isinstance(xs, torch.Tensor):
+                        x_dev = xs.to(dtype=dtype).to(device)
+                    else:
+                        np_dtype = np.float32 if dtype == torch.float32 else np.float64
+                        x_dev = torch.from_numpy(np.ascontiguousarray(xs, np_dtype)).to(device)
+                del xs
+                x1, x_mean, k_matrix = center_whiten(
+                    x_dev.contiguous(), n_components, config.centering, config.whiten,
+                    ensure_owned=True, data_sharding=shards,
+                )
+                del x_dev
         x = x_host = x_local = None  # noqa: F841  (the input is not read again)
         actual_components = x1.shape[0]
 
-        # W_init: user-provided (shape-checked, solver.rs:98-111) or the
-        # reference-RNG normal draw + symmetric decorrelation
-        # (solver.rs:112-120).
-        if config.w_init is not None:
-            w_init = torch.as_tensor(np.asarray(config.w_init), dtype=dtype).to(device)
-            if tuple(w_init.shape) != (actual_components, actual_components):
-                raise InvalidDimensionsError(
-                    f"w_init shape {tuple(w_init.shape)} doesn't match expected "
-                    f"({actual_components}, {actual_components})"
+        with _span("w_init"):
+            # W_init: user-provided (shape-checked, solver.rs:98-111) or the
+            # reference-RNG normal draw + symmetric decorrelation
+            # (solver.rs:112-120).
+            if config.w_init is not None:
+                w_init = torch.as_tensor(np.asarray(config.w_init), dtype=dtype).to(device)
+                if tuple(w_init.shape) != (actual_components, actual_components):
+                    raise InvalidDimensionsError(
+                        f"w_init shape {tuple(w_init.shape)} doesn't match expected "
+                        f"({actual_components}, {actual_components})"
+                    )
+            else:
+                from .utils import reference_rng
+
+                # Decorrelated in f64 on the host for every dtype: W W^T of a
+                # random draw can have cond ~1e5, where an f32 eigh leaves
+                # W_init measurably non-orthogonal (torch's by ~1e-3), and
+                # Picard-O carries that into the answer.
+                w_raw = torch.from_numpy(
+                    reference_rng.normal_matrix(seed, actual_components, actual_components)
                 )
-        else:
-            from .utils import reference_rng
+                w_init, min_eig = sym_decorrelation_with_mineig(w_raw)
+                if float(min_eig) < _SYM_DECORR_MIN_EIG:
+                    raise SingularMatrixError()
+                w_init = w_init.to(device=device, dtype=dtype)
 
-            # Decorrelated in f64 on the host for every dtype: W W^T of a
-            # random draw can have cond ~1e5, where an f32 eigh leaves
-            # W_init measurably non-orthogonal (torch's by ~1e-3), and
-            # Picard-O carries that into the answer.
-            w_raw = torch.from_numpy(
-                reference_rng.normal_matrix(seed, actual_components, actual_components)
-            )
-            w_init, min_eig = sym_decorrelation_with_mineig(w_raw)
-            if float(min_eig) < _SYM_DECORR_MIN_EIG:
-                raise SingularMatrixError()
-            w_init = w_init.to(device=device, dtype=dtype)
-
-        # Warm starts, mutually exclusive (solver.rs:124-137), on the
-        # whitened data's device; JADE overrides w_init.
-        if config.jade_it is not None:
-            if config.verbose:
-                print(f"Running {config.jade_it} iterations of JADE...", file=sys.stderr)
-            w_init, min_eig = jade(x1, config.jade_it, 1e-6, config.verbose,
-                                   data_sharding=shards)
-            if float(min_eig) < _SYM_DECORR_MIN_EIG:
-                raise SingularMatrixError()
-        elif config.fastica_it is not None:
-            if config.verbose:
-                print(f"Running {config.fastica_it} iterations of FastICA...",
-                      file=sys.stderr)
-            w_init, min_eig = ica_par(x1, config.density, config.fastica_it, w_init,
-                                      data_sharding=shards)
-            if float(min_eig) < _SYM_DECORR_MIN_EIG:
-                raise SingularMatrixError()
-            if config.verbose:
-                print("FastICA pre-iterations complete.", file=sys.stderr)
+        with _span("warm_start"):
+            # Warm starts, mutually exclusive (solver.rs:124-137), on the
+            # whitened data's device; JADE overrides w_init.
+            if config.jade_it is not None:
+                if config.verbose:
+                    print(f"Running {config.jade_it} iterations of JADE...", file=sys.stderr)
+                w_init, min_eig = jade(x1, config.jade_it, 1e-6, config.verbose,
+                                       data_sharding=shards)
+                if float(min_eig) < _SYM_DECORR_MIN_EIG:
+                    raise SingularMatrixError()
+            elif config.fastica_it is not None:
+                if config.verbose:
+                    print(f"Running {config.fastica_it} iterations of FastICA...",
+                          file=sys.stderr)
+                w_init, min_eig = ica_par(x1, config.density, config.fastica_it, w_init,
+                                          data_sharding=shards)
+                if float(min_eig) < _SYM_DECORR_MIN_EIG:
+                    raise SingularMatrixError()
+                if config.verbose:
+                    print("FastICA pre-iterations complete.", file=sys.stderr)
 
         # Pre-rotate the data in place (solver.rs:140); x1 is ours.
-        x1 = rotate_rows_inplace(w_init, x1)
+        with _span("pre_rotate"):
+            x1 = rotate_rows_inplace(w_init, x1)
 
         # Whitened extended runs use the identity covariance (solver.rs:143-147).
         has_cov = extended and config.whiten
@@ -324,9 +338,10 @@ class Picard:
         )
         _sync(device)
         t0 = time.perf_counter()
-        core = run_core(x1, covariance, config.tol, config.lambda_min,
-                        config.max_iter, opts)
-        _sync(device)
+        with _span("core"):
+            core = run_core(x1, covariance, config.tol, config.lambda_min,
+                            config.max_iter, opts)
+            _sync(device)
         core_seconds = time.perf_counter() - t0  # this rank's, after its device sync
 
         # Compose transforms (solver.rs:169).

@@ -71,6 +71,18 @@ fit out of the card's memory is logged and loses); prints each fit's
 core seconds per iteration and writes the rows to
 ``chiprun_out/crossover.json``.
 
+    python3 port_turns.py --profile-fits [TREE]
+
+profiles three fits with ``utils.profiling.profile_fit``, each after an
+untraced fit of the same input: the bench 64 x 4,000,000 (made on the
+card, seed 42, default config), BASELINE config 4 (JADE(50) -> 128 x
+1,000,000 mixed mixture, f64 NumPy, seed 7, ``chip_smoke.py`` phase 6's
+config) and the 1024 x 200,000 bench mixture (10 iterations at tol 1e-4,
+phase 5b's); prints each ``picard.*`` step's host wall seconds, the
+device seconds it launched and their share, the untraced fit's wall and
+core seconds beside the traced one's, and the top device ops; writes the
+rows to ``profile_fits.json`` in ``--out``'s directory.
+
     python3 port_turns.py --staged-fit [TREE]
 
 fits ``chip_smoke.py``'s phase-5 data (256 x 2,000,000 mixed mixture,
@@ -506,6 +518,64 @@ def _pinned_agreement(before: str, after: str):
     return amari_distance(w_after, np.linalg.inv(w_before))
 
 
+def profile_fits(tree: str, out_dir: Path) -> list:
+    """``--profile-fits``: each fit untraced, then under ``profile_fit``;
+    the steps' host and device seconds (``span_summary``) and the top
+    device ops (``device_trace_summary``)."""
+    import tempfile
+
+    sm = _smoke()
+    from picard_ica_tpu_torch import Picard
+    from picard_ica_tpu_torch.ops import _build
+    from picard_ica_tpu_torch.utils.datagen import (
+        generate_bench_data_device,
+        generate_mixed_kurtosis_data,
+    )
+    from picard_ica_tpu_torch.utils.profiling import (
+        device_trace_summary,
+        profile_fit,
+        span_summary,
+    )
+
+    _build.load()
+    fits = [
+        (f"bench {sm.N4} x {sm.T4}", lambda: generate_bench_data_device(sm.N4, sm.T4, sm.SEED4),
+         {}),
+        (f"config 4, JADE({sm.JADE_IT6}) -> {sm.N6} x {sm.T6}",
+         lambda: generate_mixed_kurtosis_data(sm.N6, sm.T6, sm.SEED6)[2], sm.CONFIG6),
+        (f"exhibit {sm.N5B} x {sm.T5B}",
+         lambda: generate_bench_data_device(sm.N5B, sm.T5B, sm.SEED5B),
+         {"tol": 1e-4, "max_iter": 10}),
+    ]
+    rows = []
+    for label, make, config in fits:
+        x = make()
+        cfg = sm._config(**config)
+        plain, plain_s = sm._synced_seconds(lambda: Picard.fit(x, cfg))
+        with tempfile.TemporaryDirectory() as tmp:
+            r, traced_s = sm._synced_seconds(lambda: profile_fit(x, cfg, trace_dir=tmp))
+            spans = span_summary(tmp)
+            top = device_trace_summary(tmp, "GPU", top_k=8)
+        print(f"{tree} {label}: untraced fit {plain_s:.4f} s (core {plain.core_seconds:.4f} s, "
+              f"{plain.n_iterations} iterations); traced fit {traced_s:.4f} s (core "
+              f"{r.core_seconds:.4f} s, {r.n_iterations} iterations), device total "
+              f"{top['total_us'] / 1e6:.4f} s", flush=True)
+        for name, row in spans.items():
+            print(f"  {name:20s} host {row['wall_us'] / 1e6:9.4f} s  device "
+                  f"{row['device_us'] / 1e6:9.4f} s  ({row['device_us'] / row['wall_us']:.4f})  "
+                  f"{row['launches']} device events", flush=True)
+        for name, us in top["by_op"].items():
+            print(f"    {us / 1e6:9.4f} s  {name[:110]}", flush=True)
+        rows.append({"fit": label, "untraced_s": plain_s, "untraced_core_s": plain.core_seconds,
+                     "traced_s": traced_s, "traced_core_s": r.core_seconds,
+                     "iterations": r.n_iterations, "device_total_us": top["total_us"],
+                     "spans": spans, "top_ops": top["by_op"]})
+        del x, plain, r
+    out_dir.mkdir(parents=True, exist_ok=True)
+    (out_dir / "profile_fits.json").write_text(json.dumps(rows, indent=1))
+    return rows
+
+
 def _build_all(trees):
     """Build every tree's library at once (one process per tree)."""
     procs = [subprocess.Popen(
@@ -538,13 +608,16 @@ def main(argv=None):
                     help="turns of the resident core kernels' cases at 64 x 2M only")
     ap.add_argument("--large-n", action="store_true",
                     help="turns of the streaming fused kernel's cases and the staged fit only")
+    ap.add_argument("--profile-fits", action="store_true",
+                    help="profile the bench, config 4 and 1024 x 200k fits step by step")
     ap.add_argument("--crossover", action="store_true",
                     help="sweep N on both paths for use_kernels=None's rule")
     args = ap.parse_args(argv)
-    if args.crossover:
+    if args.crossover or args.profile_fits:
         tree = str(Path(args.trees[0] if args.trees else HERE).resolve())
         sys.path[:] = [tree] + [p for p in sys.path if p and Path(p).resolve() != HERE]
-        print(json.dumps(crossover(tree)))
+        print(json.dumps(crossover(tree) if args.crossover
+                         else profile_fits(tree, Path(args.out).parent)))
         return 0
     if args.staged_fit or args.profile:
         tree = str(Path(args.trees[0] if args.trees else HERE).resolve())
