@@ -119,9 +119,27 @@ prints no result line):
      N = 256 for 3 iterations in a fresh process at T = ``max_t(256)``,
      which must run, and at ``max_t(256)`` + 1,000,000, which must raise
      ``torch.cuda.OutOfMemoryError`` (any other exit fails).
+  9. the native runtime (``picard_ica_tpu_torch/native``, built with g++
+     in phase 1 beside the CUDA kernels): (a) the build's seconds, the
+     compiler and the host CPU; the reference-RNG draw at (seed, n) in
+     ``DRAWS9`` and 10,000 draws of its u64 stream bit for bit the
+     pure-Python sampler, the LCG Laplace stream at 4 x 1,000,003 (its
+     state bit for bit, its values within 1e-13 relative of the NumPy
+     closed form), the native 1024 x 1024 draw and the plain 256 x 256
+     one timed; (b) phase 5b's kernel-path fit once more (the same data)
+     under ``utils.profiling.profile_fit``: its ``picard.w_init`` seconds
+     beside the fit's wall and core seconds, at most ``W_INIT_MAX_S``;
+     (c) the suite's five conformance cases (``SUITE_CONFORMANCE``,
+     ``benchmarks/suite.py:650-659``): the bench mixture as f64 NumPy
+     (``generate_bench_data``, seed 42; the 64 x 500,000 cases the mixed
+     mixture), the port's f64 oracle (center,
+     whiten, core from W_init = I, tol 1e-7, 500 iterations) on the host
+     and ``Picard.fit`` from W_init = I on the card (host-f64 whitening,
+     kernels 1-3), Amari(W_port, pinv(W_oracle)) < 1e-3 in each, with
+     both iteration counts and both times.
 
-``python3 chip_smoke.py --phase8`` runs phases 0, 1 and 8 alone;
-``--maxt-rung N T`` is phase 8c's child.
+``python3 chip_smoke.py --phase8`` runs phases 0, 1 and 8 alone,
+``--phase9`` phases 0, 1 and 9; ``--maxt-rung N T`` is phase 8c's child.
 
 Phase 2 also holds the streaming kernels against their plain versions:
 ``streaming_fused_sums`` at 256 x 2,000,000 (every mode and tier a fit
@@ -145,7 +163,7 @@ launches on its path (phase 3 for the resident core kernels, phase 4
 for the whitening kernels, 4b for the grouped one, 5 for the streaming
 kernels' f32 routes, 5b and 5c for the bf16 and bf16x3 routes, 5d for
 delta bf16 on f32 X; ``launches_by_path`` adds every other fit's,
-phases 6 and 6b among them, and phase 7's counted on rank 0; the fused pass's tensor-core kernel counts
+phases 6, 6b, 9b and 9c among them, and phase 7's counted on rank 0; the fused pass's tensor-core kernel counts
 the launches of its three tiers in phase 4, ``launches_by_tier``), error
 against the plain version (and, for every f32 case, against f64), and
 the numbers of its headline case (``_KERNELS``): ``ms`` and ``plain_ms``
@@ -209,6 +227,34 @@ N7B, T7B, SEED7B = 64, 4_000_000, 42
 PHASE7_TIMEOUT = 420
 # Ragged columns for the tensor-core kernel's phase-2 cases.
 T_RAGGED = 1_000_003
+# Phase 9: the native runtime. (seed, n) of the n x n draws held bit for
+# bit against the pure-Python sampler, the u64 stream's length, the LCG
+# Laplace stream's rows x columns, and the sizes of the timed draws.
+DRAWS9 = ((0, 64), (2**64 - 1, 33), (42, 256))
+U64_COUNT9 = 10_000
+LCG_N9, LCG_T9 = 4, 1_000_003
+DRAW_N9, PLAIN_DRAW_N9 = 1024, 256
+# The LCG values against NumPy's closed form (libm's log against NumPy's,
+# 1 ulp); the states are held bit for bit.
+LCG_RTOL9 = 1e-13
+# Seconds the 1024 x 200,000 fit's ``picard.w_init`` step may take (the
+# native draw of 1024^2 normals and their host f64 decorrelation).
+W_INIT_MAX_S = 1.0
+# Phase 9c: the JAX suite's oracle-conformance cases
+# (benchmarks/suite.py:650-659): (label, n, t, mixed kurtosis, density),
+# each fitted from W_init = I at tol 1e-7 within 500 iterations, and
+# BASELINE's bound on the Amari distance to the f64 oracle. All five run:
+# the two 64 x 500,000 oracle calls took 49.4 s together on the H100
+# machine's 8 host cores (``port_turns.py --conformance``), under the 60 s
+# that admits them.
+SUITE_CONFORMANCE = (
+    ("criterion_8x100k", 8, 100_000, False, "tanh"),
+    ("picard_o_32x100k", 32, 100_000, False, "tanh"),
+    ("extended_64x500k", 64, 500_000, True, "tanh"),
+    ("exp_32x100k", 32, 100_000, False, "exp"),
+    ("cube_64x500k", 64, 500_000, True, "cube"),
+)
+AMARI_ORACLE_MAX = 1e-3
 # Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): HBM
 # bytes/s, scalar FP32 FMA/s outside the tensor cores (67 TFLOP/s), and
 # dense bf16 tensor-core FMA/s (989 TFLOP/s) for the products of the
@@ -259,7 +305,13 @@ def phase1_build():
                 _log(f"  {name}: {r} registers, spill stores {st} B, loads {ld} B")
     if any("streaming_kernel" in k[0] for ks in _build.resource_report().values() for k in ks):
         raise AssertionError("the library holds a scalar streaming kernel")
-    return seconds
+    # The host library (g++): the w_init draw, the data stream, the oracle.
+    from picard_ica_tpu_torch import native
+
+    native_path, native_seconds = native.build()
+    native.load()
+    _log(f"build: {native_path.name} in {native_seconds:.1f} s")
+    return native_seconds
 
 
 def _time_ms(fn, reps=10, warmup=2):
@@ -1893,6 +1945,184 @@ def phase8():
     return {"profile": phase8a_profiling(), "peaks": phase8b_peaks(), "max_t": phase8c_max_t()}
 
 
+# Phase 9: the native runtime (``picard_ica_tpu_torch/native``) on the
+# card's machine, the draw inside the 1024 x 200,000 fit, and the fits held
+# against the port's own f64 oracle.
+
+
+def _host_cpu():
+    """The host CPU as ``/proc/cpuinfo`` names it (a virtual machine may
+    hide the model name: then its vendor, family and model numbers),
+    its core count and ``OMP_NUM_THREADS``."""
+    info = {}
+    with open("/proc/cpuinfo") as f:
+        for line in f:
+            key, _, value = line.partition(":")
+            info.setdefault(key.strip(), value.strip())
+    return (f"{info.get('model name', 'unknown')} ({info.get('vendor_id')} family "
+            f"{info.get('cpu family')} model {info.get('model')}), {os.cpu_count()} cores, "
+            f"OMP_NUM_THREADS={os.environ.get('OMP_NUM_THREADS')}")
+
+
+def _median_seconds(fn, reps=5):
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times)
+
+
+def phase9a_native(build_seconds):
+    """The host library built with g++ from the checkout (again, into a
+    fresh directory, timed): the draw and the u64 stream bit for bit the
+    pure-Python sampler, the LCG Laplace stream's states bit for bit and
+    its values within ``LCG_RTOL9`` of the NumPy closed form; the native
+    draw and the plain one timed."""
+    import tempfile
+
+    import numpy as np
+
+    from picard_ica_tpu_torch import native
+    from picard_ica_tpu_torch.utils import datagen, reference_rng
+
+    gxx = subprocess.run([native.CXX, "--version"], capture_output=True, text=True,
+                         check=True, timeout=60).stdout.splitlines()[0]
+    with tempfile.TemporaryDirectory() as tmp:
+        path, cold_seconds = native.build(tmp)
+    if path.name != native.library_path().name:
+        raise AssertionError(f"a fresh build is {path.name}, the loaded library "
+                             f"{native.library_path().name}")
+    _log(f"native: {path.name} built in {cold_seconds:.1f} s into a fresh directory "
+         f"({build_seconds:.1f} s in phase 1) by {gxx}; host {_host_cpu()}")
+    for seed, n in DRAWS9:
+        got = native.reference_normal_matrix(seed, n, n)
+        if not np.array_equal(got, reference_rng.normal_matrix_plain(seed, n, n)):
+            raise AssertionError(f"the native draw ({seed}, {n} x {n}) is not the plain one")
+    rng = reference_rng.StdRng(0)
+    plain = np.array([rng.next_u64() for _ in range(U64_COUNT9)], np.uint64)
+    if not np.array_equal(native.reference_u64_stream(0, U64_COUNT9), plain):
+        raise AssertionError("the native u64 stream is not the plain one")
+    count = LCG_N9 * LCG_T9
+    values, state = native.lcg_laplace(SEED4, count)
+    p_values, p_state = datagen._lcg_laplace(SEED4, count)
+    err = float(np.max(np.abs(values - p_values) / np.abs(p_values)))
+    if state != p_state or state != datagen._lcg_jump(SEED4, count):
+        raise AssertionError(f"LCG states differ: {state} against {p_state}")
+    if not err <= LCG_RTOL9:
+        raise AssertionError(f"LCG Laplace values off by {err:.3e} relative")
+    _log(f"native: draws {DRAWS9} and {U64_COUNT9} u64 bit for bit; LCG Laplace "
+         f"{LCG_N9} x {LCG_T9}: end state bit for bit, values within {err:.3e} relative")
+    native_s = _median_seconds(lambda: native.reference_normal_matrix(7, DRAW_N9, DRAW_N9))
+    plain_s = _median_seconds(
+        lambda: reference_rng.normal_matrix_plain(7, PLAIN_DRAW_N9, PLAIN_DRAW_N9), reps=1)
+    _log(f"native: draw {DRAW_N9} x {DRAW_N9} {native_s:.4f} s "
+         f"({native_s / DRAW_N9 ** 2 * 1e9:.1f} ns a sample); plain draw "
+         f"{PLAIN_DRAW_N9} x {PLAIN_DRAW_N9} {plain_s:.4f} s "
+         f"({plain_s / PLAIN_DRAW_N9 ** 2 * 1e9:.1f} ns a sample)")
+
+
+def phase9b_w_init():
+    """Phase 5b's kernel-path fit of the 1024 x 200,000 bench mixture (the
+    same generator and seed) once more under ``profile_fit``: its
+    ``picard.w_init`` step beside the fit's wall and core seconds."""
+    import tempfile
+
+    from picard_ica_tpu_torch.ops import kernels as K
+    from picard_ica_tpu_torch.utils.datagen import generate_bench_data_device
+    from picard_ica_tpu_torch.utils.profiling import profile_fit, span_summary
+
+    x = generate_bench_data_device(N5B, T5B, SEED5B, "cuda")
+    cfg = _config(use_kernels=True, tol=1e-4, max_iter=10)
+    K.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        r, wall = _synced_seconds(lambda: profile_fit(x, cfg, trace_dir=tmp))
+        spans = span_summary(tmp)
+    launches = _launches()
+    w_init, fit_s, whiten_s = (spans[f"picard.{step}"]["wall_us"] / 1e6
+                               for step in ("w_init", "fit", "whiten"))
+    _log(f"w_init {N5B} x {T5B} (kernels, traced): picard.w_init {w_init:.4f} s, "
+         f"picard.whiten {whiten_s:.4f} s, picard.fit {fit_s:.4f} s (profile_fit "
+         f"{wall:.3f} s), core {r.core_seconds:.4f} s, {r.n_iterations} iterations")
+    missing = [k for k in ("streaming_fused_sums", "_grouped_covariance") if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched in the traced fit: {missing}")
+    if not w_init <= W_INIT_MAX_S:
+        raise AssertionError(f"picard.w_init took {w_init:.3f} s > {W_INIT_MAX_S} s")
+    return launches
+
+
+def conformance_case(label, n, t, mixed, density):
+    """One case of the suite's oracle conformance: the port's oracle
+    (center, whiten, core from W_init = I) and ``Picard.fit`` on the card
+    from the same start, on the same f64 data; the Amari distance between
+    the full unmixings, both iteration counts and both times."""
+    import numpy as np
+
+    from picard_ica_tpu_torch import Picard, PicardConfig, native
+    from picard_ica_tpu_torch.ops.densities import Cube, Exp, Tanh
+    from picard_ica_tpu_torch.utils.datagen import (
+        generate_bench_data,
+        generate_mixed_kurtosis_data,
+    )
+
+    x64 = (generate_mixed_kurtosis_data(n, t, seed=42)[2] if mixed
+           else generate_bench_data(n, t, seed=42))
+    t0 = time.perf_counter()
+    xc, _ = native.oracle_center(x64)
+    xw, k = native.oracle_whiten(xc, n)
+    res = native.oracle_core(xw, np.eye(n), density=density, ortho=True, extended=True,
+                             max_iter=500, tol=1e-7)
+    oracle_s = time.perf_counter() - t0
+    del xc, xw
+    cfg = PicardConfig(density={"tanh": Tanh, "exp": Exp, "cube": Cube}[density](),
+                       ortho=True, extended=True, tol=1e-7, max_iter=500, w_init=np.eye(n))
+    r, fit_s = _synced_seconds(lambda: Picard.fit(x64, cfg))
+    amari = _amari_pinv(r.full_unmixing().double().cpu().numpy(), res["w"] @ k)
+    row = {"case": label, "n": n, "t": t, "density": density, "amari_vs_oracle": amari,
+           "iterations": r.n_iterations, "oracle_iterations": res["n_iterations"],
+           "converged": r.converged, "oracle_converged": res["converged"],
+           "fit_s": fit_s, "oracle_s": oracle_s}
+    _log(f"conformance {label}: amari(W_port, pinv(W_oracle)) = {amari:.3e}; "
+         f"{r.n_iterations} iterations (oracle {res['n_iterations']}, converged "
+         f"{r.converged} / {res['converged']}); fit {fit_s:.3f} s, oracle {oracle_s:.3f} s")
+    return row
+
+
+def _amari_pinv(w, w_other):
+    import numpy as np
+
+    from picard_ica_tpu_torch.utils.metrics import amari_distance
+
+    return amari_distance(w, np.linalg.pinv(w_other))
+
+
+def phase9c_conformance():
+    """The suite's conformance cases against the port's oracle, each to
+    Amari < ``AMARI_ORACLE_MAX``."""
+    from picard_ica_tpu_torch.ops import kernels as K
+
+    _log(f"conformance: oracle on host {_host_cpu()}")
+    K.reset_launch_counts()
+    rows = [conformance_case(*case) for case in SUITE_CONFORMANCE]
+    launches = _launches()
+    _log(f"launches: {launches}")
+    bad = [r["case"] for r in rows if not r["amari_vs_oracle"] < AMARI_ORACLE_MAX]
+    if bad:
+        raise AssertionError(f"Amari to the oracle >= {AMARI_ORACLE_MAX}: {bad}")
+    missing = [k for k in ("rotated_fused_sums", "rotated_moments_sums") if launches[k] == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched in the conformance fits: {missing}")
+    return launches
+
+
+def phase9(build_seconds, by_path):
+    """Phase 9: the native runtime, the draw in the fit, the oracle."""
+    phase9a_native(build_seconds)
+    by_path["phase9b"] = phase9b_w_init()
+    by_path["phase9c"] = phase9c_conformance()
+
+
 def main(argv=None):
     import torch
 
@@ -1900,9 +2130,12 @@ def main(argv=None):
     if argv[:1] == ["--maxt-rung"]:
         return _maxt_rung(int(argv[1]), int(argv[2]))
     phase0_env()
-    phase1_build()
+    native_build_s = phase1_build()
     if argv[:1] == ["--phase8"]:
         phase8()
+        return 0
+    if argv[:1] == ["--phase9"]:
+        phase9(native_build_s, {})
         return 0
     rows = phase2_kernels()
     rows.update(phase2_whitening_kernels())
@@ -1921,6 +2154,7 @@ def main(argv=None):
     by_path["phase7"] = phase7_sharded()
     by_path["phase7b"] = phase7b_nccl()
     phase8()
+    phase9(native_build_s, by_path)
     kernels = []
     for name, (source, line, headline) in _KERNELS.items():
         row = rows[name]

@@ -89,14 +89,21 @@ def find_nvcc() -> str:
     return found
 
 
+def source_digest(files, flags) -> str:
+    """16 hex digits of a SHA-256 over each file's name and bytes and
+    the flags: the key of a library built from them."""
+    h = hashlib.sha256()
+    for f in map(Path, files):
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    h.update(" ".join(flags).encode())
+    return h.hexdigest()[:16]
+
+
 def library_path() -> Path:
     """Where the library for the current sources and flags lives."""
-    h = hashlib.sha256()
-    for name in SOURCES + HEADERS:
-        h.update(name.encode())
-        h.update((CSRC / name).read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"libpicard_kernels_{h.hexdigest()[:16]}.so"
+    digest = source_digest([CSRC / name for name in SOURCES + HEADERS], NVCC_FLAGS)
+    return BUILD_DIR / f"libpicard_kernels_{digest}.so"
 
 
 def _check(cmd, proc, stdout, stderr) -> None:

@@ -1,16 +1,23 @@
-"""Seeded synthetic ICA data (NumPy, and torch on a device).
+"""Seeded synthetic ICA data (on the host, and torch on a device).
 
-The NumPy generators copy those of ``picard_ica_tpu/utils/datagen.py``
-bit for bit (importing that module would pull in ``jax``):
+The host generators match those of ``picard_ica_tpu/utils/datagen.py``
+(importing that module would pull in ``jax``):
 
   * ``generate_bench_data`` reproduces the reference benchmark generator
     in the integer domain (benches/benchmarks.rs:8-35): an LCG
     (``state * 6364136223846793005 + 1`` on wrapping u64), Laplace
-    sources by inverse CDF, uniform(-0.5, 0.5) mixing;
+    sources by inverse CDF, uniform(-0.5, 0.5) mixing. The stream is
+    filled by the native library (``native.lcg_laplace``,
+    ``native.lcg_uniform_centered``: OpenMP, each thread jumped to its
+    offset); its plain version is the vectorized NumPy closed form
+    (``_lcg_stream``, ``_lcg_uniform``, ``_lcg_jump``, ``_lcg_laplace``,
+    :func:`generate_bench_data_plain`), whose states it matches bit for
+    bit and whose values within 1 ulp (the two logs);
   * ``reference_mixing_matrix`` is that mixing block alone, reached by
-    jumping the LCG past the n*t source draws;
+    jumping the LCG past the n*t source draws, bit for bit the NumPy
+    form;
   * ``generate_test_data`` / ``generate_mixed_kurtosis_data`` are the
-    seeded test fixtures.
+    seeded test fixtures (NumPy).
 
 ``generate_bench_data_device`` makes the bench mixture on a torch
 device.
@@ -50,18 +57,32 @@ def _lcg_uniform(states: np.ndarray) -> np.ndarray:
     return (states >> np.uint64(33)).astype(np.float64) / float(1 << 31)
 
 
-def generate_bench_data(n_features: int, n_samples: int, seed: int = 42) -> np.ndarray:
-    """Mixed Laplace data identical to the reference benchmark harness
-    (the vectorized NumPy closed form; f64)."""
-    states, state = _lcg_stream(seed, n_features * n_samples)
+def _lcg_laplace(state: int, count: int) -> Tuple[np.ndarray, int]:
+    """``native.lcg_laplace`` in NumPy: ``count`` unit-Laplace samples by
+    inverse CDF and the state after them."""
+    states, state = _lcg_stream(state, count)
     u = _lcg_uniform(states)
     data = np.where(u < 0.5, np.log(np.maximum(2.0 * u, 1e-300)), -np.log(np.maximum(2.0 * (1.0 - u), 1e-300)))
-    data = data.reshape(n_features, n_samples)
+    return data, state
 
+
+def generate_bench_data(n_features: int, n_samples: int, seed: int = 42) -> np.ndarray:
+    """Mixed Laplace data identical to the reference benchmark harness
+    (f64), filled by the native LCG stream."""
+    from .. import native
+
+    data, state = native.lcg_laplace(seed, n_features * n_samples)
+    mixing, _ = native.lcg_uniform_centered(state, n_features * n_features)
+    return mixing.reshape(n_features, n_features) @ data.reshape(n_features, n_samples)
+
+
+def generate_bench_data_plain(n_features: int, n_samples: int, seed: int = 42) -> np.ndarray:
+    """:func:`generate_bench_data` by the vectorized NumPy closed form:
+    the plain version the native stream is held against."""
+    data, state = _lcg_laplace(seed, n_features * n_samples)
     states, _ = _lcg_stream(state, n_features * n_features)
     mixing = _lcg_uniform(states).reshape(n_features, n_features) - 0.5
-
-    return mixing @ data
+    return mixing @ data.reshape(n_features, n_samples)
 
 
 def _lcg_jump(state: int, count: int) -> int:
@@ -85,10 +106,13 @@ def reference_mixing_matrix(n_features: int, n_samples: int, seed: int = 42) -> 
     """The reference harness's uniform(-0.5, 0.5) mixing matrix,
     bit-exact: the LCG is jumped past the n*t source draws in closed
     form, then the n*n mixing block is drawn from the exact stream
-    position the Rust harness uses (benches/benchmarks.rs:27-31)."""
-    state = _lcg_jump(seed, n_features * n_samples)
-    states, _ = _lcg_stream(state, n_features * n_features)
-    return _lcg_uniform(states).reshape(n_features, n_features) - 0.5
+    position the Rust harness uses (benches/benchmarks.rs:27-31), by the
+    native stream."""
+    from .. import native
+
+    mixing, _ = native.lcg_uniform_centered(_lcg_jump(seed, n_features * n_samples),
+                                            n_features * n_features)
+    return mixing.reshape(n_features, n_features)
 
 
 # Column block of the in-place Laplace transform (a few block-sized

@@ -32,8 +32,10 @@ so the crate itself cannot be executed):
   copied;
 * an independent C++ implementation (native/src/rng.cpp) is written
   from the same specifications and the two must agree bit-for-bit
-  (tests/test_reference_rng.py) — two independent derivations of the
-  spec guarding each other.
+  (tests/test_torch_native.py) — two independent derivations of the
+  spec guarding each other. The fit draws through the C++ one
+  (:func:`normal_matrix`); the pure-Python sampler here is its plain
+  version (:func:`normal_matrix_plain`).
 
 docs/PARITY.md row 1e records the remaining caveat: last-ULP table
 agreement with the crate's checked-in constants is unverifiable here.
@@ -236,9 +238,19 @@ def normal_matrix(seed_u64: int, n_rows: int, n_cols: int) -> np.ndarray:
     ``StdRng::seed_from_u64(seed)`` — the reference's random W init
     stream (solver.rs:112-120).
 
-    The pure-Python sampler (the JAX package also has a native C++
-    twin of it, which this package does not carry).
+    Drawn by the native C++ twin (``native/src/rng.cpp``), bit for bit
+    :func:`normal_matrix_plain`; a failed build of the native library
+    raises.
     """
+    from .. import native
+
+    return native.reference_normal_matrix(seed_u64, n_rows, n_cols)
+
+
+def normal_matrix_plain(seed_u64: int, n_rows: int, n_cols: int) -> np.ndarray:
+    """:func:`normal_matrix` by the pure-Python sampler, one
+    :func:`standard_normal` call a sample: the plain version the native
+    draw is held against."""
     rng = StdRng(seed_u64)
     flat = np.array(
         [standard_normal(rng) for _ in range(n_rows * n_cols)], dtype=np.float64

@@ -83,6 +83,16 @@ device seconds it launched and their share, the untraced fit's wall and
 core seconds beside the traced one's, and the top device ops; writes the
 rows to ``profile_fits.json`` in ``--out``'s directory.
 
+    python3 port_turns.py --conformance [TREE]
+
+runs all five of the suite's oracle-conformance cases
+(``chip_smoke.SUITE_CONFORMANCE``, ``benchmarks/suite.py:650-659``, as
+phase 9c runs them): the port's f64 oracle on the host and
+``Picard.fit`` on the card from W_init = I on the same f64 data; prints
+each case's Amari distance, iterations, oracle and fit seconds and the
+host CPU, and writes the rows to ``conformance.json`` in ``--out``'s
+directory.
+
     python3 port_turns.py --staged-fit [TREE]
 
 fits ``chip_smoke.py``'s phase-5 data (256 x 2,000,000 mixed mixture,
@@ -576,6 +586,21 @@ def profile_fits(tree: str, out_dir: Path) -> list:
     return rows
 
 
+def conformance(tree: str, out_dir: Path) -> list:
+    """``--conformance``: every case of the suite's oracle conformance."""
+    sm = _smoke()
+    from picard_ica_tpu_torch import native
+    from picard_ica_tpu_torch.ops import _build
+
+    _build.load()
+    native.load()
+    print(f"{tree}: oracle on host {sm._host_cpu()}", flush=True)
+    rows = [sm.conformance_case(*case) for case in sm.SUITE_CONFORMANCE]
+    out_dir.mkdir(parents=True, exist_ok=True)
+    (out_dir / "conformance.json").write_text(json.dumps(rows, indent=1))
+    return rows
+
+
 def _build_all(trees):
     """Build every tree's library at once (one process per tree)."""
     procs = [subprocess.Popen(
@@ -612,12 +637,16 @@ def main(argv=None):
                     help="profile the bench, config 4 and 1024 x 200k fits step by step")
     ap.add_argument("--crossover", action="store_true",
                     help="sweep N on both paths for use_kernels=None's rule")
+    ap.add_argument("--conformance", action="store_true",
+                    help="the suite's five oracle-conformance cases against the port's oracle")
     args = ap.parse_args(argv)
-    if args.crossover or args.profile_fits:
+    if args.crossover or args.profile_fits or args.conformance:
         tree = str(Path(args.trees[0] if args.trees else HERE).resolve())
         sys.path[:] = [tree] + [p for p in sys.path if p and Path(p).resolve() != HERE]
+        out_dir = Path(args.out).parent
         print(json.dumps(crossover(tree) if args.crossover
-                         else profile_fits(tree, Path(args.out).parent)))
+                         else conformance(tree, out_dir) if args.conformance
+                         else profile_fits(tree, out_dir)))
         return 0
     if args.staged_fit or args.profile:
         tree = str(Path(args.trees[0] if args.trees else HERE).resolve())

@@ -10,7 +10,7 @@ import sys
 import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SUBPACKAGES = ("ops", "models", "parallel", "utils")
+SUBPACKAGES = ("ops", "models", "native", "parallel", "utils")
 
 
 def _modules():
@@ -29,7 +29,8 @@ def _group(name):
 def test_the_walk_finds_the_utils_modules():
     names = _modules()
     assert {"picard_ica_tpu_torch.utils.profiling", "picard_ica_tpu_torch.utils.memory_model",
-            "picard_ica_tpu_torch.ops.kernels", "picard_ica_tpu_torch.parallel.sharding"} <= set(names)
+            "picard_ica_tpu_torch.ops.kernels", "picard_ica_tpu_torch.parallel.sharding",
+            "picard_ica_tpu_torch.native"} <= set(names)
 
 
 @pytest.mark.parametrize("group", ("package",) + SUBPACKAGES)

@@ -284,8 +284,8 @@ def test_reference_lcg_bit_equal_to_jax():
     for n, t, seed in [(64, 4_000_000, 42), (600, 1_000_000, 42), (5, 77, 3)]:
         np.testing.assert_array_equal(tdg.reference_mixing_matrix(n, t, seed),
                                       jdg.reference_mixing_matrix(n, t, seed))
-    # The JAX package may take its native generator (within 1 ulp of the
-    # NumPy closed form the port copies).
+    # Both packages fill through a native generator of the same stream,
+    # each within 1 ulp of the NumPy closed form.
     np.testing.assert_allclose(tdg.generate_bench_data(4, 3000, 42),
                                jdg.generate_bench_data(4, 3000, 42), rtol=1e-13, atol=1e-13)
 
