@@ -115,7 +115,8 @@ prints no result line):
      (kernel path) and at 64 x 4,000,000 and 128 x 1,000,000 (torch
      path): each phase's ``max_memory_allocated`` beside
      ``phase_peak_bytes`` (fails when the binding phase differs or a
-     phase is off the model by more than 10 %); (c) the whole pipeline at
+     phase is off the model by more than 0.1 %); (c) the whole pipeline
+     (the bench mixture, seed ``SEED8C``) at
      N = 256 for 3 iterations in a fresh process at T = ``max_t(256)``,
      which must run, and at ``max_t(256)`` + 1,000,000, which must raise
      ``torch.cuda.OutOfMemoryError`` (any other exit fails).
@@ -137,9 +138,19 @@ prints no result line):
      and ``Picard.fit`` from W_init = I on the card (host-f64 whitening,
      kernels 1-3), Amari(W_port, pinv(W_oracle)) < 1e-3 in each, with
      both iteration counts and both times.
+  10. the staged schedule at 64 x 100,000 (``generate_mixed_kurtosis_data``,
+     seed 0, float64 NumPy: host-f64 whitening), ``random_state=0``, tol
+     1e-7, 200 iterations, auto, on the kernel path and on the torch path:
+     iterations, stage exits, convergence, gradient norm and Amari to the
+     mixing beside the JAX package's CPU fits of the same input
+     (``JAX_CPU10``); the sources must be finite and the kernel path's
+     fused pass must launch. A fit that ends unconverged does not fail
+     the run: the staged schedule leaves the separation in its bf16 stage
+     on some rounding orders, in the JAX package as in the port.
 
 ``python3 chip_smoke.py --phase8`` runs phases 0, 1 and 8 alone,
-``--phase9`` phases 0, 1 and 9; ``--maxt-rung N T`` is phase 8c's child.
+``--phase9`` phases 0, 1 and 9, ``--phase10`` phases 0, 1 and 10;
+``--maxt-rung N T`` is phase 8c's child.
 
 Phase 2 also holds the streaming kernels against their plain versions:
 ``streaming_fused_sums`` at 256 x 2,000,000 (every mode and tier a fit
@@ -163,7 +174,7 @@ launches on its path (phase 3 for the resident core kernels, phase 4
 for the whitening kernels, 4b for the grouped one, 5 for the streaming
 kernels' f32 routes, 5b and 5c for the bf16 and bf16x3 routes, 5d for
 delta bf16 on f32 X; ``launches_by_path`` adds every other fit's,
-phases 6, 6b, 9b and 9c among them, and phase 7's counted on rank 0; the fused pass's tensor-core kernel counts
+phases 6, 6b, 9b, 9c and 10 among them, and phase 7's counted on rank 0; the fused pass's tensor-core kernel counts
 the launches of its three tiers in phase 4, ``launches_by_tier``), error
 against the plain version (and, for every f32 case, against f64), and
 the numbers of its headline case (``_KERNELS``): ``ms`` and ``plain_ms``
@@ -255,6 +266,14 @@ SUITE_CONFORMANCE = (
     ("cube_64x500k", 64, 500_000, True, "cube"),
 )
 AMARI_ORACLE_MAX = 1e-3
+# Phase 10: the staged schedule on a 64 x 100,000 mixed mixture (seed 0),
+# where the port's CPU fit with 8 threads leaves the separation in its
+# bf16 stage (tests/test_torch_staged.py). The JAX package's fits of the
+# same input on the CPU (float32, x64 on, ``random_state=0``, tol 1e-7):
+# path -> (iterations, stage exits, Amari to the mixing); both converged.
+N10, T10, SEED10, MAX_ITER10 = 64, 100_000, 0, 200
+JAX_CPU10 = {"pallas (interpret)": (77, (35, 76, 77), 6.550e-4),
+             "xla": (22, (15, 21, 22), 6.543e-4)}
 # Published peaks of one H100 SXM at 700 W (NVIDIA's data sheet): HBM
 # bytes/s, scalar FP32 FMA/s outside the tensor cores (67 TFLOP/s), and
 # dense bf16 tensor-core FMA/s (989 TFLOP/s) for the products of the
@@ -1665,9 +1684,15 @@ def phase7b_nccl(n=N7B, t=T7B, seed=SEED7B):
 # only when, the pipeline raised torch.cuda.OutOfMemoryError.
 OOM_EXIT = 75
 MAXT_N, MAXT_STEP, MAXT_ITER = 256, 1_000_000, 3
+# The rungs' bench-mixture seed. The mixing matrix depends on (N, T, seed):
+# seed 42's at 256 x 30M has cond(A) = 1.8e5, a covariance of cond 3e10
+# that no f32 whitening resolves (SingularMatrixError, as the bench
+# mixture at 1024 x 1M for seeds 42 and 43); seed 43's is below 1.1e3
+# from 28M to 33M. The child prints the rung's cond(A).
+SEED8C = 43
 MAXT_TIMEOUT = 300
 # A phase's measured peak may be off the model by this share of the model.
-PEAK_RTOL = 0.10
+PEAK_RTOL = 0.001
 # The fits whose phase peaks are held to the model: (n, t, config).
 PEAK_FITS = ((N4, T4, {}), (N7, T7, {}), (N4, T4, {"use_kernels": False}),
              (128, 1_000_000, {"use_kernels": False}))
@@ -1855,29 +1880,35 @@ def phase8b_peaks():
 
 
 def _maxt_rung(n, t):
-    """A max-T rung's child: bench data made on the card at (n, t) and
-    ``Picard.fit`` for MAXT_ITER iterations; prints one JSON line, and
-    exits OOM_EXIT when the pipeline runs out of device memory."""
+    """A max-T rung's child: bench data made on the card at (n, t) (seed
+    SEED8C) and ``Picard.fit`` for MAXT_ITER iterations; prints one JSON
+    line with the mixing's condition number, and exits OOM_EXIT when the
+    pipeline runs out of device memory."""
     import traceback
 
+    import numpy as np
     import torch
 
     from picard_ica_tpu_torch import Picard
-    from picard_ica_tpu_torch.utils.datagen import generate_bench_data_device
+    from picard_ica_tpu_torch.utils.datagen import (
+        generate_bench_data_device,
+        reference_mixing_matrix,
+    )
 
     total = torch.cuda.mem_get_info()[1]
+    cond = float(np.linalg.cond(reference_mixing_matrix(n, t, SEED8C)))
     try:
-        x = generate_bench_data_device(n, t, SEED7, "cuda")
+        x = generate_bench_data_device(n, t, SEED8C, "cuda")
         r = Picard.fit(x, _config(max_iter=MAXT_ITER))
         torch.cuda.synchronize()
     except torch.cuda.OutOfMemoryError as e:
         frames = [f.name for f in traceback.extract_tb(e.__traceback__)
                   if "picard_ica_tpu_torch" in f.filename]
         print(json.dumps({"t": t, "oom": True, "where": frames[-3:], "total": total,
-                          "error": str(e).splitlines()[0]}), flush=True)
+                          "cond_a": cond, "error": str(e).splitlines()[0]}), flush=True)
         return OOM_EXIT
     print(json.dumps({"t": t, "oom": False, "n_iterations": r.n_iterations, "total": total,
-                      "peak": torch.cuda.max_memory_allocated()}), flush=True)
+                      "cond_a": cond, "peak": torch.cuda.max_memory_allocated()}), flush=True)
     return 0
 
 
@@ -2123,6 +2154,40 @@ def phase9(build_seconds, by_path):
     by_path["phase9c"] = phase9c_conformance()
 
 
+def phase10_staged_fault():
+    """The 64 x 100,000 input on which the staged schedule can leave the
+    separation, fitted on the card at the default schedule on both
+    paths; returns the kernel path's launches."""
+    import torch
+
+    from picard_ica_tpu_torch.ops import kernels as K
+    from picard_ica_tpu_torch.utils.datagen import generate_mixed_kurtosis_data
+    from picard_ica_tpu_torch.utils.metrics import amari_distance
+
+    _, a, x = generate_mixed_kurtosis_data(N10, T10, SEED10)
+    jax_cpu = "; ".join(f"{path}: {it} iterations, exits {exits}, amari {am:.3e}"
+                        for path, (it, exits, am) in JAX_CPU10.items())
+    _log(f"staged {N10} x {T10} seed {SEED10}: the JAX package on the CPU: {jax_cpu}")
+    launches = None
+    for path, use_kernels in (("kernels", True), ("torch path", False)):
+        K.reset_launch_counts()
+        r, wall = _fit(x, use_kernels, tol=1e-7, max_iter=MAX_ITER10)
+        if use_kernels:
+            launches = _launches()
+        amari = amari_distance(r.full_unmixing().double().cpu().numpy(), a)
+        _log(f"staged {N10} x {T10} seed {SEED10} ({path}): converged={r.converged} "
+             f"n_iterations={r.n_iterations} stage_exits={r.stage_exits} "
+             f"ls_calls={r.ls_calls} gradient_norm={r.gradient_norm:.3e} amari={amari:.3e}; "
+             f"fit {wall:.3f} s, core {r.core_seconds:.4f} s")
+        if tuple(r.sources.shape) != (N10, T10) or not bool(torch.isfinite(r.sources).all()):
+            raise AssertionError(f"staged {N10} x {T10} ({path}): sources not finite")
+        del r
+    missing = [k for k in TIER_ROWS if _count(k, launches) == 0]
+    if missing:
+        raise AssertionError(f"kernels never launched in phase 10: {missing}")
+    return launches
+
+
 def main(argv=None):
     import torch
 
@@ -2136,6 +2201,9 @@ def main(argv=None):
         return 0
     if argv[:1] == ["--phase9"]:
         phase9(native_build_s, {})
+        return 0
+    if argv[:1] == ["--phase10"]:
+        phase10_staged_fault()
         return 0
     rows = phase2_kernels()
     rows.update(phase2_whitening_kernels())
@@ -2155,6 +2223,7 @@ def main(argv=None):
     by_path["phase7b"] = phase7b_nccl()
     phase8()
     phase9(native_build_s, by_path)
+    by_path["phase10"] = phase10_staged_fault()
     kernels = []
     for name, (source, line, headline) in _KERNELS.items():
         row = rows[name]

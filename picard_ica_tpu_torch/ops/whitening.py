@@ -62,6 +62,7 @@ from .kernels import (
     row_sums_plain,
 )
 from ..parallel.sharding import all_reduced, n_samples as _n_samples
+from . import linalg
 from .linalg import rotate_rows_inplace
 
 # Reject singular values below this (whitening.rs:77).
@@ -304,11 +305,24 @@ def _prepare_stats(x, impl: str, centering: bool, shards=None):
 
 
 def _project_centered(k, x, mean, centering: bool):
-    """``K (X - mean)``: one matmul, left outside the kernels as the JAX
-    package leaves it outside Pallas."""
-    if centering:
-        x = x - mean[:, None]
-    return k @ x
+    """``K (X - mean)`` into one new (n, T) buffer, a column block of
+    ``linalg.ROTATE_BLOCK_T`` at a time: beside X and x1 only one
+    centered (nf, block) block is alive, where the JAX package's jitted
+    projection fuses the centering into its product. Each element is
+    computed as in one product over all of T: the subtraction in X's
+    dtype, then the product (exact f32 under ``exact_f32``). The matmul
+    is left outside the kernels as the JAX package leaves it outside
+    Pallas."""
+    t = x.shape[1]
+    x1 = torch.empty((k.shape[0], t), dtype=x.dtype, device=x.device)
+    block = linalg.ROTATE_BLOCK_T
+    for start in range(0, t, block):
+        stop = min(start + block, t)
+        xb = x[:, start:stop]
+        if centering:
+            xb = xb - mean[:, None]
+        torch.matmul(k, xb, out=x1[:, start:stop])
+    return x1
 
 
 def center_whiten(

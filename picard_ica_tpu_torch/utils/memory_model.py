@@ -18,10 +18,10 @@ features of the raw data, ``n`` the components:
               nf), then the covariance's (n_chunks / group, nf, nf), one
               per COV_CHUNK columns, or per COV_GROUP chunks when they
               would pass RESIDENT_PARTIALS_MAX (``ops/kernels.py``).
-  projection  X + X - mu + x1 (n, T): ``K (X - mu)`` centers into a new
-              buffer and multiplies it into another, while the caller's
-              X is alive (``ops/whitening._project_centered``) -- THE
-              binding phase, at three data buffers when n == nf.
+  projection  X + x1 (n, T) + one centered (nf, ROTATE_BLOCK_T) column
+              block: ``K (X - mu)`` is written into x1 a block at a
+              time (``ops/whitening._project_centered``), the JAX
+              model's two data buffers plus the block.
   refine      X + x1 + the larger of the covariance partials of x1 and
               one rotation block: C2 = x1 x1^T through the kernels, then
               x1 rotated in place (``ops/whitening._refine_whitening``).
@@ -42,16 +42,20 @@ the card). A sharded rank is the same model at its local T.
 
 EFFECTIVE_ARENA_BYTES is the usable ceiling of one NVIDIA H100 80GB HBM3
 at a 700.00 W power limit (``nvidia-smi --query-gpu=name,power.limit
---format=csv,noheader``), measured by ``chip_smoke.py`` phase 8: the whole
-pipeline at N = 256 for 3 iterations, each T in a fresh process, ran at
-T = 26,000,000 (a modelled peak of 79,872,000,000 bytes, 79,906,079,744
-measured) and ran out of memory in the projection at 27,000,000
-(82,944,000,000 modelled). The bracket, not the value chosen inside it,
-is the measured fact, and :func:`max_t` reproduces that boundary for any
-arena inside it. REPORTED_ARENA_BYTES is the total that
-``torch.cuda.mem_get_info()`` reports on that card. At the OOM the
-process held 1.59 GiB that the caching allocator does not count (the
-CUDA context and the loaded modules) and 0.97 GiB cached but free.
+--format=csv,noheader``), measured by ``chip_smoke.py`` phase 8c: the
+whole pipeline at N = 256 for 3 iterations, each T in a fresh child
+process of the smoke run (whose own CUDA context stays alive). With the
+two-buffer projection, T = 30,000,000 ran (a modelled peak of
+80,011,544,576 bytes, the core; 80,065,827,840 measured) and 31,000,000
+(82,573,633,536 modelled) ran out of memory in the core, 75.94 GiB
+allocated, 0.99 GiB cached in segments it could not release, 0.21 GiB
+free. In a process alone on the card 31M ran (82,630,528,000 measured)
+and 32M ran out; with the three-buffer projection 26M ran and 27M
+(82,944,000,000) ran out as phase 8c's child. The bracket, not the value
+chosen inside it, is the measured fact, and :func:`max_t` reproduces the
+boundary (30M runs, 31M does not) for any arena inside it.
+REPORTED_ARENA_BYTES is the total that ``torch.cuda.mem_get_info()``
+reports on that card.
 """
 
 from __future__ import annotations
@@ -63,9 +67,9 @@ from ..utils.datagen import _GEN_BLOCK_T
 _ELEM = 4  # f32 bytes: the device pipeline is f32 end to end
 
 # The measured bracket (module docstring), and the value inside it.
-ARENA_FITS_BYTES = 79_872_000_000
-ARENA_OOM_BYTES = 82_944_000_000
-EFFECTIVE_ARENA_BYTES = 81.4e9
+ARENA_FITS_BYTES = 80_011_544_576
+ARENA_OOM_BYTES = 82_573_633_536
+EFFECTIVE_ARENA_BYTES = 81.3e9
 REPORTED_ARENA_BYTES = 85_017_493_504
 # (n, T) f32 buffers of the torch path's core beyond X and x1: measured at
 # 64 x 4M on the card above (chip_smoke.py phase 8, which holds it at
@@ -144,7 +148,7 @@ def phase_peak_bytes(
     return {
         "datagen": data + max(_GEN_TEMPS * gen_block, rot_block),
         "stats": data + max(mean_parts, _cov_partials(nf, t)),
-        "projection": data + data + comp,
+        "projection": data + comp + rot_block,
         "refine": data + comp + max(_cov_partials(n, t), n * min(ROTATE_BLOCK_T, t) * _ELEM),
         "core": data + comp + core_extra_bytes(n, t, cheap_tier, use_kernels),
     }
@@ -170,7 +174,7 @@ def max_t(
     """Largest T (multiple of ``step``) whose pipeline peak fits.
 
     Defaults reproduce the measurement of ``chip_smoke.py`` phase 8 on
-    the H100: max_t(256) = 26M (27M runs out of memory), pinned by
+    the H100: max_t(256) = 30M (31M runs out of memory), pinned by
     tests/test_torch_memory_model.py.
     """
     t = step

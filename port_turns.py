@@ -103,9 +103,11 @@ convergence, iterations, stage exits, the number of negative
 (sub-Gaussian) signs, Amari distance to the mixing, and the streaming
 fused kernel's launches; with ``--torch-path`` the same fit runs on the
 torch path (``use_kernels=False``). With ``--trace`` it also prints each
-iteration's tier, gradient norm, stall counters and line-search passes;
-the trace syncs the host once an iteration, so its core seconds are not
-comparable with an untraced fit's.
+iteration's tier, gradient norm, stall counters, line-search passes,
+accepted step and negative signs; the trace syncs the host once an
+iteration, so its core seconds are not comparable with an untraced
+fit's. With ``--phase3`` the fit takes phase 3's data instead (64 x
+2,000,000 mixed mixture, seed 0, float64 NumPy).
 """
 
 from __future__ import annotations
@@ -353,8 +355,9 @@ def profile(tree: str) -> dict:
 
 def _trace_iterations(core):
     """Wrap the core loop's iteration to record, after each one, its tier,
-    iteration count, gradient norm, stall counters and line-search
-    passes."""
+    iteration count, gradient norm, stall counters, line-search passes,
+    the log2 exponent of the accepted step (0 after a fallback) and the
+    number of negative signs."""
     rows = []
     inner = core._iteration_body
 
@@ -362,7 +365,7 @@ def _trace_iterations(core):
         out = inner(st, x, covariance, tol, lambda_min, opts)
         rows.append((opts.kernel_precision, out.n_iter_done if out.converged else out.it,
                      float(out.gradient_norm), out.since_improve, out.consec_fallbacks,
-                     out.ls_calls))
+                     out.ls_calls, out.prev_alpha_exp, int((out.signs < 0).sum())))
         return out
 
     core._iteration_body = traced
@@ -381,14 +384,23 @@ def _large_n_data(sm):
     return torch.from_numpy(x_np.astype(np.float32)).cuda(), a
 
 
+def _phase3_data(sm):
+    """Phase 3's 64 x 2,000,000 mixed mixture (seed 0) as float64 NumPy
+    (host-f64 whitening), and its mixing."""
+    from picard_ica_tpu_torch.utils.datagen import generate_mixed_kurtosis_data
+
+    _, a, x = generate_mixed_kurtosis_data(sm.N, sm.T, sm.SEED)
+    return x, a
+
+
 def large_n_fit(tree: str, sm=None, x=None, a=None, trace: bool = False,
                 use_kernels: bool = True, precision: str = "auto", save=None,
-                **caps) -> dict:
+                phase3: bool = False, **caps) -> dict:
     """Phase 5's 256 x 2,000,000 data (made here unless ``x`` and ``a`` are
-    given) fitted once through the streaming kernels, at the default
-    staged schedule or in one tier (``precision``), with the config's
-    ``caps`` (e.g. ``max_iter``); the unmixing is saved to ``save`` when
-    given."""
+    given; phase 3's 64 x 2,000,000 with ``phase3``) fitted once, through
+    the kernels or on the torch path, at the default staged schedule or
+    in one tier (``precision``), with the config's ``caps`` (e.g.
+    ``max_iter``); the unmixing is saved to ``save`` when given."""
     import numpy as np
     import torch
 
@@ -401,17 +413,18 @@ def large_n_fit(tree: str, sm=None, x=None, a=None, trace: bool = False,
 
     assert Path(K.__file__).resolve().is_relative_to(Path(tree).resolve()), K.__file__
     if x is None:
-        x, a = _large_n_data(sm)
+        x, a = _phase3_data(sm) if phase3 else _large_n_data(sm)
+    n, t = x.shape
     rows = _trace_iterations(core) if trace else None
     K.reset_launch_counts()
     r, wall = sm._fit(x, use_kernels, kernel_precision=precision, **caps)
     path = "kernels" if use_kernels else "torch path"
     schedule = "staged" if precision == "auto" else precision
-    sm._report_fit(f"[{tree}] {schedule} {sm.N5} x {sm.T5} ({path})", r, wall, sm.T5)
+    sm._report_fit(f"[{tree}] {schedule} {n} x {t} ({path})", r, wall, t)
     for row in rows or ():
         sm._log(f"[{tree}] iteration: tier {row[0]}, it {row[1]}, gradient norm "
                 f"{row[2]:.4e}, since_improve {row[3]}, consec_fallbacks {row[4]}, "
-                f"ls_calls {row[5]}")
+                f"ls_calls {row[5]}, accepted alpha 2^-{row[6]}, negative signs {row[7]}")
     if save is not None:
         Path(save).parent.mkdir(parents=True, exist_ok=True)
         np.save(save, r.full_unmixing().double().cpu().numpy())
@@ -627,6 +640,8 @@ def main(argv=None):
                     help="with --staged-fit, print each iteration's gradient norm")
     ap.add_argument("--torch-path", action="store_true",
                     help="with --staged-fit, fit on the torch path")
+    ap.add_argument("--phase3", action="store_true",
+                    help="with --staged-fit, fit phase 3's 64 x 2M data instead")
     ap.add_argument("--f32", action="store_true",
                     help="with --staged-fit, fit in the exact f32 tier instead")
     ap.add_argument("--core-only", action="store_true",
@@ -652,7 +667,8 @@ def main(argv=None):
         tree = str(Path(args.trees[0] if args.trees else HERE).resolve())
         sys.path[:] = [tree] + [p for p in sys.path if p and Path(p).resolve() != HERE]
         print(json.dumps(large_n_fit(tree, trace=args.trace, use_kernels=not args.torch_path,
-                                     precision="f32" if args.f32 else "auto")
+                                     precision="f32" if args.f32 else "auto",
+                                     phase3=args.phase3)
                          if args.staged_fit else profile(tree)))
         return 0
     if args.one:

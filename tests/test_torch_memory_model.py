@@ -5,11 +5,13 @@ buffers, and to the max-T boundary measured on the card.
 
 The boundary: ``chip_smoke.py`` phase 8 ran the whole datagen -> whiten
 -> fit pipeline at N = 256 for 3 iterations, each T in a fresh process,
-on an NVIDIA H100 80GB HBM3 at a 700.00 W power limit: T = 26,000,000
-ran and T = 27,000,000 raised ``torch.cuda.OutOfMemoryError`` in the
-projection. Its phase peaks at 64 x 4M and 256 x 10M (kernel path), and
-the torch path's at 128 x 1M (its TORCH_CORE_BUFFERS measured at 64 x 4M),
-matched the model within 0.1 %.
+on an NVIDIA H100 80GB HBM3 at a 700.00 W power limit: with the
+projection written into x1 a column block at a time, T = 30,000,000 ran
+and 31,000,000 raised ``torch.cuda.OutOfMemoryError`` in the core (with
+the three-buffer projection before it, 26,000,000 ran and 27,000,000 ran
+out in the projection). Its phase peaks at 64 x 4M and 256 x 10M (kernel
+path), and the torch path's at 64 x 4M and 128 x 1M (its
+TORCH_CORE_BUFFERS measured at 64 x 4M), matched the model within 0.1 %.
 """
 
 import pytest
@@ -18,34 +20,46 @@ from picard_ica_tpu_torch.ops import kernels as K
 from picard_ica_tpu_torch.utils import memory_model as mm
 
 
-def test_projection_is_the_binding_phase_at_three_buffers():
-    """The port centers into a new buffer and projects it into another
-    while the caller's X is alive: three data buffers, more than the
-    refinement's two and a block, and more than the core's two and a
-    half plus the workspace."""
+def test_core_binds_above_the_two_buffer_projection():
+    """The port writes ``K (X - mu)`` into x1 a column block at a time
+    while the caller's X is alive: two data buffers and one centered
+    block, as many as the refinement's two and a block, and fewer than
+    the core's two and a half plus the workspace, which binds."""
     n, t = 256, 6_000_000
+    block = n * (1 << 20) * 4
     phases = mm.phase_peak_bytes(n, t)
-    assert mm.binding_phase(n, t) == "projection"
-    assert phases["projection"] == 3 * n * t * 4  # 18.432e9
-    assert phases["datagen"] == n * t * 4 + 3 * n * (1 << 20) * 4
-    assert phases["refine"] == 2 * n * t * 4 + n * (1 << 20) * 4
-    assert phases["core"] < phases["projection"]
+    assert mm.binding_phase(n, t) == "core"
+    assert phases["projection"] == 2 * n * t * 4 + block  # 13.36e9
+    assert phases["datagen"] == n * t * 4 + 3 * block
+    assert phases["refine"] == 2 * n * t * 4 + block
+    assert phases["core"] > phases["projection"]
 
 
 def test_peak_scales_linearly_in_t():
-    """Linear where the projection binds; at small T the core binds
-    instead, since the tensor-core route's workspace (up to
-    STREAM_TC_WORKSPACE_MAX) does not shrink with T."""
-    assert mm.fit_peak_bytes(256, 16_000_000) == 2 * mm.fit_peak_bytes(256, 8_000_000)
-    assert mm.binding_phase(256, 2_000_000) == "core"
-    assert mm.binding_phase(256, 8_000_000) == "projection"
+    """The data buffers scale linearly in T: the projection's two above
+    its one block. The core binds at every T at N = 256, 2M to 30M: its
+    bf16 copy makes it two and a half buffers, and the tensor-core
+    route's workspace (up to STREAM_TC_WORKSPACE_MAX), packed partials
+    (up to STREAM_PARTIALS_MAX) and the weights' bf16 planes (under 2^20
+    bytes) come on top."""
+    block = 256 * (1 << 20) * 4
+    proj = {t: mm.phase_peak_bytes(256, t)["projection"] - block
+            for t in (8_000_000, 16_000_000)}
+    assert proj[16_000_000] == 2 * proj[8_000_000]
+    for t in (2_000_000, 8_000_000, 10_000_000, 16_000_000, 30_000_000):
+        assert mm.binding_phase(256, t) == "core", t
+        extra = mm.fit_peak_bytes(256, t) - 2.5 * 256 * t * 4
+        assert 0 < extra <= K.STREAM_TC_WORKSPACE_MAX + K.STREAM_PARTIALS_MAX + 2**20, t
 
 
-def test_bench_shape_peaks_at_three_buffers():
-    """bench.py's 64 x 4M: the projection's three whole buffers, 3.072e9
-    bytes, a few percent of the card."""
-    peak = mm.fit_peak_bytes(64, 4_000_000)
-    assert peak == 3 * 64 * 4_000_000 * 4
+def test_bench_shape_peaks_in_the_core():
+    """bench.py's 64 x 4M: the core's X, x1, bf16 copy and the resident
+    kernel's partials, 2.593e9 bytes (3.072e9 at three buffers), a few
+    percent of the card."""
+    n, t = 64, 4_000_000
+    peak = mm.fit_peak_bytes(n, t)
+    assert mm.binding_phase(n, t) == "core"
+    assert peak == 2 * n * t * 4 + mm.core_extra_bytes(n, t) == 2_593_014_784
     assert peak < 0.05 * mm.EFFECTIVE_ARENA_BYTES
 
 
@@ -77,10 +91,12 @@ def test_shared_buffers_equal_the_jax_model(n, t):
     byte, plus what the port adds to each:
       * datagen: two more (N, 2^20) column blocks, the temporaries of the
         in-place Laplace transform (the JAX package's is one fused op);
-      * projection: the caller's X, which ``Picard.fit`` does not own, is
-        alive beside X - mu and x1 (the JAX model counts the raw data and
-        x1);
-      * refine: the caller's X again, beside x1 and the rotation block.
+      * projection: one centered (N, 2^20) column block beside the raw
+        data and x1, which the JAX model counts (its jitted projection
+        fuses the centering into the product);
+      * refine: the caller's X, which ``Picard.fit`` does not own, beside
+        x1 and the rotation block (the JAX model rotates the data it
+        owns).
     stats and core differ in kind, not by a buffer: the port's stats
     hold the covariance kernels' actual partials (the JAX model counts 64
     chunks), and its core the tensor-core route's workspace or the
@@ -91,19 +107,20 @@ def test_shared_buffers_equal_the_jax_model(n, t):
     jax = jm.phase_peak_bytes(n, t)
     data = n * t * 4
     assert port["datagen"] - 2 * n * (1 << 20) * 4 == jax["datagen"]
-    assert port["projection"] - data == jax["projection"]
+    assert port["projection"] - n * min(1 << 20, t) * 4 == jax["projection"]
     assert port["refine"] - data == jax["refine"]
     assert port["stats"] != jax["stats"] and port["core"] != jax["core"]
 
 
 def test_max_t_reproduces_the_measured_boundary():
-    """T = 26M ran and 27M ran out of memory at N = 256 (module
-    docstring): the model gives that boundary for every arena inside the
-    bracket, not only the value committed."""
-    assert mm.ARENA_FITS_BYTES == mm.fit_peak_bytes(256, 26_000_000)
-    assert mm.ARENA_OOM_BYTES == mm.fit_peak_bytes(256, 27_000_000)
+    """T = 30M ran and 31M ran out of memory at N = 256 with the
+    two-buffer projection (module docstring): the model gives that
+    boundary for every arena inside the bracket, not only the value
+    committed."""
+    assert mm.ARENA_FITS_BYTES == mm.fit_peak_bytes(256, 30_000_000)
+    assert mm.ARENA_OOM_BYTES == mm.fit_peak_bytes(256, 31_000_000)
     assert mm.ARENA_FITS_BYTES <= mm.EFFECTIVE_ARENA_BYTES < mm.ARENA_OOM_BYTES
     assert mm.EFFECTIVE_ARENA_BYTES < mm.REPORTED_ARENA_BYTES
-    assert mm.max_t(256) == 26_000_000
-    for arena in (79.9e9, 81.0e9, 82.9e9):
-        assert mm.max_t(256, arena_bytes=arena) == 26_000_000, arena
+    assert mm.max_t(256) == 30_000_000
+    for arena in (80.1e9, 81.3e9, 82.5e9):
+        assert mm.max_t(256, arena_bytes=arena) == 30_000_000, arena

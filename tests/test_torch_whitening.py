@@ -17,16 +17,24 @@ through the port:
     JAX fit of the same f32 array: both converge, Amari between the two
     unmixings < 1e-4 (two f32 staged trajectories to tol 1e-7 from
     whitenings that agree to ~1e-6);
+  * the projection ``K (X - mean)``, written a column block at a time,
+    against the JAX package's one product (several blocks and a ragged
+    one, ``ROTATE_BLOCK_T`` patched small), and the bytes it holds: x1
+    and one centered block;
   * ``Picard.transform`` of a JAX device-whitened result;
   * the reference LCG's mixing block, bit for bit.
 The refinement step is checked on its own against the whiteness bounds
 of tests/test_whitening.py:374-408.
 """
 
+import weakref
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch.utils._pytree import tree_leaves
+from torch.utils._python_dispatch import TorchDispatchMode
 
 import picard_ica_tpu as J
 import picard_ica_tpu_torch as P
@@ -35,6 +43,7 @@ from picard_ica_tpu.ops import whitening as jw
 from picard_ica_tpu.utils import datagen as jdg
 from picard_ica_tpu_torch import convert
 from picard_ica_tpu_torch.ops import kernels as K
+from picard_ica_tpu_torch.ops import linalg
 from picard_ica_tpu_torch.ops import whitening as tw
 from picard_ica_tpu_torch.ops.linalg import rotate_rows_inplace
 from picard_ica_tpu_torch.utils import amari_distance, generate_mixed_kurtosis_data
@@ -203,6 +212,85 @@ def test_center_whiten_owned_passthrough_and_errors():
         tw.center_whiten(torch.ones((3, 3000)), 3)
     with pytest.raises(P.ComputationError, match="non-finite"):
         tw.whiten(torch.full((4, 1000), float("nan")), 4)
+
+
+# Column blocks of the projection (``ops.linalg.ROTATE_BLOCK_T``, patched
+# small): 4,000 columns in four whole blocks, and in two whole blocks and
+# a ragged one of 928.
+PROJECTION_BLOCKS = (1000, 1536)
+
+
+@pytest.mark.parametrize("block", PROJECTION_BLOCKS)
+@pytest.mark.parametrize("centering", [True, False], ids=["center", "no-center"])
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_blockwise_projection_matches_jax(monkeypatch, dtype, centering, block):
+    """``K (X - mean)`` written into x1 a column block at a time matches
+    the JAX package's one jitted product at the tolerances of
+    ``test_center_whiten_matches_jax``, with fewer components than
+    features, across several blocks and a ragged last one."""
+    monkeypatch.setattr(linalg, "ROTATE_BLOCK_T", block)
+    x, _ = _data(6, 4000, 23, DTYPES[dtype], SEPARATED)
+    x1, mean, k = tw.center_whiten(torch.from_numpy(x), 4, centering)
+    jx1, jmean, jk = jw.center_whiten(jnp.asarray(x), 4, centering)
+    if dtype == "f64":
+        tol_k = tol_x1 = dict(rtol=1e-12, atol=1e-12)
+    else:
+        tol_k, tol_x1 = dict(rtol=1e-5, atol=1e-6), dict(rtol=1e-4, atol=1e-4)
+    np.testing.assert_allclose(k.numpy(), np.asarray(jk), **tol_k)
+    np.testing.assert_allclose(x1.numpy(), np.asarray(jx1), **tol_x1)
+    assert x1.shape == (4, 4000) and x1.is_contiguous()
+    # the blocks' product is the whole product's, up to summation order
+    xt = torch.from_numpy(x)
+    whole = k @ (xt - mean[:, None]) if centering else k @ xt
+    _close_to_scale(tw._project_centered(k, xt, mean, centering), whole.numpy(), TOL[dtype])
+
+
+class _LiveBytes(TorchDispatchMode):
+    """Bytes of the tensors that the ops under this mode allocate (an
+    output whose storage no input holds), alive at once: ``peak`` the
+    most, ``live`` at the end."""
+
+    def __init__(self):
+        super().__init__()
+        self.live = self.peak = 0
+
+    def _free(self, nbytes):
+        self.live -= nbytes
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        held = {a.untyped_storage().data_ptr() for a in tree_leaves((args, kwargs))
+                if isinstance(a, torch.Tensor)}
+        for o in tree_leaves(out):
+            if isinstance(o, torch.Tensor) and o.untyped_storage().data_ptr() not in held:
+                nbytes = o.untyped_storage().nbytes()
+                held.add(o.untyped_storage().data_ptr())
+                self.live += nbytes
+                self.peak = max(self.peak, self.live)
+                weakref.finalize(o, self._free, nbytes)
+        return out
+
+
+@pytest.mark.parametrize("centering", [True, False], ids=["center", "no-center"])
+def test_projection_allocates_one_buffer_and_one_block(monkeypatch, centering):
+    """Beside the caller's X, the projection holds x1 (n, T) and at most
+    one centered (nf, block) column block at a time (none without
+    centering): the memory model's projection term, where the one
+    product over all of T held X - mean (nf, T) and x1 at once."""
+    block = 1024
+    monkeypatch.setattr(linalg, "ROTATE_BLOCK_T", block)
+    nf, n, t = 6, 4, 5000
+    x = torch.from_numpy(_data(nf, t, 24, np.float32)[0])
+    k = torch.from_numpy(np.random.default_rng(0).standard_normal((n, nf)).astype(np.float32))
+    mean = x.mean(dim=1)
+    with _LiveBytes() as mode:
+        x1 = tw._project_centered(k, x, mean, centering)
+    assert mode.live == n * t * 4 == x1.untyped_storage().nbytes()
+    assert mode.peak == n * t * 4 + (nf * block * 4 if centering else 0)
+    with _LiveBytes() as mode:
+        k @ (x - mean[:, None])
+    assert mode.peak == (nf + n) * t * 4  # the one product: two new (., T) buffers
 
 
 def test_refinement_reaches_functional_whiteness():
