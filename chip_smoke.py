@@ -225,6 +225,9 @@ K_RESIDUAL_MAX = 1e-3
 N5, T5 = 256, 2_000_000
 N_MEG, T_MEG = 306, 1_000_003
 N5B, T5B, SEED5B = 1024, 200_000, 42
+# The streaming route's smallest widths (65-128: one W row block) in
+# phase 2.
+N_SMALL2 = 72
 # BASELINE config 4 (benchmarks/suite.py:519-552): JADE(50) -> Picard on a
 # 128 x 1,000,000 mixed mixture, float64 NumPy, seed 7.
 N6, T6, SEED6, JADE_IT6 = 128, 1_000_000, 7, 50
@@ -324,6 +327,12 @@ def phase1_build():
                 _log(f"  {name}: {r} registers, spill stores {st} B, loads {ld} B")
     if any("streaming_kernel" in k[0] for ks in _build.resource_report().values() for k in ks):
         raise AssertionError("the library holds a scalar streaming kernel")
+    # Kernel 8's launch A on wgmma (delta bf16x3 and f32 on f32 X): its
+    # instantiations' registers at launch and spills, at a glance.
+    wg = [k for k in _build.resource_report().get("streaming_fused_tc.cu", [])
+          if "rotate_wgmma_kernel" in k[0]]
+    _log(f"wgmma launch A: {len(wg)} instantiations, registers at launch "
+         f"{sorted({k[1] for k in wg})}, spill bytes {sum(k[2] + k[3] for k in wg)}")
     # The host library (g++): the w_init draw, the data stream, the oracle.
     from picard_ica_tpu_torch import native
 
@@ -549,14 +558,17 @@ def phase2_kernels():
     return rows
 
 
-def _hold(rows, kern, plain, label, tier, make, m_new, m_old, xx, key=None):
+def _hold(rows, kern, plain, label, tier, make, m_new, m_old, xx, key=None, f64=False):
     """Hold one kernel call against its plain version: f32 tiers against
     an f64 evaluation of the same sums (the kernel's error may be
     F32_ERR_FACTOR x the plain f32 version's plus F32_FLOOR_PER_COL per
     summed column), bf16 tiers against the plain version of the same
-    tier at BF16_RTOL of scale. ``max_abs_err`` is the error against the
-    plain version; an f32 case also keeps both errors against f64. Times
-    both; adds the case to ``rows[key]`` (default: the kernel's name)."""
+    tier at BF16_RTOL of scale, and with ``f64`` also against the f64
+    evaluation by the f32 rule, the plain version's error at the same
+    tier taking the plain f32 version's place. ``max_abs_err`` is the
+    error against the plain version; a case held against f64 also keeps
+    both errors against f64. Times both; adds the case to ``rows[key]``
+    (default: the kernel's name)."""
     import torch
 
     name = kern.__name__
@@ -567,23 +579,25 @@ def _hold(rows, kern, plain, label, tier, make, m_new, m_old, xx, key=None):
     out_p = plain(*args)
     err_k = _max_abs(out_k, out_p)
     extra = {}
-    if tier == "f32":
+    ok = True
+    detail = ""
+    if tier != "f32":
+        scale = max(float(v.abs().max()) for v in out_p)
+        bound = BF16_RTOL * scale
+        ok = err_k <= bound
+        detail = f"err vs plain {tier} {err_k:.4g} (bound {bound:.4g})"
+    if tier == "f32" or f64:
         args64 = make(m_new.double(), m_old.double(), xx.double())
         out_64 = plain(*args64)
         del args64
         err_k64 = _max_abs(out_k, out_64)
         err_p64 = _max_abs(out_p, out_64)
         bound = F32_ERR_FACTOR * err_p64 + F32_FLOOR_PER_COL * t
-        ok = err_k64 <= bound
-        detail = (f"err vs plain f32 {err_k:.4g}, vs f64 {err_k64:.4g} (plain f32 "
-                  f"{err_p64:.4g}, bound {bound:.4g})")
+        ok = ok and err_k64 <= bound
+        detail = (f"{detail}, vs f64" if detail else f"err vs plain {tier} {err_k:.4g}, vs f64")
+        detail += f" {err_k64:.4g} (plain {tier} {err_p64:.4g}, bound {bound:.4g})"
         extra = {"err_vs_f64": err_k64, "plain_err_vs_f64": err_p64}
         del out_64
-    else:
-        scale = max(float(v.abs().max()) for v in out_p)
-        bound = BF16_RTOL * scale
-        ok = err_k <= bound
-        detail = f"err vs plain {tier} {err_k:.4g} (bound {bound:.4g})"
     finite = all(bool(torch.isfinite(v).all()) for v in out_k)
     n_bytes = _bytes(args) + _bytes(out_k)
     bound_ms, bound_by = _bound(n_bytes, *_core_fmas(name, args))
@@ -606,7 +620,8 @@ def _hold(rows, kern, plain, label, tier, make, m_new, m_old, xx, key=None):
     row = rows.setdefault(key or name, {"max_abs_err": 0.0, "cases": []})
     row["max_abs_err"] = max(row["max_abs_err"], err_k)
     if "err_vs_f64" in extra:
-        row["f32_err_vs_f64"] = max(row.get("f32_err_vs_f64", 0.0), extra["err_vs_f64"])
+        key64 = "f32_err_vs_f64" if tier == "f32" else f"{tier}_err_vs_f64"
+        row[key64] = max(row.get(key64, 0.0), extra["err_vs_f64"])
     row["cases"].append({"label": label, "case": f"{label}, {n} x {t}", "ms": ms,
                          "ms_stream": ms_stream, "plain_ms": plain_ms,
                          "bound_ms": bound_ms, "bound_by": bound_by,
@@ -650,7 +665,8 @@ def phase2_streaming_kernels():
     def ll(need_ysq):
         return lambda m1, m0, xx: (m0, xx, d, need_ysq)
 
-    # (kernel, label, tier, args, bf16 X, row) — the main path's modes
+    # (kernel, label, tier, args, bf16 X, row[, held against f64 too]) —
+    # the main path's modes
     # first: a fit's plain bf16 passes on bf16 X (TC_ROW) and its delta
     # bf16x3 (TC3_ROW), delta f32 (TC_F32_ROW), plain f32 (TC_PF32_ROW,
     # the moments hand-off) and delta bf16 (TC_BF16_ROW, a
@@ -660,8 +676,9 @@ def phase2_streaming_kernels():
     plans = [
         ((N5, T5, 5), [
             (fused, TC_F32_LABEL, "f32", f("f32", False), False, TC_F32_ROW),
-            (fused, TC3_LABEL, "bf16x3", f("bf16x3", False), False, TC3_ROW),
-            (fused, TC3_LABEL + ", H+ysq", "bf16x3", f("bf16x3", False, True), False, TC3_ROW),
+            (fused, TC3_LABEL, "bf16x3", f("bf16x3", False), False, TC3_ROW, True),
+            (fused, TC3_LABEL + ", H+ysq", "bf16x3", f("bf16x3", False, True), False, TC3_ROW,
+             True),
             (fused, TC_LABEL, "bf16", f("bf16", True), True, TC_ROW),
             (fused, TC_LABEL + ", H+ysq", "bf16", f("bf16", True, True), True, TC_ROW),
             (fused, TC_PF32_LABEL, "f32", f("f32", True), False, TC_PF32_ROW),
@@ -676,6 +693,10 @@ def phase2_streaming_kernels():
         ]),
         ((N_MEG, T_MEG, 6), [
             (fused, TC_F32_LABEL, "f32", f("f32", False), False, TC_F32_ROW),
+            (fused, TC_F32_LABEL + ", H+ysq", "f32", f("f32", False, True), False, TC_F32_ROW),
+            (fused, TC3_LABEL, "bf16x3", f("bf16x3", False), False, TC3_ROW, True),
+            (fused, TC3_LABEL + ", H+ysq", "bf16x3", f("bf16x3", False, True), False, TC3_ROW,
+             True),
             (fused, "plain bf16, f32 X", "bf16", f("bf16", True), False, TC_BF16_ROW),
             (fused, "plain bf16x3, f32 X", "bf16x3", f("bf16x3", True), False, TC_BF16_ROW),
             (fused, "delta bf16, bf16 X", "bf16", f("bf16", False), True, TC_BF16_ROW),
@@ -685,20 +706,31 @@ def phase2_streaming_kernels():
         ((N5B, T5B, 7), [
             (fused, TC_F32_LABEL, "f32", f("f32", False), False, TC_F32_ROW),
             (fused, TC_LABEL, "bf16", f("bf16", True), True, TC_ROW),
-            (fused, TC3_LABEL, "bf16x3", f("bf16x3", False), False, TC3_ROW),
+            (fused, TC3_LABEL, "bf16x3", f("bf16x3", False), False, TC3_ROW, True),
             (fused, TC_PF32_LABEL, "f32", f("f32", True), False, TC_PF32_ROW),
             (loglik, LL_F32_LABEL, "f32", ll(False), False, LL_F32_ROW),
             (loglik, LL_BF16_LABEL, "bf16", ll(False), True, LL_BF16_ROW),
+        ]),
+        # The wgmma launch A's pairs at the route's smallest width: one W
+        # row block, mostly padding, and a ragged T with rows not 16-byte
+        # aligned.
+        ((N_SMALL2, T_RAGGED, 8), [
+            (fused, TC_F32_LABEL, "f32", f("f32", False), False, TC_F32_ROW),
+            (fused, TC_F32_LABEL + ", H+ysq", "f32", f("f32", False, True), False, TC_F32_ROW),
+            (fused, TC3_LABEL, "bf16x3", f("bf16x3", False), False, TC3_ROW, True),
+            (fused, TC3_LABEL + ", H+ysq", "bf16x3", f("bf16x3", False, True), False, TC3_ROW,
+             True),
         ]),
     ]
     rows = {}
     for (n, t, seed), cases in plans:
         x, m_old, m_new = _stream_inputs(n, t, seed)
         x16 = x.to(torch.bfloat16)
-        for kern, label, tier, make, bf16_x, key in cases:
+        for kern, label, tier, make, bf16_x, key, *f64 in cases:
             xx = x16 if bf16_x else x
             before = _case_launches(kern, make(m_new, m_old, xx))
-            _hold(rows, kern, plain_of[kern], label, tier, make, m_new, m_old, xx, key=key)
+            _hold(rows, kern, plain_of[kern], label, tier, make, m_new, m_old, xx, key=key,
+                  f64=bool(f64))
             if _case_launches(kern, make(m_new, m_old, xx)) == before:
                 raise AssertionError(f"[{label}] did not run its kernel at its mode and tier")
         del x, x16

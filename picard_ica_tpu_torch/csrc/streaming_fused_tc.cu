@@ -18,7 +18,8 @@
 //     at BF16X3 on f32 X, are direct calls;
 //   * delta, ROT = CT = BF16, bf16 X (also an f32 request on bf16 X), and
 //     delta and plain with ROT = BF16, CT = BF16X3 on bf16 X: direct calls.
-// Every pair but the first runs rotate_split_kernel<MODE, ROT, CT, XB>.
+// Delta bf16x3 and delta f32 on f32 X run rotate_wgmma_kernel<ROT>, every
+// other pair but the first rotate_split_kernel<MODE, ROT, CT, XB>.
 // Launch A alone, with a log-lik epilogue and no workspace, is also
 // picard_streaming_loglik_tc, on both X dtypes (below).
 //
@@ -59,11 +60,12 @@
 // GB, 0.61 ms); beside them N T density evaluations on the FP32 pipes and
 // the SFU.
 //
-// What the design does about it: two GEMM-shaped launches, each a plain
+// What the design does about it: two GEMM-shaped launches, so that the
+// products run on the tensor cores and the density runs once per
+// element. Launch B, and launch A but in the two wgmma pairs, is a plain
 // tile loop on mma.sync m16n8k16 (mma_tiers.cuh) fed by a cp.async ring,
-// so that the products run on the tensor cores and the density runs once
-// per element. Both run two blocks of 8 warps an SM, so one block's
-// density or stores overlap another's products.
+// two blocks of 8 warps an SM, so one block's density or stores overlap
+// another's products.
 //   * Launch A, plain (rotate_density_kernel): one block owns a TILE-row
 //     block of W and one group of `cols` consecutive columns, and walks
 //     the group's A_BT-column tiles in order. Per tile, Y[TILE x A_BT] =
@@ -79,51 +81,68 @@
 //     so launch B needs no mask and psi'(0) != 0 never reaches H. 128 x
 //     128 tiles at one block an SM, and 32-deep stages, measured slower
 //     (PERF.md).
-//   * Launch A, delta bf16x3 (rotate_split_kernel<MODE_DELTA, BF16X3, BF16X3>):
-//     the same walk with two accumulator sets a warp (Y_old, dY). The
-//     caller passes M_old and dM already split, four zero-padded bf16
-//     planes; X comes in as f32, and
-//     each landed KC-row stage is split once into hi / lo bf16 tiles in
-//     shared memory that every warp reads with ldmatrix.trans. The tensor
-//     cores round each MMA's sum toward zero, and the rotation's K runs up
-//     to 1344 deep, so each 16-deep k step is summed in a fresh
-//     accumulator (a chain of three MMAs) and added to Y_old or dY in f32,
-//     to nearest. Four W planes and f32 X make a 32-deep stage 1.8 times
-//     the plain mode's 64-deep one, so the ring holds two KC = 32-deep
-//     stages; the row sums go to shared memory once per tile, in f64, to
-//     leave the registers to the two accumulator sets. At 128 registers a
-//     thread ptxas still spills ~100 bytes; one block an SM (255
-//     registers, no spills) with four 32-deep or two 64-deep stages
-//     measured slower (PERF.md). The workspace holds the hi / lo planes
-//     of psi and Y (psi' and Y^2 with H).
-//   * Launch A, delta f32 (rotate_split_kernel<MODE_DELTA, F32, F32>): the
-//     same kernel with three parts an operand, six W planes (M_old and dM,
-//     hi, mid, lo) and six products a 16-deep k step into the fresh
-//     accumulator. Six W planes make a 16-deep stage as large as bf16x3's
-//     32-deep one, so the ring holds two stages of one k step each, and
-//     two blocks still share an SM. The hi parts are plain elementwise
-//     splits, not the fixed-point grids of rotated_fused_tc.cu: the fresh
-//     accumulator per step already keeps every MMA chain six links long.
-//     The workspace holds psi and Y (psi' and Y^2 with H) as f32 planes,
-//     8 bytes a column element as at bf16x3.
-//   * Launch A, plain f32 (rotate_split_kernel<MODE_PLAIN, F32, F32>): the same
-//     kernel with one accumulator set and three W planes (M_new's hi, mid,
-//     lo), not delta mode with M_old = 0, which would double the products
-//     and give the delta density's dll. The three planes free half of the
-//     delta stage's W bytes, which buy 32-deep stages (two k steps a
-//     barrier) at the same two blocks an SM. Its density is the plain
-//     score_der_loglik, as rotate_density_kernel's; the workspace is delta
-//     f32's.
-//   * Launch A, the other six pairs: the same kernel, its template's
-//     rotation tier, contraction tier and X dtype apart, as kernel 1's
-//     (rotated_fused_tc.cu). At ROT = BF16 on f32 X a stage holds one W
-//     plane a set and f32 X, rounded once into a bf16 tile as it is split
-//     (one product a 16-deep step); on bf16 X (XB) the landed X tile is
-//     read as it is, with no split. ROT = BF16X3 in plain mode is delta
-//     bf16x3's kernel with one W set. Each of them keeps the fresh
-//     accumulator per 16-deep step. The workspace follows CT: one bf16
-//     plane an operand (contract_kernel<BF16>, as plain bf16's launch B),
-//     hi / lo at BF16X3, f32 at F32.
+//   * Launch A, delta f32 and delta bf16x3 on f32 X (rotate_wgmma_kernel<F32 /
+//     BF16X3>; the pairs of the f32 fit's and the staged fit's last two
+//     stages): launch A of streaming_fused_sums in delta mode, built on
+//     Hopper's own instructions. Its bound at 256 x 2M: 12 N^2 T bf16
+//     products at F32 and 6 N^2 T at BF16X3 (3.18 and 1.59 ms on the
+//     tensor cores), X's 2 GB read once (0.61 ms), the workspace's 4.1 GB
+//     written once (1.22 ms). What held the mma.sync kernel that ran these
+//     pairs before (rotate_split_kernel, PERF.md §6 PR 20): W's planes
+//     streamed again through the ring for every 64-column tile (six bf16
+//     planes at F32: 24.6 KB of W for each 4 KB of X), every thread
+//     copying and splitting between two block barriers a 16-deep step,
+//     one stage in flight, spills at two accumulator sets. The design:
+//     one block of 384 threads an SM and a 128 x 128 tile (twice the
+//     columns per byte of W). Warpgroup 0 produces: one thread keeps a
+//     ring of 16-deep stages in flight with bulk copies (cp.async.bulk,
+//     completing on the stage's mbarrier): W's parts in one copy, the
+//     caller having laid them out as the kernel reads them
+//     (ops/kernels.py _wgmma_weights), and X's 16 f32 rows of the tile,
+//     each as the 16-byte aligned span around it (at a ragged t, as the
+//     MEG's 1,000,003, up to 3 columns of the rows beside it at each
+//     end); three warps split each landed f32 stage once into its bf16
+//     part tiles (hi / mid / lo at F32, hi / lo at BF16X3) in wgmma's
+//     K-major layout, zero past n and t. Warpgroups 1 and 2
+//     consume, 64 W rows each: per step and set (Y_old, dY) a chain of
+//     wgmma.mma_async m64n128k16 with both operands in shared memory,
+//     six products at F32 (mma_tier<F32>'s order, small first, hi*hi
+//     last) and three at BF16X3, starts in a fresh accumulator (scale-d =
+//     0) and is added to the set's f32 sum, to nearest, as the mma.sync
+//     kernels' fresh sums; the two warpgroups' chains interleave on the
+//     tensor cores, so one adds while the other's chain runs. Each stage
+//     goes back to the producer through a second mbarrier; no block
+//     barrier is passed in the loop. setmaxnreg gives the consumers 232
+//     registers (Y_old, dY and the fresh sum are 192 a thread) and the
+//     producer 40. The density, the row sums (f64 in shared memory, once
+//     a tile) and the workspace stores follow each tile in the consumers:
+//     a quarter of the tile at a time is parked in shared memory and run
+//     through one rolled copy of the density's code (fully unrolled, the
+//     tanh epilogue took 12 ms); f32 planes go out as 8-byte column pairs,
+//     whole 32-byte sectors; bf16x3's hi / lo planes are staged through
+//     shared memory into 16-byte stores, two lanes a sector (4-byte stores
+//     of half sectors cost 2 ms). What holds it now (PERF.md §6 PR 20):
+//     not the copies (dropping W's or X's bytes saves nothing), but each
+//     chain's wait and f32 add, the split, and the density, which runs in
+//     both consumers at once and so is not hidden behind products.
+//   * Launch A, the split pairs (rotate_split_kernel<MODE, ROT, CT, XB>:
+//     plain f32, delta and plain bf16 and plain bf16x3 on f32 X, the bf16
+//     X pairs but plain bf16): the plain mode's walk with SETS accumulator
+//     sets a warp (two in delta mode, Y_old and dY). The caller passes each
+//     weight matrix split into its P zero-padded bf16 planes; each landed
+//     KC-row f32 X stage is split once, all threads together, into P bf16
+//     part tiles in shared memory that every warp reads with
+//     ldmatrix.trans (a landed bf16 tile, XB, is read as it is). The
+//     tensor cores round each MMA's sum toward zero, and the rotation's K
+//     runs up to 1344 deep, so each 16-deep k step is summed in a fresh
+//     accumulator (P (P + 1) / 2 MMAs) and added to its set in f32, to
+//     nearest. The ring holds two KC = 32-deep stages; the row sums go to
+//     shared memory once per tile, in f64. Plain f32 takes M_new's three
+//     planes, not delta mode with M_old = 0, which would double the
+//     products and give the delta density's dll, and the plain
+//     score_der_loglik. The workspace follows CT: one bf16 plane an
+//     operand (contract_kernel<BF16>, as plain bf16's launch B), hi / lo
+//     at BF16X3, f32 at F32.
 //   * Loglik (picard_streaming_loglik_tc): launch A alone, in MODE_LOGLIK,
 //     rotate_density_kernel on bf16 X and rotate_split_kernel<MODE_LOGLIK, F32, F32> (one
 //     set) on f32 X: log_lik on the fragments, the two row sums kept as
@@ -155,6 +174,7 @@
 #include <cstdint>
 
 #include "density.cuh"
+#include "hopper_async.cuh"
 #include "mma_tiers.cuh"
 
 namespace {
@@ -192,6 +212,18 @@ constexpr int BLOCKS = 2;                // blocks an SM, in every launch
 constexpr int SM_SMEM = 233472;          // shared memory of an SM for its blocks
 constexpr int BLOCK_RESERVED = 1024;     // kept by the system per block
 
+// The parts of rotate_wgmma_kernel that a timing build switches off, one
+// bit each, to split its time (port_turns.py --parts adds
+// -DPICARD_A_SKIP=bits to its own builds' flags): 1 the products, 2 the
+// density (Y itself stands in for psi, psi' and the log-lik terms), 4 the
+// workspace stores. The port's build sets none: the outputs are wrong
+// with any bit set.
+#ifndef PICARD_A_SKIP
+#define PICARD_A_SKIP 0
+#endif
+constexpr int SKIP_PRODUCTS = PICARD_A_SKIP & 1, SKIP_DENSITY = PICARD_A_SKIP & 2,
+              SKIP_STORES = PICARD_A_SKIP & 4;
+
 // What launch A computes from Y: the plain mode's density, row sums and
 // workspace; the delta mode's (two accumulator sets, Y_old and dY); or
 // the log-lik row sums alone (kernel 9: no workspace).
@@ -205,16 +237,14 @@ enum AMode { MODE_PLAIN = 0, MODE_DELTA = 1, MODE_LOGLIK = 2 };
 // with XB); each landed f32 X tile is split into P bf16 [k][column] part
 // tiles (stride LDN), a landed bf16 one is read as it is. Then the row
 // sums (4 sums x A_WC warps x TILE rows) in f64, added to once a tile, so
-// the group's sums carry no error of their order. At bf16x3 the layout
-// fills the 115,712 bytes a block may take at two blocks an SM; the six W
-// planes of delta f32 take 16-deep stages, every other set of planes
-// 32-deep ones.
+// the group's sums carry no error of their order. Every pair's layout
+// stays under the 115,712 bytes a block may take at two blocks an SM.
 constexpr int D_STAGES = 2;
 constexpr int LDX = A_BT;  // row stride (floats) of the f32 X stage tile
 template <int ROT, int SETS, bool XB>
 struct DCfg {
   static constexpr int P = parts(ROT);
-  static constexpr int KC = ROT == F32 && SETS == 2 ? 16 : 32;
+  static constexpr int KC = 32;
   static constexpr int LDK = KC + 8;
   static constexpr int W_PLANE = TILE * LDK;             // elements
   static constexpr int W_BYTES = SETS * P * W_PLANE * 2;
@@ -778,6 +808,395 @@ __global__ void __launch_bounds__(THREADS, BLOCKS) rotate_split_kernel(DParams p
   }
 }
 
+// Launch A of the delta pairs on f32 X at ROT = CT = F32 or BF16X3
+// (rotate_wgmma_kernel): warp specialised on Hopper's own instructions.
+// Warpgroup 0 produces: its warp 0 (one lane) fills a ring of STAGES
+// (GCfg) with bulk copies, each stage a 16-deep k step: the 2 P W parts of the
+// block's 128 rows (laid out by the caller as wgmma reads them, one copy)
+// and of the 16 f32 rows of the 128-column X tile each row's 16-byte
+// aligned span (x_span; the row itself at t % 4 == 0), completing on the stage's
+// `full` barrier; its warps 1-3 split each landed f32 X stage once into
+// its P bf16 part tiles (K-major, as wgmma reads B), zero past n and t,
+// and arrive on `ready`. Warpgroups 1 and 2 consume, 64 W rows each, the
+// same X tile: per step and set (Y_old, dY) the step's chain of P (P + 1)
+// / 2 wgmma m64n128k16 starts in a fresh accumulator and is added to
+// the set's f32 sum, to nearest; then each consumer warp arrives on the
+// stage's `empty` barrier, which the producer waits on before it fills
+// the stage again. While one consumer warpgroup adds its fresh sum, the
+// other's chain runs on the tensor cores. The producer gives its
+// registers to the consumers (setmaxnreg 40 / 232): the consumers hold
+// Y_old, dY and the fresh sum, 192 f32 a thread. After a tile's last step
+// each consumer runs the density, the row sums and the workspace stores
+// of its 64 x 128 share (below). Both consumers wait on the same stages
+// and so reach their epilogues together: no products run meanwhile (the
+// epilogue is not overlapped with the next tile's products); only the
+// producer's copies and splits go on, as far as the ring lets them.
+constexpr int G_BN = 128;         // columns of an X tile
+constexpr int G_KS = 16;          // k depth of a stage (one wgmma)
+constexpr int G_THREADS = 384;    // the producer's and two consumers' warpgroups
+constexpr int G_CONSUMERS = 256;
+constexpr int G_TILE_BYTES = 128 * G_KS * 2;  // one 128-row (column) part tile
+constexpr int G_PRODUCER_REGS = 40, G_CONSUMER_REGS = 232;
+constexpr int OUT_LD = 24;  // row stride (bf16) of the staged output tile: no bank conflicts
+constexpr int G_XS = G_BN + 4;  // row slot (f32) of a stage's f32 X rows: a span's most floats
+
+// Row r of a stage's f32 X where its rows are not 16-byte aligned (not
+// d.vec), its `cols` columns from `a` on, in X's 16-byte aligned bytes
+// [x_lo, x_hi): the bulk copy takes the 16-byte aligned span around the
+// row's columns, kept inside X, into the row's slot (from a - d on);
+// column c lands at float c + d of the slot if 0 <= c + d < len ({d,
+// len}, kept in the stage for the split), else (the head of X's first row
+// if X is not 16-byte aligned, the tail of its last) the split reads it
+// from global memory. With d.vec each row is copied as it is.
+__device__ __forceinline__ int2 x_span(const float* a, int cols, std::uintptr_t x_lo,
+                                       std::uintptr_t x_hi) {
+  const std::uintptr_t at = reinterpret_cast<std::uintptr_t>(a);
+  std::uintptr_t l = at & ~std::uintptr_t(15), h = (at + 4u * cols + 15u) & ~std::uintptr_t(15);
+  l = l < x_lo ? x_lo : l;
+  h = h > x_hi ? x_hi : h;
+  const int len = cols > 0 && h > l ? (int)((h - l) >> 2) : 0;
+  return make_int2((int)(((long long)at - (long long)l) >> 2), len);
+}
+static_assert(G_BN == TILE, "the tile is a group's column multiple and W's row block");
+static_assert(G_PRODUCER_REGS * 128 + G_CONSUMER_REGS * G_CONSUMERS <= 65536, "an SM's registers");
+
+// The wgmma launch's shared memory: STAGES stages of [the 2 P W part
+// tiles][the P X part tiles][the f32 X rows, 16 x G_XS][their 16 {d, len}
+// (x_span)], then the consumers' epilogue slots (32 floats a thread), at
+// BF16X3 their staged
+// output tiles, the row sums (4 sums x TILE rows, f64) and the full /
+// ready / empty barriers. STAGES: as deep as the 227 KB allow; three
+// stages measured within 0.5 ms of four or five at 256 x 2M (PERF.md §6).
+template <int ROT>
+struct GCfg {
+  static constexpr int P = parts(ROT);
+  static constexpr int STAGES = ROT == F32 ? 4 : 5;
+  static constexpr int W_BYTES = 2 * P * G_TILE_BYTES;
+  static constexpr int XP = W_BYTES;                    // the X part tiles
+  static constexpr int XF = XP + P * G_TILE_BYTES;      // the f32 X rows
+  static constexpr int XM = XF + G_KS * G_XS * 4;       // the rows' {d, len}
+  static constexpr int STAGE = XM + G_KS * 8;
+  static constexpr int EPI = STAGES * STAGE;
+  // At BF16X3 the psi and Y hi / lo planes of a warp's 16 rows x 16
+  // columns go out through OUT (rows OUT_LD bf16 apart) as whole 32-byte
+  // sectors; 4-byte stores of column pairs wrote half sectors.
+  static constexpr int OUT = EPI + 32 * G_CONSUMERS * 4;
+  static constexpr int OUT_WARP = ROT == BF16X3 ? 4 * 16 * OUT_LD * 2 : 0;  // bytes
+  static constexpr int RED = OUT + 8 * OUT_WARP;
+  static constexpr int BAR = RED + 4 * TILE * 8;
+  static constexpr int BYTES = BAR + 3 * STAGES * 8;
+  static_assert(BYTES + BLOCK_RESERVED <= SM_SMEM, "one block fits an SM");
+};
+
+// A consumer thread's values of quarter QT of its tile's columns (the
+// fragment's n8 blocks 4 QT .. 4 QT + 3) into its 32 slots of `epi`
+// (slot j of consumer thread t at j * G_CONSUMERS + t): Y_old's 16, then
+// dY's.
+template <int QT>
+__device__ __forceinline__ void park(const float (&acc)[2][64], float* epi, int ct) {
+#pragma unroll
+  for (int set = 0; set < 2; ++set)
+#pragma unroll
+    for (int j = 0; j < 16; ++j) epi[(16 * set + j) * G_CONSUMERS + ct] = acc[set][16 * QT + j];
+}
+
+template <int ROT, int D, bool NEED_H>
+__global__ void __launch_bounds__(G_THREADS, 1) rotate_wgmma_kernel(DParams p) {
+  using C = GCfg<ROT>;
+  constexpr int P = C::P, ST = C::STAGES;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* epi = reinterpret_cast<float*>(smem + C::EPI);
+  __nv_bfloat16* outs = reinterpret_cast<__nv_bfloat16*>(smem + C::OUT);
+  double* red = reinterpret_cast<double*>(smem + C::RED);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + C::BAR);
+  uint64_t* ready = full + ST;
+  uint64_t* empty = ready + ST;
+
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int grp = p.g0 + blockIdx.y;
+  const long long col0 = (long long)grp * p.cols;
+  const long long ws0 = (long long)blockIdx.y * p.cols;
+  const int n_ks = p.n_kc, n_tiles = p.cols / G_BN, total = n_tiles * n_ks;
+
+  for (int u = tid; u < 4 * TILE; u += G_THREADS) red[u] = 0.0;
+  if (tid == 0) {
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&ready[s], 3);
+      mbar_init(&empty[s], 8);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (tid < 128) {
+    // ---- the producer warpgroup ----
+    regs_dec<G_PRODUCER_REGS>();
+    if (tid == 0) {
+      // The copies: stage `it` % ST holds step it % n_ks of tile it / n_ks.
+      const __nv_bfloat16* w =
+          p.w + (long long)blockIdx.x * n_ks * (C::W_BYTES / 2);  // this row block's steps
+      const float* x = static_cast<const float*>(p.x);
+      const std::uintptr_t xb = reinterpret_cast<std::uintptr_t>(x);
+      const std::uintptr_t x_lo = (xb + 15u) & ~std::uintptr_t(15);
+      const std::uintptr_t x_hi = (xb + 4ull * p.n * p.t) & ~std::uintptr_t(15);
+      for (int it = 0; it < total; ++it) {
+        const int s = it % ST, tile = it / n_ks, k0 = (it % n_ks) * G_KS;
+        if (it >= ST) mbar_wait(&empty[s], (it / ST - 1) & 1);
+        unsigned char* st = smem + s * C::STAGE;
+        int2* spans = reinterpret_cast<int2*>(st + C::XM);
+        const long long c0 = col0 + (long long)tile * G_BN;
+        const int rows = min(G_KS, p.n - k0);
+        const long long left = p.t - c0;
+        const int cols = left <= 0 ? 0 : left < G_BN ? (int)left : G_BN;
+        const float* x0 = x + (long long)k0 * p.t + c0;
+        unsigned bytes = C::W_BYTES;
+        if (p.vec) {
+          bytes += rows * cols * 4;
+        } else {
+          for (int r = 0; r < rows; ++r) {
+            const int2 span = x_span(x0 + (long long)r * p.t, cols, x_lo, x_hi);
+            spans[r] = span;
+            bytes += span.y * 4;
+          }
+        }
+        mbar_arrive_expect_tx(&full[s], bytes);  // releases the spans to the split
+        bulk_load(st, w + (long long)(it % n_ks) * (C::W_BYTES / 2), C::W_BYTES, &full[s]);
+        for (int r = 0; r < rows; ++r) {
+          const int2 span = p.vec ? make_int2(0, cols) : spans[r];
+          if (span.y > 0)
+            bulk_load(st + C::XF + r * G_XS * 4, x0 + (long long)r * p.t - span.x, span.y * 4,
+                      &full[s]);
+        }
+      }
+    } else if (tid >= 32) {
+      // The split: (column, 8-deep half of k) units, each 8 f32 values
+      // into P 16-byte rows of the part tiles' core matrices.
+      const float* x = static_cast<const float*>(p.x);
+      for (int it = 0; it < total; ++it) {
+        const int s = it % ST, tile = it / n_ks, k0 = (it % n_ks) * G_KS;
+        mbar_wait(&full[s], (it / ST) & 1);
+        unsigned char* st = smem + s * C::STAGE;
+        const float* xf = reinterpret_cast<const float*>(st + C::XF);
+        const int2* spans = reinterpret_cast<const int2*>(st + C::XM);
+        const long long c0 = col0 + (long long)tile * G_BN;
+        const long long left = p.t - c0;
+        const int cols = left <= 0 ? 0 : left < G_BN ? (int)left : G_BN;
+        for (int u = tid - 32; u < 2 * G_BN; u += 96) {
+          const int col = u % G_BN, kh = u / G_BN;
+          uint32_t packed[P][4];
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            float v[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int k = 8 * kh + 2 * j + e;
+              v[e] = 0.f;
+              if (col < cols && k0 + k < p.n) {
+                if (p.vec) {
+                  v[e] = xf[k * G_XS + col];
+                } else {
+                  const int2 span = spans[k];
+                  const int c = col + span.x;
+                  v[e] = (unsigned)c < (unsigned)span.y
+                             ? xf[k * G_XS + c]
+                             : __ldg(x + (long long)(k0 + k) * p.t + c0 + col);
+                }
+              }
+            }
+            uint32_t pair[P];
+            split_parts<ROT>(v[0], v[1], pair);
+#pragma unroll
+            for (int part = 0; part < P; ++part) packed[part][j] = pair[part];
+          }
+#pragma unroll
+          for (int part = 0; part < P; ++part)
+            *reinterpret_cast<uint4*>(st + C::XP + part * G_TILE_BYTES + (col / 8) * CORE_SBO +
+                                      kh * CORE_LBO + (col % 8) * 16) =
+                make_uint4(packed[part][0], packed[part][1], packed[part][2], packed[part][3]);
+        }
+        fence_async_shared();  // the part tiles, before wgmma reads them
+        __syncwarp();
+        if (lane == 0) mbar_arrive(&ready[s]);
+      }
+    }
+    return;
+  }
+
+  // ---- the consumer warpgroups: cg owns rows 64 cg .. 64 cg + 63 ----
+  regs_inc<G_CONSUMER_REGS>();
+  const int ct = tid - 128, cg = ct / 128, warp = (ct % 128) / 32;
+  const int wo = (ct / 32) * (C::OUT_WARP / 2);  // the warp's staged output tile
+  const int g = lane >> 2, q = lane & 3;
+  const int row0 = blockIdx.x * TILE;
+  float acc[2][64];  // Y_old, dY
+  float fr[64] = {};  // a step's fresh sum
+  for (int tile = 0; tile < n_tiles; ++tile) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[0][i] = acc[1][i] = 0.f;
+    for (int ks = 0; ks < n_ks; ++ks) {
+      const int it = tile * n_ks + ks, s = it % ST;
+      mbar_wait(&full[s], (it / ST) & 1);
+      mbar_wait(&ready[s], (it / ST) & 1);
+      const unsigned char* st = smem + s * C::STAGE;
+      if constexpr (!SKIP_PRODUCTS) {
+#pragma unroll
+        for (int set = 0; set < 2; ++set) {
+          // part (a, b) of W's rows and of X: A at set's plane a, rows 64 cg.
+          auto a = [&](int part) {
+            return core_desc(st + (set * P + part) * G_TILE_BYTES + cg * (G_TILE_BYTES / 2));
+          };
+          auto b = [&](int part) { return core_desc(st + C::XP + part * G_TILE_BYTES); };
+          wgmma_fence();
+          if constexpr (ROT == F32) {  // mma_tier<F32>'s order: small first, hi*hi last
+            wgmma_m64n128k16(fr, a(2), b(0), true);
+            wgmma_m64n128k16(fr, a(1), b(1), false);
+            wgmma_m64n128k16(fr, a(0), b(2), false);
+            wgmma_m64n128k16(fr, a(1), b(0), false);
+            wgmma_m64n128k16(fr, a(0), b(1), false);
+            wgmma_m64n128k16(fr, a(0), b(0), false);
+          } else {  // mma_tier<BF16X3>'s: hi*hi, lo*hi, hi*lo
+            wgmma_m64n128k16(fr, a(0), b(0), true);
+            wgmma_m64n128k16(fr, a(1), b(0), false);
+            wgmma_m64n128k16(fr, a(0), b(1), false);
+          }
+          wgmma_commit();
+          wgmma_wait_all();
+          fence_regs(fr);
+#pragma unroll
+          for (int i = 0; i < 64; ++i) acc[set][i] += fr[i];
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+    }
+
+    // The tile is done. A quarter of its columns at a time, each thread
+    // parks the quarter's Y_old and dY values in its own slots of shared
+    // memory and runs the density, the row sums and the workspace stores
+    // over them in a rolled loop, four values at a time: one copy of the
+    // density's code, not one for each of the 64 (unrolled, the tanh
+    // density's code ran from an instruction cache it did not fit).
+    const long long c0 = col0 + (long long)tile * G_BN;
+    const long long wcol = ws0 + (long long)tile * G_BN;
+    const long long left = p.t - c0;  // the tile's columns before t
+    const int cols_in = left <= 0 ? 0 : left < G_BN ? (int)left : G_BN;
+    float sums[2][4] = {};  // rows g and g + 8: dll, pm, dysq, ysq
+#pragma unroll 1
+    for (int qt = 0; qt < 4; ++qt) {
+      switch (qt) {
+        case 0: park<0>(acc, epi, ct); break;
+        case 1: park<1>(acc, epi, ct); break;
+        case 2: park<2>(acc, epi, ct); break;
+        default: park<3>(acc, epi, ct); break;
+      }
+#pragma unroll 1
+      for (int il = 0; il < 4; ++il) {
+        const int cl = 32 * qt + 8 * il + 2 * q;
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int row = row0 + 64 * cg + 16 * warp + g + 8 * h;
+          float yv[2], ps[2], pd[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int j = 4 * il + 2 * h + e;
+            const float y_old = epi[j * G_CONSUMERS + ct], dy = epi[(16 + j) * G_CONSUMERS + ct];
+            float psi = y_old, psid = dy, dll = y_old;
+            if constexpr (!SKIP_DENSITY) score_der_loglik_delta<D>(p, y_old, dy, psi, psid, dll);
+            const float y = y_old + dy;
+            const bool valid = row < p.n && cl + e < cols_in;
+            if (valid) {  // dysq and ysq summed always, written with need_ysq
+              sums[h][0] += dll;
+              sums[h][1] += psid;
+              sums[h][2] += (2.f * y_old + dy) * dy;
+              sums[h][3] += y * y;
+            }
+            if constexpr (!SKIP_DENSITY)
+              score_der<D>(p, y, psi, psid);  // the contraction's psi, psi' of the f32 Y
+            yv[e] = y;  // 0 at padded rows and columns
+            ps[e] = psi;
+            pd[e] = valid ? psid : 0.f;
+          }
+          const long long off = (long long)row * p.ws_cols + wcol + cl;
+          if constexpr (SKIP_STORES) {
+            // no workspace
+          } else if constexpr (ROT == F32) {
+            *reinterpret_cast<float2*>(p.wsf[0] + off) = make_float2(ps[0], ps[1]);
+            *reinterpret_cast<float2*>(p.wsf[1] + off) = make_float2(yv[0], yv[1]);
+            if (NEED_H) {
+              *reinterpret_cast<float2*>(p.wsf[2] + off) = make_float2(pd[0], pd[1]);
+              *reinterpret_cast<float2*>(p.wsf[3] + off) =
+                  make_float2(yv[0] * yv[0], yv[1] * yv[1]);
+            }
+          } else {
+            // psi and Y into the warp's staged tile (plane, row, column of
+            // the il pair), psi' and Y^2 straight out.
+            __nv_bfloat16* o = outs + wo + (g + 8 * h) * OUT_LD + 8 * (il & 1) + 2 * q;
+            uint32_t v[4];
+            split_pair(ps[0], ps[1], v[0], v[1]);
+            split_pair(yv[0], yv[1], v[2], v[3]);
+#pragma unroll
+            for (int k = 0; k < 4; ++k) *reinterpret_cast<uint32_t*>(o + k * 16 * OUT_LD) = v[k];
+            if (NEED_H) {
+              uint32_t hi, lo;
+              split_pair(pd[0], pd[1], hi, lo);
+              *reinterpret_cast<uint32_t*>(p.ws[4] + off) = hi;
+              *reinterpret_cast<uint32_t*>(p.ws[5] + off) = lo;
+              split_pair(yv[0] * yv[0], yv[1] * yv[1], hi, lo);
+              *reinterpret_cast<uint32_t*>(p.ws[6] + off) = hi;
+              *reinterpret_cast<uint32_t*>(p.ws[7] + off) = lo;
+            }
+          }
+        }
+        if constexpr (ROT == BF16X3 && !SKIP_STORES) {
+          if (il & 1) {
+            // The il pair's 16 columns of the warp's 16 rows, four planes:
+            // 16 bytes a lane, two lanes a row's 32-byte sector.
+            __syncwarp();
+            const long long col = wcol + 32 * qt + 16 * (il >> 1);
+#pragma unroll
+            for (int k = 0; k < 4; ++k) {
+              const int c = lane + 32 * k, r = (c & 31) >> 1, half = c & 1;
+              const uint4 v = *reinterpret_cast<const uint4*>(outs + wo + (k * 16 + r) * OUT_LD +
+                                                              8 * half);
+              *reinterpret_cast<uint4*>(p.ws[k] + (long long)(row0 + 64 * cg + 16 * warp + r) *
+                                                      p.ws_cols + col + 8 * half) = v;
+            }
+            __syncwarp();
+          }
+        }
+      }
+    }
+    // The quad's lanes, then the row's one slot: each row has one writer.
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        sums[h][k] += __shfl_xor_sync(0xffffffffu, sums[h][k], 1);
+        sums[h][k] += __shfl_xor_sync(0xffffffffu, sums[h][k], 2);
+      }
+      if (q == 0) {
+        const int rl = 64 * cg + 16 * warp + g + 8 * h;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) red[k * TILE + rl] += sums[h][k];
+      }
+    }
+  }
+
+  // The group's row partials, rounded once.
+  named_sync<G_CONSUMERS>();
+  const int row = row0 + ct;
+  if (ct < TILE && row < p.n) {
+    const long long o = (long long)grp * p.stride + row;
+    p.ll[o] = (float)red[ct];
+    p.pm[o] = (float)red[TILE + ct];
+    if (p.need_ysq) {
+      p.dysq[o] = (float)red[2 * TILE + ct];
+      p.ysq[o] = (float)red[3 * TILE + ct];
+    }
+  }
+}
+
 template <int TIER>
 __global__ void __launch_bounds__(THREADS, BLOCKS) contract_kernel(BParams p) {
   using C = BCfg<TIER>;
@@ -926,12 +1345,13 @@ __global__ void __launch_bounds__(THREADS, BLOCKS) contract_kernel(BParams p) {
 }
 
 template <class Kernel, class Params>
-cudaError_t launch(Kernel kernel, int smem, dim3 grid, const Params& p, cudaStream_t st) {
+cudaError_t launch(Kernel kernel, int smem, dim3 grid, const Params& p, cudaStream_t st,
+                   int threads = THREADS) {
   // Above 48 KB dynamic shared memory must be opted into; a refused
   // launch never runs and only cudaGetLastError reports it.
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
-  kernel<<<grid, THREADS, smem, st>>>(p);
+  kernel<<<grid, threads, smem, st>>>(p);
   return cudaGetLastError();
 }
 
@@ -961,6 +1381,32 @@ cudaError_t launch_d(int dens, dim3 grid, const DParams& p, cudaStream_t st) {
   return cudaErrorInvalidValue;
 }
 
+template <int ROT, bool NEED_H>
+cudaError_t launch_g(int dens, dim3 grid, const DParams& p, cudaStream_t st) {
+  constexpr int BYTES = GCfg<ROT>::BYTES;
+  DParams q = p;
+  q.n_kc = (p.n + G_KS - 1) / G_KS;
+  switch (dens) {
+    case TANH:
+      return launch(rotate_wgmma_kernel<ROT, TANH, NEED_H>, BYTES, grid, q, st, G_THREADS);
+    case EXP:
+      return launch(rotate_wgmma_kernel<ROT, EXP, NEED_H>, BYTES, grid, q, st, G_THREADS);
+    case CUBE:
+      return launch(rotate_wgmma_kernel<ROT, CUBE, NEED_H>, BYTES, grid, q, st, G_THREADS);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// The wgmma launch A then B for one chunk, delta mode at ROT = CT on f32 X.
+template <int ROT>
+cudaError_t launch_wgmma_split(int dens, bool need_h, dim3 grid_a, const DParams& d,
+                               dim3 grid_b, const BParams& b, cudaStream_t st) {
+  cudaError_t e = need_h ? launch_g<ROT, true>(dens, grid_a, d, st)
+                         : launch_g<ROT, false>(dens, grid_a, d, st);
+  if (e != cudaSuccess) return e;
+  return launch(contract_kernel<ROT>, BCfg<ROT>::BYTES, grid_b, b, st);
+}
+
 // Split launch A then B for one chunk, in MODE (delta or plain) at the
 // rotation tier ROT and the contraction tier CT, on f32 or (XB) bf16 X.
 template <int MODE, int ROT, int CT, bool XB>
@@ -970,6 +1416,16 @@ cudaError_t launch_split(int dens, bool need_h, dim3 grid_a, const DParams& d, d
                          : launch_d<MODE, ROT, CT, XB, false>(dens, grid_a, d, st);
   if (e != cudaSuccess) return e;
   return launch(contract_kernel<CT>, BCfg<CT>::BYTES, grid_b, b, st);
+}
+
+// The pairs whose launch A is rotate_wgmma_kernel, their W laid out by
+// the caller as it reads it (ops/kernels.py _wgmma_weights): delta mode on
+// f32 X, rotation and contraction both at BF16X3 or both at F32.
+// split_pairs routes by it; picard_stream_wgmma_pair exports it, and
+// ops/kernels.py holds its own choice of W's layout to it when it loads
+// the library.
+constexpr bool wgmma_pair(bool delta, int rot, int ct, bool x_bf16) {
+  return delta && !x_bf16 && rot == ct && (rot == BF16X3 || rot == F32);
 }
 
 // The fused pass's pairs on the split launch, as rotated_fused_tc.cu's
@@ -984,10 +1440,16 @@ cudaError_t split_pairs(int rot, int ct, int x_bf16, int dens, bool need_h, dim3
   if (!x_bf16) {
     if (rot == BF16 && ct == BF16)
       return launch_split<MODE, BF16, BF16, false>(dens, need_h, grid_a, d, grid_b, b, st);
-    if (rot == BF16X3 && ct == BF16X3)
-      return launch_split<MODE, BF16X3, BF16X3, false>(dens, need_h, grid_a, d, grid_b, b, st);
-    if (rot == F32 && ct == F32)
-      return launch_split<MODE, F32, F32, false>(dens, need_h, grid_a, d, grid_b, b, st);
+    if constexpr (MODE == MODE_DELTA) {
+      if (wgmma_pair(true, rot, ct, false))
+        return rot == F32 ? launch_wgmma_split<F32>(dens, need_h, grid_a, d, grid_b, b, st)
+                          : launch_wgmma_split<BF16X3>(dens, need_h, grid_a, d, grid_b, b, st);
+    } else {
+      if (rot == BF16X3 && ct == BF16X3)
+        return launch_split<MODE, BF16X3, BF16X3, false>(dens, need_h, grid_a, d, grid_b, b, st);
+      if (rot == F32 && ct == F32)
+        return launch_split<MODE, F32, F32, false>(dens, need_h, grid_a, d, grid_b, b, st);
+    }
   } else if (rot == BF16) {
     if (ct == BF16X3)
       return launch_split<MODE, BF16, BF16X3, true>(dens, need_h, grid_a, d, grid_b, b, st);
@@ -1062,6 +1524,12 @@ int picard_stream_max_n() { return STREAM_MAX_N; }
 // tiles.
 int picard_stream_tc_tile() { return TILE; }
 int picard_stream_tc_kc() { return A_KC; }
+// The k depth of a step of the wgmma launch A (its W layout's k blocks).
+int picard_stream_wgmma_ks() { return G_KS; }
+// 1 if the pair's launch A is the wgmma kernel (wgmma_pair), else 0.
+int picard_stream_wgmma_pair(int delta, int rot_tier, int ct_tier, int x_bf16) {
+  return wgmma_pair(delta != 0, rot_tier, ct_tier, x_bf16 != 0);
+}
 
 // A line-search try of picard_streaming_fused_sums on the tensor cores:
 // delta = 1 (delta mode, with M_old and dM = M_new - M_old) or 0 (plain

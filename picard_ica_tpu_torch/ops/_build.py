@@ -28,7 +28,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = ("rotated_fused_tc.cu", "covariance_sums.cu", "streaming_fused_tc.cu")
-HEADERS = ("density.cuh", "mma_tiers.cuh")
+HEADERS = ("density.cuh", "mma_tiers.cuh", "hopper_async.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -61,6 +61,8 @@ _SIGNATURES = {
     "picard_stream_max_n": [],
     "picard_stream_tc_tile": [],
     "picard_stream_tc_kc": [],
+    "picard_stream_wgmma_ks": [],
+    "picard_stream_wgmma_pair": [_I, _I, _I, _I],
     "picard_streaming_fused_tc": [
         _I, _I, _I, _I, _I, _I, _I, _D, _I, _LL, _I, _I, _I,
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _P,

@@ -141,6 +141,12 @@ STREAM_LOGLIK_TILE = 128
 # W is zero-padded along k to a multiple of STREAM_TC_KC.
 STREAM_TC_TILE = 128
 STREAM_TC_KC = 64
+# The delta pairs on f32 X at the bf16x3 and f32 tiers (WGMMA_PAIRS) run
+# launch A on wgmma (csrc/streaming_fused_tc.cu rotate_wgmma_kernel, G_KS):
+# its W is zero-padded along k to a multiple of STREAM_TC_WGMMA_KS and laid
+# out in the order the kernel copies and reads it (_wgmma_weights).
+STREAM_TC_WGMMA_KS = 16
+WGMMA_PAIRS = ("bf16x3", "f32")
 # Columns per partial (group) of the route, at least: a group is the
 # contraction's K, so its (N, N) partial is written once per this many
 # columns.
@@ -554,9 +560,14 @@ def _lib():
             or lib.picard_cov_chunk() != COV_CHUNK
             or lib.picard_stream_max_n() != STREAM_MAX_N
             or lib.picard_stream_tc_tile() != STREAM_TC_TILE
-            or lib.picard_stream_tc_kc() != STREAM_TC_KC):
+            or lib.picard_stream_tc_kc() != STREAM_TC_KC
+            or lib.picard_stream_wgmma_ks() != STREAM_TC_WGMMA_KS
+            or any(bool(lib.picard_stream_wgmma_pair(d, _TIERS[r], _TIERS[c], xb))
+                   != _wgmma_pair(bool(d), r, c, bool(xb))
+                   for d in (0, 1) for r in _TIERS for c in _TIERS for xb in (0, 1))):
         raise RuntimeError("csrc/ and ops/kernels.py disagree on NMAX / "
-                           "COLS_PER_BLOCK / CHUNK / the streaming tiles")
+                           "COLS_PER_BLOCK / CHUNK / the streaming tiles / "
+                           "the wgmma pairs")
     return lib
 
 
@@ -795,6 +806,32 @@ def _tc_weights(planes, n: int, n_pad: int, device):
     return w
 
 
+def _wgmma_weights(planes, n: int, n_pad: int, device):
+    """The weights' bf16 planes for the wgmma launch A: zero-padded to
+    (n_pad, kp), kp a multiple of :data:`STREAM_TC_WGMMA_KS`, in the order
+    its ring copies them, (row block, k step, plane, 128 x 16 tile) with
+    each tile in wgmma's no-swizzle K-major layout (8 x 8 core matrices of
+    16-byte rows: element (r, k) of a tile at (r // 8) * 128 + (k // 8) *
+    64 + (r % 8) * 8 + k % 8), so that one stage's planes are one
+    contiguous copy."""
+    ks = STREAM_TC_WGMMA_KS
+    kp = _n_chunks(n, ks) * ks
+    w = torch.zeros((len(planes), n_pad, kp), dtype=torch.bfloat16, device=device)
+    for plane, v in zip(w, planes):
+        plane[:n, :n] = v  # bf16 values: the conversion is exact
+    tile = STREAM_TC_TILE
+    w = w.view(len(planes), n_pad // tile, tile // 8, 8, kp // ks, 2, ks // 2)
+    return w.permute(1, 4, 0, 2, 5, 3, 6).contiguous()
+
+
+def _wgmma_pair(delta: bool, rot: str, tier: str, x_bf16: bool) -> bool:
+    """Whether kernel 8's launch A at this pair is the wgmma kernel, whose
+    weights take :func:`_wgmma_weights`' layout: delta mode on f32 X, the
+    rotation and the contraction both at a tier of :data:`WGMMA_PAIRS`.
+    :func:`_lib` holds csrc's ``picard_stream_wgmma_pair`` to it."""
+    return delta and not x_bf16 and rot == tier and tier in WGMMA_PAIRS
+
+
 # A weight matrix's bf16 parts at each rotation tier: itself rounded, its
 # hi / lo split, its hi / mid / lo split.
 _PARTS = {"bf16": lambda m: [_bf16(m)], "bf16x3": _split_bf16, "f32": _split3_bf16}
@@ -807,7 +844,8 @@ def _streaming_fused_tc(m_new, m_old, x, density, need_h, need_ysq, precision, a
     mode, M_old's then dM = M_new - M_old's (in f32) in delta mode; one
     workspace of :func:`stream_tc_plan`'s size at the contraction tier;
     both launches per chunk in one C call; the packed partials folded as
-    the resident kernels'."""
+    the resident kernels'. The :data:`WGMMA_PAIRS` in delta mode on f32 X
+    take the planes in :func:`_wgmma_weights`' layout."""
     n, t = x.shape
     tier, rot = _tiers(x, precision)
     plan = stream_tc_plan(n, t, need_h, tier)
@@ -817,7 +855,9 @@ def _streaming_fused_tc(m_new, m_old, x, density, need_h, need_ysq, precision, a
     else:
         m_new, m_old = _mats(x, m_new, m_old)
         mats = [m_old, m_new - m_old]
-    w = _tc_weights([p for m in mats for p in _PARTS[rot](m)], n, plan.n_pad, x.device)
+    wgmma = _wgmma_pair(not absolute_ll, rot, tier, x.dtype == torch.bfloat16)
+    w = (_wgmma_weights if wgmma else _tc_weights)(
+        [p for m in mats for p in _PARTS[rot](m)], n, plan.n_pad, x.device)
     ws = torch.empty(plan.ws_bytes, dtype=torch.uint8, device=x.device)
 
     def launch(ptrs, stride):

@@ -18,7 +18,8 @@ after, before; each turn measures, with ``chip_smoke.py``'s helpers:
     with H and Y^2, and ``rotated_loglik_sums`` (kernel 3) on f32 X and
     on its bf16 copy, at 64 x 2,000,000, timed the same two ways;
   * ``streaming_fused_sums`` (``chip_smoke.py``'s unit-variance Laplace
-    inputs) at 256 x 2,000,000 and 1024 x 200,000 in the cases of a fit's
+    inputs) at 256 x 2,000,000, 1024 x 200,000 and 306 x 1,000,003 (the
+    MEG's channels, a ragged T) in the cases of a fit's
     passes, plain mode at the bf16 tier on bf16 X, delta mode at the
     bf16x3 and the f32 tier on f32 X, plain mode at the f32 tier on f32 X
     (the moments hand-off) and delta mode at the bf16 tier on f32 X (a
@@ -58,6 +59,19 @@ traces one tree's ``streaming_fused_sums`` calls of a fit's passes
 on f32 X) at both shapes, with the tanh and cube densities, in
 ``torch.profiler`` and prints each CUDA kernel's device ms a call (mean
 of 5 calls).
+
+    python3 port_turns.py --parts [TREE ...]
+
+splits launch A of kernel 8's delta pairs on f32 X (bf16x3 and f32) at
+256 x 2,000,000 into its parts. Each TREE (default: this checkout) is
+built four ways, all builds at once: as the port builds it, and with
+``-DPICARD_A_SKIP`` (``csrc/streaming_fused_tc.cu``) added to the build's
+``nvcc`` flags, switching off launch A's products, its density or its
+workspace stores. Each build times, in
+a process of its own, both pairs with the tanh and the cube density in
+``torch.profiler`` (5 calls after 3 warm-up calls) and prints launch A's
+and launch B's device ms a call; writes the rows to ``parts.json`` in
+``--out``'s directory.
 
     python3 port_turns.py --crossover [TREE]
 
@@ -134,8 +148,9 @@ CORE_CASES = [  # (label, wrapper, H and Y^2, bf16 X) of kernels 2 and 3
 ]
 RAGGED_F32_ROWS = (17, 63)
 # (N, T, seed of chip_smoke._stream_inputs) of the streaming fused
-# kernel's cases.
-STREAM_SHAPES = ((256, 2_000_000, 5), (1024, 200_000, 7))
+# kernel's cases: BASELINE config 5's width, the large-N exhibit's, and
+# the MEG's 306 channels at a ragged T (rows not 16-byte aligned).
+STREAM_SHAPES = ((256, 2_000_000, 5), (1024, 200_000, 7), (306, 1_000_003, 306))
 STREAM_CASES = [  # (label, precision, absolute_ll, bf16 X)
     ("plain bf16, bf16 X", "bf16", True, True),
     ("delta bf16x3", "bf16x3", False, False),
@@ -351,6 +366,93 @@ def profile(tree: str) -> dict:
         del xs, xs16, xx
         torch.cuda.empty_cache()
     return out
+
+
+# (label, PICARD_A_SKIP) of --parts' builds, and the pairs it splits.
+PARTS = (("whole", 0), ("no products", 1), ("no density", 2), ("no stores", 4))
+PARTS_CASES = (("delta bf16x3", "bf16x3"), ("delta f32", "f32"))
+
+
+def _part_flags(skip) -> tuple:
+    """The ``nvcc`` flags a ``--parts`` build adds to the port's."""
+    return (f"-DPICARD_A_SKIP={skip}",) if skip else ()
+
+
+def _add_part_flags(skip):
+    """Add a ``--parts`` build's flags to the imported tree's build, before
+    its library is built or loaded."""
+    from picard_ica_tpu_torch.ops import _build
+
+    _build.NVCC_FLAGS += _part_flags(skip)
+
+
+def parts_turn(tree: str) -> dict:
+    """One build's launch A and launch B device ms a call (``--parts``),
+    the kernels split by name: launch A's names hold ``rotate_``, launch
+    B's ``contract_kernel``."""
+    import torch
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as traced
+
+    sm = _smoke()
+    sm.phase0_env()
+    from picard_ica_tpu_torch.ops import kernels as K
+    from picard_ica_tpu_torch.ops.densities import Cube, Tanh
+
+    assert Path(K.__file__).resolve().is_relative_to(Path(tree).resolve()), K.__file__
+    n, t, seed = STREAM_SHAPES[0]
+    xs, ms_old, ms_new = sm._stream_inputs(n, t, seed)
+    out = {}
+    for case, precision in PARTS_CASES:
+        for density in (Tanh(), Cube()):
+            def call():
+                return K.streaming_fused_sums(ms_new, ms_old, xs, density, False, False,
+                                              precision, False)
+
+            for _ in range(3):
+                call()
+            torch.cuda.synchronize()
+            with traced(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(5):
+                    call()
+                torch.cuda.synchronize()
+            a = sum(e.device_time_total for e in prof.key_averages() if "rotate_" in e.key)
+            b = sum(e.device_time_total for e in prof.key_averages()
+                    if "contract_kernel" in e.key)
+            out[f"{case}, {type(density).__name__}"] = {"A_ms": a / 5e3, "B_ms": b / 5e3}
+    return out
+
+
+def parts(trees, out_dir: Path) -> list:
+    """``--parts``: every (tree, build) of :data:`PARTS` built at once,
+    then timed one process each."""
+    procs = [subprocess.Popen(
+        [sys.executable, "-c",
+         "import sys; sys.path.insert(0, sys.argv[1]); "
+         "from picard_ica_tpu_torch.ops import _build; "
+         "_build.NVCC_FLAGS += tuple(sys.argv[2:]); p, s = _build.build(); "
+         "print(sys.argv[1], p.name, round(s, 1), flush=True)", tree, *_part_flags(skip)])
+        for tree in trees for _, skip in PARTS]
+    if any(p.wait() != 0 for p in procs):
+        raise SystemExit("a build failed")
+    rows = []
+    for tree in trees:
+        for label, skip in PARTS:
+            env = dict(os.environ, PYTHONPATH=tree)
+            proc = subprocess.run([sys.executable, __file__, "--one-parts", tree,
+                                   "--skip", str(skip)], env=env, cwd=tree,
+                                  capture_output=True, text=True)
+            if proc.returncode != 0:
+                sys.stderr.write(proc.stderr[-4000:])
+                raise SystemExit(f"the {label} build of {tree} failed")
+            got = json.loads(proc.stdout.strip().splitlines()[-1])
+            for case, ms in got.items():
+                print(f"[{tree}] {label}: {case}: launch A {ms['A_ms']:.3f} ms, "
+                      f"launch B {ms['B_ms']:.3f} ms", flush=True)
+            rows.append({"tree": tree, "build": label, "skip": skip, "ms": got})
+    out_dir.mkdir(parents=True, exist_ok=True)
+    (out_dir / "parts.json").write_text(json.dumps(rows, indent=1))
+    return rows
 
 
 def _trace_iterations(core):
@@ -630,6 +732,10 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("trees", nargs="*")
     ap.add_argument("--one", help=argparse.SUPPRESS)
+    ap.add_argument("--one-parts", help=argparse.SUPPRESS)
+    ap.add_argument("--skip", type=int, default=0, help=argparse.SUPPRESS)
+    ap.add_argument("--parts", action="store_true",
+                    help="split launch A of kernel 8's delta pairs into its parts")
     ap.add_argument("--out", default=str(HERE / "chiprun_out" / "turns.json"))
     ap.add_argument("--staged-fit", action="store_true",
                     help="fit phase 5's data once at the default staged schedule")
@@ -655,6 +761,16 @@ def main(argv=None):
     ap.add_argument("--conformance", action="store_true",
                     help="the suite's five oracle-conformance cases against the port's oracle")
     args = ap.parse_args(argv)
+    if args.one_parts:
+        sys.path[:] = [args.one_parts] + [p for p in sys.path
+                                          if p and Path(p).resolve() != HERE]
+        _add_part_flags(args.skip)
+        print(json.dumps(parts_turn(args.one_parts)))
+        return 0
+    if args.parts:
+        trees = [str(Path(t).resolve()) for t in args.trees or [HERE]]
+        print(json.dumps(parts(trees, Path(args.out).parent)))
+        return 0
     if args.crossover or args.profile_fits or args.conformance:
         tree = str(Path(args.trees[0] if args.trees else HERE).resolve())
         sys.path[:] = [tree] + [p for p in sys.path if p and Path(p).resolve() != HERE]

@@ -21,10 +21,16 @@ surrounds it is held here:
     pairs, and against ``streaming_fused_sums_plain``. At f32 the
     emulation splits every operand three ways (hi / mid / lo) and sums the
     six products of each 16-deep step, small first and hi*hi last, before
-    adding the step to its f32 sum, as the kernels' fresh accumulators do;
+    adding the step to its f32 sum, as the kernels' fresh accumulators do.
+    The delta pairs on f32 X at bf16x3 and f32 model the wgmma launch A
+    (``rotate_wgmma_kernel``): at bf16x3 too each 16-deep step's hi*hi,
+    lo*hi, hi*lo form a fresh sum, and each row's sums run by 128-column
+    tiles, f32 within a tile and f64 across the group's tiles;
   * the wrapper's launch of every pair on tensors on the meta device (the
     C entry replaced by a recorder): the mode, both tiers, X's dtype, the
-    weights' planes and the plan;
+    weights' planes, their layout (the wgmma launch A's, for its pairs)
+    and the plan; the wgmma layout's place of every weight; and the
+    library's load holding its wgmma pairs to the wrapper's;
   * a torch emulation of the loglik kernel (the ``planes=False`` plan's
     groups, the rotation of either tier, the masked log-lik and Y^2 row
     sums per group, the groups folded pairwise) against the JAX package's
@@ -43,6 +49,8 @@ to bf16 after its rotation, so both its tiers are held to 2e-5 too
 version on the card by tests/test_torch_stream_tc_cuda.py and
 chip_smoke.py.
 """
+
+from types import SimpleNamespace
 
 import jax.numpy as jnp
 import numpy as np
@@ -115,6 +123,30 @@ def _x6_rotate(w_parts, x_parts):
     return out
 
 
+def _x3_rotate(w_parts, x_parts):
+    """W X at the bf16x3 tier as the wgmma launch A sums it: each 16-deep
+    k step's hi*hi, lo*hi, hi*lo in a fresh sum, the step added to the f32
+    result in order."""
+    out = 0.0
+    for s in range(0, x_parts[0].shape[0], STEP):
+        out = out + _x3([u[:, s:s + STEP] for u in w_parts], [u[s:s + STEP] for u in x_parts])
+    return out
+
+
+# The wgmma launch A's column tile: each row's sums over a tile are f32,
+# the tiles' sums are added in f64 and the group's rounded once.
+WGMMA_TILE = 128
+
+
+def _row_sums(v, s, tiled):
+    """Each row's sum of ``v`` over the columns ``s``: by the wgmma
+    launch A's tiles with ``tiled``, else in one f32 sum."""
+    if not tiled:
+        return v[:, s].sum(dim=1)
+    u = v[:, s]
+    return u.reshape(u.shape[0], -1, WGMMA_TILE).sum(dim=2).double().sum(dim=1).float()
+
+
 def _x6_contract(a, b):
     """a b^T at the f32 tier over a group's columns: a and b split three
     ways, the six products of each 16-column step (batched over the
@@ -136,12 +168,13 @@ def _x6_contract(a, b):
 PARTS = {"bf16": lambda v: (K._bf16(v),), "bf16x3": K._split_bf16, "f32": K._split3_bf16}
 
 
-def _rotate(w_parts, x_parts, rot):
-    """W X at the rotation tier from the parts of both."""
+def _rotate(w_parts, x_parts, rot, wgmma=False):
+    """W X at the rotation tier from the parts of both (at bf16x3 with
+    ``wgmma`` in fresh 16-deep steps)."""
     if rot == "f32":
         return _x6_rotate(w_parts, x_parts)
     if rot == "bf16x3":
-        return _x3(w_parts, x_parts)
+        return _x3_rotate(w_parts, x_parts) if wgmma else _x3(w_parts, x_parts)
     return w_parts[0] @ x_parts[0]  # bf16: products of bf16 values are exact in f32
 
 
@@ -163,10 +196,14 @@ def _emulate(m_new, x, density, need_h, need_ysq, m_old=None, tier=None):
     and Y (psi' and Y^2 with H) at the contraction tier: bf16, hi / lo at
     bf16x3, f32 at f32 (the contraction splits them three ways and sums
     each 16-column step's six products fresh). Zeros at padded rows and
-    columns, psi' masked there."""
+    columns, psi' masked there. The delta pairs on f32 X at bf16x3 and
+    f32 (``K.WGMMA_PAIRS``) run the wgmma launch A: the rotations in
+    fresh 16-deep steps at both tiers, the row sums by 128-column tiles
+    (:func:`_row_sums`)."""
     n, t = x.shape
     delta = m_old is not None
     tier, rot = K._tiers(x, tier or ("bf16x3" if delta else "bf16"))
+    wgmma = K._wgmma_pair(delta, rot, tier, x.dtype != torch.float32)
     plan = K.stream_tc_plan(n, t, need_h, tier)
     cols = plan.cols_per_group
     if delta:
@@ -185,8 +222,8 @@ def _emulate(m_new, x, density, need_h, need_ysq, m_old=None, tier=None):
         valid = live & (torch.arange(c0, c1) < t)[None]
         x_parts = PARTS[rot](xc)  # one split shared by both rotations
         if delta:
-            y_old = _rotate(w[0], x_parts, rot)
-            dy = _rotate(w[1], x_parts, rot)
+            y_old = _rotate(w[0], x_parts, rot, wgmma)
+            dy = _rotate(w[1], x_parts, rot, wgmma)
             y = y_old + dy
             _, pm_el, ll = density.score_der_loglik_delta(y_old, dy)
             dysq = (2.0 * y_old + dy) * dy
@@ -213,13 +250,13 @@ def _emulate(m_new, x, density, need_h, need_ysq, m_old=None, tier=None):
 
         for g in range(g1 - g0):
             s = slice(g * cols, (g + 1) * cols)
-            parts[0].append(ll[:n, s].sum(dim=1))
-            parts[1].append(dysq[:n, s].sum(dim=1))
+            parts[0].append(_row_sums(ll[:n], s, wgmma))
+            parts[1].append(_row_sums(dysq[:n], s, wgmma))
             parts[2].append(product(ops[0], ops[1], s))
-            parts[3].append(pm_el[:n, s].sum(dim=1))
+            parts[3].append(_row_sums(pm_el[:n], s, wgmma))
             if need_h:
                 parts[4].append(product(ops[2], ops[3], s))
-            parts[5].append((y[:n, s] * y[:n, s]).sum(dim=1))
+            parts[5].append(_row_sums(y[:n] * y[:n], s, wgmma))
     assert len(parts[0]) == plan.n_parts
     out = [fold_pairwise(torch.stack(p)) if p else torch.zeros((n, n)) for p in parts]
     if not need_ysq:
@@ -389,6 +426,66 @@ def test_emulated_f32_route_in_chunks(monkeypatch, need_h):
     chunked = _emulate(tm, tx, td.Cube(), need_h, True, m_old=to, tier="f32")
     _check(whole, chunked, 1e-6)
     _check(_jax_delta(m_new, m_old, x, "cube", need_h, True, "f32"), chunked, F32_TOL)
+
+
+@pytest.mark.parametrize("n,n_planes", [(65, 4), (130, 6), (306, 6)])
+def test_wgmma_weights_layout(n, n_planes):
+    """Each weight (plane, row r, column k) lands where the wgmma launch A
+    copies and reads it: row block r // 128's k step k // 16's stage, the
+    plane's 4,096-byte tile in it, and in the tile the no-swizzle K-major
+    core-matrix place (r % 128 // 8) * 128 + (k % 16 // 8) * 64 + (r % 8)
+    * 8 + k % 8; zeros past n in both."""
+    rng = np.random.default_rng(n)
+    planes = [K._bf16(torch.from_numpy(rng.standard_normal((n, n)).astype(np.float32)))
+              for _ in range(n_planes)]
+    n_pad, n_ks = -(-n // 128) * 128, -(-n // 16)
+    flat = K._wgmma_weights(planes, n, n_pad, "cpu").reshape(-1).float()
+    assert flat.numel() == n_planes * n_pad * n_ks * 16
+    m, r, k = torch.meshgrid(torch.arange(n_planes), torch.arange(n_pad),
+                             torch.arange(n_ks * 16), indexing="ij")
+    at = ((((r // 128) * n_ks + k // 16) * n_planes + m) * 2048 + (r % 128 // 8) * 128
+          + (k % 16 // 8) * 64 + (r % 8) * 8 + k % 8)
+    want = torch.zeros(n_planes, n_pad, n_ks * 16)
+    want[:, :n, :n] = torch.stack(planes)
+    assert torch.equal(flat[at], want)
+
+
+def _csrc_wgmma_pair(delta, rot, ct, x_bf16):
+    """csrc/streaming_fused_tc.cu's wgmma_pair over the C entries' tier
+    codes: delta mode on f32 X, both tiers bf16x3 or both f32."""
+    return int(bool(delta) and not x_bf16 and rot == ct
+               and rot in (K._TIERS["bf16x3"], K._TIERS["f32"]))
+
+
+@pytest.mark.parametrize("drift", [False, True])
+def test_lib_holds_the_wgmma_pairs(monkeypatch, drift):
+    """Loading the library holds its wgmma pairs
+    (``picard_stream_wgmma_pair``) to the wrapper's choice of the weights'
+    layout (``K._wgmma_pair``): a library on which one pair differs, here
+    plain f32 on f32 X, fails the load."""
+    from picard_ica_tpu_torch.ops import _build
+
+    consts = {"picard_max_n": K.KERNEL_MAX_N, "picard_cols_per_block": K.COLS_PER_BLOCK,
+              "picard_cov_chunk": K.COV_CHUNK, "picard_stream_max_n": K.STREAM_MAX_N,
+              "picard_stream_tc_tile": K.STREAM_TC_TILE, "picard_stream_tc_kc": K.STREAM_TC_KC,
+              "picard_stream_wgmma_ks": K.STREAM_TC_WGMMA_KS}
+
+    def pair(delta, rot, ct, x_bf16):
+        drifted = drift and not delta and rot == ct == K._TIERS["f32"] and not x_bf16
+        return int(drifted) or _csrc_wgmma_pair(delta, rot, ct, x_bf16)
+
+    lib = SimpleNamespace(**{k: (lambda v=v: v) for k, v in consts.items()},
+                          picard_stream_wgmma_pair=pair)
+    monkeypatch.setattr(_build, "load", lambda: lib)
+    K._lib.cache_clear()
+    try:
+        if drift:
+            with pytest.raises(RuntimeError, match="wgmma pairs"):
+                K._lib()
+        else:
+            assert K._lib() is lib
+    finally:
+        K._lib.cache_clear()
 
 
 def test_split3_is_exact():
@@ -739,15 +836,21 @@ def recorder(monkeypatch):
     rec = _Recorder()
     monkeypatch.setattr(K, "_lib", lambda: rec)
     monkeypatch.setattr(K, "_run", rec.run)
-    planes = []
-    real = K._tc_weights
+    planes, layouts = [], []
 
-    def spy(p, n, n_pad, device):
-        planes.append([v.to(torch.float32) for v in p])
-        return real(p, n, n_pad, device)
+    def spy(layout):
+        real = getattr(K, layout)
 
-    monkeypatch.setattr(K, "_tc_weights", spy)
-    rec.planes = planes
+        def weights(p, n, n_pad, device):
+            planes.append([v.to(torch.float32) for v in p])
+            w = real(p, n, n_pad, device)
+            layouts.append((layout, tuple(w.shape)))
+            return w
+        monkeypatch.setattr(K, layout, weights)
+
+    spy("_tc_weights")
+    spy("_wgmma_weights")
+    rec.planes, rec.layouts = planes, layouts
     return rec
 
 
@@ -829,6 +932,7 @@ def test_tc_route_takes_delta_f32_on_f32_x(recorder):
         tx = torch.from_numpy(x).to(torch.bfloat16 if bf16_x else torch.float32)
         recorder.calls.clear()
         recorder.planes.clear()
+        recorder.layouts.clear()
         K.reset_launch_counts()
         out = K.streaming_fused_sums(tm, to, _meta(tx), td.Tanh(), True, True, precision,
                                      absolute_ll)
@@ -839,6 +943,17 @@ def test_tc_route_takes_delta_f32_on_f32_x(recorder):
         assert args[:4] == (int(not absolute_ll), K._TIERS[rot], K._TIERS[ct], int(bf16_x))
         assert args[9:13] == (t, plan.cols_per_group, plan.n_parts, plan.groups_per_chunk)
         assert len(recorder.planes[0]) == n_planes
+        # the wgmma launch A's pairs take its layout: (row block, k step,
+        # plane, 16 row groups, 2 k halves, 8 x 8 core matrix)
+        wgmma = not absolute_ll and not bf16_x and ct in ("bf16x3", "f32")
+        assert K._wgmma_pair(not absolute_ll, rot, ct, bf16_x) == wgmma
+        (layout, shape), = recorder.layouts
+        if wgmma:
+            assert layout == "_wgmma_weights"
+            assert shape == (plan.n_pad // 128, -(-n // 16), n_planes, 16, 2, 8, 8)
+        else:
+            assert layout == "_tc_weights"
+            assert shape == (n_planes, plan.n_pad, -(-n // 64) * 64)
         assert K.streaming_fused_sums.launches == 1
         assert K.streaming_fused_sums.launches_by_tier[ct] == 1
         mode = "plain" if absolute_ll else "delta"
