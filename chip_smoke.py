@@ -15,7 +15,11 @@ prints no result line):
      the kernel also 10 calls back to back); the resident core kernels,
      all on the tensor cores (the fused pass's tiers, the moments on f32
      and bf16 X, the log-lik on f32 and bf16 X), also at ragged shapes
-     (N = 17 and 63, T = 1,000,003). An f32 case is held to an f64
+     (N = 17 and 63, T = 1,000,003). The fused pass's delta f32 and delta
+     bf16x3 cases without H (the main path's tries) must run on the
+     ``wgmma`` route (``csrc/rotated_fused_wgmma.cu``, its own row of the
+     ``kernels`` line), every other case on the ``mma.sync`` kernel
+     (``csrc/rotated_fused_tc.cu``). An f32 case is held to an f64
      evaluation of the same sums as well, and prints both errors against
      f64, the kernel's and the exact-f32 plain version's, beside the
      error against the plain version;
@@ -26,19 +30,27 @@ prints no result line):
      computes the same function (``x.sum(dim=1)``, ``torch.cov``,
      ``x @ x.T``; a yardstick the port never calls), and the fold of
      their partials on the card against ``fold_pairwise``, bit for bit;
-  3. fit a 64 x 2,000,000 mixed sub/super-Gaussian mixture (float64
+  3. first, on its own line, a 64 x 100,000 mixed mixture fitted on the
+     card at the default config with a density plugin (the ``Density``
+     protocol with tanh's formulas, which the kernels do not run): the
+     auto rule takes the torch path, no core kernel may launch, and the
+     unmixing must match the CPU torch path's (Amari < 1e-3); then fit a
+     64 x 2,000,000 mixed sub/super-Gaussian mixture (float64
      NumPy input, made from a seed: host-f64 whitening) with
      ``Picard.fit`` at the default config, through the kernels, then
      again on the torch path, and check convergence, separation,
-     agreement and the kernels' launch counts (the fused pass's by tier);
+     agreement and the kernels' launch counts (the fused pass's by tier,
+     both of its routes);
   4. the device-whitening slice: the bench configuration (64 x 4,000,000
      f32 made on the card, ``generate_bench_data_device``, seed 42):
      ``center_whiten`` and its whiteness, then ``Picard.fit`` on the
      CUDA tensor — converged at tol 1e-7, Amari to the mixing, every
      whitening and core kernel launched in that fit (the fused pass in
-     every tier), the caller's tensor unchanged; then the same fit in the
-     exact f32 tier alone (``kernel_precision="f32"``), to weigh the
-     staged schedule;
+     every tier; every delta f32 and delta bf16x3 try on the ``wgmma``
+     route, none on the ``mma.sync`` kernel), the caller's tensor
+     unchanged; then the same fit in the exact f32 tier alone
+     (``kernel_precision="f32"``), held the same way, to weigh the staged
+     schedule;
   4b. ``center_whiten`` of a 600 x 1,000,000 f32 mixture on the card,
      through ``_grouped_covariance``, with the same whiteness bounds;
   5. the large-N slice at BASELINE config 5's width: a 256 x 2,000,000
@@ -108,8 +120,9 @@ prints no result line):
   8. profiling and the memory model (``utils/profiling.py``,
      ``utils/memory_model.py``): (a) bench.py's fit profiled with
      ``profile_fit`` after a warm-up fit: the trace's top device ops, its
-     launches of kernel 1 by tier and of kernels 2, 4, 5 and 6, which must
-     equal the wrappers' counters for the same fit, the card's busy share
+     launches of kernel 1 by tier and on the ``wgmma`` route and of
+     kernels 2, 4, 5 and 6, which must equal the wrappers' counters for
+     the same fit, the card's busy share
      of the core span, and ``fit_with_timing``'s rate; (b) the bench data
      made on the card and fitted at 64 x 4,000,000 and 256 x 10,000,000
      (kernel path) and at 64 x 4,000,000 and 128 x 1,000,000 (torch
@@ -177,7 +190,9 @@ delta bf16 on f32 X; ``launches_by_path`` adds every other fit's,
 phases 6, 6b, 9b, 9c and 10 among them, and phase 7's counted on rank 0; the fused pass's tensor-core kernel counts
 the launches of its three tiers in phase 4, ``launches_by_tier``), error
 against the plain version (and, for every f32 case, against f64), and
-the numbers of its headline case (``_KERNELS``): ``ms`` and ``plain_ms``
+the numbers of its headline case (``_KERNELS``), and ``kernel_route``,
+the instructions its products run on (``wgmma``, ``mma.sync``, or the
+FP32 pipes): ``ms`` and ``plain_ms``
 (CUDA events, one synchronised call at a time, median of 10),
 ``ms_stream`` (10 calls back
 to back between two events, over the count, median of 5: the device time
@@ -322,7 +337,7 @@ def phase1_build():
         spills = sum(k[2] + k[3] for k in kernels)
         _log(f"ptxas {src}: {len(kernels)} kernels, registers {min(regs)}-{max(regs)}, "
              f"spill bytes {spills}")
-        if src in ("rotated_fused_tc.cu", "streaming_fused_tc.cu"):
+        if src in ("rotated_fused_tc.cu", "rotated_fused_wgmma.cu", "streaming_fused_tc.cu"):
             for name, r, st, ld in kernels:
                 _log(f"  {name}: {r} registers, spill stores {st} B, loads {ld} B")
     if any("streaming_kernel" in k[0] for ks in _build.resource_report().values() for k in ks):
@@ -571,11 +586,24 @@ def _hold(rows, kern, plain, label, tier, make, m_new, m_old, xx, key=None, f64=
     (default: the kernel's name)."""
     import torch
 
+    from picard_ica_tpu_torch.ops import kernels as K
+
     name = kern.__name__
     n, t = xx.shape
     args = make(m_new, m_old, xx)
+    route = None
+    if name == "rotated_fused_sums":
+        # Kernel 1's two routes, a row each; the call must take its own.
+        ct, rot = K._tiers(xx, args[6])
+        route = ("wgmma" if K._core_wgmma_pair(not args[7], rot, ct,
+                                                xx.dtype == torch.bfloat16, args[4])
+                 else "mma.sync")
+        key = key or CORE_ROUTE_ROW[route]
+        before = K.rotated_fused_sums.launches_by_route[route][ct]
     out_k = kern(*args)
     torch.cuda.synchronize()
+    if route and K.rotated_fused_sums.launches_by_route[route][ct] != before + 1:
+        raise AssertionError(f"{name} [{label}] did not run on the {route} route")
     out_p = plain(*args)
     err_k = _max_abs(out_k, out_p)
     extra = {}
@@ -611,7 +639,7 @@ def _hold(rows, kern, plain, label, tier, make, m_new, m_old, xx, key=None, f64=
     torch.cuda.empty_cache()
     ms, ms_stream = _time_both(lambda: kern(*args))
     plain_ms = _time_ms(lambda: plain(*args))
-    _log(f"{name} [{label}] {n} x {t}: {detail}, finite={finite}, "
+    _log(f"{name}{f' ({route})' if route else ''} [{label}] {n} x {t}: {detail}, finite={finite}, "
          f"kernel {_fmt_pair((ms, ms_stream))}, plain {plain_ms:.3f} ms, "
          f"bound {bound_ms:.3f} ms ({bound_by}), share {bound_ms / ms:.3f} "
          f"({bound_ms / ms_stream:.3f} back to back)")
@@ -916,15 +944,21 @@ LL_F32_ROW = "streaming_loglik_sums/tc_f32"
 LL_BF16_LABEL = "loglik bf16 X"
 LL_BF16_ROW = "streaming_loglik_sums/tc_bf16"
 _LL_TIER = {LL_F32_ROW: "f32", LL_BF16_ROW: "bf16"}
-# The fused pass's kernel and the tiers it serves: the tensor-core kernel
-# (csrc/rotated_fused_tc.cu) runs all three.
-TIER_ROWS = {"rotated_fused_sums": ("bf16", "bf16x3", "f32")}
+# The fused pass's two routes, a row each, and the tiers each serves: the
+# wgmma kernel (csrc/rotated_fused_wgmma.cu) the main path's tries, delta
+# bf16x3 and delta f32 on f32 X without H; the mma.sync kernel
+# (csrc/rotated_fused_tc.cu) every other pair, in all three tiers.
+WG_ROW = "rotated_fused_sums/wgmma"
+CORE_ROUTE_ROW = {"mma.sync": "rotated_fused_sums", "wgmma": WG_ROW}
+TIER_ROWS = {"rotated_fused_sums": ("bf16", "bf16x3", "f32"), WG_ROW: ("bf16x3", "f32")}
+_ROUTE_OF_ROW = {row: route for route, row in CORE_ROUTE_ROW.items()}
 
 
 def _count(name, launches):
     """A kernel's launches in one phase's counts (``_launches``)."""
     if name in TIER_ROWS:
-        return sum(launches["by_tier"][t] for t in TIER_ROWS[name])
+        by_route = launches["by_route"][_ROUTE_OF_ROW[name]]
+        return sum(by_route[t] for t in TIER_ROWS[name])
     if name in _TC_PAIR:
         mode, tier = _TC_PAIR[name]
         return launches["stream_by_mode"][mode][tier]
@@ -935,6 +969,68 @@ _PHASE4_KERNELS = ("row_sums", "centered_covariance_sums", "covariance_sums",
                    "rotated_fused_sums", "rotated_moments_sums")
 
 
+class PluginTanh:
+    """A density plugin (the ``Density`` protocol, not a ``Tanh``) with
+    tanh's formulas, which the kernels do not run."""
+
+    def __init__(self):
+        from picard_ica_tpu_torch.ops.densities import Tanh
+
+        self._d = Tanh()
+
+    def log_lik(self, y):
+        return self._d.log_lik(y)
+
+    def score_and_der(self, y):
+        return self._d.score_and_der(y)
+
+    def log_lik_delta(self, y_old, dy):
+        return self._d.log_lik_delta(y_old, dy)
+
+    def score_der_loglik_delta(self, y_old, dy):
+        return self._d.score_der_loglik_delta(y_old, dy)
+
+    def score_der_loglik(self, y):
+        return self._d.score_der_loglik(y)
+
+
+# Phase 3's plugin fit: a 64 x 100,000 mixed mixture (a 64-channel
+# recording of 100 s at 1 kHz).
+N3P, T3P, SEED3P = 64, 100_000, 3
+
+
+def phase3_plugin():
+    """A default fit with a density plugin on the card runs the torch path
+    (the kernels implement Tanh, Exp and Cube only): no core kernel
+    launches, and the unmixing is the CPU torch path's."""
+    import numpy as np
+
+    from picard_ica_tpu_torch import Picard
+    from picard_ica_tpu_torch.ops import kernels as K
+    from picard_ica_tpu_torch.utils.datagen import generate_mixed_kurtosis_data
+    from picard_ica_tpu_torch.utils.metrics import amari_distance
+
+    _, a, x = generate_mixed_kurtosis_data(N3P, T3P, SEED3P)
+    K.reset_launch_counts()
+    r, wall = _synced_seconds(lambda: Picard.fit(x, _config(density=PluginTanh())))
+    launches = _launches()
+    t0 = time.perf_counter()
+    r_cpu = Picard.fit(x, _config(density=PluginTanh(), use_kernels=False), device="cpu")
+    wall_cpu = time.perf_counter() - t0
+    w = r.full_unmixing().double().cpu().numpy()
+    agree = amari_distance(w, np.linalg.inv(r_cpu.full_unmixing().double().numpy()))
+    core = sum(launches[k] for k in _CORE_KERNELS + _STREAM_KERNELS)
+    _log(f"plugin density {N3P} x {T3P} (card, auto): converged={r.converged} "
+         f"n_iterations={r.n_iterations} fit {wall:.3f} s; CPU torch path: "
+         f"converged={r_cpu.converged} n_iterations={r_cpu.n_iterations} fit {wall_cpu:.3f} s; "
+         f"amari(W_card, inv(W_cpu)) = {agree:.3e}, to the mixing "
+         f"{amari_distance(w, a):.3e}; core kernel launches {core}")
+    if core:
+        raise AssertionError(f"a density plugin ran the core kernels: {launches}")
+    if not (r.converged and r_cpu.converged and agree < 1e-3):
+        raise AssertionError("the plugin fit on the card is not the CPU torch path's")
+
+
 def phase3_slice():
     import numpy as np
     import torch
@@ -943,6 +1039,7 @@ def phase3_slice():
     from picard_ica_tpu_torch.utils.datagen import generate_mixed_kurtosis_data
     from picard_ica_tpu_torch.utils.metrics import amari_distance
 
+    phase3_plugin()
     _, a, x = generate_mixed_kurtosis_data(N, T, SEED)
 
     K.reset_launch_counts()
@@ -993,6 +1090,8 @@ def _launches():
 
     counts = {k.__name__: k.launches for k in K.KERNELS}
     counts["by_tier"] = dict(K.rotated_fused_sums.launches_by_tier)
+    counts["by_route"] = {route: dict(tiers) for route, tiers in
+                          K.rotated_fused_sums.launches_by_route.items()}
     counts["stream_by_tier"] = dict(K.streaming_fused_sums.launches_by_tier)
     counts["stream_by_mode"] = {mode: dict(tiers) for mode, tiers in
                                 K.streaming_fused_sums.launches_by_mode.items()}
@@ -1084,6 +1183,13 @@ def phase4_device_slice():
             raise AssertionError(f"amari {amari} >= 5e-3")
         if tuple(r.sources.shape) != (N4, T4) or not bool(r.sources.isfinite().all()):
             raise AssertionError("sources are not finite (N, T)")
+        # Every try of the fit is delta mode on f32 X (bf16 X in the bf16
+        # stage) without H: its f32 and bf16x3 tries all on the wgmma route.
+        tries = {t: counts["by_tier"][t] for t in ("bf16x3", "f32")}
+        if (counts["by_route"]["wgmma"]["bf16x3"] != tries["bf16x3"]
+                or counts["by_route"]["wgmma"]["f32"] != tries["f32"] or not tries["f32"]):
+            raise AssertionError(f"{label}: a delta f32 or bf16x3 try left the wgmma route: "
+                                 f"{counts['by_route']}")
         if launches is None:
             launches = counts
             staged = r
@@ -1737,17 +1843,23 @@ _MODE_DELTA, _MODE_PLAIN, _MODE_MOMENTS = 0, 1, 2
 def _trace_launches(ops):
     """The wrappers' launches as the trace shows them, from the device
     events' demangled names: kernel 1 by contraction tier (the modes
-    delta and plain of ``rotated_fused_tc_kernel<MODE, ROT, CT, ...>``),
+    delta and plain of ``rotated_fused_tc_kernel<MODE, ROT, CT, ...>``,
+    and ``rotated_fused_wgmma_kernel<ROT, ...>``, also counted alone),
     kernel 2 (its moments mode), kernel 4 (``row_sums_kernel``) and kernels
     5 and 6 (``cov_diag_kernel<CENTERED, ...>``, launched once a call; the
     grouped covariance, kernel 7, launches it too, and is not on the bench
     fit's path)."""
     import re
 
-    out = {"by_tier": dict.fromkeys(_CT_TIER.values(), 0), "rotated_moments_sums": 0,
-           "row_sums": 0, "centered_covariance_sums": 0, "covariance_sums": 0}
+    out = {"by_tier": dict.fromkeys(_CT_TIER.values(), 0), "wgmma": 0,
+           "rotated_moments_sums": 0, "row_sums": 0, "centered_covariance_sums": 0,
+           "covariance_sums": 0}
     for name, count in ops.items():
         fused = re.search(r"rotated_fused_tc_kernel<([^>]*)>", name)
+        wgmma = re.search(r"rotated_fused_wgmma_kernel<\s*(\d+)", name)
+        if wgmma:  # rotated_fused_wgmma_kernel<ROT, D>: ROT is its tier
+            out["by_tier"][_CT_TIER[int(wgmma.group(1))]] += count
+            out["wgmma"] += count
         cov = re.search(r"cov_diag_kernel<\s*(true|false)", name)
         if fused:
             mode, _, ct = (int(v) for v in re.findall(r"-?\d+", fused.group(1))[:3])
@@ -1804,7 +1916,8 @@ def phase8a_profiling():
     busy = core["device_us"] / core["wall_us"]
     traced = _trace_launches(ops)
     wanted = {"by_tier": {t: counted["by_tier"][t] for t in _CT_TIER.values()},
-              **{k: counted[k] for k in traced if k != "by_tier"}}
+              "wgmma": sum(counted["by_route"]["wgmma"].values()),
+              **{k: counted[k] for k in traced if k not in ("by_tier", "wgmma")}}
     _log(f"{label}: launches in the trace {traced}, by the wrappers' counters {wanted}")
     _log(f"{label}: device busy {core['device_us'] / 1e6:.4f} s of the core's "
          f"{core['wall_us'] / 1e6:.4f} s host span ({busy:.4f}); fit {fit_s:.4f} s, "
@@ -1974,13 +2087,15 @@ def phase8c_max_t():
 
 
 _TC_SOURCE = "picard_ica_tpu_torch/csrc/rotated_fused_tc.cu"
+_WGMMA_SOURCE = "picard_ica_tpu_torch/csrc/rotated_fused_wgmma.cu"
 _STATS_SOURCE = "picard_ica_tpu_torch/csrc/covariance_sums.cu"
 _STREAM_TC_SOURCE = "picard_ica_tpu_torch/csrc/streaming_fused_tc.cu"
 _PALLAS = "picard_ica_tpu/ops/pallas_kernels.py"
 # name -> (source, pallas_call line of the TPU kernel it replaces, the
 # phase-2 case (label, or label and shape) whose numbers head the entry)
 _KERNELS = {
-    "rotated_fused_sums": (_TC_SOURCE, 922, "delta f32"),
+    WG_ROW: (_WGMMA_SOURCE, 922, "delta f32"),
+    "rotated_fused_sums": (_TC_SOURCE, 922, "plain bf16, bf16 X"),
     "rotated_moments_sums": (_TC_SOURCE, 366, "f32"),
     "rotated_loglik_sums": (_TC_SOURCE, 702, "f32"),
     "row_sums": (_STATS_SOURCE, 422, "f32"),
@@ -1995,6 +2110,13 @@ _KERNELS = {
     LL_F32_ROW: (_STREAM_TC_SOURCE, 1247, f"{LL_F32_LABEL}, {N5} x {T5}"),
     LL_BF16_ROW: (_STREAM_TC_SOURCE, 1247, f"{LL_BF16_LABEL}, {N5} x {T5}"),
 }
+# The instructions each row's products run on: kernel 8's wgmma pairs run
+# launch A on wgmma and launch B on mma.sync; the whitening kernels run on
+# the FP32 pipes.
+_KERNEL_ROUTE = {WG_ROW: "wgmma", TC3_ROW: "wgmma (launch A), mma.sync (launch B)",
+                 TC_F32_ROW: "wgmma (launch A), mma.sync (launch B)",
+                 **dict.fromkeys(("row_sums", "centered_covariance_sums", "covariance_sums",
+                                  "_grouped_covariance"), "FP32")}
 # The fit whose launches each row reports.
 _PATH_OF = {**dict.fromkeys(_CORE_KERNELS, "phase3"), **dict.fromkeys(TIER_ROWS, "phase4"),
             "_grouped_covariance": "phase4b", TC_BF16_ROW: "phase5d", TC_ROW: "phase5b",
@@ -2262,7 +2384,8 @@ def main(argv=None):
         main_case = next(c for c in row["cases"] if headline in (c["label"], c["case"]))
         path = _PATH_OF.get(name, "phase4")
         entry = {
-            "name": name, "route": "cuda", "source": source,
+            "name": name, "route": "cuda", "kernel_route": _KERNEL_ROUTE.get(name, "mma.sync"),
+            "source": source,
             "replaces": f"{_PALLAS}:{line}", "launches": _count(name, by_path[path]),
             "max_abs_err": row["max_abs_err"], "case": main_case["case"],
             **({"f32_err_vs_f64": row["f32_err_vs_f64"]} if "f32_err_vs_f64" in row else {}),
@@ -2272,9 +2395,9 @@ def main(argv=None):
             "cases": row["cases"],
             "launches_by_path": {p: _count(name, c) for p, c in by_path.items()},
         }
-        if name in TIER_ROWS:
-            entry["launches_by_tier"] = {t: by_path["phase4"]["by_tier"][t]
-                                         for t in TIER_ROWS[name]}
+        if name in TIER_ROWS:  # kernel 1's rows: their route's launches by tier
+            entry["launches_by_tier"] = {
+                t: by_path["phase4"]["by_route"][_ROUTE_OF_ROW[name]][t] for t in TIER_ROWS[name]}
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,9 @@
 // Hopper's own instructions for the streaming kernel's launch A
-// (streaming_fused_tc.cu rotate_wgmma_kernel): mbarriers, bulk copies
-// from global into shared memory, wgmma.mma_async m64n128k16 with both
-// operands read from shared memory, and setmaxnreg. sm_90a only.
+// (streaming_fused_tc.cu rotate_wgmma_kernel) and the core kernel's
+// wgmma pairs (rotated_fused_wgmma.cu): mbarriers, bulk copies from
+// global into shared memory, wgmma.mma_async m64n128k16 and m64n64k16
+// (and m64n32k16) with both operands read from shared memory, named
+// barriers and setmaxnreg. sm_90a only.
 //
 // The operand tiles are in wgmma's no-swizzle K-major layout: a tile of
 // R rows (M for A, N for B) x 16 k bf16 is R / 8 groups of 8 rows, each
@@ -101,11 +103,11 @@ __device__ __forceinline__ void regs_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(REGS));
 }
 
-// A barrier of THREADS_IN of the block's threads, whole warps (named
-// barrier 1; id 0 is __syncthreads').
+// A barrier of THREADS_IN of the block's threads, whole warps, on named
+// barrier `id` (1-15; id 0 is __syncthreads').
 template <int THREADS_IN>
-__device__ __forceinline__ void named_sync() {
-  asm volatile("bar.sync 1, %0;\n" ::"n"(THREADS_IN) : "memory");
+__device__ __forceinline__ void bar_sync(int id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(THREADS_IN) : "memory");
 }
 
 // ---- wgmma ----
@@ -128,11 +130,19 @@ __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
 }
 
+// Wait until at most PENDING of this warpgroup's newest wgmma groups are
+// still running.
+template <int PENDING>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(PENDING) : "memory");
+}
+
 // The compiler must not move reads or writes of the accumulator across
 // the asynchronous product: each register passes through an empty asm.
-__device__ __forceinline__ void fence_regs(float (&d)[64]) {
+template <int R>
+__device__ __forceinline__ void fence_regs(float (&d)[R]) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
 // d = A B (fresh = true: the accumulator's old value is not read) or d +=
@@ -172,6 +182,54 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t a, uin
         "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"((unsigned)fresh));
+}
+
+// d = A B (fresh) or d += A B for a 64 x 16 bf16 A and a 16 x 64 bf16 B,
+// both K-major in shared memory, f32 d: thread t of the warpgroup holds
+// d[4 i + 2 h + e] at row 16 (t / 32) + (t % 32) / 4 + 8 h, column 8 i +
+// 2 (t % 4) + e.
+__device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t a, uint64_t b,
+                                                bool fresh) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.eq.u32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"((unsigned)fresh));
+}
+
+// The same for a 16 x 32 B: d[4 i + 2 h + e] at row 16 (t / 32) + (t %
+// 32) / 4 + 8 h, column 8 i + 2 (t % 4) + e, i < 4.
+__device__ __forceinline__ void wgmma_m64n32k16(float (&d)[16], uint64_t a, uint64_t b,
+                                                bool fresh) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.eq.u32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "l"(a), "l"(b), "r"((unsigned)fresh));
 }
 

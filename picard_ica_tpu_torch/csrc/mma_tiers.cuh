@@ -127,6 +127,16 @@ __host__ __device__ constexpr int parts(int tier) {
   return tier == BF16 ? 1 : tier == BF16X3 ? 2 : 3;
 }
 
+// The pairs of the core kernel's fused pass (kernel 1) that run
+// rotated_fused_wgmma.cu's kernel: delta mode on f32 X, the rotation and
+// the contraction both at F32 or both at BF16X3, without H. Every other
+// pair runs rotated_fused_tc.cu's mma.sync kernel; the C entry
+// picard_core_wgmma_pair exports the rule.
+__host__ __device__ constexpr bool core_wgmma_pair(bool delta, int rot, int ct, bool x_bf16,
+                                                   bool need_h) {
+  return delta && !x_bf16 && !need_h && rot == ct && (rot == F32 || rot == BF16X3);
+}
+
 // Two values as the bf16x2 registers of their parts at the tier, split
 // elementwise.
 template <int TIER>
@@ -175,6 +185,13 @@ __device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src, boo
 __device__ __forceinline__ void cp_async4_zfill(void* dst, const void* src, bool in) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
                "l"(src), "r"(in ? 4 : 0));
+}
+
+// The mbarrier at `bar` receives one arrival once every cp.async this
+// thread has issued so far has landed (its expected count includes it).
+__device__ __forceinline__ void cp_async_mbar_arrive_noinc(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
 }
 
 __device__ __forceinline__ void cp_async_commit_group() {

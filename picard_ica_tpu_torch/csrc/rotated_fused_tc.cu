@@ -7,7 +7,10 @@
 //                               one line-search try (the loss delta or the
 //                               absolute log-lik of M_new X, and the
 //                               candidate's G, sum psi', H, sum Y^2) in ONE
-//                               read of X; MODE_DELTA and MODE_PLAIN;
+//                               read of X; MODE_DELTA and MODE_PLAIN, but
+//                               delta f32 and delta bf16x3 on f32 X without
+//                               H, the main path's tries, which run
+//                               rotated_fused_wgmma.cu's wgmma kernel;
 //   picard_rotated_moments_sums replaces rotated_moments_sums /
 //                               _rotated_moments_kernel (G, sum psi', H,
 //                               sum Y^2 of Y = W X); MODE_MOMENTS, the
@@ -689,14 +692,21 @@ cudaError_t by_density(int dens, const TcParams& p, int nb, cudaStream_t st) {
   return cudaErrorInvalidValue;
 }
 
+// A pair that runs rotated_fused_wgmma.cu's kernel without H
+// (core_wgmma_pair) keeps only its instantiation with H here.
 template <int MODE, int ROT, int CT, bool XB>
 cudaError_t by_h(int need_h, int dens, const TcParams& p, int nb, cudaStream_t st) {
-  return need_h ? by_density<MODE, ROT, CT, XB, true>(dens, p, nb, st)
-                : by_density<MODE, ROT, CT, XB, false>(dens, p, nb, st);
+  if constexpr (core_wgmma_pair(MODE == MODE_DELTA, ROT, CT, XB, false))
+    return need_h ? by_density<MODE, ROT, CT, XB, true>(dens, p, nb, st) : cudaErrorInvalidValue;
+  else
+    return need_h ? by_density<MODE, ROT, CT, XB, true>(dens, p, nb, st)
+                  : by_density<MODE, ROT, CT, XB, false>(dens, p, nb, st);
 }
 
 // The fused pass's tier pairs: (BF16, BF16) on f32 or bf16 X, (BF16X3,
-// BF16X3) and (F32, F32) on f32 X, (BF16, BF16X3) on bf16 X.
+// BF16X3) and (F32, F32) on f32 X, (BF16, BF16X3) on bf16 X; in delta mode
+// (BF16X3, BF16X3) and (F32, F32) on f32 X only with H (without,
+// picard_rotated_fused_wgmma).
 template <int MODE>
 cudaError_t fused_tiers(int rot, int ct, int x_bf16, int need_h, int dens, const TcParams& p,
                         int nb, cudaStream_t st) {

@@ -1184,7 +1184,7 @@ __global__ void __launch_bounds__(G_THREADS, 1) rotate_wgmma_kernel(DParams p) {
   }
 
   // The group's row partials, rounded once.
-  named_sync<G_CONSUMERS>();
+  bar_sync<G_CONSUMERS>(1);
   const int row = row0 + ct;
   if (ct < TILE && row < p.n) {
     const long long o = (long long)grp * p.stride + row;

@@ -27,7 +27,8 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-SOURCES = ("rotated_fused_tc.cu", "covariance_sums.cu", "streaming_fused_tc.cu")
+SOURCES = ("rotated_fused_tc.cu", "rotated_fused_wgmma.cu", "covariance_sums.cu",
+           "streaming_fused_tc.cu")
 HEADERS = ("density.cuh", "mma_tiers.cuh", "hopper_async.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -45,6 +46,11 @@ _SIGNATURES = {
     "picard_cols_per_block": [],
     "picard_error_string": [_I],
     "picard_rotated_fused_sums": [
+        _I, _I, _I, _I, _I, _I, _D, _I, _LL, _I,
+        _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _P,
+    ],
+    "picard_core_wgmma_pair": [_I, _I, _I, _I, _I],
+    "picard_rotated_fused_wgmma": [
         _I, _I, _I, _I, _I, _I, _D, _I, _LL, _I,
         _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _P,
     ],

@@ -8,7 +8,10 @@ three-way splits, against the plain versions' exact f32 products:
 
   * :func:`rotated_fused_sums`   — one line-search try in one read of X
     (replaces ``rotated_fused_sums``, pallas_kernels.py:838-955), its
-    delta and plain modes, every tier;
+    delta and plain modes, every tier; the main path's tries (delta mode
+    on f32 X at the f32 and bf16x3 tiers, without H:
+    :func:`_core_wgmma_pair`) run ``csrc/rotated_fused_wgmma.cu``'s kernel
+    on ``wgmma`` instead;
   * :func:`rotated_moments_sums` — moments of Y = W X at stage
     boundaries (replaces ``rotated_moments_sums``, :306-395), the plain
     mode without the log-lik: on f32 X rotation and contractions at the
@@ -67,7 +70,8 @@ reduce across devices first). For each there is:
     tests and ``chip_smoke.py`` hold the kernels against it;
   * a launch counter, ``<wrapper>.launches``, raised by one at each
     kernel launch and nowhere else (``rotated_fused_sums`` also counts
-    by tier, ``launches_by_tier``; ``streaming_fused_sums`` by contraction
+    by tier, ``launches_by_tier``, and by route and tier,
+    ``launches_by_route``; ``streaming_fused_sums`` by contraction
     tier, ``launches_by_tier``, and by mode and tier,
     ``launches_by_mode``; ``streaming_loglik_sums`` by X's tier,
     ``launches_by_tier``);
@@ -169,6 +173,9 @@ _STREAM_SMEM_MAX = 232448
 _STREAM_KC, _STREAM_PASS, _STREAM_CB = 16, 8192, 64
 
 _TIERS = {"f32": 0, "bf16x3": 1, "bf16": 2}
+# Kernel 1's routes: csrc/rotated_fused_wgmma.cu for _core_wgmma_pair,
+# csrc/rotated_fused_tc.cu for every other pair.
+CORE_ROUTES = ("wgmma", "mma.sync")
 # Workspace bytes of one element of an operand (psi, Y, psi', Y^2) on the
 # tensor-core route, by tier: one bf16 plane, hi and lo bf16 planes, one
 # f32 plane.
@@ -564,19 +571,30 @@ def _lib():
             or lib.picard_stream_wgmma_ks() != STREAM_TC_WGMMA_KS
             or any(bool(lib.picard_stream_wgmma_pair(d, _TIERS[r], _TIERS[c], xb))
                    != _wgmma_pair(bool(d), r, c, bool(xb))
-                   for d in (0, 1) for r in _TIERS for c in _TIERS for xb in (0, 1))):
+                   for d in (0, 1) for r in _TIERS for c in _TIERS for xb in (0, 1))
+            or any(bool(lib.picard_core_wgmma_pair(d, _TIERS[r], _TIERS[c], xb, h))
+                   != _core_wgmma_pair(bool(d), r, c, bool(xb), bool(h))
+                   for d in (0, 1) for r in _TIERS for c in _TIERS for xb in (0, 1)
+                   for h in (0, 1))):
         raise RuntimeError("csrc/ and ops/kernels.py disagree on NMAX / "
                            "COLS_PER_BLOCK / CHUNK / the streaming tiles / "
                            "the wgmma pairs")
     return lib
 
 
+def kernel_density(density) -> bool:
+    """Whether the CUDA kernels implement ``density``: exactly ``Tanh``,
+    ``Exp`` or ``Cube``. A subclass may override a formula, and a plugin
+    (the ``Density`` protocol) has its own, which the kernels cannot run."""
+    return type(density) in (Tanh, Exp, Cube)
+
+
 def _density_code(density):
-    if isinstance(density, Tanh):
+    if type(density) is Tanh:
         return 0, float(density.alpha)
-    if isinstance(density, Exp):
+    if type(density) is Exp:
         return 1, float(density.alpha)
-    if isinstance(density, Cube):
+    if type(density) is Cube:
         return 2, 1.0
     raise NotImplementedError(
         f"the CUDA kernels implement Tanh, Exp and Cube, not {density!r}"
@@ -664,10 +682,11 @@ def _fused_outputs(n, need_h, need_ysq):
 
 def _fused_launch(entry, n_parts, m_new, m_old, x, density, need_h, need_ysq,
                   precision, absolute_ll):
-    """Launch the resident fused kernel (``entry``) with ``n_parts``
-    partials per output and fold them: the weights of the mode (delta
-    mode takes dm = M_new - M_old in f32), the tiers of X's dtype, and
-    the six outputs, zeros where a flag is off."""
+    """Launch a resident fused kernel (``entry``: the ``mma.sync`` one or,
+    for a :func:`_core_wgmma_pair`, the ``wgmma`` one, which take the same
+    arguments) with ``n_parts`` partials per output and fold them: the
+    weights of the mode (delta mode takes dm = M_new - M_old in f32), the
+    tiers of X's dtype, and the six outputs, zeros where a flag is off."""
     n, t = x.shape
     precision, rot = _tiers(x, precision)
     code, alpha = _density_code(density)
@@ -691,7 +710,9 @@ def _fused_launch(entry, n_parts, m_new, m_old, x, density, need_h, need_ysq,
 def rotated_fused_sums(m_new, m_old, x, density, need_h: bool, need_ysq: bool,
                        precision: str = "f32", absolute_ll: bool = False):
     """Unnormalized ``(dll, dysq, g, pm, h, ysq)`` of one line-search try
-    (see :func:`rotated_fused_sums_plain` for the semantics)."""
+    (see :func:`rotated_fused_sums_plain` for the semantics). On the card
+    a :func:`_core_wgmma_pair` runs the ``wgmma`` kernel, every other pair
+    the ``mma.sync`` one."""
     if _streams(x, 1 + need_h):
         return streaming_fused_sums(m_new, m_old, x, density, need_h, need_ysq,
                                     precision, absolute_ll)
@@ -699,11 +720,27 @@ def rotated_fused_sums(m_new, m_old, x, density, need_h: bool, need_ysq: bool,
         return rotated_fused_sums_plain(m_new, m_old, x, density, need_h,
                                         need_ysq, precision, absolute_ll)
     _, _, nb = _check_cuda(x, m_new) if absolute_ll else _check_cuda(x, m_new, m_old)
-    out = _fused_launch(_lib().picard_rotated_fused_sums, nb, m_new, m_old, x,
-                        density, need_h, need_ysq, precision, absolute_ll)
+    tier, rot = _tiers(x, precision)
+    if _core_wgmma_pair(not absolute_ll, rot, tier, x.dtype == torch.bfloat16, need_h):
+        entry, route = _lib().picard_rotated_fused_wgmma, "wgmma"
+    else:
+        entry, route = _lib().picard_rotated_fused_sums, "mma.sync"
+    out = _fused_launch(entry, nb, m_new, m_old, x, density, need_h, need_ysq, precision,
+                        absolute_ll)
     rotated_fused_sums.launches += 1
-    rotated_fused_sums.launches_by_tier[_tiers(x, precision)[0]] += 1
+    rotated_fused_sums.launches_by_tier[tier] += 1
+    rotated_fused_sums.launches_by_route[route][tier] += 1
     return out
+
+
+def _core_wgmma_pair(delta: bool, rot: str, tier: str, x_bf16: bool, need_h: bool) -> bool:
+    """Whether kernel 1's pair runs the ``wgmma`` kernel
+    (``csrc/rotated_fused_wgmma.cu``): delta mode on f32 X, the rotation
+    and the contraction both at a tier of :data:`WGMMA_PAIRS`, without H
+    -- every try of the main path. :func:`_lib` holds csrc's
+    ``picard_core_wgmma_pair`` to it."""
+    return (delta and not x_bf16 and not need_h and rot == tier
+            and tier in WGMMA_PAIRS)
 
 
 def rotated_moments_sums(w, x, density, need_h: bool, need_ysq: bool):
@@ -1002,12 +1039,14 @@ KERNELS = (rotated_fused_sums, rotated_moments_sums, rotated_loglik_sums,
 def reset_launch_counts() -> None:
     """Set every kernel's launch counter, ``rotated_fused_sums``'s and
     ``streaming_fused_sums``'s counts by tier (keyed by the tier of their
-    contractions), ``streaming_fused_sums``'s by mode ("plain", "delta")
-    and tier, and ``streaming_loglik_sums``'s by tier ("bf16" on bf16 X,
-    "f32" on f32 X) to 0."""
+    contractions), ``rotated_fused_sums``'s by route (:data:`CORE_ROUTES`)
+    and tier, ``streaming_fused_sums``'s by mode ("plain", "delta") and
+    tier, and ``streaming_loglik_sums``'s by tier ("bf16" on bf16 X, "f32"
+    on f32 X) to 0."""
     for k in KERNELS:
         k.launches = 0
     rotated_fused_sums.launches_by_tier = dict.fromkeys(_TIERS, 0)
+    rotated_fused_sums.launches_by_route = {r: dict.fromkeys(_TIERS, 0) for r in CORE_ROUTES}
     streaming_loglik_sums.launches_by_tier = dict.fromkeys(("bf16", "f32"), 0)
     streaming_fused_sums.launches_by_tier = dict.fromkeys(_TIERS, 0)
     streaming_fused_sums.launches_by_mode = {

@@ -31,7 +31,7 @@ from .models.core import CoreOptions, _precision_stages, run_core
 from .models.fastica import ica_par
 from .models.jade import jade
 from .ops.densities import Tanh
-from .ops.kernels import STREAM_MAX_N
+from .ops.kernels import STREAM_MAX_N, kernel_density
 from .ops.linalg import _SYM_DECORR_MIN_EIG, rotate_rows_inplace, sym_decorrelation_with_mineig
 from .ops.precision import exact_f32
 from .ops.whitening import _HOST_F64_MAX_ELEMENTS, center_whiten, preprocess_f64
@@ -65,12 +65,46 @@ def _resolve_device(x, device) -> torch.device:
 AUTO_KERNELS_MAX_N = 1344
 
 
-def _auto_use_kernels(device: torch.device, dtype: torch.dtype, n_components: int) -> bool:
+def _auto_use_kernels(device: torch.device, dtype: torch.dtype, n_components: int,
+                      density) -> bool:
     """use_kernels=None's rule: the kernels take an f32 fit on the card
-    up to :data:`AUTO_KERNELS_MAX_N` components; everything else runs the
-    torch path."""
+    up to :data:`AUTO_KERNELS_MAX_N` components with a density that they
+    implement (:func:`ops.kernels.kernel_density`: exactly ``Tanh``,
+    ``Exp`` or ``Cube``); everything else, a plugin density among it,
+    runs the torch path."""
     return (device.type == "cuda" and dtype == torch.float32
-            and n_components <= AUTO_KERNELS_MAX_N)
+            and n_components <= AUTO_KERNELS_MAX_N and kernel_density(density))
+
+
+def _resolve_use_kernels(use_kernels, device: torch.device, dtype: torch.dtype,
+                         n_components: int, density) -> bool:
+    """Whether the core runs the kernels: ``use_kernels=None`` by
+    :func:`_auto_use_kernels`; ``True`` raises :class:`InvalidConfigError`
+    where the kernels cannot take the fit: f64 or a density they do not
+    implement on the card (on the CPU the kernels' plain versions take
+    any density), more than the streaming kernels' capacity anywhere.
+    ``Picard.fit`` asks before it whitens."""
+    if use_kernels is None:
+        return _auto_use_kernels(device, dtype, n_components, density)
+    if use_kernels:
+        on_cuda = device.type == "cuda"
+        if on_cuda and dtype != torch.float32:
+            raise InvalidConfigError(
+                "use_kernels", "the CUDA kernels run f32; f64 takes the torch path"
+            )
+        if n_components > STREAM_MAX_N:
+            raise InvalidConfigError(
+                "use_kernels",
+                f"n_components={n_components} exceeds the streaming "
+                f"kernels' capacity ({STREAM_MAX_N})",
+            )
+        if on_cuda and not kernel_density(density):
+            raise InvalidConfigError(
+                "use_kernels",
+                f"the CUDA kernels implement Tanh, Exp and Cube, not {density!r}; "
+                "a plugin density takes the torch path (use_kernels=None or False)",
+            )
+    return bool(use_kernels)
 
 
 def _resolve_dtype(config: PicardConfig) -> torch.dtype:
@@ -208,6 +242,12 @@ class Picard:
                 RuntimeWarning,
             )
 
+        # The kernels' choice, and its refusals, before any whitening. The
+        # core sees n_components rows, or all n without whitening.
+        use_kernels = _resolve_use_kernels(config.use_kernels, device, dtype,
+                                           n_components if config.whiten else n,
+                                           config.density)
+
         with _span("whiten"):
             if host_f64:
                 # Sharded, every rank whitens the whole array on its host and
@@ -305,22 +345,6 @@ class Picard:
         if config.verbose:
             print("Running Picard...", file=sys.stderr)
 
-        on_cuda = device.type == "cuda"
-        use_kernels = config.use_kernels
-        if use_kernels is None:
-            use_kernels = _auto_use_kernels(device, dtype, actual_components)
-        elif use_kernels:
-            if on_cuda and dtype != torch.float32:
-                raise InvalidConfigError(
-                    "use_kernels", "the CUDA kernels run f32; f64 takes the torch path"
-                )
-            if actual_components > STREAM_MAX_N:
-                raise InvalidConfigError(
-                    "use_kernels",
-                    f"n_components={actual_components} exceeds the streaming "
-                    f"kernels' capacity ({STREAM_MAX_N})",
-                )
-
         opts = CoreOptions(
             density=config.density,
             ortho=config.ortho,
@@ -329,7 +353,7 @@ class Picard:
             m=config.m,
             ls_tries=config.ls_tries,
             verbose=config.verbose,
-            use_kernels=bool(use_kernels),
+            use_kernels=use_kernels,
             kernel_precision=config.kernel_precision,
             # x1 is the solver's own pre-rotation product and is not read
             # again: the final Y is written through its buffer.

@@ -9,11 +9,14 @@ own that imports only its tree's package, in the order before, after,
 after, before; each turn measures, with ``chip_smoke.py``'s helpers:
 
   * ``rotated_fused_sums`` at 64 x 2,000,000 (Laplace X, seed 0) in the
-    three cases of the default fit's stages: plain bf16 on bf16 X, delta
-    bf16x3, delta f32 (H and Y^2 off), each one synchronised call at a
-    time (median of 10) and 10 calls back to back (median of 5); and
-    delta f32 at ``chip_smoke.py``'s ragged shapes (17 and 63 rows,
-    1,000,003 columns);
+    three cases of the default fit's stages: plain bf16 on bf16 X (the
+    ``mma.sync`` kernel, ``csrc/rotated_fused_tc.cu``), delta bf16x3 and
+    delta f32 (H and Y^2 off: the ``wgmma`` kernel,
+    ``csrc/rotated_fused_wgmma.cu``, in a tree that has it), each one
+    synchronised call at a time (median of 10) and 10 calls back to back
+    (median of 5); and delta bf16x3 and delta f32 at ``chip_smoke.py``'s
+    ragged shapes (17 and 63 rows, 1,000,003 columns: rows not 16-byte
+    aligned) and at the bench's 64 x 4,000,000;
   * ``rotated_moments_sums`` (kernel 2) on the same f32 X, without and
     with H and Y^2, and ``rotated_loglik_sums`` (kernel 3) on f32 X and
     on its bf16 copy, at 64 x 2,000,000, timed the same two ways;
@@ -41,7 +44,8 @@ four turns, also written to ``--out`` (default
 
 With ``--kernels-only`` the turns time the kernels alone, without the
 fits; with ``--core-only`` only the resident core kernels' cases at
-64 x 2,000,000 (kernel 1's three tiers, kernels 2 and 3). With
+64 x 2,000,000 (kernel 1's three tiers, kernels 2 and 3) and kernel 1's
+cases at the ragged shapes and at 64 x 4,000,000. With
 ``--large-n`` they take only the kernels (the ``rotated_fused_sums``,
 moments and log-lik cases at 64 x 2,000,000 and the streaming kernels'
 cases) and, unless ``--kernels-only`` is given too, phase 5's data
@@ -146,7 +150,11 @@ CORE_CASES = [  # (label, wrapper, H and Y^2, bf16 X) of kernels 2 and 3
     ("loglik f32", "rotated_loglik_sums", False, False),
     ("loglik bf16 X", "rotated_loglik_sums", False, True),
 ]
-RAGGED_F32_ROWS = (17, 63)
+# (N, T) of kernel 1's cases beside 64 x 2,000,000: chip_smoke.py's
+# ragged shapes (T_RAGGED: rows not 16-byte aligned) and the bench's
+# 64 x 4,000,000; and the pairs timed there.
+KERNEL1_SHAPES = ((17, 1_000_003), (63, 1_000_003), (64, 4_000_000))
+KERNEL1_CASES = (("delta bf16x3", "bf16x3"), ("delta f32", "f32"))
 # (N, T, seed of chip_smoke._stream_inputs) of the streaming fused
 # kernel's cases: BASELINE config 5's width, the large-N exhibit's, and
 # the MEG's 306 channels at a ragged T (rows not 16-byte aligned).
@@ -231,6 +239,7 @@ def one_turn(tree: str, kernels_only: bool = False, large_n: bool = False,
     del x, x16, xx
     torch.cuda.empty_cache()
     if core_only:
+        _kernel1_turn(sm, K, tree, turn)
         return turn
     if large_n:
         _stream_turn(sm, K, tree, turn)
@@ -242,15 +251,7 @@ def one_turn(tree: str, kernels_only: bool = False, large_n: bool = False,
                 tree, sm, x5, a5, precision="bf16", max_iter=3,
                 save=HERE / "chiprun_out" / f"pinned_bf16_{Path(tree).name}.npy")
         return turn
-    for n in RAGGED_F32_ROWS:
-        xr, mr_old, mr_new = sm._stream_inputs(n, sm.T_RAGGED, n)
-        label = f"delta f32, {n} x {sm.T_RAGGED}"
-        ms, ms_stream = sm._time_both(lambda: K.rotated_fused_sums(
-            mr_new, mr_old, xr, Tanh(), False, False, "f32", False))
-        turn["kernel"][label] = {"ms": ms, "ms_stream": ms_stream}
-        sm._log(f"[{tree}] rotated_fused_sums [{label}]: {sm._fmt_pair((ms, ms_stream))}")
-        del xr
-    torch.cuda.empty_cache()
+    _kernel1_turn(sm, K, tree, turn)
     _stream_turn(sm, K, tree, turn)
     if kernels_only:
         return turn
@@ -296,6 +297,25 @@ def one_turn(tree: str, kernels_only: bool = False, large_n: bool = False,
                                "n_iterations": r.n_iterations,
                                "stage_exits": list(r.stage_exits or ())}
     return turn
+
+
+def _kernel1_turn(sm, K, tree, turn):
+    """Time KERNEL1_CASES of ``rotated_fused_sums`` at each of
+    KERNEL1_SHAPES (``chip_smoke._stream_inputs``, seed N)."""
+    import torch
+
+    from picard_ica_tpu_torch.ops.densities import Tanh
+
+    for n, t in KERNEL1_SHAPES:
+        xr, mr_old, mr_new = sm._stream_inputs(n, t, n)
+        for case, precision in KERNEL1_CASES:
+            label = f"{case}, {n} x {t}"
+            ms, ms_stream = sm._time_both(lambda: K.rotated_fused_sums(
+                mr_new, mr_old, xr, Tanh(), False, False, precision, False))
+            turn["kernel"][label] = {"ms": ms, "ms_stream": ms_stream}
+            sm._log(f"[{tree}] rotated_fused_sums [{label}]: {sm._fmt_pair((ms, ms_stream))}")
+        del xr
+        torch.cuda.empty_cache()
 
 
 def _stream_turn(sm, K, tree, turn):

@@ -174,18 +174,25 @@ def test_fused_f32_tier_shapes_match_plain(dev, n, t, aligned, absolute_ll, flag
     _close(out_k, K.rotated_fused_sums_plain(*args))
 
 
+@pytest.mark.parametrize("need_h", [True, False], ids=["h", "wgmma"])
 @pytest.mark.parametrize("absolute_ll", [False, True], ids=["delta", "plain"])
-def test_fused_f32_tier_error_against_f64(dev, absolute_ll):
+def test_fused_f32_tier_error_against_f64(dev, absolute_ll, need_h):
     """At the main path's width, 64 x 2,000,000, every output of the f32
-    tier (H and Y^2 on) is as close to an f64 evaluation as the exact-f32
-    plain version, within F32_ERR_FACTOR and F32_SCALE_FLOOR."""
+    tier (Y^2 on; H on, or off, which in delta mode is the wgmma route of
+    the main path's tries) is as close to an f64 evaluation as the
+    exact-f32 plain version, within F32_ERR_FACTOR and F32_SCALE_FLOOR."""
     x, m_old, m_new = _inputs(dev, 64, 2_000_000, seed=12)
-    args = (m_new, m_old, x, Tanh(), True, True, "f32", absolute_ll)
+    args = (m_new, m_old, x, Tanh(), need_h, True, "f32", absolute_ll)
+    K.reset_launch_counts()
     out_k = K.rotated_fused_sums(*args)
+    wgmma = not absolute_ll and not need_h
+    assert K.rotated_fused_sums.launches_by_route["wgmma"]["f32"] == int(wgmma)
     out_p = K.rotated_fused_sums_plain(*args)
     out_64 = K.rotated_fused_sums_plain(m_new.double(), m_old.double(), x.double(), Tanh(),
-                                        True, True, "f32", absolute_ll)
-    for k, p, r in zip(out_k, out_p, out_64):
+                                        need_h, True, "f32", absolute_ll)
+    for i, (k, p, r) in enumerate(zip(out_k, out_p, out_64)):
+        if i == 4 and not need_h:  # H is not computed
+            continue
         err_k = float((k.double() - r).abs().max())
         err_p = float((p.double() - r).abs().max())
         bound = F32_ERR_FACTOR * err_p + F32_SCALE_FLOOR * float(r.abs().max())
@@ -218,7 +225,9 @@ def test_fused_bf16x3_rotation_drift_against_f64(dev):
     a sum of Y^2 over 2M columns carries it)."""
     x, m_old, m_new = _inputs(dev, 64, 2_000_000, seed=13)
     args = (m_new, m_old, x, Tanh(), False, True, "bf16x3", False)
+    K.reset_launch_counts()
     out_k = K.rotated_fused_sums(*args)
+    assert K.rotated_fused_sums.launches_by_route["wgmma"]["bf16x3"] == 1
     out_p = K.rotated_fused_sums_plain(*args)
     x_pair = _split64(x)
     y_old = _x3_64(_split64(m_old), x_pair)
@@ -241,7 +250,9 @@ def test_fused_bf16x3_g_drift_against_f64(dev):
     x, _, _ = _inputs(dev, 64, 2_000_000, seed=14)
     eye = torch.eye(64, device=dev)
     args = (eye, eye, x, Cube(), False, False, "bf16x3", False)
+    K.reset_launch_counts()
     g_k = K.rotated_fused_sums(*args)[2]
+    assert K.rotated_fused_sums.launches_by_route["wgmma"]["bf16x3"] == 1
     g_p = K.rotated_fused_sums_plain(*args)[2]
     hi, lo = K._split_bf16(x)
     y = hi + lo
@@ -492,8 +503,9 @@ def test_wrappers_reject_what_the_kernels_do_not_take(dev):
 @pytest.mark.parametrize("n", [8, 33, 64])
 def test_fit_kernels_match_torch_path(dev, n):
     """End to end on the card: N=8 keeps f32 X in the bf16 tier, N=33
-    and N=64 (the kernels' full width) take the bf16 copy. Both paths
-    converge to the same unmixing."""
+    and N=64 (the kernels' full width) take the bf16 copy; the bf16x3
+    and f32 stages' tries take the wgmma route. Both paths converge to
+    the same unmixing."""
     from picard_ica_tpu_torch import Picard, PicardConfig
     from picard_ica_tpu_torch.utils import amari_distance, generate_mixed_kurtosis_data
 
@@ -501,6 +513,9 @@ def test_fit_kernels_match_torch_path(dev, n):
     K.reset_launch_counts()
     r_k = Picard.fit(x, PicardConfig(random_state=0))
     assert K.rotated_fused_sums.launches > 0 and K.rotated_moments_sums.launches > 0
+    by_route = K.rotated_fused_sums.launches_by_route
+    assert by_route["wgmma"]["f32"] > 0
+    assert by_route["mma.sync"]["f32"] == by_route["mma.sync"]["bf16x3"] == 0
     r_t = Picard.fit(x, PicardConfig(random_state=0, use_kernels=False))
     assert r_k.converged and r_t.converged
     assert r_k.sources.device.type == "cuda" and r_k.sources.shape == (n, 60_000)

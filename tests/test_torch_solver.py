@@ -30,6 +30,8 @@ from picard_ica_tpu_torch import convert, solver
 from picard_ica_tpu_torch.ops.whitening import preprocess_f64
 from picard_ica_tpu_torch.utils import amari_distance, generate_mixed_kurtosis_data
 
+from test_torch_core_wgmma import PluginTanh
+
 torch.set_num_threads(2)
 
 
@@ -343,8 +345,100 @@ def test_auto_use_kernels_rule(dtype):
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
     cap = solver.AUTO_KERNELS_MAX_N
     f32 = dtype == torch.float32
+    d = P.Tanh()
     assert KERNEL_MAX_N <= cap <= STREAM_MAX_N
     for n in (2, KERNEL_MAX_N, KERNEL_MAX_N + 1, cap):
-        assert solver._auto_use_kernels(cuda, dtype, n) is f32
-        assert solver._auto_use_kernels(cpu, dtype, n) is False
-    assert solver._auto_use_kernels(cuda, dtype, cap + 1) is False
+        assert solver._auto_use_kernels(cuda, dtype, n, d) is f32
+        assert solver._auto_use_kernels(cpu, dtype, n, d) is False
+    assert solver._auto_use_kernels(cuda, dtype, cap + 1, d) is False
+
+
+class DeltaTanh(P.Tanh):
+    """A ``Tanh`` subclass with its own delta pass (here the direct
+    difference of the log-likelihoods), which the kernels' tanh would
+    silently replace."""
+
+    def score_der_loglik_delta(self, y_old, dy):
+        score, der = self.score_and_der(y_old + dy)
+        return score, der, self.log_lik(y_old + dy) - self.log_lik(y_old)
+
+
+PLUGINS = {"protocol plugin": PluginTanh, "Tanh subclass": DeltaTanh}
+
+
+@pytest.mark.parametrize("density", [P.Tanh(), P.Tanh(0.5), P.Exp(), P.Exp(0.7), P.Cube()],
+                         ids=["tanh", "tanh0.5", "exp", "exp0.7", "cube"])
+def test_auto_use_kernels_takes_the_kernels_densities(density):
+    """The auto rule hands an f32 fit on the card to the kernels for
+    exactly the densities they implement, whatever their alpha."""
+    assert solver._auto_use_kernels(torch.device("cuda"), torch.float32, 64, density) is True
+    assert solver._resolve_use_kernels(None, torch.device("cuda"), torch.float32, 64,
+                                       density) is True
+    assert solver._resolve_use_kernels(True, torch.device("cuda"), torch.float32, 64,
+                                       density) is True
+
+
+@pytest.mark.parametrize("make", PLUGINS.values(), ids=PLUGINS.keys())
+def test_auto_use_kernels_refuses_plugin_densities(make):
+    """A plugin density, or a Tanh subclass with a formula of its own,
+    runs the torch path under the auto rule; an explicit use_kernels=True
+    on the card is refused, on the CPU (the kernels' plain versions call
+    the density's own methods) it stands."""
+    from picard_ica_tpu_torch.ops import kernels as K
+
+    d = make()
+    assert isinstance(d, P.Density)
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    for n in (2, 64, 65, solver.AUTO_KERNELS_MAX_N):
+        assert solver._auto_use_kernels(cuda, torch.float32, n, d) is False
+        assert solver._resolve_use_kernels(None, cuda, torch.float32, n, d) is False
+    assert not K.kernel_density(d)
+    with pytest.raises(P.InvalidConfigError, match="use_kernels"):
+        solver._resolve_use_kernels(True, cuda, torch.float32, 64, d)
+    assert solver._resolve_use_kernels(True, cpu, torch.float32, 64, d) is True
+    assert solver._resolve_use_kernels(False, cuda, torch.float32, 64, d) is False
+
+
+def test_density_code_refuses_a_tanh_subclass():
+    """The kernels select their formula by exact type: a subclass that
+    overrides a formula is refused, not run as the kernels' tanh."""
+    from picard_ica_tpu_torch.ops import kernels as K
+
+    assert K._density_code(P.Tanh(0.5)) == (0, 0.5)
+    assert K._density_code(P.Exp(0.7)) == (1, 0.7)
+    assert K._density_code(P.Cube()) == (2, 1.0)
+    for make in PLUGINS.values():
+        with pytest.raises(NotImplementedError, match="Tanh, Exp and Cube"):
+            K._density_code(make())
+
+
+@pytest.mark.parametrize("make", PLUGINS.values(), ids=PLUGINS.keys())
+@pytest.mark.parametrize("whiten_precision", ["f64", "device"])
+def test_use_kernels_with_a_plugin_density_raises_before_whitening(
+        mixture, monkeypatch, make, whiten_precision):
+    """use_kernels=True on the card with a density the kernels do not
+    implement raises InvalidConfigError before either whitening path
+    runs (nothing reaches the card: this sandbox has none)."""
+    _, x = mixture
+    called = []
+    for name in ("center_whiten", "preprocess_f64"):
+        monkeypatch.setattr(solver, name, lambda *a, _n=name, **k: called.append(_n))
+    cfg = P.PicardConfig(random_state=0, use_kernels=True, density=make(),
+                         whiten_precision=whiten_precision)
+    with pytest.raises(P.InvalidConfigError, match="Tanh, Exp and Cube"):
+        P.Picard.fit(x, cfg, device="cuda")
+    assert called == []
+
+
+def test_fit_with_a_plugin_density_on_the_cpu_kernel_path(mixture):
+    """On the CPU, use_kernels=True with a plugin density runs the
+    kernels' plain versions through the plugin's own methods, and lands
+    where the torch path does."""
+    a, x = mixture
+    common = dict(random_state=0, density=PluginTanh())
+    rk = P.Picard.fit(x, P.PicardConfig(use_kernels=True, **common), device="cpu")
+    rt = P.Picard.fit(x, P.PicardConfig(use_kernels=False, **common), device="cpu")
+    assert rk.converged and rt.converged
+    assert amari_distance(rk.full_unmixing().double().numpy(),
+                          _inv(rt.full_unmixing())) < 1e-3
+    assert amari_distance(rk.full_unmixing().double().numpy(), a) < 5e-3

@@ -457,12 +457,22 @@ def _csrc_wgmma_pair(delta, rot, ct, x_bf16):
                and rot in (K._TIERS["bf16x3"], K._TIERS["f32"]))
 
 
-@pytest.mark.parametrize("drift", [False, True])
+def _csrc_core_wgmma_pair(delta, rot, ct, x_bf16, need_h):
+    """csrc/mma_tiers.cuh core_wgmma_pair (kernel 1's wgmma route), as the
+    library's ``picard_core_wgmma_pair`` answers."""
+    return int(bool(delta) and not x_bf16 and not need_h and rot == ct
+               and rot in (K._TIERS["bf16x3"], K._TIERS["f32"]))
+
+
+@pytest.mark.parametrize("drift", [False, True, "core", "core refused"])
 def test_lib_holds_the_wgmma_pairs(monkeypatch, drift):
     """Loading the library holds its wgmma pairs
     (``picard_stream_wgmma_pair``) to the wrapper's choice of the weights'
-    layout (``K._wgmma_pair``): a library on which one pair differs, here
-    plain f32 on f32 X, fails the load."""
+    layout (``K._wgmma_pair``), and kernel 1's route
+    (``picard_core_wgmma_pair``) to the wrapper's (``K._core_wgmma_pair``):
+    a library on which one pair differs, here plain f32 on f32 X (True),
+    kernel 1's delta f32 with H ("core") or its delta bf16x3 without H
+    ("core refused"), fails the load."""
     from picard_ica_tpu_torch.ops import _build
 
     consts = {"picard_max_n": K.KERNEL_MAX_N, "picard_cols_per_block": K.COLS_PER_BLOCK,
@@ -470,12 +480,20 @@ def test_lib_holds_the_wgmma_pairs(monkeypatch, drift):
               "picard_stream_tc_tile": K.STREAM_TC_TILE, "picard_stream_tc_kc": K.STREAM_TC_KC,
               "picard_stream_wgmma_ks": K.STREAM_TC_WGMMA_KS}
 
+    f32 = K._TIERS["f32"]
+
     def pair(delta, rot, ct, x_bf16):
-        drifted = drift and not delta and rot == ct == K._TIERS["f32"] and not x_bf16
+        drifted = drift is True and not delta and rot == ct == f32 and not x_bf16
         return int(drifted) or _csrc_wgmma_pair(delta, rot, ct, x_bf16)
 
+    def core_pair(delta, rot, ct, x_bf16, need_h):
+        if drift == "core refused" and rot == ct == K._TIERS["bf16x3"]:
+            return 0
+        drifted = drift == "core" and delta and rot == ct == f32 and not x_bf16 and need_h
+        return int(drifted) or _csrc_core_wgmma_pair(delta, rot, ct, x_bf16, need_h)
+
     lib = SimpleNamespace(**{k: (lambda v=v: v) for k, v in consts.items()},
-                          picard_stream_wgmma_pair=pair)
+                          picard_stream_wgmma_pair=pair, picard_core_wgmma_pair=core_pair)
     monkeypatch.setattr(_build, "load", lambda: lib)
     K._lib.cache_clear()
     try:
