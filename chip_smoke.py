@@ -766,6 +766,120 @@ def phase2_streaming_kernels():
     return rows
 
 
+def _contract_library(ws, n, tier, need_h, cols):
+    """Launch B's yardstick: ``torch.bmm`` over the group views of the
+    workspace's planes, one call a chunk and matrix, in the planes' dtype
+    (f32 with TF32 off at f32, bf16 at bf16); None at bf16x3, whose three
+    part products no one call sums."""
+    import torch
+
+    if tier == "bf16x3":
+        return None
+    gpc = ws.shape[-1] // cols
+
+    def run():
+        for c in range(ws.shape[0]):
+            for m in range(1 + need_h):
+                a = ws[c, 2 * m].unflatten(1, (gpc, cols)).transpose(0, 1)
+                b = ws[c, 2 * m + 1].unflatten(1, (gpc, cols)).permute(1, 2, 0)
+                torch.bmm(a, b)
+
+    return run
+
+
+def _hold_contract(rows, ws, n, t, tier, need_h, plan):
+    """Launch B alone against its plain version (bf16 tiers at BF16_RTOL of
+    scale; f32 against f64 sums of the same f32 operands by the f32
+    rule, per group's columns), timed with its plain version and its
+    yardstick; adds the case to ``rows[CONTRACT_ROW]``."""
+    import torch
+
+    from picard_ica_tpu_torch.ops import kernels as K
+
+    args = (ws, n, tier, need_h, plan.cols_per_group, plan.n_parts)
+    label = f"{CONTRACT_LABEL} {tier}{', H' if need_h else ''}"
+    before = K.stream_contract_sums.launches
+    out_k = K.stream_contract_sums(*args)
+    torch.cuda.synchronize()
+    if K.stream_contract_sums.launches != before + 1:
+        raise AssertionError(f"[{label}] did not launch its kernel")
+    out_p = K.stream_contract_sums_plain(*args)
+    pairs = [(k, p) for k, p in zip(out_k, out_p) if k is not None]
+    err_k = max(float((k - p).abs().max()) for k, p in pairs)
+    finite = all(bool(torch.isfinite(k).all()) for k, _ in pairs)
+    extra = {}
+    if tier == "f32":
+        out_64 = K.stream_contract_sums_plain(*args, acc=torch.float64)
+        err_k64 = max(float((k.double() - r).abs().max()) for (k, _), r in zip(pairs, out_64))
+        err_p64 = max(float((p.double() - r).abs().max()) for (_, p), r in zip(pairs, out_64))
+        bound = F32_ERR_FACTOR * err_p64 + F32_FLOOR_PER_COL * plan.cols_per_group
+        ok = err_k64 <= bound
+        detail = (f"err vs plain f32 {err_k:.4g}, vs f64 {err_k64:.4g} (plain f32 "
+                  f"{err_p64:.4g}, bound {bound:.4g})")
+        extra = {"err_vs_f64": err_k64, "plain_err_vs_f64": err_p64}
+        del out_64
+    else:
+        bound = BF16_RTOL * max(float(p.abs().max()) for _, p in pairs)
+        ok = err_k <= bound
+        detail = f"err vs plain {tier} {err_k:.4g} (bound {bound:.4g})"
+    del out_k, out_p, pairs
+    torch.cuda.empty_cache()
+    # The bytes: each operand plane's N x T values read once, the partials
+    # written once; the operations: the tier's bf16 products of N^2 a
+    # column a matrix.
+    mats = 1 + need_h
+    elem = 4 if tier == "f32" else 2 * (2 if tier == "bf16x3" else 1)
+    n_bytes = 2 * mats * elem * n * t + mats * plan.n_parts * n * n * 4
+    bound_ms, bound_by = _bound(n_bytes, 0, _CONTRACT_PRODUCTS[tier] * mats * n * n * t)
+    ms, ms_stream = _time_both(lambda: K.stream_contract_sums(*args))
+    plain_ms = _time_ms(lambda: K.stream_contract_sums_plain(*args))
+    library = _contract_library(ws, n, tier, need_h, plan.cols_per_group)
+    lib_ms, lib_stream = _time_both(library) if library else (None, None)
+    lib_text = _fmt_pair((lib_ms, lib_stream)) if library else "none"
+    _log(f"{CONTRACT_ROW} [{label}] {n} x {t} ({plan.n_parts} groups of {plan.cols_per_group}, "
+         f"{ws.shape[0]} chunks): {detail}, finite={finite}, kernel {_fmt_pair((ms, ms_stream))}, "
+         f"plain {plain_ms:.3f} ms, bmm {lib_text}, bound {bound_ms:.3f} ms ({bound_by}), "
+         f"share {bound_ms / ms:.3f} ({bound_ms / ms_stream:.3f} back to back)")
+    if not (ok and finite):
+        raise AssertionError(f"{CONTRACT_ROW} [{label}] disagrees with its plain version")
+    row = rows.setdefault(CONTRACT_ROW, {"max_abs_err": 0.0, "cases": []})
+    row["max_abs_err"] = max(row["max_abs_err"], err_k)
+    if "err_vs_f64" in extra:
+        row["f32_err_vs_f64"] = max(row.get("f32_err_vs_f64", 0.0), extra["err_vs_f64"])
+    row["cases"].append({"label": label, "case": f"{label}, {n} x {t}", "ms": ms,
+                         "ms_stream": ms_stream, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                         "bound_by": bound_by, "share": bound_ms / ms,
+                         "share_stream": bound_ms / ms_stream, "library_ms": lib_ms,
+                         "library_ms_stream": lib_stream, "max_abs_err": err_k, **extra})
+
+
+def phase2_contract():
+    """Kernel 8's launch B alone at 256 x 2,000,000 and 306 x 1,000,003,
+    every contraction tier without and with H, over the workspace of
+    unit-variance Laplace Y and psi = tanh(Y) (psi' = 1 - psi^2 and Y^2):
+    each group's partials against the plain version's."""
+    import torch
+
+    from picard_ica_tpu_torch.ops import kernels as K
+
+    rows = {}
+    for n, t, seed in ((N5, T5, 5), (N_MEG, T_MEG, 6)):
+        y, _, _ = _stream_inputs(n, t, seed)
+        psi = torch.tanh(y)
+        for need_h in (False, True):
+            ops = [psi, y] + ([1.0 - psi * psi, y * y] if need_h else [])
+            for tier in CONTRACT_TIERS:
+                plan = K.stream_tc_plan(n, t, need_h, tier)
+                ws = K.contract_workspace(ops, tier, plan)
+                _hold_contract(rows, ws, n, t, tier, need_h, plan)
+                del ws
+                torch.cuda.empty_cache()
+            del ops
+        del y, psi
+        torch.cuda.empty_cache()
+    return rows
+
+
 def _case_launches(kern, args):
     """The launches so far of a streaming case's kernel at its mode and
     contraction tier (the fused kernel) or X's tier (the loglik kernel)."""
@@ -938,6 +1052,15 @@ TC_BF16_ROW = "streaming_fused_sums/tc_bf16"
 _TC_PAIR = {TC_ROW: ("plain", "bf16"), TC3_ROW: ("delta", "bf16x3"),
             TC_F32_ROW: ("delta", "f32"), TC_PF32_ROW: ("plain", "f32"),
             TC_BF16_ROW: ("delta", "bf16")}
+# Kernel 8's launch B alone (``ops.kernels.stream_contract_sums``, the
+# route's contract_wgmma_kernel), a row with a case per tier, without and
+# with H, at 256 x 2M and 306 x 1,000,003; its launches are the fused
+# route's launch B, one a chunk (``contract_launches_by_tier``).
+CONTRACT_ROW = "stream_contract_sums"
+CONTRACT_LABEL = "launch B"
+CONTRACT_TIERS = ("f32", "bf16x3", "bf16")
+# bf16 products of each N^2 a column at a contraction tier.
+_CONTRACT_PRODUCTS = {"f32": 6, "bf16x3": 3, "bf16": 1}
 # The loglik kernel on the route, a row per X dtype.
 LL_F32_LABEL = "loglik f32"
 LL_F32_ROW = "streaming_loglik_sums/tc_f32"
@@ -964,6 +1087,8 @@ def _count(name, launches):
         return launches["stream_by_mode"][mode][tier]
     if name in _LL_TIER:
         return launches["loglik_by_tier"][_LL_TIER[name]]
+    if name == CONTRACT_ROW:
+        return sum(launches["contract_by_tier"].values())
     return launches.get(name, 0)
 _PHASE4_KERNELS = ("row_sums", "centered_covariance_sums", "covariance_sums",
                    "rotated_fused_sums", "rotated_moments_sums")
@@ -1096,7 +1221,8 @@ def _launches():
     counts["stream_by_mode"] = {mode: dict(tiers) for mode, tiers in
                                 K.streaming_fused_sums.launches_by_mode.items()}
     counts["loglik_by_tier"] = dict(K.streaming_loglik_sums.launches_by_tier)
-    for row in (*_TC_PAIR, *_LL_TIER):
+    counts["contract_by_tier"] = dict(K.streaming_fused_sums.contract_launches_by_tier)
+    for row in (*_TC_PAIR, *_LL_TIER, CONTRACT_ROW):
         counts[row] = _count(row, counts)
     return counts
 
@@ -1353,6 +1479,11 @@ def _counted_on_route(label, launches):
         raise AssertionError(f"{label}: fused launches off the tensor-core route")
     if sum(launches["loglik_by_tier"].values()) != launches["streaming_loglik_sums"]:
         raise AssertionError(f"{label}: loglik launches off the tensor cores")
+    # Launch B runs once a chunk of every fused launch, at its tier.
+    for tier, calls in launches["stream_by_tier"].items():
+        b = launches["contract_by_tier"][tier]
+        if b < calls or (b > 0) != (calls > 0):
+            raise AssertionError(f"{label}: {calls} fused launches at {tier}, {b} of launch B")
 
 
 def phase5d_pinned_bf16(x, a, w_torch):
@@ -2109,19 +2240,22 @@ _KERNELS = {
     TC_PF32_ROW: (_STREAM_TC_SOURCE, 1149, f"{TC_PF32_LABEL}, {N5} x {T5}"),
     LL_F32_ROW: (_STREAM_TC_SOURCE, 1247, f"{LL_F32_LABEL}, {N5} x {T5}"),
     LL_BF16_ROW: (_STREAM_TC_SOURCE, 1247, f"{LL_BF16_LABEL}, {N5} x {T5}"),
+    CONTRACT_ROW: (_STREAM_TC_SOURCE, 1149, f"{CONTRACT_LABEL} f32, {N5} x {T5}"),
 }
-# The instructions each row's products run on: kernel 8's wgmma pairs run
-# launch A on wgmma and launch B on mma.sync; the whitening kernels run on
-# the FP32 pipes.
-_KERNEL_ROUTE = {WG_ROW: "wgmma", TC3_ROW: "wgmma (launch A), mma.sync (launch B)",
-                 TC_F32_ROW: "wgmma (launch A), mma.sync (launch B)",
+# The instructions each row's products run on: kernel 8's launch B runs
+# on wgmma in every pair, its launch A in the wgmma pairs (delta bf16x3
+# and f32 on f32 X) and on mma.sync in the others; the whitening kernels
+# run on the FP32 pipes.
+_KERNEL_ROUTE = {WG_ROW: "wgmma", TC3_ROW: "wgmma", TC_F32_ROW: "wgmma", CONTRACT_ROW: "wgmma",
+                 **dict.fromkeys((TC_ROW, TC_PF32_ROW, TC_BF16_ROW),
+                                 "mma.sync (launch A), wgmma (launch B)"),
                  **dict.fromkeys(("row_sums", "centered_covariance_sums", "covariance_sums",
                                   "_grouped_covariance"), "FP32")}
 # The fit whose launches each row reports.
 _PATH_OF = {**dict.fromkeys(_CORE_KERNELS, "phase3"), **dict.fromkeys(TIER_ROWS, "phase4"),
             "_grouped_covariance": "phase4b", TC_BF16_ROW: "phase5d", TC_ROW: "phase5b",
             TC3_ROW: "phase5c", TC_F32_ROW: "phase5", TC_PF32_ROW: "phase5",
-            LL_F32_ROW: "phase5", LL_BF16_ROW: "phase5c"}
+            LL_F32_ROW: "phase5", LL_BF16_ROW: "phase5c", CONTRACT_ROW: "phase5c"}
 
 
 def phase8():
@@ -2362,6 +2496,7 @@ def main(argv=None):
     rows = phase2_kernels()
     rows.update(phase2_whitening_kernels())
     rows.update(phase2_streaming_kernels())
+    rows.update(phase2_contract())
     by_path = {"phase3": phase3_slice(), "phase4": phase4_device_slice(),
                "phase4b": phase4b_grouped()}
     by_path["phase5"], large_n = phase5_large_n()
@@ -2398,6 +2533,8 @@ def main(argv=None):
         if name in TIER_ROWS:  # kernel 1's rows: their route's launches by tier
             entry["launches_by_tier"] = {
                 t: by_path["phase4"]["by_route"][_ROUTE_OF_ROW[name]][t] for t in TIER_ROWS[name]}
+        if name == CONTRACT_ROW:  # launch B's launches by contraction tier
+            entry["launches_by_tier"] = by_path[path]["contract_by_tier"]
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,9 @@
-// Hopper's own instructions for the streaming kernel's launch A
-// (streaming_fused_tc.cu rotate_wgmma_kernel) and the core kernel's
-// wgmma pairs (rotated_fused_wgmma.cu): mbarriers, bulk copies from
-// global into shared memory, wgmma.mma_async m64n128k16 and m64n64k16
-// (and m64n32k16) with both operands read from shared memory, named
-// barriers and setmaxnreg. sm_90a only.
+// Hopper's own instructions for the streaming kernel's launches A and B
+// (streaming_fused_tc.cu rotate_wgmma_kernel, contract_wgmma_kernel) and
+// the core kernel's wgmma pairs (rotated_fused_wgmma.cu): mbarriers, bulk
+// and tensor-map copies from global into shared memory, wgmma.mma_async
+// m64n128k16 and m64n64k16 (and m64n32k16) with both operands read from
+// shared memory, named barriers and setmaxnreg. sm_90a only.
 //
 // The operand tiles are in wgmma's no-swizzle K-major layout: a tile of
 // R rows (M for A, N for B) x 16 k bf16 is R / 8 groups of 8 rows, each
@@ -85,6 +85,19 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned b
       : "memory");
 }
 
+// A box of a tiled tensor map (3-D: element, row, plane) from global
+// into this block's shared memory, completing on `bar`; `map` is the
+// address of a __grid_constant__ kernel parameter.
+__device__ __forceinline__ void tma_load_3d(void* dst, const void* map, int c0, int c1, int c2,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];\n"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
 // Orders this thread's shared-memory stores before later reads of the
 // async proxy (wgmma's operand reads).
 __device__ __forceinline__ void fence_async_shared() {
@@ -116,6 +129,16 @@ __device__ __forceinline__ void bar_sync(int id) {
 __device__ __forceinline__ uint64_t core_desc(const void* p) {
   return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | (uint64_t)(CORE_LBO >> 4) << 16 |
          (uint64_t)(CORE_SBO >> 4) << 32;
+}
+
+// A K-major tile at `p` (1024-byte aligned) in the 128-byte swizzle that a
+// tensor map's CU_TENSOR_MAP_SWIZZLE_128B box lands in: rows of 64 bf16
+// (128 bytes), 8-row atoms of 1024 bytes, each row's 16-byte chunks
+// permuted by the row's index mod 8. A wgmma k block of 16 starts 32
+// bytes further along the rows (add 2 to the descriptor).
+__device__ __forceinline__ uint64_t sw128_desc(const void* p) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | (uint64_t)1 << 16 | (uint64_t)(1024 >> 4) << 32 |
+         (uint64_t)1 << 62;
 }
 
 __device__ __forceinline__ void wgmma_fence() {

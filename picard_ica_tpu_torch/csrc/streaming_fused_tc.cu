@@ -62,10 +62,10 @@
 //
 // What the design does about it: two GEMM-shaped launches, so that the
 // products run on the tensor cores and the density runs once per
-// element. Launch B, and launch A but in the two wgmma pairs, is a plain
-// tile loop on mma.sync m16n8k16 (mma_tiers.cuh) fed by a cp.async ring,
-// two blocks of 8 warps an SM, so one block's density or stores overlap
-// another's products.
+// element. Launch A, but in the two wgmma pairs, is a plain tile loop on
+// mma.sync m16n8k16 (mma_tiers.cuh) fed by a cp.async ring, two blocks
+// of 8 warps an SM, so one block's density or stores overlap another's
+// products. Launch B runs on wgmma in every pair (below).
 //   * Launch A, plain (rotate_density_kernel): one block owns a TILE-row
 //     block of W and one group of `cols` consecutive columns, and walks
 //     the group's A_BT-column tiles in order. Per tile, Y[TILE x A_BT] =
@@ -141,8 +141,7 @@
 //     planes, not delta mode with M_old = 0, which would double the
 //     products and give the delta density's dll, and the plain
 //     score_der_loglik. The workspace follows CT: one bf16 plane an
-//     operand (contract_kernel<BF16>, as plain bf16's launch B), hi / lo
-//     at BF16X3, f32 at F32.
+//     operand (as plain bf16's), hi / lo at BF16X3, f32 at F32.
 //   * Loglik (picard_streaming_loglik_tc): launch A alone, in MODE_LOGLIK,
 //     rotate_density_kernel on bf16 X and rotate_split_kernel<MODE_LOGLIK, F32, F32> (one
 //     set) on f32 X: log_lik on the fragments, the two row sums kept as
@@ -151,16 +150,32 @@
 //     partials, a group's width sets nothing but the number of blocks,
 //     and at 1024 x 200k 4,096-column groups would fill 1.5 waves of the
 //     card.
-//   * Launch B (contract_kernel<TIER>): G = psi Y^T (H = psi' (Y^2)^T) as
-//     a plain NT GEMM whose K is the group's columns; both operands are
-//     K-contiguous and read with ldmatrix, as one (bf16) or two (bf16x3,
-//     hi and lo) planes each; at f32 each landed f32 stage of both
-//     operands is split once, all threads together, into hi / mid / lo
-//     part tiles. One block per TILE x TILE output tile and group keeps
-//     its tile in registers over the group's columns and writes it once
-//     into the group's partial. Each FRESH columns are summed in a fresh
-//     accumulator (a chain of two MMAs at bf16, three at bf16x3, six at
-//     f32) and added to the tile in f32, to nearest.
+//   * Launch B (contract_wgmma_kernel<CT>, every pair): G = psi Y^T (H =
+//     psi' (Y^2)^T) as a plain NT GEMM whose K is the group's columns,
+//     built on Hopper's own instructions. One block per TILE x TILE output
+//     tile and group (a group's edge^2 blocks launch side by side, so its
+//     rows come from HBM about once and from L2 to the others), one block
+//     an SM: a producer warpgroup (two at F32) and two consumer
+//     warpgroups of 64 rows x 128 columns each. The producer's thread 0
+//     keeps a ring of stages in flight with tensor-map copies (the
+//     workspace's planes as one 3-D map, 128-row boxes of 128-byte rows in
+//     the 128-byte swizzle, completing on the stage's mbarrier): at BF16
+//     and BF16X3 the bf16 part planes, which wgmma reads as they land; at
+//     F32 the f32 planes, which the producers' eight warps split once into
+//     hi / mid / lo part tiles (no-swizzle K-major). The consumers run
+//     wgmma.mma_async m64n128k16 with both operands in shared memory. Each
+//     FRESH columns are one chain in a fresh accumulator (scale-d = 0; two
+//     k blocks at BF16, three products at BF16X3, six at F32 in mma_tier's
+//     order, hi*hi last), added to the tile's f32 sum, to nearest; two
+//     chains are in flight a consumer, each retired in the loop iteration
+//     that issued it (a wait across iterations made ptxas serialize the
+//     wgmmas). Its bound at 256 x 2M: the planes' bytes read once (2.05 GB
+//     at BF16, 4.10 GB at BF16X3 and F32: 0.61 and 1.22 ms of HBM) and
+//     1, 3 and 6 bf16 products of N^2 a column (0.27, 0.80 and 1.59 ms of
+//     the tensor cores). What holds it (PERF.md §6 PR 23): at BF16 and
+//     BF16X3 the copies (each row tile read from L2 by edge blocks); at F32
+//     the split and the wgmma operand reads, which share the SM's shared
+//     memory (256 KB a 32-column stage), and no longer overlap.
 //   * Both launches cut T into the same n_parts groups, so the caller's
 //     packed partial buffer and its one fold launch (ops/kernels.py
 //     _fold_outputs) are those of the resident kernels. Where the workspace
@@ -169,6 +184,7 @@
 //
 // Every C entry returns cudaGetLastError() (0 on success).
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -258,33 +274,9 @@ struct DCfg {
   static_assert(BLOCKS * (BYTES + BLOCK_RESERVED) <= SM_SMEM, "two blocks fit an SM");
 };
 
-// Launch B: a warp's 64 x 32 share of the output tile, 4 m-tiles x 4
-// n-tiles; k in KC-deep stages of a STAGES ring, summed FRESH columns at
-// a time in a fresh accumulator. At bf16 and bf16x3 a stage holds a
-// [row][k] tile for each part of both operands; at f32 it holds both
-// operands' f32 [row][k] tiles, and the P part tiles of the stage in use
-// follow the ring (SPLIT).
-constexpr int MI = 4;
-template <int TIER>
-struct BCfg {
-  static constexpr int P = parts(TIER);
-  static constexpr int KC = TIER == BF16 ? 64 : TIER == BF16X3 ? 32 : 16;
-  static constexpr int STAGES = TIER == BF16X3 ? 2 : 3;
-  static constexpr int FRESH = TIER == BF16 ? 32 : 16;
-  static constexpr int LDK = KC + 8;
-  static constexpr int PLANE = TILE * LDK;  // elements of one part's tile
-  // Elements (bf16) of a stage; at f32 the two f32 tiles.
-  static constexpr int STAGE = TIER == F32 ? 2 * TILE * KC * 2 : 2 * P * PLANE;
-  static constexpr int SPLIT = STAGES * STAGE;  // elements: the f32 tier's part tiles
-  static constexpr int BYTES = (SPLIT + (TIER == F32 ? 2 * P * PLANE : 0)) * 2;
-  static_assert(KC % FRESH == 0 && FRESH % 16 == 0, "stage depths");
-};
 static_assert(A_KC % 16 == 0, "stage depths");
-static_assert(BLOCKS * (A_BYTES + BLOCK_RESERVED) <= SM_SMEM &&
-                  BLOCKS * (BCfg<BF16>::BYTES + BLOCK_RESERVED) <= SM_SMEM &&
-                  BLOCKS * (BCfg<BF16X3>::BYTES + BLOCK_RESERVED) <= SM_SMEM &&
-                  BLOCKS * (BCfg<F32>::BYTES + BLOCK_RESERVED) <= SM_SMEM,
-              "two blocks of either launch fit an SM's shared memory");
+static_assert(BLOCKS * (A_BYTES + BLOCK_RESERVED) <= SM_SMEM,
+              "two blocks of launch A fit an SM's shared memory");
 
 struct AParams {
   int n, kp;  // components; k extent of the padded W (a multiple of A_KC)
@@ -324,13 +316,11 @@ struct DParams {
 };
 
 struct BParams {
-  // [G or H][left or right operand][part] of a bf16 workspace, or
-  // [G or H][left or right operand] of an f32 one
-  const __nv_bfloat16* src[2][2][2];
-  const float* srcf[2][2];
+  // The chunk's workspace planes as one tensor map (element, row, plane:
+  // Workspace::b_params), read by contract_wgmma_kernel's copies.
+  CUtensorMap tm;
   float* out[2];  // G, H
   int n, edge;    // components; output tiles along a side (n_pad / TILE)
-  long long ws_cols;
   int cols, g0;
   long long stride;
 };
@@ -1197,149 +1187,227 @@ __global__ void __launch_bounds__(G_THREADS, 1) rotate_wgmma_kernel(DParams p) {
   }
 }
 
+// Launch B on Hopper's own instructions (contract_wgmma_kernel<TIER>;
+// the design in the header). Grid (edge^2 output tiles, the chunk's
+// groups, G or H); group g's partial at out + (g0 + g) * stride, rows
+// and columns >= n not written. Thread 0 of the producers lands each
+// stage of KC columns of both operands' planes as 128-row boxes of the
+// workspace's tensor map (BParams::tm: element, row, plane) in the
+// 128-byte swizzle (hopper_async.cuh sw128_desc): at BF16 and BF16X3 the
+// bf16 part planes themselves, read by wgmma as they land; at F32 the f32
+// planes into a RAW_STAGES ring, which the producers' 256 threads split
+// once into the stage's hi / mid / lo part tiles in the no-swizzle
+// K-major layout (core_desc). A stage holds CHAINS chains of FRESH
+// columns; the ring depths made no difference at F32 (PERF.md §6 PR 23).
 template <int TIER>
-__global__ void __launch_bounds__(THREADS, BLOCKS) contract_kernel(BParams p) {
-  using C = BCfg<TIER>;
-  constexpr int P = C::P, LDK = C::LDK, KS = C::FRESH / 16;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem);
+struct CwCfg {
+  // Producer warpgroups (F32: two, whose eight warps split the f32 boxes),
+  // then the two consumers; setmaxnreg's split of the launch's registers:
+  // the consumers hold the tile's sum and two fresh chains, 192 f32 a
+  // thread, and take what the producers give up.
+  static constexpr int PRODUCERS = TIER == F32 ? 256 : 128;
+  static constexpr int THREADS = PRODUCERS + 256;
+  static constexpr int PRODUCER_REGS = TIER == F32 ? 40 : 56;
+  static constexpr int CONSUMER_REGS = TIER == F32 ? 216 : 224;
+  static constexpr int LAUNCH_REGS = 65536 / THREADS / 8 * 8;
+  static_assert(PRODUCER_REGS * PRODUCERS + CONSUMER_REGS * 256 <= LAUNCH_REGS * THREADS,
+                "the consumers' registers come from the producers'");
+  static constexpr int P = parts(TIER);
+  static constexpr int FRESH = TIER == BF16 ? 32 : 16;  // columns a chain sums
+  static constexpr int KC = TIER == F32 ? 32 : 64;      // columns a stage: 128-byte box rows
+  static constexpr int CHAINS = KC / FRESH;
+  static constexpr int BOX = TILE * 128;                 // bytes of one 128-row box
+  static constexpr int BLK = TILE * 16 * 2;              // bytes of one no-swizzle k block
+  static constexpr int PART = TIER == F32 ? KC / 16 * BLK : BOX;  // one part of one operand
+  static constexpr int STAGE = 2 * P * PART;
+  static constexpr int STAGES = TIER == F32 ? 2 : TIER == BF16X3 ? 3 : 6;
+  static constexpr int RAW_STAGES = TIER == F32 ? 3 : 0;
+  static constexpr int RAW0 = STAGES * STAGE;
+  static constexpr int BAR = RAW0 + RAW_STAGES * 2 * BOX;
+  // + the barriers, and the slack that aligns the boxes to 1024 bytes
+  static constexpr int BYTES = BAR + (2 * STAGES + RAW_STAGES) * 8 + 1024;
+  static_assert(BYTES + BLOCK_RESERVED <= SM_SMEM, "one block fits an SM");
+  static_assert(CHAINS % 2 == 0 && STAGE % 1024 == 0, "chains in pairs, aligned boxes");
+};
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, q = lane & 3;
-  const int wr = warp >> 2, wc = warp & 3;
-  const int ti = blockIdx.x / p.edge, tj = blockIdx.x % p.edge;
-  const bool hmat = blockIdx.z == 1;
-  const long long k0 = (long long)blockIdx.y * p.cols;
-  // The operands' rows of this tile: P bf16 part planes each, or at f32
-  // one f32 plane each (srcf).
-  const __nv_bfloat16* src[2][P];
-  const float* srcf[2];
-#pragma unroll
-  for (int o = 0; o < 2; ++o) {
-    if constexpr (TIER == F32) {
-      srcf[o] = (hmat ? p.srcf[1][o] : p.srcf[0][o]) + (long long)(o ? tj : ti) * TILE * p.ws_cols +
-                k0;
-    } else {
-#pragma unroll
-      for (int pt = 0; pt < P; ++pt)
-        src[o][pt] = (hmat ? p.src[1][o][pt] : p.src[0][o][pt]) +
-                     (long long)(o ? tj : ti) * TILE * p.ws_cols + k0;
-    }
-  }
-  const int total = p.cols / C::KC;
-
-  // Every part of both operands: TILE rows x KC in 16-byte pieces; the
-  // stage holds the left operand's parts, then the right's. At f32 both
-  // operands' f32 tiles, [row][k] with row stride KC.
-  auto load = [&](int it) {
-    __nv_bfloat16* stage = ring + (it % C::STAGES) * C::STAGE;
-    const long long k = (long long)it * C::KC;
-    if constexpr (TIER == F32) {
-      float* stf = reinterpret_cast<float*>(stage);
-      for (int u = tid; u < TILE * (C::KC / 4); u += THREADS) {
-        const int r = u / (C::KC / 4), c = (u % (C::KC / 4)) * 4;
-#pragma unroll
-        for (int o = 0; o < 2; ++o)
-          cp_async16_zfill(stf + (o * TILE + r) * C::KC + c, srcf[o] + r * p.ws_cols + k + c, true);
-      }
-    } else {
-      for (int u = tid; u < TILE * (C::KC / 8); u += THREADS) {
-        const int r = u / (C::KC / 8), c = (u % (C::KC / 8)) * 8;
-#pragma unroll
-        for (int o = 0; o < 2; ++o)
-#pragma unroll
-          for (int pt = 0; pt < P; ++pt)
-            cp_async16_zfill(stage + (o * P + pt) * C::PLANE + r * LDK + c,
-                             src[o][pt] + r * p.ws_cols + k + c, true);
-      }
-    }
+// One chain of consumer warpgroup cg: chain c's FRESH columns of stage
+// `st` in a fresh accumulator, products in mma_tier's order (F32: small
+// first, hi*hi last; BF16X3: hi*hi, lo*hi, hi*lo; BF16: two k blocks),
+// committed as one wgmma group.
+template <int TIER>
+__device__ __forceinline__ void contract_chain(float (&fr)[64], const unsigned char* st, int cg,
+                                               int c) {
+  using C = CwCfg<TIER>;
+  auto a = [&](int part, int kb) {
+    return TIER == F32 ? core_desc(st + part * C::PART + kb * C::BLK + cg * (C::BLK / 2))
+                       : sw128_desc(st + part * C::PART + cg * (C::BOX / 2)) + 2 * kb;
   };
-
-#pragma unroll
-  for (int i = 0; i < C::STAGES - 1; ++i) {
-    if (i < total) load(i);
-    cp_async_commit_group();
+  auto b = [&](int part, int kb) {
+    return TIER == F32 ? core_desc(st + (C::P + part) * C::PART + kb * C::BLK)
+                       : sw128_desc(st + (C::P + part) * C::PART) + 2 * kb;
+  };
+  wgmma_fence();
+  if constexpr (TIER == F32) {
+    wgmma_m64n128k16(fr, a(2, c), b(0, c), true);
+    wgmma_m64n128k16(fr, a(1, c), b(1, c), false);
+    wgmma_m64n128k16(fr, a(0, c), b(2, c), false);
+    wgmma_m64n128k16(fr, a(1, c), b(0, c), false);
+    wgmma_m64n128k16(fr, a(0, c), b(1, c), false);
+    wgmma_m64n128k16(fr, a(0, c), b(0, c), false);
+  } else if constexpr (TIER == BF16X3) {
+    wgmma_m64n128k16(fr, a(0, c), b(0, c), true);
+    wgmma_m64n128k16(fr, a(1, c), b(0, c), false);
+    wgmma_m64n128k16(fr, a(0, c), b(1, c), false);
+  } else {
+    wgmma_m64n128k16(fr, a(0, 2 * c), b(0, 2 * c), true);
+    wgmma_m64n128k16(fr, a(0, 2 * c + 1), b(0, 2 * c + 1), false);
   }
+  wgmma_commit();
+}
 
-  float acc[MI][NI][4] = {};
-  for (int it = 0; it < total; ++it) {
-    cp_async_wait<C::STAGES - 2>();
-    __syncthreads();
-    if (it + C::STAGES - 1 < total) load(it + C::STAGES - 1);
-    cp_async_commit_group();
+template <int TIER>
+__global__ void __launch_bounds__(CwCfg<TIER>::THREADS, 1)
+    contract_wgmma_kernel(const __grid_constant__ BParams p) {
+  using C = CwCfg<TIER>;
+  constexpr int P = C::P, KC = C::KC, ST = C::STAGES, RS = C::RAW_STAGES, PT = C::PRODUCERS;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + C::BAR);
+  uint64_t* empty = full + ST;
+  uint64_t* raw_full = empty + ST;
 
-    const __nv_bfloat16* as = ring + (it % C::STAGES) * C::STAGE;
-    if constexpr (TIER == F32) {
-      // Both landed f32 tiles split into their hi / mid / lo part tiles,
-      // once for every warp (the barrier above also freed them: every
-      // warp is past step it - 1's products).
-      const float* stf = reinterpret_cast<const float*>(as);
-      __nv_bfloat16* split = ring + C::SPLIT;
-      for (int u = tid; u < 2 * TILE * (C::KC / 2); u += THREADS) {
-        const int orow = u / (C::KC / 2), c = 2 * (u % (C::KC / 2));
-        const int o = orow / TILE, r = orow % TILE;
-        const float2 v = *reinterpret_cast<const float2*>(stf + orow * C::KC + c);
-        uint32_t parts_of[P];
-        split_parts<TIER>(v.x, v.y, parts_of);
-#pragma unroll
-        for (int pt = 0; pt < P; ++pt)
-          *reinterpret_cast<uint32_t*>(split + (o * P + pt) * C::PLANE + r * LDK + c) =
-              parts_of[pt];
-      }
-      __syncthreads();
-      as = split;
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int ti = blockIdx.x / p.edge, tj = blockIdx.x % p.edge;
+  const int hmat = blockIdx.z;  // G's planes, or H's
+  const int total = p.cols / KC;
+  const int k0 = blockIdx.y * p.cols;
+
+  if (tid == 0) {
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(&full[s], TIER == F32 ? PT : 1);  // each splitting thread, or the copy
+      mbar_init(&empty[s], 8);                     // each consumer warp
     }
-    const __nv_bfloat16* bs = as + P * C::PLANE;
+    for (int s = 0; s < RS; ++s) mbar_init(&raw_full[s], 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (tid < PT) {
+    // ---- the producer warpgroups ----
+    regs_dec<C::PRODUCER_REGS>();
+    // Box (operand o, part pt) of step it: the operand's row tile, the
+    // plane of its matrix and part (one f32 plane an operand at F32).
+    constexpr int WP = TIER == F32 ? 1 : P;
+    auto copy = [&](unsigned char* dst, int it, int o, int pt, uint64_t* bar) {
+      tma_load_3d(dst, &p.tm, k0 + it * KC, (o ? tj : ti) * TILE, (hmat * 2 + o) * WP + pt, bar);
+    };
+    if constexpr (TIER != F32) {
+      if (tid == 0) {
+        for (int it = 0; it < total; ++it) {
+          const int s = it % ST;
+          if (it >= ST) mbar_wait(&empty[s], (it / ST - 1) & 1);
+          unsigned char* st = smem + s * C::STAGE;
+          mbar_arrive_expect_tx(&full[s], C::STAGE);
 #pragma unroll
-    for (int f = 0; f < C::KC; f += C::FRESH) {
-      uint32_t b[KS][NI][P][2];
+          for (int o = 0; o < 2; ++o)
 #pragma unroll
-      for (int ks = 0; ks < KS; ++ks) {
+            for (int pt = 0; pt < P; ++pt) copy(st + (o * P + pt) * C::PART, it, o, pt, &full[s]);
+        }
+      }
+    } else {
+      auto copy_raw = [&](int it) {
+        unsigned char* raw = smem + C::RAW0 + (it % RS) * 2 * C::BOX;
+        mbar_arrive_expect_tx(&raw_full[it % RS], 2 * C::BOX);
+        copy(raw, it, 0, 0, &raw_full[it % RS]);
+        copy(raw + C::BOX, it, 1, 0, &raw_full[it % RS]);
+      };
+      if (tid == 0)
+        for (int it = 0; it < RS && it < total; ++it) copy_raw(it);
+      for (int it = 0; it < total; ++it) {
+        const int s = it % ST;
+        mbar_wait(&raw_full[it % RS], (it / RS) & 1);
+        if (it >= ST) mbar_wait(&empty[s], (it / ST - 1) & 1);
+        const unsigned char* raw = smem + C::RAW0 + (it % RS) * 2 * C::BOX;
+        unsigned char* st = smem + s * C::STAGE;
+        // Thread tid's pieces (operand, row r, 16-byte chunk c4 of the
+        // row's 32 f32), v = tid + PT j: a half-warp's 8-byte part
+        // stores fill 128 contiguous bytes. Four pieces' loads first, then
+        // their splits.
+        constexpr int PER_OP = TILE * 8 / PT;
+#pragma unroll 1
+        for (int j0 = 0; j0 < 2 * PER_OP; j0 += 4) {
+          float4 x[4];
+          int at[4];
 #pragma unroll
-        for (int pt = 0; pt < P; ++pt) {
+          for (int u = 0; u < 4; ++u) {
+            const int j = j0 + u, o = j / PER_OP, v = tid + PT * (j % PER_OP), rest = v >> 4;
+            const int r = ((v >> 1) & 7) | (rest >> 2) << 3, c4 = (v & 1) | (rest & 3) << 1;
+            x[u] = *reinterpret_cast<const float4*>(raw + o * C::BOX + r * 128 +
+                                                    ((c4 ^ (r & 7)) << 4));
+            at[u] = o * P * C::PART + (c4 / 4) * C::BLK + (r / 8) * CORE_SBO +
+                    ((c4 % 4) / 2) * CORE_LBO + (r % 8) * 16 + (c4 % 2) * 8;
+          }
 #pragma unroll
-          for (int np = 0; np < NI / 2; ++np) {
-            uint32_t r[4];
-            ldmatrix_x4(r, ldm_b_addr(bs + pt * C::PLANE + (32 * wc + 16 * np) * LDK + f + 16 * ks,
-                                      LDK, lane));
-            b[ks][2 * np][pt][0] = r[0], b[ks][2 * np][pt][1] = r[1];
-            b[ks][2 * np + 1][pt][0] = r[2], b[ks][2 * np + 1][pt][1] = r[3];
+          for (int u = 0; u < 4; ++u) {
+            uint32_t lo2[P], hi2[P];
+            split_parts<F32>(x[u].x, x[u].y, lo2);
+            split_parts<F32>(x[u].z, x[u].w, hi2);
+#pragma unroll
+            for (int pt = 0; pt < P; ++pt)
+              *reinterpret_cast<uint2*>(st + at[u] + pt * C::PART) = make_uint2(lo2[pt], hi2[pt]);
           }
         }
-      }
-#pragma unroll
-      for (int mi = 0; mi < MI; ++mi) {
-        float t[NI][4] = {};
-#pragma unroll
-        for (int ks = 0; ks < KS; ++ks) {
-          uint32_t a[P][4];
-#pragma unroll
-          for (int pt = 0; pt < P; ++pt)
-            ldmatrix_x4(a[pt], ldm_a_addr(as + pt * C::PLANE + (64 * wr + 16 * mi) * LDK + f +
-                                              16 * ks,
-                                          LDK, lane));
-#pragma unroll
-          for (int nt = 0; nt < NI; ++nt) mma_tier<TIER>(t[nt], t[nt], a, b[ks][nt]);
-        }
-#pragma unroll
-        for (int nt = 0; nt < NI; ++nt)
-#pragma unroll
-          for (int e = 0; e < 4; ++e) acc[mi][nt][e] += t[nt][e];
+        fence_async_shared();  // the part tiles, before wgmma reads them
+        mbar_arrive(&full[s]);
+        bar_sync<PT>(1);  // every producer thread is done with the raw stage
+        if (tid == 0 && it + RS < total) copy_raw(it + RS);
       }
     }
+    return;
   }
 
-  float* out = (hmat ? p.out[1] : p.out[0]) + (long long)(p.g0 + blockIdx.y) * p.stride;
+  // ---- the consumer warpgroups: cg owns rows 64 cg .. 64 cg + 63 ----
+  regs_inc<C::CONSUMER_REGS>();
+  const int ct = tid - PT, cg = ct / 128, warp = (ct % 128) / 32;
+  const int g = lane >> 2, q = lane & 3;
+  float acc[64], f0[64], f1[64];
 #pragma unroll
-  for (int mi = 0; mi < MI; ++mi) {
+  for (int i = 0; i < 64; ++i) acc[i] = f0[i] = f1[i] = 0.f;
+  // Chains in pairs: f1's chain runs while f0's is added to the tile, and
+  // the other consumer's chains while f1's is; so the chains' sums reach
+  // acc in column order, to nearest, and every chain is retired in the
+  // iteration that issued it (a wait across iterations made ptxas
+  // serialize the wgmmas). A stage goes back to the producer once its
+  // last chain is done.
+  for (int it = 0; it < total; ++it) {
+    const int s = it % ST;
+    mbar_wait(&full[s], (it / ST) & 1);
+    const unsigned char* st = smem + s * C::STAGE;
 #pragma unroll
-    for (int nt = 0; nt < NI; ++nt) {
+    for (int c = 0; c < C::CHAINS; c += 2) {
+      contract_chain<TIER>(f0, st, cg, c);
+      contract_chain<TIER>(f1, st, cg, c + 1);
+      wgmma_wait<1>();
+      fence_regs(f0);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int i = ti * TILE + 64 * wr + 16 * mi + g + 8 * (e >> 1);
-        const int j = tj * TILE + 32 * wc + 8 * nt + 2 * q + (e & 1);
-        if (i < p.n && j < p.n) out[(long long)i * p.n + j] = acc[mi][nt][e];
-      }
+      for (int i = 0; i < 64; ++i) acc[i] += f0[i];
+      wgmma_wait<0>();
+      fence_regs(f1);
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[i] += f1[i];
+    }
+    __syncwarp();
+    if (lane == 0) mbar_arrive(&empty[s]);
+  }
+
+  float* out = p.out[hmat] + (long long)(p.g0 + blockIdx.y) * p.stride;
+  const int i0 = ti * TILE + 64 * cg + 16 * warp + g;
+#pragma unroll
+  for (int c = 0; c < 16; ++c) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int i = i0 + 8 * (e >> 1), j = tj * TILE + 8 * c + 2 * q + (e & 1);
+      if (i < p.n && j < p.n) out[(long long)i * p.n + j] = acc[4 * c + e];
     }
   }
 }
@@ -1397,6 +1465,21 @@ cudaError_t launch_g(int dens, dim3 grid, const DParams& p, cudaStream_t st) {
   return cudaErrorInvalidValue;
 }
 
+// Launch B of one chunk at the contraction tier CT: contract_wgmma_kernel.
+template <int CT>
+cudaError_t launch_contract(dim3 grid, const BParams& b, cudaStream_t st) {
+  return launch(contract_wgmma_kernel<CT>, CwCfg<CT>::BYTES, grid, b, st, CwCfg<CT>::THREADS);
+}
+
+cudaError_t launch_contract(int ct, dim3 grid, const BParams& b, cudaStream_t st) {
+  switch (ct) {
+    case F32: return launch_contract<F32>(grid, b, st);
+    case BF16X3: return launch_contract<BF16X3>(grid, b, st);
+    case BF16: return launch_contract<BF16>(grid, b, st);
+  }
+  return cudaErrorInvalidValue;
+}
+
 // The wgmma launch A then B for one chunk, delta mode at ROT = CT on f32 X.
 template <int ROT>
 cudaError_t launch_wgmma_split(int dens, bool need_h, dim3 grid_a, const DParams& d,
@@ -1404,7 +1487,7 @@ cudaError_t launch_wgmma_split(int dens, bool need_h, dim3 grid_a, const DParams
   cudaError_t e = need_h ? launch_g<ROT, true>(dens, grid_a, d, st)
                          : launch_g<ROT, false>(dens, grid_a, d, st);
   if (e != cudaSuccess) return e;
-  return launch(contract_kernel<ROT>, BCfg<ROT>::BYTES, grid_b, b, st);
+  return launch_contract<ROT>(grid_b, b, st);
 }
 
 // Split launch A then B for one chunk, in MODE (delta or plain) at the
@@ -1415,7 +1498,7 @@ cudaError_t launch_split(int dens, bool need_h, dim3 grid_a, const DParams& d, d
   cudaError_t e = need_h ? launch_d<MODE, ROT, CT, XB, true>(dens, grid_a, d, st)
                          : launch_d<MODE, ROT, CT, XB, false>(dens, grid_a, d, st);
   if (e != cudaSuccess) return e;
-  return launch(contract_kernel<CT>, BCfg<CT>::BYTES, grid_b, b, st);
+  return launch_contract<CT>(grid_b, b, st);
 }
 
 // The pairs whose launch A is rotate_wgmma_kernel, their W laid out by
@@ -1505,6 +1588,70 @@ DParams d_params(int x_bf16, int n, long long t, int need_ysq, double alpha, int
   return d;
 }
 
+// libcuda's cuTensorMapEncodeTiled, reached through the runtime (the
+// library is not linked); null where the installed CUDA lacks it.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    return cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found) ==
+                       cudaSuccess &&
+                   found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(f)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// One chunk's workspace at `ws`: 2 (4 with H) operand planes at the
+// contraction tier, plane (matrix * 2 + operand) * P + part: psi, Y (psi',
+// Y^2), each as one bf16 plane, hi and lo bf16 planes, or at f32 as one
+// f32 plane (P = 1), each (n_pad, cols).
+struct Workspace {
+  int ct, P, n_planes, n_pad;
+  long long cols;
+  unsigned char* base;
+  Workspace(const void* ws, int ct_tier, int need_h, int n_pad_, long long cols_)
+      : ct(ct_tier), P(ct_tier == F32 ? 1 : parts(ct_tier)), n_planes(2 * (1 + need_h) * P),
+        n_pad(n_pad_), cols(cols_), base(static_cast<unsigned char*>(const_cast<void*>(ws))) {}
+  long long bytes() const { return n_planes * (long long)n_pad * cols * (ct == F32 ? 4 : 2); }
+  __nv_bfloat16* plane(int i) const {
+    return i < n_planes && ct != F32 ? reinterpret_cast<__nv_bfloat16*>(base) + i * n_pad * cols
+                                     : nullptr;
+  }
+  float* plane_f(int i) const {
+    return i < n_planes && ct == F32 ? reinterpret_cast<float*>(base) + i * n_pad * cols : nullptr;
+  }
+  // Launch B's parameters over this workspace: G's partials at g, H's at
+  // h, and the planes as a tensor map of 128-row boxes in the 128-byte
+  // swizzle (64 bf16 or 32 f32 columns); false if the encoding fails.
+  bool b_params(int n, int group_cols, float* g, float* h, long long stride, BParams& b) const {
+    b = BParams{};
+    b.out[0] = g;
+    b.out[1] = h;
+    b.n = n;
+    b.edge = n_pad / TILE;
+    b.cols = group_cols;
+    b.stride = stride;
+    const EncodeTiled encode = encode_tiled();
+    const int elem = ct == F32 ? 4 : 2;
+    const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)n_pad, (cuuint64_t)n_planes};
+    const cuuint64_t strides[2] = {(cuuint64_t)cols * elem, (cuuint64_t)cols * elem * n_pad};
+    const cuuint32_t box[3] = {128u / elem, (cuuint32_t)TILE, 1u}, unit[3] = {1u, 1u, 1u};
+    if (!encode ||
+        encode(&b.tm, ct == F32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+               3, base, dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
+               CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+      return false;
+    return true;
+  }
+};
+
 bool bad_shape(int n, long long t, int cols, int n_parts, int density, long long stride,
                const void* w) {
   return n < 1 || n > STREAM_MAX_N || t < 1 || cols < TILE || cols % TILE != 0 ||
@@ -1554,17 +1701,7 @@ int picard_streaming_fused_tc(int delta, int rot_tier, int ct_tier, int x_bf16, 
       (need_h && !h) || reinterpret_cast<std::uintptr_t>(ws) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   const int n_pad = (n + TILE - 1) / TILE * TILE;
-  const long long ws_cols = (long long)groups_per_chunk * cols;
-  const long long mat = (long long)n_pad * ws_cols;
-  // Workspace plane (matrix * 2 + operand) * P + part: psi, Y (psi', Y^2),
-  // each as one bf16 plane, hi and lo bf16 planes, or at f32 as one f32
-  // plane (P = 1).
-  const int P = ct_tier == F32 ? 1 : parts(ct_tier);
-  const int n_planes = 2 * (1 + need_h) * P;
-  __nv_bfloat16* base = static_cast<__nv_bfloat16*>(ws);
-  float* base_f = static_cast<float*>(ws);
-  auto plane = [&](int i) { return i < n_planes && ct_tier != F32 ? base + i * mat : nullptr; };
-  auto plane_f = [&](int i) { return i < n_planes && ct_tier == F32 ? base_f + i * mat : nullptr; };
+  const Workspace wk(ws, ct_tier, need_h, n_pad, (long long)groups_per_chunk * cols);
 
   // Plain bf16 on bf16 X runs rotate_density_kernel; every other pair the
   // split launch.
@@ -1573,31 +1710,20 @@ int picard_streaming_fused_tc(int delta, int rot_tier, int ct_tier, int x_bf16, 
   DParams d{};
   if (dense) {
     a = a_params(n, t, need_ysq, alpha, cols, w, x, dll, dysq, pm, ysq, stride);
-    a.psi = plane(0);
-    a.y = plane(1);
-    a.psid = plane(2);
-    a.y2 = plane(3);
-    a.ws_cols = ws_cols;
+    a.psi = wk.plane(0);
+    a.y = wk.plane(1);
+    a.psid = wk.plane(2);
+    a.y2 = wk.plane(3);
+    a.ws_cols = wk.cols;
   } else {
     d = d_params(x_bf16, n, t, need_ysq, alpha, cols, w, x, dll, dysq, pm, ysq, stride);
-    for (int i = 0; i < 8; ++i) d.ws[i] = plane(i);
-    for (int i = 0; i < 4; ++i) d.wsf[i] = plane_f(i);
-    d.ws_cols = ws_cols;
+    for (int i = 0; i < 8; ++i) d.ws[i] = wk.plane(i);
+    for (int i = 0; i < 4; ++i) d.wsf[i] = wk.plane_f(i);
+    d.ws_cols = wk.cols;
   }
 
-  BParams b{};
-  for (int m = 0; m < 2; ++m)
-    for (int o = 0; o < 2; ++o) {
-      for (int pt = 0; pt < P; ++pt) b.src[m][o][pt] = plane((m * 2 + o) * P + pt);
-      b.srcf[m][o] = plane_f(m * 2 + o);
-    }
-  b.out[0] = g;
-  b.out[1] = h;
-  b.n = n;
-  b.edge = n_pad / TILE;
-  b.ws_cols = ws_cols;
-  b.cols = cols;
-  b.stride = stride;
+  BParams b;
+  if (!wk.b_params(n, cols, g, h, stride, b)) return (int)cudaErrorInvalidValue;
 
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   for (int g0 = 0; g0 < n_parts; g0 += groups_per_chunk) {
@@ -1608,13 +1734,44 @@ int picard_streaming_fused_tc(int delta, int rot_tier, int ct_tier, int x_bf16, 
     if (dense) {
       e = need_h ? launch_a<MODE_PLAIN, true>(density, grid_a, a, st)
                  : launch_a<MODE_PLAIN, false>(density, grid_a, a, st);
-      if (e == cudaSuccess) e = launch(contract_kernel<BF16>, BCfg<BF16>::BYTES, grid_b, b, st);
+      if (e == cudaSuccess) e = launch_contract<BF16>(grid_b, b, st);
     } else {
       e = delta ? split_pairs<MODE_DELTA>(rot_tier, ct_tier, x_bf16, density, need_h, grid_a, d,
                                           grid_b, b, st)
                 : split_pairs<MODE_PLAIN>(rot_tier, ct_tier, x_bf16, density, need_h, grid_a, d,
                                           grid_b, b, st);
     }
+    if (e != cudaSuccess) return (int)e;
+  }
+  return 0;
+}
+
+// Launch B alone, as picard_streaming_fused_tc runs it after launch A:
+// G = psi Y^T and, with need_h, H = psi' (Y^2)^T over each group's
+// columns at ct_tier, from a workspace the caller fills. ws holds
+// ceil(n_parts / groups_per_chunk) chunks' workspaces back to back, each
+// laid out as picard_streaming_fused_tc's (Workspace); group i of chunk c
+// is group c * groups_per_chunk + i, its partial of G (H) at g (h) +
+// group * stride. For the tests, chip_smoke.py and port_turns.py.
+int picard_stream_contract_tc(int ct_tier, int need_h, int n, int cols, int n_parts,
+                              int groups_per_chunk, const void* ws, float* g, float* h,
+                              long long stride, void* stream) {
+  if (ct_tier < F32 || ct_tier > BF16 || n < 1 || n > STREAM_MAX_N || cols < TILE ||
+      cols % TILE != 0 || n_parts < 1 || groups_per_chunk < 1 || groups_per_chunk > MAX_GRID_Y ||
+      stride < 1 || !g || (need_h && !h) || reinterpret_cast<std::uintptr_t>(ws) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  const int n_pad = (n + TILE - 1) / TILE * TILE;
+  const long long ws_cols = (long long)groups_per_chunk * cols;
+  const long long chunk_bytes = Workspace(ws, ct_tier, need_h, n_pad, ws_cols).bytes();
+  cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
+  for (int g0 = 0, c = 0; g0 < n_parts; g0 += groups_per_chunk, ++c) {
+    const int ng = n_parts - g0 < groups_per_chunk ? n_parts - g0 : groups_per_chunk;
+    const Workspace wk(static_cast<const unsigned char*>(ws) + c * chunk_bytes, ct_tier, need_h,
+                       n_pad, ws_cols);
+    BParams b;
+    if (!wk.b_params(n, cols, g, h, stride, b)) return (int)cudaErrorInvalidValue;
+    b.g0 = g0;
+    const cudaError_t e = launch_contract(ct_tier, dim3(b.edge * b.edge, ng, need_h ? 2 : 1), b, st);
     if (e != cudaSuccess) return (int)e;
   }
   return 0;

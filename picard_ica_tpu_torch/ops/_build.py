@@ -76,6 +76,7 @@ _SIGNATURES = {
     "picard_streaming_loglik_tc": [
         _I, _I, _I, _D, _I, _LL, _I, _I, _P, _P, _P, _P, _LL, _P,
     ],
+    "picard_stream_contract_tc": [_I, _I, _I, _I, _I, _I, _P, _P, _P, _LL, _P],
 }
 
 

@@ -30,7 +30,10 @@ no longer fits whole in shared memory:
     (bf16 on bf16 X) with the density and row sums into a workspace of
     psi / Y planes at the contraction tier (bf16; hi and lo at bf16x3;
     f32 at f32, split three ways by the contraction), then G (H) over
-    it;
+    it (launch B, ``contract_wgmma_kernel`` on ``wgmma``);
+  * :func:`stream_contract_sums` — launch B alone, over a workspace the
+    caller fills (:func:`contract_workspace`): each group's partials of
+    G (H), for the tests, ``chip_smoke.py`` and ``port_turns.py``;
   * :func:`streaming_loglik_sums` — kernel 3's outputs for large N
     (replaces ``streaming_loglik_sums``, :1205-1274), on the tensor
     cores: the route's rotation launch alone with a log-lik epilogue
@@ -73,8 +76,9 @@ reduce across devices first). For each there is:
     by tier, ``launches_by_tier``, and by route and tier,
     ``launches_by_route``; ``streaming_fused_sums`` by contraction
     tier, ``launches_by_tier``, and by mode and tier,
-    ``launches_by_mode``; ``streaming_loglik_sums`` by X's tier,
-    ``launches_by_tier``);
+    ``launches_by_mode``, and its launch B's launches, one a chunk, by
+    contraction tier, ``contract_launches_by_tier``;
+    ``streaming_loglik_sums`` by X's tier, ``launches_by_tier``);
   * the fold of the kernel's per-block partials on the card, in
     :func:`ops.moments.fold_pairwise`'s order and bitwise equal to it:
     the core kernels write all their outputs side by side into one
@@ -903,7 +907,10 @@ def _streaming_fused_tc(m_new, m_old, x, density, need_h, need_ysq, precision, a
              plan.cols_per_group, plan.n_parts, plan.groups_per_chunk, w.data_ptr(),
              x.data_ptr(), ws.data_ptr(), *ptrs, stride, device=x.device)
 
-    return _fold_outputs(plan.n_parts, _fused_outputs(n, need_h, need_ysq), x, launch)
+    out = _fold_outputs(plan.n_parts, _fused_outputs(n, need_h, need_ysq), x, launch)
+    streaming_fused_sums.contract_launches_by_tier[tier] += _n_chunks(plan.n_parts,
+                                                                      plan.groups_per_chunk)
+    return out
 
 
 def streaming_loglik_sums(m, x, density, need_ysq: bool):
@@ -930,6 +937,95 @@ def streaming_loglik_sums(m, x, density, need_ysq: bool):
     streaming_loglik_sums.launches += 1
     streaming_loglik_sums.launches_by_tier[tier] += 1
     return out
+
+
+def contract_workspace(operands, tier: str, plan: StreamTcPlan):
+    """Launch A's workspace for every chunk of ``plan``, filled from
+    ``operands`` ((N, T) tensors: psi, Y and, with H, psi', Y^2) as
+    launch A fills it: a (n_chunks, planes, n_pad, groups_per_chunk *
+    cols_per_group) tensor, chunk c holding groups c * groups_per_chunk
+    on; plane operand * P + part, at the contraction tier one bf16 plane
+    an operand, hi and lo bf16 planes at bf16x3, one f32 plane at f32;
+    exact zeros past N and T."""
+    n, t = operands[0].shape
+    cols = plan.groups_per_chunk * plan.cols_per_group
+    n_chunks = _n_chunks(plan.n_parts, plan.groups_per_chunk)
+    split = (lambda v: (v,)) if tier == "f32" else _PARTS[tier]  # noqa: E731
+    planes = [part for v in operands for part in split(v.float())]
+    ws = torch.zeros((n_chunks, len(planes), plan.n_pad, cols),
+                     dtype=torch.float32 if tier == "f32" else torch.bfloat16,
+                     device=operands[0].device)
+    for c in range(n_chunks):
+        c0, c1 = c * cols, min(t, (c + 1) * cols)
+        for plane, v in zip(ws[c], planes):
+            plane[:n, : c1 - c0] = v[:, c0:c1]  # bf16 values at bf16 tiers: exact
+    return ws
+
+
+def _contract_dims(ws, n: int, tier: str, need_h: bool, cols: int, n_parts: int):
+    """(parts an operand, groups a chunk) of a launch-B workspace, after
+    checking its shape against the call."""
+    if tier not in _TIERS:
+        raise ValueError(f"unknown tier {tier!r}")
+    p = 2 if tier == "bf16x3" else 1
+    if ws.dim() != 4:
+        raise ValueError(f"the workspace must be 4-D, got shape {tuple(ws.shape)}")
+    n_chunks, n_planes, n_pad, ws_cols = ws.shape
+    gpc = ws_cols // cols if cols > 0 else 0
+    if (cols <= 0 or cols % STREAM_TC_TILE or ws_cols % cols or not 0 < n <= STREAM_MAX_N
+            or n_pad != _n_chunks(n, STREAM_TC_TILE) * STREAM_TC_TILE
+            or n_planes != 2 * (1 + need_h) * p or n_parts < 1
+            or n_chunks != _n_chunks(n_parts, gpc)):
+        raise ValueError(f"workspace {tuple(ws.shape)} does not fit N={n}, {tier}, "
+                         f"need_h={need_h}, {n_parts} groups of {cols} columns")
+    want = torch.float32 if tier == "f32" else torch.bfloat16
+    if ws.dtype != want:
+        raise TypeError(f"a {tier} workspace holds {want}, got {ws.dtype}")
+    return p, gpc
+
+
+def stream_contract_sums_plain(ws, n: int, tier: str, need_h: bool, cols: int,
+                               n_parts: int, acc=torch.float32):
+    """:func:`stream_contract_sums`' partials in plain PyTorch, summed in
+    ``acc`` (f32 or f64): per group, psi Y^T (psi' (Y^2)^T) over its
+    columns at the tier, as the kernels' other plain versions take it
+    (:func:`_kernel_dot`; at bf16x3 hi*hi + lo*hi + hi*lo,
+    :func:`_dot_bf16x3_presplit`)."""
+    p, gpc = _contract_dims(ws, n, tier, need_h, cols, n_parts)
+    out = []
+    for m in range(1 + need_h):
+        per_chunk = []
+        for c in range(ws.shape[0]):
+            ng = min(gpc, n_parts - c * gpc)
+
+            def operand(o):  # its parts as (groups, N, cols) views
+                return [ws[c, (2 * m + o) * p + pt, :n, : ng * cols].unflatten(1, (ng, cols))
+                        .transpose(0, 1).to(acc) for pt in range(p)]
+
+            a, b = operand(0), [v.transpose(1, 2) for v in operand(1)]
+            per_chunk.append(_dot_bf16x3_presplit(a, b, acc) if tier == "bf16x3"
+                             else _kernel_dot(a[0], b[0], acc, "f32"))
+        out.append(torch.cat(per_chunk))
+    return out[0], (out[1] if need_h else None)
+
+
+def stream_contract_sums(ws, n: int, tier: str, need_h: bool, cols: int, n_parts: int):
+    """Kernel 8's launch B alone (``picard_stream_contract_tc``): G = psi
+    Y^T and, with ``need_h``, H = psi' (Y^2)^T over each group of
+    ``cols`` columns at the contraction tier, from a workspace laid out
+    as :func:`contract_workspace` lays it out. Returns the (n_parts, N, N)
+    f32 partials of G and of H (None without ``need_h``), unfolded."""
+    if ws.device.type == "cpu":
+        return stream_contract_sums_plain(ws, n, tier, need_h, cols, n_parts)
+    _, gpc = _contract_dims(ws, n, tier, need_h, cols, n_parts)
+    if not ws.is_contiguous():
+        raise ValueError("the workspace must be contiguous")
+    g = torch.empty((n_parts, n, n), dtype=torch.float32, device=ws.device)
+    h = torch.empty_like(g) if need_h else None
+    _run(_lib().picard_stream_contract_tc, _TIERS[tier], int(need_h), n, cols, n_parts, gpc,
+         ws.data_ptr(), g.data_ptr(), _ptr(h), n * n, device=ws.device)
+    stream_contract_sums.launches += 1
+    return g, h
 
 
 def _check_stats(x, mean=None):
@@ -1033,7 +1129,8 @@ def _grouped_covariance(x, mean):
 
 KERNELS = (rotated_fused_sums, rotated_moments_sums, rotated_loglik_sums,
            row_sums, centered_covariance_sums, covariance_sums,
-           _grouped_covariance, streaming_fused_sums, streaming_loglik_sums)
+           _grouped_covariance, streaming_fused_sums, streaming_loglik_sums,
+           stream_contract_sums)
 
 
 def reset_launch_counts() -> None:
@@ -1041,8 +1138,8 @@ def reset_launch_counts() -> None:
     ``streaming_fused_sums``'s counts by tier (keyed by the tier of their
     contractions), ``rotated_fused_sums``'s by route (:data:`CORE_ROUTES`)
     and tier, ``streaming_fused_sums``'s by mode ("plain", "delta") and
-    tier, and ``streaming_loglik_sums``'s by tier ("bf16" on bf16 X, "f32"
-    on f32 X) to 0."""
+    tier and its launch B's by tier, and ``streaming_loglik_sums``'s by
+    tier ("bf16" on bf16 X, "f32" on f32 X) to 0."""
     for k in KERNELS:
         k.launches = 0
     rotated_fused_sums.launches_by_tier = dict.fromkeys(_TIERS, 0)
@@ -1051,6 +1148,7 @@ def reset_launch_counts() -> None:
     streaming_fused_sums.launches_by_tier = dict.fromkeys(_TIERS, 0)
     streaming_fused_sums.launches_by_mode = {
         mode: dict.fromkeys(_TIERS, 0) for mode in ("plain", "delta")}
+    streaming_fused_sums.contract_launches_by_tier = dict.fromkeys(_TIERS, 0)
 
 
 reset_launch_counts()

@@ -21,8 +21,8 @@ after, before; each turn measures, with ``chip_smoke.py``'s helpers:
     with H and Y^2, and ``rotated_loglik_sums`` (kernel 3) on f32 X and
     on its bf16 copy, at 64 x 2,000,000, timed the same two ways;
   * ``streaming_fused_sums`` (``chip_smoke.py``'s unit-variance Laplace
-    inputs) at 256 x 2,000,000, 1024 x 200,000 and 306 x 1,000,003 (the
-    MEG's channels, a ragged T) in the cases of a fit's
+    inputs) at 256 x 2,000,000, 1024 x 200,000, 306 x 1,000,003 (the
+    MEG's channels, a ragged T) and 128 x 1,000,000 in the cases of a fit's
     passes, plain mode at the bf16 tier on bf16 X, delta mode at the
     bf16x3 and the f32 tier on f32 X, plain mode at the f32 tier on f32 X
     (the moments hand-off) and delta mode at the bf16 tier on f32 X (a
@@ -156,9 +156,11 @@ CORE_CASES = [  # (label, wrapper, H and Y^2, bf16 X) of kernels 2 and 3
 KERNEL1_SHAPES = ((17, 1_000_003), (63, 1_000_003), (64, 4_000_000))
 KERNEL1_CASES = (("delta bf16x3", "bf16x3"), ("delta f32", "f32"))
 # (N, T, seed of chip_smoke._stream_inputs) of the streaming fused
-# kernel's cases: BASELINE config 5's width, the large-N exhibit's, and
-# the MEG's 306 channels at a ragged T (rows not 16-byte aligned).
-STREAM_SHAPES = ((256, 2_000_000, 5), (1024, 200_000, 7), (306, 1_000_003, 306))
+# kernel's cases: BASELINE config 5's width, the large-N exhibit's, the
+# MEG's 306 channels at a ragged T (rows not 16-byte aligned), and
+# BASELINE config 4's 128 x 1M (one output tile a group in launch B).
+STREAM_SHAPES = ((256, 2_000_000, 5), (1024, 200_000, 7), (306, 1_000_003, 306),
+                 (128, 1_000_000, 128))
 STREAM_CASES = [  # (label, precision, absolute_ll, bf16 X)
     ("plain bf16, bf16 X", "bf16", True, True),
     ("delta bf16x3", "bf16x3", False, False),
@@ -409,7 +411,8 @@ def _add_part_flags(skip):
 def parts_turn(tree: str) -> dict:
     """One build's launch A and launch B device ms a call (``--parts``),
     the kernels split by name: launch A's names hold ``rotate_``, launch
-    B's ``contract_kernel``."""
+    B's ``contract_`` (``contract_wgmma_kernel``; ``contract_kernel`` in
+    trees before it)."""
     import torch
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as traced
@@ -438,7 +441,7 @@ def parts_turn(tree: str) -> dict:
                 torch.cuda.synchronize()
             a = sum(e.device_time_total for e in prof.key_averages() if "rotate_" in e.key)
             b = sum(e.device_time_total for e in prof.key_averages()
-                    if "contract_kernel" in e.key)
+                    if "contract_" in e.key)
             out[f"{case}, {type(density).__name__}"] = {"A_ms": a / 5e3, "B_ms": b / 5e3}
     return out
 

@@ -976,6 +976,9 @@ def test_tc_route_takes_delta_f32_on_f32_x(recorder):
         assert K.streaming_fused_sums.launches_by_tier[ct] == 1
         mode = "plain" if absolute_ll else "delta"
         assert K.streaming_fused_sums.launches_by_mode[mode][ct] == 1
+        # launch B: one a chunk, by the contraction tier
+        assert K.streaming_fused_sums.contract_launches_by_tier == {
+            tier: plan.n_parts // plan.groups_per_chunk * (tier == ct) for tier in K._TIERS}
 
 
 # ---------------------------------------------------------------------------
@@ -1088,3 +1091,112 @@ def test_cpu_wrapper_runs_the_plain_version_in_other_pairs(pair):
                                        absolute_ll)
     assert all(torch.equal(a, b) for a, b in zip(out, ref))
     assert K.streaming_fused_sums.launches == 0
+
+
+# ---------------------------------------------------------------------------
+# Launch B alone (``picard_stream_contract_tc``): the workspace, the plain
+# version and the wrapper.
+# ---------------------------------------------------------------------------
+
+
+def _contract_case(monkeypatch, n, t, tier, need_h, seed):
+    """Random operands (psi, Y and with H psi', Y^2: standard normal) in
+    a workspace of groups of 128 columns, two groups a chunk."""
+    monkeypatch.setattr(K, "STREAM_TC_GROUP_COLS", 128)
+    n_pad = -(-n // 128) * 128
+    monkeypatch.setattr(K, "STREAM_TC_WORKSPACE_MAX",
+                        2 * 128 * 2 * (1 + need_h) * K._TC_ELEM_BYTES[tier] * n_pad)
+    plan = K.stream_tc_plan(n, t, need_h, tier)
+    assert plan.groups_per_chunk == 2 and plan.n_parts == -(-t // 128)
+    gen = torch.Generator().manual_seed(seed)
+    ops = [torch.randn(n, t, generator=gen) for _ in range(2 * (1 + need_h))]
+    return plan, ops, K.contract_workspace(ops, tier, plan)
+
+
+@pytest.mark.parametrize("need_h", [False, True], ids=["no-h", "h"])
+@pytest.mark.parametrize("tier", ["bf16", "bf16x3", "f32"])
+def test_contract_plain_version_gives_each_groups_partials(monkeypatch, tier, need_h):
+    """The workspace holds each operand's parts at the tier, zero past N
+    and T, chunk by chunk; the plain version's partial of group i is the
+    sum over its 128 columns of the operands' part products (hi*hi +
+    lo*hi + hi*lo at bf16x3), held to the same sums in f64."""
+    n, t = 65, 1001
+    plan, ops, ws = _contract_case(monkeypatch, n, t, tier, need_h, 3)
+    assert ws.shape == (4, 2 * (1 + need_h) * (2 if tier == "bf16x3" else 1), 128, 256)
+    assert ws.dtype == (torch.float32 if tier == "f32" else torch.bfloat16)
+    assert not ws[:, :, n:].any() and not ws[-1, :, :, t - 3 * 256:].any()
+    parts = (lambda v: (v,)) if tier == "f32" else PARTS[tier]  # noqa: E731
+    out = K.stream_contract_sums_plain(ws, n, tier, need_h, 128, plan.n_parts)
+    assert len(out) == 2 and (out[1] is None) == (not need_h)
+    for m, got in enumerate(out[: 1 + need_h]):
+        assert got.shape == (plan.n_parts, n, n) and got.dtype == torch.float32
+        for i in range(plan.n_parts):
+            s = slice(128 * i, min(t, 128 * (i + 1)))
+            a, b = (parts(ops[2 * m + o][:, s]) for o in (0, 1))
+            a, b = [v.double() for v in a], [v.double().T for v in b]
+            want = a[0] @ b[0] + (a[1] @ b[0] + a[0] @ b[1] if tier == "bf16x3" else 0)
+            np.testing.assert_allclose(got[i].double().numpy(), want.numpy(), rtol=0,
+                                       atol=1e-5 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("need_h", [False, True], ids=["no-h", "h"])
+@pytest.mark.parametrize("tier", ["bf16", "bf16x3", "f32"])
+def test_contract_wrapper_launches_the_entry(monkeypatch, recorder, tier, need_h):
+    """A non-CPU workspace takes ``picard_stream_contract_tc``: the tier,
+    H, N, the group width, the groups, the groups a chunk, the three
+    pointers (no H pointer without H) and the partials' stride N^2; one
+    launch counted; (n_parts, N, N) partials of G and of H."""
+    n, t = 130, 1001
+    plan, _, ws = _contract_case(monkeypatch, n, t, tier, need_h, 4)
+    K.reset_launch_counts()
+    g, h = K.stream_contract_sums(_meta(ws), n, tier, need_h, 128, plan.n_parts)
+    ((name, args),) = recorder.calls
+    assert name == "picard_stream_contract_tc"
+    assert args[:6] == (K._TIERS[tier], int(need_h), n, 128, plan.n_parts, 2)
+    assert (args[8] is None) == (not need_h) and args[9] == n * n
+    assert g.shape == (plan.n_parts, n, n) and (h is None) == (not need_h)
+    assert K.stream_contract_sums.launches == 1
+
+
+# (label, change to the call) that the wrapper refuses before a launch.
+CONTRACT_REFUSED = [
+    ("tier", {"tier": "f16"}),
+    ("n", {"n": 129}),
+    ("cols", {"cols": 96}),
+    ("h planes", {"need_h": True}),
+    ("groups", {"n_parts": 9}),
+    ("dtype", {"dtype": torch.float16}),
+]
+
+
+@pytest.mark.parametrize("label,change", CONTRACT_REFUSED, ids=[c[0] for c in CONTRACT_REFUSED])
+def test_contract_wrapper_refuses_a_mismatched_workspace(monkeypatch, recorder, label, change):
+    """A workspace whose shape or dtype does not fit the call (N's padded
+    rows, the planes of the tier and H, whole groups, the chunks of the
+    groups, the tier's element) raises and launches nothing."""
+    plan, _, ws = _contract_case(monkeypatch, 65, 1001, "bf16x3", False, 5)
+    call = {"n": 65, "tier": "bf16x3", "need_h": False, "cols": 128, "n_parts": plan.n_parts}
+    call.update(change)
+    ws = _meta(ws.to(change.pop("dtype", ws.dtype)))
+    call.pop("dtype", None)
+    with pytest.raises((ValueError, TypeError)):
+        K.stream_contract_sums(ws, **call)
+    assert not recorder.calls
+
+
+@pytest.mark.parametrize("chunked", [False, True], ids=["whole", "chunked"])
+def test_fused_wrapper_counts_launch_b_a_chunk(monkeypatch, recorder, chunked):
+    """The fused route counts its launch B once a chunk, by the
+    contraction tier: 4,099 columns in 33 groups of 128 take 17 chunks of
+    two groups."""
+    n, t = 80, 4099
+    (m_new, m_old, x), _ = _delta_case(n, t, 16)
+    if chunked:
+        monkeypatch.setattr(K, "STREAM_TC_GROUP_COLS", 128)
+        monkeypatch.setattr(K, "STREAM_TC_WORKSPACE_MAX", 2 * 128 * 2 * 4 * 128)
+    K.reset_launch_counts()
+    K.streaming_fused_sums(*(_meta(torch.from_numpy(v)) for v in (m_new, m_old, x)),
+                           td.Tanh(), False, False, "bf16x3", False)
+    chunks = 17 if chunked else 1
+    assert K.streaming_fused_sums.contract_launches_by_tier == {"f32": 0, "bf16x3": chunks,
+                                                                "bf16": 0}

@@ -46,6 +46,12 @@ after its rotation, so only the order of the f32 sums differs); at the
 f32 tier its ll and ysq drift against f64 sums of the f32 operands under
 the same DRIFT_FACTOR rule (ll is the loss baseline the line search
 compares against).
+
+Launch B alone (``K.stream_contract_sums``) over a workspace of the same
+values as its plain version's: each group's partials within RTOL_F32 of
+the group's largest entry at f32 (six bf16 products against exact f32),
+and RTOL_X3 at bf16x3 and bf16 (the same bf16 operands, only the order of
+the f32 sums differs).
 """
 
 import numpy as np
@@ -263,7 +269,8 @@ def test_library_holds_no_scalar_streaming_kernel(dev):
     """The built library holds no scalar ``streaming_kernel`` (neither in
     ptxas's report nor among its bytes) and no ``streaming_sums.cu``, and
     in one torch.profiler session over the six direct-call pairs only the
-    route's kernels and the fold run."""
+    route's kernels (launch B: ``contract_wgmma_kernel``) and the fold
+    run."""
     from torch.profiler import ProfilerActivity, profile
 
     from picard_ica_tpu_torch.ops import _build
@@ -284,7 +291,7 @@ def test_library_holds_no_scalar_streaming_kernel(dev):
         torch.cuda.synchronize()
     names = {e.key for e in prof.key_averages() if e.device_time_total > 0}
     assert any("rotate_split_kernel" in k for k in names), names
-    assert any("contract_kernel" in k for k in names), names
+    assert any("contract_wgmma_kernel" in k for k in names), names
     assert not any("streaming_kernel" in k for k in names), names
 
 
@@ -745,3 +752,56 @@ def test_auto_takes_the_streaming_kernels(dev):
     assert K.streaming_fused_sums.launches > 0 and K.rotated_fused_sums.launches == 0
     assert r.converged
     assert amari_distance(r.full_unmixing().double().cpu().numpy(), a) < 5e-3
+
+
+# ---------------------------------------------------------------------------
+# Launch B alone (``K.stream_contract_sums``, the C entry
+# ``picard_stream_contract_tc``) against its plain version.
+# ---------------------------------------------------------------------------
+
+
+def _contract_ws(dev, n, t, tier, need_h, seed):
+    """A launch-B workspace from unit-scale operands on the card: Y
+    standard normal, psi = tanh(Y), psi' = 1 - psi^2 and Y^2."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    y = torch.randn(n, t, device=dev, generator=gen)
+    psi = torch.tanh(y)
+    ops = [psi, y] + ([1.0 - psi * psi, y * y] if need_h else [])
+    plan = K.stream_tc_plan(n, t, need_h, tier)
+    ws = K.contract_workspace(ops, tier, plan)
+    del ops, y, psi
+    return plan, ws
+
+
+def _contract_close(tier, got, want):
+    """Each group's partial within the tier's rule of its largest entry:
+    RTOL_F32 against the exact-f32 plain version at f32, RTOL_X3 at bf16x3,
+    and at bf16 the same 2e-5 (the operands are the same bf16 values, so
+    only the order of the f32 sums differs)."""
+    rtol = RTOL_F32 if tier == "f32" else RTOL_X3
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert bool(torch.isfinite(got).all())
+    scale = want.abs().amax(dim=(1, 2), keepdim=True).clamp_min(1e-30)
+    assert bool(((got - want).abs() <= rtol * scale).all()), \
+        float(((got - want).abs() / scale).max())
+
+
+@pytest.mark.parametrize("need_h", [False, True], ids=["no-h", "h"])
+@pytest.mark.parametrize("t", [4096, 1_000_003])
+@pytest.mark.parametrize("n", [65, 129, 306, 1024])
+@pytest.mark.parametrize("tier", ["bf16", "bf16x3", "f32"])
+def test_contract_matches_plain(dev, tier, n, t, need_h):
+    """Launch B alone at every tier, with and without H, over the plan's
+    workspace (at 1,000,003 columns several chunks at N = 1024, the last
+    group ragged): each group's partials of G and H against the plain
+    version's."""
+    plan, ws = _contract_ws(dev, n, t, tier, need_h, n + t)
+    args = (ws, n, tier, need_h, plan.cols_per_group, plan.n_parts)
+    K.reset_launch_counts()
+    out = K.stream_contract_sums(*args)
+    torch.cuda.synchronize()
+    assert K.stream_contract_sums.launches == 1
+    assert (out[1] is None) == (not need_h)
+    want = K.stream_contract_sums_plain(*args)
+    for m in range(1 + need_h):
+        _contract_close(tier, out[m], want[m])

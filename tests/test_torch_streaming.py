@@ -32,6 +32,7 @@ from picard_ica_tpu.ops import pallas_kernels as pk
 from picard_ica_tpu_torch import solver
 from picard_ica_tpu_torch.ops import densities as td
 from picard_ica_tpu_torch.ops import kernels as K
+from picard_ica_tpu_torch.ops.moments import fold_pairwise
 from picard_ica_tpu_torch.utils import amari_distance, generate_mixed_kurtosis_data
 
 torch.set_num_threads(2)
@@ -128,6 +129,41 @@ def test_fused_plain_version_matches_jax_streaming_bf16_x(precision, absolute_ll
     for v in t:
         assert v.dtype == torch.float32
     _check(j, t, F32_TOL if precision == "bf16x3" else BF16_TOL)
+
+
+# Kernel 8's launch B alone: (N, T) with one and two 128-row blocks and
+# a ragged T.
+CONTRACT_SHAPES = [(65, 3001), (130, 4099)]
+
+
+@pytest.mark.parametrize("chunked", [False, True], ids=["whole", "chunked"])
+@pytest.mark.parametrize("n,t", CONTRACT_SHAPES)
+@pytest.mark.parametrize("precision", ["f32", "bf16x3", "bf16"])
+def test_contract_plain_version_matches_jax_streaming(monkeypatch, precision, n, t, chunked):
+    """Launch B's plain version (``K.stream_contract_sums_plain``) over the
+    workspace of the port's own plain rotation and density
+    (``K.contract_workspace``), its groups folded pairwise, gives the JAX
+    package's G and H (plain mode on f32 X at the tier). ``chunked``:
+    groups of 128 columns, two a chunk."""
+    m, _, x = _inputs(n, t, 8, np.float32)
+    jden, tden = DENS["tanh"]
+    j = pk.streaming_fused_sums(jnp.asarray(m), jnp.asarray(m), jnp.asarray(x), jden, True,
+                                False, interpret=True, precision=precision, absolute_ll=True)
+    y = K._kernel_dot(torch.from_numpy(m), torch.from_numpy(x), torch.float32, precision)
+    psi, psi_d = tden.score_and_der(y)
+    if chunked:
+        monkeypatch.setattr(K, "STREAM_TC_GROUP_COLS", 128)
+        n_pad = -(-n // 128) * 128
+        monkeypatch.setattr(K, "STREAM_TC_WORKSPACE_MAX",
+                            2 * 128 * 2 * 2 * K._TC_ELEM_BYTES[precision] * n_pad)
+    plan = K.stream_tc_plan(n, t, True, precision)
+    assert plan.groups_per_chunk == (2 if chunked else plan.n_parts)
+    ws = K.contract_workspace([psi, y, psi_d, y * y], precision, plan)
+    g, h = K.stream_contract_sums_plain(ws, n, precision, True, plan.cols_per_group,
+                                        plan.n_parts)
+    assert g.shape == h.shape == (plan.n_parts, n, n)
+    _check((j[2], j[4]), (fold_pairwise(g), fold_pairwise(h)),
+           BF16_TOL if precision == "bf16" else F32_TOL)
 
 
 def test_group_boundaries_match_jax(monkeypatch):
