@@ -167,9 +167,10 @@ prints no result line):
 
 Phase 2 also holds the streaming kernels against their plain versions:
 ``streaming_fused_sums`` at 256 x 2,000,000 (every mode and tier a fit
-runs), 306 x 1,000,003 (delta f32, and the five pairs only a direct call
-takes) and 1024 x 200,000, ``streaming_loglik_sums`` at 256 x 2,000,000
-and 1024 x 200,000 on both X dtypes. Every case runs the tensor-core
+runs), 306 x 1,000,003 (delta f32, plain bf16 on bf16 X, and the five
+pairs only a direct call takes), 1024 x 200,000 and 72 x 1,000,003 (the
+three pairs whose launch A runs on wgmma), ``streaming_loglik_sums`` at
+256 x 2,000,000 and 1024 x 200,000 on both X dtypes. Every case runs the tensor-core
 route, which must launch at its mode and tier. A row each in the
 ``kernels`` line: ``streaming_fused_sums/tc`` (plain bf16 on bf16 X,
 launches counted in phase 5b), ``streaming_fused_sums/tc_bf16x3``
@@ -725,6 +726,8 @@ def phase2_streaming_kernels():
             (fused, TC3_LABEL, "bf16x3", f("bf16x3", False), False, TC3_ROW, True),
             (fused, TC3_LABEL + ", H+ysq", "bf16x3", f("bf16x3", False, True), False, TC3_ROW,
              True),
+            (fused, TC_LABEL, "bf16", f("bf16", True), True, TC_ROW),
+            (fused, TC_LABEL + ", H+ysq", "bf16", f("bf16", True, True), True, TC_ROW),
             (fused, "plain bf16, f32 X", "bf16", f("bf16", True), False, TC_BF16_ROW),
             (fused, "plain bf16x3, f32 X", "bf16x3", f("bf16x3", True), False, TC_BF16_ROW),
             (fused, "delta bf16, bf16 X", "bf16", f("bf16", False), True, TC_BF16_ROW),
@@ -741,8 +744,10 @@ def phase2_streaming_kernels():
         ]),
         # The wgmma launch A's pairs at the route's smallest width: one W
         # row block, mostly padding, and a ragged T with rows not 16-byte
-        # aligned.
+        # aligned (plain bf16 on bf16 X: X loaded with plain loads).
         ((N_SMALL2, T_RAGGED, 8), [
+            (fused, TC_LABEL, "bf16", f("bf16", True), True, TC_ROW),
+            (fused, TC_LABEL + ", H+ysq", "bf16", f("bf16", True, True), True, TC_ROW),
             (fused, TC_F32_LABEL, "f32", f("f32", False), False, TC_F32_ROW),
             (fused, TC_F32_LABEL + ", H+ysq", "f32", f("f32", False, True), False, TC_F32_ROW),
             (fused, TC3_LABEL, "bf16x3", f("bf16x3", False), False, TC3_ROW, True),
@@ -2243,11 +2248,12 @@ _KERNELS = {
     CONTRACT_ROW: (_STREAM_TC_SOURCE, 1149, f"{CONTRACT_LABEL} f32, {N5} x {T5}"),
 }
 # The instructions each row's products run on: kernel 8's launch B runs
-# on wgmma in every pair, its launch A in the wgmma pairs (delta bf16x3
-# and f32 on f32 X) and on mma.sync in the others; the whitening kernels
-# run on the FP32 pipes.
-_KERNEL_ROUTE = {WG_ROW: "wgmma", TC3_ROW: "wgmma", TC_F32_ROW: "wgmma", CONTRACT_ROW: "wgmma",
-                 **dict.fromkeys((TC_ROW, TC_PF32_ROW, TC_BF16_ROW),
+# on wgmma in every pair, its launch A in the wgmma pairs (plain bf16 on
+# bf16 X, delta bf16x3 and f32 on f32 X) and on mma.sync in the others;
+# the whitening kernels run on the FP32 pipes.
+_KERNEL_ROUTE = {WG_ROW: "wgmma", TC_ROW: "wgmma", TC3_ROW: "wgmma", TC_F32_ROW: "wgmma",
+                 CONTRACT_ROW: "wgmma",
+                 **dict.fromkeys((TC_PF32_ROW, TC_BF16_ROW),
                                  "mma.sync (launch A), wgmma (launch B)"),
                  **dict.fromkeys(("row_sums", "centered_covariance_sums", "covariance_sums",
                                   "_grouped_covariance"), "FP32")}

@@ -1,5 +1,6 @@
 // Hopper's own instructions for the streaming kernel's launches A and B
-// (streaming_fused_tc.cu rotate_wgmma_kernel, contract_wgmma_kernel) and
+// (streaming_fused_tc.cu rotate_wgmma_kernel, rotate_plain_wgmma_kernel,
+// contract_wgmma_kernel) and
 // the core kernel's wgmma pairs (rotated_fused_wgmma.cu): mbarriers, bulk
 // and tensor-map copies from global into shared memory, wgmma.mma_async
 // m64n128k16 and m64n64k16 (and m64n32k16) with both operands read from
@@ -85,6 +86,19 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, unsigned b
       : "memory");
 }
 
+// A box of a tiled 2-D tensor map (element, row) from global into this
+// block's shared memory, completing on `bar`; `map` is the address of a
+// __grid_constant__ kernel parameter.
+__device__ __forceinline__ void tma_load_2d(void* dst, const void* map, int c0, int c1,
+                                            uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n"
+      ::"r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
+      "r"(smem_u32(bar))
+      : "memory");
+}
+
 // A box of a tiled tensor map (3-D: element, row, plane) from global
 // into this block's shared memory, completing on `bar`; `map` is the
 // address of a __grid_constant__ kernel parameter.
@@ -98,8 +112,37 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const void* map, int c0, 
       : "memory");
 }
 
+// A box of a tiled tensor map (3-D: element, row, plane) from this
+// block's shared memory into global memory, in this thread's current bulk
+// group (bulk_commit).
+__device__ __forceinline__ void tma_store_3d(const void* map, const void* src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%1, %2, %3}], [%4];\n"
+      ::"l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(smem_u32(src))
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most PENDING of this thread's newest bulk groups have not
+// yet read their shared memory (the source may then be written again).
+template <int PENDING>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(PENDING) : "memory");
+}
+
+// Wait until at most PENDING of this thread's newest bulk groups are not
+// yet complete.
+template <int PENDING>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(PENDING) : "memory");
+}
+
 // Orders this thread's shared-memory stores before later reads of the
-// async proxy (wgmma's operand reads).
+// async proxy (wgmma's operand reads, a tensor-map store's reads).
 __device__ __forceinline__ void fence_async_shared() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
@@ -139,6 +182,18 @@ __device__ __forceinline__ uint64_t core_desc(const void* p) {
 __device__ __forceinline__ uint64_t sw128_desc(const void* p) {
   return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | (uint64_t)1 << 16 | (uint64_t)(1024 >> 4) << 32 |
          (uint64_t)1 << 62;
+}
+
+// A bf16 B tile at `p` (1024-byte aligned), MN-major in the same swizzle:
+// the box of a tensor map over a row-major (K, N) matrix, 64 N values (128
+// bytes) a k row, 8 k rows an atom of 1024 bytes, so a 16-deep k block
+// starts 2048 bytes further (add 128 to the descriptor). The stride
+// between 8-row groups along K is the stride byte offset; the leading byte
+// offset (the next 64 N values) is unused at N = 64 and given the same
+// 1024 bytes. Read with wgmma's transpose bit for B (wgmma_m64n64k16_mnb_fresh).
+__device__ __forceinline__ uint64_t sw128_mn_desc(const void* p) {
+  return (uint64_t)((smem_u32(p) & 0x3FFFF) >> 4) | (uint64_t)(1024 >> 4) << 16 |
+         (uint64_t)(1024 >> 4) << 32 | (uint64_t)1 << 62;
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -234,6 +289,32 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t a, uint
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(a), "l"(b), "r"((unsigned)fresh));
+}
+
+// d = A B with B MN-major, d written only (scale-d = 0): its registers are
+// outputs of the asm, so nothing before it keeps them live.
+__device__ __forceinline__ void wgmma_m64n64k16_mnb_fresh(float (&d)[32], uint64_t a,
+                                                          uint64_t b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 1;\n"
+      "}\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]),
+        "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
+        "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]),
+        "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
+        "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]),
+        "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
+        "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]),
+        "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31])
+      : "l"(a), "l"(b), "r"(0u));
 }
 
 // The same for a 16 x 32 B: d[4 i + 2 h + e] at row 16 (t / 32) + (t %

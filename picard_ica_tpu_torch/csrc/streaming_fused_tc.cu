@@ -7,7 +7,7 @@
 // and of the contraction; on bf16 X the rotation runs at the bf16 tier,
 // the weights rounded to bf16 by the caller, as in the TPU kernel):
 //   * plain, ROT = CT = BF16, bf16 X: the default staged schedule's first
-//     stage, and the moments hand-off on its X (rotate_density_kernel);
+//     stage, and the moments hand-off on its X (rotate_plain_wgmma_kernel);
 //   * delta, ROT = CT = BF16X3, f32 X: the second stage;
 //   * delta, ROT = CT = F32, f32 X: the last stage, and every try of a
 //     kernel_precision="f32" fit;
@@ -18,8 +18,9 @@
 //     at BF16X3 on f32 X, are direct calls;
 //   * delta, ROT = CT = BF16, bf16 X (also an f32 request on bf16 X), and
 //     delta and plain with ROT = BF16, CT = BF16X3 on bf16 X: direct calls.
-// Delta bf16x3 and delta f32 on f32 X run rotate_wgmma_kernel<ROT>, every
-// other pair but the first rotate_split_kernel<MODE, ROT, CT, XB>.
+// Launch A of plain bf16 on bf16 X is rotate_plain_wgmma_kernel, of delta
+// bf16x3 and delta f32 on f32 X rotate_wgmma_kernel<ROT> (the three on
+// wgmma), of every other pair rotate_split_kernel<MODE, ROT, CT, XB>.
 // Launch A alone, with a log-lik epilogue and no workspace, is also
 // picard_streaming_loglik_tc, on both X dtypes (below).
 //
@@ -62,25 +63,37 @@
 //
 // What the design does about it: two GEMM-shaped launches, so that the
 // products run on the tensor cores and the density runs once per
-// element. Launch A, but in the two wgmma pairs, is a plain tile loop on
-// mma.sync m16n8k16 (mma_tiers.cuh) fed by a cp.async ring, two blocks
-// of 8 warps an SM, so one block's density or stores overlap another's
-// products. Launch B runs on wgmma in every pair (below).
-//   * Launch A, plain (rotate_density_kernel): one block owns a TILE-row
-//     block of W and one group of `cols` consecutive columns, and walks
-//     the group's A_BT-column tiles in order. Per tile, Y[TILE x A_BT] =
-//     W X on the tensor cores, k over N in A_KC-deep stages (W, copied by
-//     the caller into a zero-padded bf16 (n_pad, kp) matrix, is the A
-//     operand; X, (N, T) row-major, the B operand read with
-//     ldmatrix.trans; 16-byte copies where T % 8 == 0, else plain loads,
-//     zero-filled past N and T). The density runs on the accumulator
-//     fragments; the row sums stay in registers across the group's tiles,
-//     so each (group, row) partial is a sequential f32 sum with no
-//     atomics. psi and Y (with H also psi' and Y^2) go to a bf16 workspace
-//     of (n_pad, ws_cols) planes, exact zeros at padded rows and columns,
-//     so launch B needs no mask and psi'(0) != 0 never reaches H. 128 x
-//     128 tiles at one block an SM, and 32-deep stages, measured slower
-//     (PERF.md).
+// element. Launch A of the three wgmma pairs is warp specialised
+// (below); of the others a plain tile loop on mma.sync m16n8k16
+// (mma_tiers.cuh) fed by a cp.async ring, two blocks of 8 warps an SM,
+// so one block's density or stores overlap another's products. Launch B
+// runs on wgmma in every pair (below). Every launch A writes psi and Y
+// (with H also psi' and Y^2) to a workspace of (n_pad, ws_cols) planes
+// at the contraction's tier, exact zeros at padded rows and columns, so
+// launch B needs no mask and psi'(0) != 0 never reaches H; each (group,
+// row) partial of the row sums is written once, with no atomics.
+//   * Launch A, plain bf16 on bf16 X (rotate_plain_wgmma_kernel; the
+//     staged fit's bf16 stage). Its bound at 256 x 2M: X's 1.02 GB read
+//     and the psi and Y planes' 2.05 GB written (0.92 ms of HBM), N^2 T
+//     bf16 products (0.27 ms of the tensor cores), and beside them the
+//     plain density on 5.1e8 elements (tanh: an exp, two IEEE divisions
+//     and a log1p, ~70 instructions with its masks, sums and packs, ~1.2
+//     ms of the SMs' issue). What held the mma.sync kernel it replaces
+//     (rotate_density_kernel's plain mode, 4.1 ms of launch A there,
+//     PERF.md §6): W streamed again for every 64-column tile, every
+//     thread copying between two block barriers a stage, the density and
+//     the stores in the warps of the products, 4-byte stores of half
+//     sectors. The design: one block of a producer and three consumer
+//     warpgroups an SM; X's 64-column x 64-row boxes land by tensor map
+//     in the 128-byte swizzle and are wgmma's B operand as they are,
+//     MN-major (the transpose bit for B); W stays in shared memory for the
+//     block's life up to N = 384, else streams beside X in boxes of 128
+//     rows x 64 k; the consumers take alternate 64-column tiles, so one's
+//     density runs while another's products do; the density is one rolled
+//     copy over values parked in shared memory; psi and Y go out by
+//     tensor-map stores of whole 128-byte rows. Each 16-deep k step starts a fresh
+//     wgmma sum, added to the tile's f32 Y to nearest: a chain of wgmmas
+//     over all of k rounds toward zero (PERF.md §6).
 //   * Launch A, delta f32 and delta bf16x3 on f32 X (rotate_wgmma_kernel<F32 /
 //     BF16X3>; the pairs of the f32 fit's and the staged fit's last two
 //     stages): launch A of streaming_fused_sums in delta mode, built on
@@ -127,11 +140,11 @@
 //     both consumers at once and so is not hidden behind products.
 //   * Launch A, the split pairs (rotate_split_kernel<MODE, ROT, CT, XB>:
 //     plain f32, delta and plain bf16 and plain bf16x3 on f32 X, the bf16
-//     X pairs but plain bf16): the plain mode's walk with SETS accumulator
-//     sets a warp (two in delta mode, Y_old and dY). The caller passes each
-//     weight matrix split into its P zero-padded bf16 planes; each landed
-//     KC-row f32 X stage is split once, all threads together, into P bf16
-//     part tiles in shared memory that every warp reads with
+//     X pairs but plain bf16): the loglik launch's walk with SETS
+//     accumulator sets a warp (two in delta mode, Y_old and dY). The caller
+//     passes each weight matrix split into its P zero-padded bf16 planes;
+//     each landed KC-row f32 X stage is split once, all threads together,
+//     into P bf16 part tiles in shared memory that every warp reads with
 //     ldmatrix.trans (a landed bf16 tile, XB, is read as it is). The
 //     tensor cores round each MMA's sum toward zero, and the rotation's K
 //     runs up to 1344 deep, so each 16-deep k step is summed in a fresh
@@ -142,10 +155,14 @@
 //     products and give the delta density's dll, and the plain
 //     score_der_loglik. The workspace follows CT: one bf16 plane an
 //     operand (as plain bf16's), hi / lo at BF16X3, f32 at F32.
-//   * Loglik (picard_streaming_loglik_tc): launch A alone, in MODE_LOGLIK,
-//     rotate_density_kernel on bf16 X and rotate_split_kernel<MODE_LOGLIK, F32, F32> (one
-//     set) on f32 X: log_lik on the fragments, the two row sums kept as
-//     the plain mode keeps them, no workspace and no launch B. Its groups
+//   * Loglik (picard_streaming_loglik_tc): launch A alone, with no
+//     workspace and no launch B: on bf16 X rotate_density_kernel, the
+//     mma.sync tile loop (one block owns a TILE-row block of W and one
+//     group of columns, walked in A_BT-column tiles, k in A_KC-deep
+//     stages of a cp.async ring; X read with ldmatrix.trans; 16-byte
+//     copies where T % 8 == 0, else plain loads), the row sums ll and ysq
+//     in registers across the group's tiles; on f32 X
+//     rotate_split_kernel<MODE_LOGLIK, F32, F32> (one set). Its groups
 //     are narrower (ops/kernels.py STREAM_TC_LOGLIK_COLS): with only (N,)
 //     partials, a group's width sets nothing but the number of blocks,
 //     and at 1024 x 200k 4,096-column groups would fill 1.5 waves of the
@@ -218,18 +235,19 @@ constexpr int A_LDK = A_KC + 8;    // row stride (elements) of the [row][k] W st
 constexpr int LDN = A_BT + 8;      // row stride of the [k][column] X stage tile
 static_assert(TILE % A_BT == 0 && A_WR * A_WC == WARPS, "launch A's warp layout");
 
-// Launch A's shared memory: the ring (a W and an X stage tile each), then
-// the row sums of the column warps (3 sums x A_WC warps x TILE rows).
+// The loglik launch's shared memory: the ring (a W and an X stage tile
+// each), then the row sums of the column warps (2 sums x A_WC warps x TILE
+// rows).
 constexpr int A_W_STAGE = TILE * A_LDK;  // elements
 constexpr int A_X_STAGE = A_KC * LDN;
 constexpr int A_RED = A_STAGES * (A_W_STAGE + A_X_STAGE) * 2;
-constexpr int A_BYTES = A_RED + 3 * A_WC * TILE * 4;
+constexpr int A_BYTES = A_RED + 2 * A_WC * TILE * 4;
 constexpr int BLOCKS = 2;                // blocks an SM, in every launch
 constexpr int SM_SMEM = 233472;          // shared memory of an SM for its blocks
 constexpr int BLOCK_RESERVED = 1024;     // kept by the system per block
 
-// The parts of rotate_wgmma_kernel that a timing build switches off, one
-// bit each, to split its time (port_turns.py --parts adds
+// The parts of rotate_wgmma_kernel and rotate_plain_wgmma_kernel that a
+// timing build switches off, one bit each, to split their time (port_turns.py --parts adds
 // -DPICARD_A_SKIP=bits to its own builds' flags): 1 the products, 2 the
 // density (Y itself stands in for psi, psi' and the log-lik terms), 4 the
 // workspace stores. The port's build sets none: the outputs are wrong
@@ -283,12 +301,10 @@ struct AParams {
   long long t;
   int need_ysq, vec;
   float a, m2a, mha;           // the density's constants, as in density.cuh
-  const __nv_bfloat16* w;      // (n_pad, kp) bf16 M_new (M in loglik mode), zero-padded
+  const __nv_bfloat16* w;      // (n_pad, kp) bf16 M, zero-padded
   const __nv_bfloat16* x;      // (n, t) bf16, row-major
-  __nv_bfloat16 *psi, *y, *psid, *y2;  // workspace, (n_pad, ws_cols) each; none in loglik mode
-  long long ws_cols;
-  int cols, g0;                // columns per group; this chunk's first group
-  float *ll, *dysq, *pm, *ysq; // group g's partial at + g * stride
+  int cols, g0;                // columns per group; the first group
+  float *ll, *dysq, *pm, *ysq; // group g's partial at + g * stride (ll, ysq)
   long long stride;
 };
 
@@ -355,11 +371,9 @@ __device__ __forceinline__ void load_a(const AParams& p, __nv_bfloat16* ws, __nv
   }
 }
 
-// Warps: in launch A, warp w owns rows 16 A_MI (w / A_WC) .. and columns
-// 32 (w % A_WC) .. + 31 of the block's TILE x A_BT tile; in launch B, rows
-// 64 (w / 4) .. + 63 and columns 32 (w % 4) .. + 31 of the TILE x TILE
-// output tile. MODE is MODE_PLAIN or MODE_LOGLIK (no workspace, no pm).
-template <int MODE, int D, bool NEED_H>
+// The log-lik launch on bf16 X: warp w owns rows 16 A_MI (w / A_WC) ..
+// and columns 32 (w % A_WC) .. + 31 of the block's TILE x A_BT tile.
+template <int D>
 __global__ void __launch_bounds__(THREADS, BLOCKS) rotate_density_kernel(AParams p) {
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem);
@@ -370,8 +384,7 @@ __global__ void __launch_bounds__(THREADS, BLOCKS) rotate_density_kernel(AParams
   const int wr = warp / A_WC, wc = warp % A_WC;
   const int row0 = blockIdx.x * TILE;
   const int grp = p.g0 + blockIdx.y;
-  const long long col0 = (long long)grp * p.cols;        // the group's first column of X
-  const long long ws0 = (long long)blockIdx.y * p.cols;  // and of the workspace
+  const long long col0 = (long long)grp * p.cols;  // the group's first column of X
   const int n_kc = p.kp / A_KC;
   const int total = (p.cols / A_BT) * n_kc;
 
@@ -386,7 +399,7 @@ __global__ void __launch_bounds__(THREADS, BLOCKS) rotate_density_kernel(AParams
 
   float acc[A_MI][NI][4] = {};
   // Row sums over the group: [m-tile][row g / g + 8].
-  float rs_ll[A_MI][2] = {}, rs_pm[A_MI][2] = {}, rs_ysq[A_MI][2] = {};
+  float rs_ll[A_MI][2] = {}, rs_ysq[A_MI][2] = {};
 
   for (int it = 0; it < total; ++it) {
     cp_async_wait<A_STAGES - 2>();
@@ -417,11 +430,8 @@ __global__ void __launch_bounds__(THREADS, BLOCKS) rotate_density_kernel(AParams
     }
     if (it % n_kc != n_kc - 1) continue;
 
-    // The tile is done: density on the fragments, masked row sums, and the
-    // bf16 workspace (4-byte stores of column pairs).
-    const int tile = it / n_kc;
-    const long long c0 = col0 + (long long)tile * A_BT;
-    const long long wcol = ws0 + (long long)tile * A_BT;
+    // The tile is done: log_lik on the fragments, masked row sums.
+    const long long c0 = col0 + (long long)(it / n_kc) * A_BT;
 #pragma unroll
     for (int mi = 0; mi < A_MI; ++mi) {
 #pragma unroll
@@ -430,35 +440,15 @@ __global__ void __launch_bounds__(THREADS, BLOCKS) rotate_density_kernel(AParams
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh) {
           const int row = row0 + 16 * A_MI * wr + 16 * mi + g + 8 * hh;
-          float yv[2], ps[2], pd[2];
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             const float y = acc[mi][nt][2 * hh + e];
-            float psi = 0.f, psid = 0.f, ll;
-            if constexpr (MODE == MODE_LOGLIK)
-              ll = log_lik<D>(p, y);
-            else
-              score_der_loglik<D>(p, y, psi, psid, ll);
-            const bool valid = row < p.n && c0 + cl + e < p.t;
-            if (valid) {  // log_lik(0) != 0 and psi'(0) != 0
+            const float ll = log_lik<D>(p, y);
+            if (row < p.n && c0 + cl + e < p.t) {  // log_lik(0) != 0
               rs_ll[mi][hh] += ll;
-              if constexpr (MODE == MODE_PLAIN) rs_pm[mi][hh] += psid;
               if (p.need_ysq) rs_ysq[mi][hh] += y * y;
             }
-            yv[e] = y;     // 0 at padded rows and columns
-            ps[e] = psi;   // psi(0) == 0
-            pd[e] = valid ? psid : 0.f;
             acc[mi][nt][2 * hh + e] = 0.f;
-          }
-          if constexpr (MODE == MODE_PLAIN) {
-            const long long off = (long long)row * p.ws_cols + wcol + cl;
-            *reinterpret_cast<uint32_t*>(p.y + off) = pack_bf16(yv[0], yv[1]);
-            *reinterpret_cast<uint32_t*>(p.psi + off) = pack_bf16(ps[0], ps[1]);
-            if (NEED_H) {
-              *reinterpret_cast<uint32_t*>(p.psid + off) = pack_bf16(pd[0], pd[1]);
-              *reinterpret_cast<uint32_t*>(p.y2 + off) =
-                  pack_bf16(yv[0] * yv[0], yv[1] * yv[1]);
-            }
           }
         }
       }
@@ -471,25 +461,25 @@ __global__ void __launch_bounds__(THREADS, BLOCKS) rotate_density_kernel(AParams
   for (int mi = 0; mi < A_MI; ++mi) {
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
-      float v[3] = {rs_ll[mi][hh], rs_pm[mi][hh], rs_ysq[mi][hh]};
+      float v[2] = {rs_ll[mi][hh], rs_ysq[mi][hh]};
 #pragma unroll
-      for (int k = 0; k < 3; ++k) {
+      for (int k = 0; k < 2; ++k) {
         v[k] += __shfl_xor_sync(0xffffffffu, v[k], 1);
         v[k] += __shfl_xor_sync(0xffffffffu, v[k], 2);
       }
       if (q == 0) {
         const int rl = 16 * A_MI * wr + 16 * mi + g + 8 * hh;
 #pragma unroll
-        for (int k = 0; k < 3; ++k) red[(k * A_WC + wc) * TILE + rl] = v[k];
+        for (int k = 0; k < 2; ++k) red[(k * A_WC + wc) * TILE + rl] = v[k];
       }
     }
   }
   __syncthreads();
   const int row = row0 + tid;
   if (tid < TILE && row < p.n) {
-    float v[3];
+    float v[2];
 #pragma unroll
-    for (int k = 0; k < 3; ++k) {
+    for (int k = 0; k < 2; ++k) {
       const float* r = red + k * A_WC * TILE + tid;
       v[k] = r[0];
 #pragma unroll
@@ -497,11 +487,7 @@ __global__ void __launch_bounds__(THREADS, BLOCKS) rotate_density_kernel(AParams
     }
     const long long o = (long long)grp * p.stride + row;
     p.ll[o] = v[0];
-    if (MODE == MODE_PLAIN) p.pm[o] = v[1];
-    if (p.need_ysq) {
-      p.ysq[o] = v[2];
-      if (MODE == MODE_PLAIN) p.dysq[o] = v[2];
-    }
+    if (p.need_ysq) p.ysq[o] = v[1];
   }
 }
 
@@ -564,8 +550,8 @@ __device__ __forceinline__ void load_d(const DParams& p, unsigned char* st, int 
 
 // Launch A with the rotation at tier ROT (on bf16 X, XB, the bf16 tier),
 // in MODE: delta (two accumulator sets), plain or loglik (one); the
-// workspace planes of the contraction's tier CT. Warps as in launch A's
-// plain mode.
+// workspace planes of the contraction's tier CT. Warps as in the loglik
+// launch on bf16 X.
 template <int MODE, int ROT, int CT, bool XB, int D, bool NEED_H>
 __global__ void __launch_bounds__(THREADS, BLOCKS) rotate_split_kernel(DParams p) {
   constexpr int SETS = MODE == MODE_DELTA ? 2 : 1;
@@ -1187,6 +1173,338 @@ __global__ void __launch_bounds__(G_THREADS, 1) rotate_wgmma_kernel(DParams p) {
   }
 }
 
+// Launch A of plain bf16 on bf16 X (rotate_plain_wgmma_kernel): warp
+// specialised on Hopper's own instructions. One block of 512 threads an
+// SM owns TILE rows of W and one group of `cols` columns, walked in
+// P_BN-column tiles. Warpgroups 1-3 consume alternate tiles of the group
+// (consumer c takes tiles c, c + P_NC, ...), all TILE rows of each, so
+// that one consumer's density and stores run while another's products
+// do. Each consumer has a ring of its own: a ring shared by consumers that
+// skip each other's stages would let one wait on a stage's phase two
+// ahead, which an mbarrier's parity cannot tell from the last. Warp c of
+// warpgroup 0 fills consumer c's ring of P_KC-deep stages: its lane 0
+// with tensor-map copies (completing on the stage's `full` mbarrier) of
+// X's box of P_BN columns x P_KC rows in the 128-byte swizzle, which wgmma
+// reads MN-major (sw128_mn_desc; zero past n and t by the map), and, where
+// W does not stay resident, of W's box of TILE rows x P_KC in the same
+// swizzle, K-major (sw128_desc). Where X's rows are not 16-byte aligned (a
+// ragged t, or an unaligned base: no tensor map can be made), the whole
+// warp loads X's box with plain loads into the same swizzled layout and
+// arrives once more. W (the caller's zero-padded (n_pad, kp) bf16 plane)
+// is copied once a block into shared memory where kp <= P_RESIDENT_KP,
+// beside rings as deep as what is left allows. A consumer runs per 16-deep
+// k step two wgmma m64n64k16 (the two 64-row halves), each in a fresh sum
+// added to the tile's f32 Y; a stage goes back to its producer warp
+// through its `empty` mbarrier. setmaxnreg gives the consumers 152
+// registers and the producer 56. The density follows each tile in its
+// consumer, a quarter of the tile at a time (a thread's one row of the
+// quarter, 8 rows of a warp, all 64 columns): the thread's 16 values are
+// parked in its own shared-memory slots and run through one copy of the
+// density's code; each row's sums go to f64 in shared memory once a
+// quarter, a slot set for each consumer, added in the consumers' order at
+// the group's end; psi and Y are staged a warp's 8 rows at a time (two
+// buffers) in the 128-byte swizzle and written by tensor-map stores of
+// whole 128-byte rows (psi' and Y^2, with H, as 4-byte column pairs).
+constexpr int P_BN = 64;   // columns of an X tile: one 128-byte swizzle row of bf16
+constexpr int P_KC = 64;   // k depth of a stage: one box of X's rows (and of W's columns)
+constexpr int P_NC = 3;    // consumer warpgroups
+constexpr int P_THREADS = 128 * (1 + P_NC);
+constexpr int P_PRODUCER_REGS = 56, P_CONSUMER_REGS = 152;
+constexpr int P_X_BOX = P_KC * P_BN * 2;  // bytes of X's box
+constexpr int P_W_BOX = TILE * P_KC * 2;  // bytes of W's box
+constexpr int P_RESIDENT_KP = 384;        // W resident in shared memory up to this k extent
+constexpr int P_MAX_STAGES = 8;           // of a consumer's ring
+// After the rings and W: each consumer thread's 16 parked f32 values, each
+// consumer warp's two staging buffers of psi and Y (each 2 planes x a box
+// of the workspace's tensor map, P_OROWS rows of the tile's P_BN columns,
+// 128-byte rows in the 128-byte swizzle), the row sums (P_NC x 3 sums x
+// TILE rows, f64), and the rings' full / empty barriers and W's.
+constexpr int P_OROWS = 8;
+constexpr int P_PARK = P_NC * 16 * 128 * 4;
+constexpr int P_OBOX = P_OROWS * P_BN;      // bf16 elements of one box
+constexpr int P_OUT_BUF = 2 * P_OBOX;       // of one buffer
+constexpr int P_OUT_WARP = 2 * P_OUT_BUF;
+constexpr int P_OUT = P_NC * 4 * P_OUT_WARP * 2;
+constexpr int P_RED = P_NC * 3 * TILE * 8;
+constexpr int P_FIXED = P_PARK + P_OUT + P_RED + (2 * P_NC * P_MAX_STAGES + 1) * 8;
+static_assert(P_KC == A_KC, "W's plane is padded along k to whole boxes");
+static_assert(P_BN * 2 == 128 && P_KC % 16 == 0 && P_X_BOX % 1024 == 0 && P_W_BOX % 1024 == 0,
+              "boxes of whole 128-byte swizzle atoms");
+static_assert(P_PARK % 1024 == 0 && P_OUT % 1024 == 0, "swizzled staging boxes 1024-byte aligned");
+static_assert(P_PRODUCER_REGS * 128 + P_CONSUMER_REGS * 128 * P_NC <= 65536, "an SM's registers");
+static_assert(P_OBOX * 2 == 1024, "a box is one 128-byte swizzle atom");
+
+struct PwParams {
+  CUtensorMap wmap;  // W, (n_pad, kp) bf16: boxes of P_KC columns x TILE rows
+  CUtensorMap xmap;  // X, (n, t) bf16: boxes of P_BN columns x P_KC rows (vec only)
+  CUtensorMap omap;  // the workspace's planes: boxes of P_BN columns x P_OROWS rows
+  int n, kp, n_ks, stages, resident;  // stages: of each consumer's ring
+  long long t;
+  int need_ysq, vec;
+  float a, m2a, mha;
+  const __nv_bfloat16* x;
+  __nv_bfloat16 *psi, *y, *psid, *y2;  // workspace, (n_pad, ws_cols) each
+  long long ws_cols;
+  int cols, g0;
+  float *ll, *dysq, *pm, *ysq;
+  long long stride;
+};
+
+// Bytes of one ring stage, and of the launch's shared memory (with the
+// slack that aligns it to 1024).
+__host__ __device__ constexpr int plain_stage_bytes(int resident) {
+  return P_X_BOX + (resident ? 0 : P_W_BOX);
+}
+int plain_smem_bytes(const PwParams& p) {
+  return 1024 + P_NC * p.stages * plain_stage_bytes(p.resident) +
+         (p.resident ? p.n_ks * P_W_BOX : 0) + P_FIXED;
+}
+
+// A consumer thread's values of quarter QT of its tile, its row g + 8 (QT
+// % 2) of half QT / 2 (fragment values 4 i + 2 h + e, all 64 columns 8 i +
+// 2 q + e), into its 16 slots (slot 2 i + e at pk[(2 i + e) * 128]).
+template <int QT>
+__device__ __forceinline__ void park_plain(const float (&acc)[2][32], float* pk) {
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) pk[(2 * i + e) * 128] = acc[QT / 2][4 * i + 2 * (QT % 2) + e];
+}
+
+template <int D, bool NEED_H>
+__global__ void __launch_bounds__(P_THREADS, 1)
+    rotate_plain_wgmma_kernel(const __grid_constant__ PwParams p) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const int ST = p.stages, stage_bytes = plain_stage_bytes(p.resident);
+  unsigned char* wres = smem + P_NC * ST * stage_bytes;
+  unsigned char* fixed = wres + (p.resident ? p.n_ks * P_W_BOX : 0);
+  float* park = reinterpret_cast<float*>(fixed);
+  __nv_bfloat16* outs = reinterpret_cast<__nv_bfloat16*>(fixed + P_PARK);
+  double* red = reinterpret_cast<double*>(fixed + P_PARK + P_OUT);
+  uint64_t* full = reinterpret_cast<uint64_t*>(fixed + P_PARK + P_OUT + P_RED);
+  uint64_t* empty = full + P_NC * P_MAX_STAGES;
+  uint64_t* wfull = empty + P_NC * P_MAX_STAGES;
+
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int row0 = blockIdx.x * TILE;
+  const int grp = p.g0 + blockIdx.y;
+  const long long col0 = (long long)grp * p.cols;        // the group's first column of X
+  const long long ws0 = (long long)blockIdx.y * p.cols;  // and of the workspace
+  const int n_ks = p.n_ks, n_tiles = p.cols / P_BN;
+
+  for (int u = tid; u < P_NC * 3 * TILE; u += P_THREADS) red[u] = 0.0;
+  if (tid == 0) {
+    for (int s = 0; s < P_NC * ST; ++s) {
+      mbar_init(&full[s], p.vec ? 1 : 2);  // the copies (and the loads' end)
+      mbar_init(&empty[s], 4);             // each warp of the ring's consumer
+    }
+    mbar_init(wfull, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (tid < 128) {
+    // ---- the producer warpgroup: warp c fills consumer c's ring ----
+    regs_dec<P_PRODUCER_REGS>();
+    const int c = tid >> 5;
+    if (tid == 0 && p.resident) {
+      mbar_arrive_expect_tx(wfull, n_ks * P_W_BOX);
+      for (int ks = 0; ks < n_ks; ++ks)
+        tma_load_2d(wres + ks * P_W_BOX, &p.wmap, ks * P_KC, row0, wfull);
+    }
+    if (c >= P_NC || (p.vec && lane != 0)) return;
+    // Item i of the ring is k stage i % n_ks of the consumer's tile i / n_ks
+    // (tile c + P_NC (i / n_ks) of the group), in slot i % ST.
+    const unsigned w_bytes = p.resident ? 0 : P_W_BOX;
+    const unsigned short* x = reinterpret_cast<const unsigned short*>(p.x);
+    const int total = (n_tiles - c + P_NC - 1) / P_NC * n_ks;
+    for (int i = 0; i < total; ++i) {
+      const int s = c * ST + i % ST, ks = i % n_ks, k0 = ks * P_KC;
+      const long long c0 = col0 + (long long)(c + P_NC * (i / n_ks)) * P_BN;
+      if (i >= ST) mbar_wait(&empty[s], (i / ST - 1) & 1);
+      unsigned char* st = smem + s * stage_bytes;
+      if (lane == 0) {
+        const unsigned bytes = w_bytes + (p.vec ? P_X_BOX : 0);
+        if (bytes)
+          mbar_arrive_expect_tx(&full[s], bytes);
+        else
+          mbar_arrive(&full[s]);
+        if (!p.resident) tma_load_2d(st + P_X_BOX, &p.wmap, k0, row0, &full[s]);
+        if (p.vec) tma_load_2d(st, &p.xmap, (int)c0, k0, &full[s]);
+      }
+      if (p.vec) continue;
+      // X's box by plain loads: lane l takes the column pair 2 l, 2 l + 1 of
+      // each k row (whole 128-byte rows a warp), into the swizzled place a
+      // tensor map would land it in (16-byte chunk j of row k at chunk j ^
+      // (k % 8)), zero past n and t; then the loads' arrival.
+      const long long cc = c0 + 2 * lane;
+      const bool in0 = cc < p.t, in1 = cc + 1 < p.t;
+#pragma unroll 16
+      for (int k = 0; k < P_KC; ++k) {
+        const bool row_in = k0 + k < p.n;
+        const unsigned short* xr = x + (long long)(k0 + k) * p.t + cc;
+        const uint32_t lo = row_in && in0 ? __ldg(xr) : 0u;
+        const uint32_t hi = row_in && in1 ? __ldg(xr + 1) : 0u;
+        *reinterpret_cast<uint32_t*>(st + k * 128 + (((lane >> 2) ^ (k & 7)) << 4) +
+                                     4 * (lane & 3)) = lo | hi << 16;
+      }
+      fence_async_shared();  // the box, before wgmma reads it
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&full[s]);
+    }
+    return;
+  }
+
+  // ---- the consumer warpgroups: consumer c takes tiles c, c + P_NC, ... ----
+  regs_inc<P_CONSUMER_REGS>();
+  const int ct = tid - 128, c = ct >> 7, warp = (ct & 127) >> 5;
+  const int g = lane >> 2, q = lane & 3;
+  float* pk = park + c * 16 * 128 + (ct & 127);
+  __nv_bfloat16* ow = outs + (4 * c + warp) * P_OUT_WARP;
+  double* rd = red + c * 3 * TILE;
+  if (p.resident) mbar_wait(wfull, 0);
+  float acc[2][32];
+  int nq = 0;  // the consumer's quarters so far: the staging buffer's parity
+  for (int tile = c, i0 = 0; tile < n_tiles; tile += P_NC, i0 += n_ks) {
+    // The rotation, Y = W X over k: per 16-deep step the two halves'
+    // products in fresh accumulators, added to the tile's f32 sums to
+    // nearest (a chain of wgmmas rounds toward zero).
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[0][i] = acc[1][i] = 0.f;
+    for (int ks = 0; ks < n_ks; ++ks) {
+      const int i = i0 + ks, s = c * ST + i % ST;  // item i of the consumer's ring
+      mbar_wait(&full[s], (i / ST) & 1);
+      const unsigned char* st = smem + s * stage_bytes;
+      const unsigned char* wb = p.resident ? wres + ks * P_W_BOX : st + P_X_BOX;
+      if constexpr (!SKIP_PRODUCTS) {
+#pragma unroll
+        for (int k16 = 0; k16 < P_KC / 16; ++k16) {
+          const uint64_t b = sw128_mn_desc(st) + 128 * k16;
+          float f0[32], f1[32];  // the step's fresh sums of the two halves
+          wgmma_fence();
+          wgmma_m64n64k16_mnb_fresh(f0, sw128_desc(wb) + 2 * k16, b);
+          wgmma_commit();
+          wgmma_m64n64k16_mnb_fresh(f1, sw128_desc(wb + 64 * 128) + 2 * k16, b);
+          wgmma_commit();
+          wgmma_wait<1>();
+          fence_regs(f0);
+#pragma unroll
+          for (int i = 0; i < 32; ++i) acc[0][i] += f0[i];
+          wgmma_wait<0>();
+          fence_regs(f1);
+#pragma unroll
+          for (int i = 0; i < 32; ++i) acc[1][i] += f1[i];
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[s]);
+    }
+
+    // The tile is done. A quarter of it at a time, rows g + 8 h of half
+    // (one row a thread, 8 of the warp, all 64 columns): the thread's 16
+    // values parked in its own slots, then the density, the row sums and
+    // the staged stores over all 16 (one copy of the density's code, the
+    // quarters in a rolled loop).
+    const long long c0 = col0 + (long long)tile * P_BN;
+    const long long wcol = ws0 + (long long)tile * P_BN;
+    const long long left = p.t - c0;  // the tile's columns before t
+    const int cols_in = left <= 0 ? 0 : left < P_BN ? (int)left : P_BN;
+#pragma unroll 1
+    for (int qt = 0; qt < 4; ++qt, ++nq) {
+      switch (qt) {
+        case 0: park_plain<0>(acc, pk); break;
+        case 1: park_plain<1>(acc, pk); break;
+        case 2: park_plain<2>(acc, pk); break;
+        default: park_plain<3>(acc, pk); break;
+      }
+      const int rw = 64 * (qt >> 1) + 16 * warp + 8 * (qt & 1);  // the warp's first row
+      const int row = row0 + rw + g;
+      // The warp's 8 rows hold a row below n and the tile a column below
+      // t, or their Y is all zeros (W's padded rows, X's padded columns):
+      // then psi = Y = 0, and the density is skipped.
+      const bool live = cols_in > 0 && row0 + rw < p.n;
+      // The warp's buffer of this quarter, free once the store of two
+      // quarters ago has read it.
+      __nv_bfloat16* ob = ow + (nq & 1) * P_OUT_BUF;
+      if constexpr (!SKIP_STORES) {
+        if (lane == 0) bulk_wait_read<1>();
+        __syncwarp();
+      }
+      float sums[3] = {};  // ll, pm, ysq of the row
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int cl = 8 * i + 2 * q;  // the pair's first column in the tile
+        float yv[2], ps[2], pd[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float y = pk[(2 * i + e) * 128];
+          float psi = y, psid = y, ll = y;
+          if (!SKIP_DENSITY && live) score_der_loglik<D>(p, y, psi, psid, ll);
+          if (row < p.n && cl + e < cols_in) {  // log_lik(0) != 0 and psi'(0) != 0
+            sums[0] += ll;
+            sums[1] += psid;
+            sums[2] += y * y;
+            pd[e] = psid;
+          } else {
+            pd[e] = 0.f;
+          }
+          yv[e] = y;    // 0 at padded rows and columns
+          ps[e] = psi;  // psi(0) == 0
+        }
+        if constexpr (!SKIP_STORES) {
+          // Row g's 16-byte chunk i of each plane's box at chunk i ^ g.
+          const int off = g * P_BN + ((i ^ g) << 3) + 2 * q;
+          *reinterpret_cast<uint32_t*>(ob + off) = pack_bf16(ps[0], ps[1]);
+          *reinterpret_cast<uint32_t*>(ob + P_OBOX + off) = pack_bf16(yv[0], yv[1]);
+          if (NEED_H) {
+            const long long o = (long long)row * p.ws_cols + wcol + cl;
+            *reinterpret_cast<uint32_t*>(p.psid + o) = pack_bf16(pd[0], pd[1]);
+            *reinterpret_cast<uint32_t*>(p.y2 + o) = pack_bf16(yv[0] * yv[0], yv[1] * yv[1]);
+          }
+        }
+      }
+      if constexpr (!SKIP_STORES) {
+        // The warp's 8 rows of the tile, psi then Y, as two tensor-map
+        // stores of whole 128-byte rows.
+        fence_async_shared();  // the buffer, before the stores read it
+        __syncwarp();
+        if (lane == 0) {
+          tma_store_3d(&p.omap, ob, (int)wcol, row0 + rw, 0);
+          tma_store_3d(&p.omap, ob + P_OBOX, (int)wcol, row0 + rw, 1);
+          bulk_commit();
+        }
+      }
+      // The row's sums: the quad's lanes, then its one slot of this
+      // consumer.
+#pragma unroll
+      for (int k = 0; k < 3; ++k) {
+        float v = sums[k];
+        v += __shfl_xor_sync(0xffffffffu, v, 1);
+        v += __shfl_xor_sync(0xffffffffu, v, 2);
+        if (q == 0) rd[k * TILE + rw + g] += v;
+      }
+    }
+  }
+
+  // The group's row partials: the consumers' sums in order, rounded once;
+  // and no store outlives the block.
+  if (lane == 0) bulk_wait<0>();
+  bar_sync<128 * P_NC>(1);
+  const int row = row0 + ct;
+  if (ct < TILE && row < p.n) {
+    double v[3] = {};
+#pragma unroll
+    for (int cc = 0; cc < P_NC; ++cc)
+#pragma unroll
+      for (int k = 0; k < 3; ++k) v[k] += red[(3 * cc + k) * TILE + ct];
+    const long long o = (long long)grp * p.stride + row;
+    p.ll[o] = (float)v[0];
+    p.pm[o] = (float)v[1];
+    if (p.need_ysq) p.ysq[o] = p.dysq[o] = (float)v[2];
+  }
+}
+
 // Launch B on Hopper's own instructions (contract_wgmma_kernel<TIER>;
 // the design in the header). Grid (edge^2 output tiles, the chunk's
 // groups, G or H); group g's partial at out + (g0 + g) * stride, rows
@@ -1423,12 +1741,26 @@ cudaError_t launch(Kernel kernel, int smem, dim3 grid, const Params& p, cudaStre
   return cudaGetLastError();
 }
 
-template <int MODE, bool NEED_H>
-cudaError_t launch_a(int dens, dim3 grid, const AParams& p, cudaStream_t st) {
+cudaError_t launch_loglik_bf16(int dens, dim3 grid, const AParams& p, cudaStream_t st) {
   switch (dens) {
-    case TANH: return launch(rotate_density_kernel<MODE, TANH, NEED_H>, A_BYTES, grid, p, st);
-    case EXP: return launch(rotate_density_kernel<MODE, EXP, NEED_H>, A_BYTES, grid, p, st);
-    case CUBE: return launch(rotate_density_kernel<MODE, CUBE, NEED_H>, A_BYTES, grid, p, st);
+    case TANH: return launch(rotate_density_kernel<TANH>, A_BYTES, grid, p, st);
+    case EXP: return launch(rotate_density_kernel<EXP>, A_BYTES, grid, p, st);
+    case CUBE: return launch(rotate_density_kernel<CUBE>, A_BYTES, grid, p, st);
+  }
+  return cudaErrorInvalidValue;
+}
+
+// The wgmma launch A of plain bf16 on bf16 X (rotate_plain_wgmma_kernel).
+template <bool NEED_H>
+cudaError_t launch_plain_wgmma(int dens, dim3 grid, const PwParams& p, cudaStream_t st) {
+  const int smem = plain_smem_bytes(p);
+  switch (dens) {
+    case TANH:
+      return launch(rotate_plain_wgmma_kernel<TANH, NEED_H>, smem, grid, p, st, P_THREADS);
+    case EXP:
+      return launch(rotate_plain_wgmma_kernel<EXP, NEED_H>, smem, grid, p, st, P_THREADS);
+    case CUBE:
+      return launch(rotate_plain_wgmma_kernel<CUBE, NEED_H>, smem, grid, p, st, P_THREADS);
   }
   return cudaErrorInvalidValue;
 }
@@ -1511,11 +1843,19 @@ constexpr bool wgmma_pair(bool delta, int rot, int ct, bool x_bf16) {
   return delta && !x_bf16 && rot == ct && (rot == BF16X3 || rot == F32);
 }
 
+// The pair whose launch A is rotate_plain_wgmma_kernel: plain mode on bf16
+// X, both tiers BF16. Its W is the caller's plain (n_pad, kp) bf16 plane,
+// which the kernel reads through a tensor map, so the caller needs no
+// rule of its own for it.
+constexpr bool plain_wgmma_pair(bool delta, int rot, int ct, bool x_bf16) {
+  return !delta && x_bf16 && rot == BF16 && ct == BF16;
+}
+
 // The fused pass's pairs on the split launch, as rotated_fused_tc.cu's
 // fused_tiers: (BF16, BF16) and (BF16X3, BF16X3) in either mode on f32 X,
 // (F32, F32) in either mode on f32 X, (BF16, BF16) in delta mode and
 // (BF16, BF16X3) in either mode on bf16 X. Plain (BF16, BF16) on bf16 X
-// is rotate_density_kernel's (the C entry); any other pair is refused
+// is rotate_plain_wgmma_kernel's (the C entry); any other pair is refused
 // before a launch.
 template <int MODE>
 cudaError_t split_pairs(int rot, int ct, int x_bf16, int dens, bool need_h, dim3 grid_a,
@@ -1562,8 +1902,8 @@ void fill_common(Params& a, int n, long long t, int need_ysq, double alpha, int 
   a.stride = stride;
 }
 
-// Launch A's parameters: rotate_density_kernel's (w: the (n_pad, kp) bf16
-// plane; bf16 X) and the split launch's (w: the planes of its tiers and
+// Launch A's parameters: the loglik launch's on bf16 X (w: the (n_pad, kp)
+// bf16 plane) and the split launch's (w: the planes of its tiers and
 // mode, n_pad * kp apart; f32 X, or bf16 X with x_bf16; launch_d sets the
 // stage count n_kc).
 AParams a_params(int n, long long t, int need_ysq, double alpha, int cols, const void* w,
@@ -1626,6 +1966,21 @@ struct Workspace {
   float* plane_f(int i) const {
     return i < n_planes && ct == F32 ? reinterpret_cast<float*>(base) + i * n_pad * cols : nullptr;
   }
+  // The planes as one 3-D tensor map (element, row, plane) of boxes of
+  // box_cols x box_rows elements in the given swizzle; false if the
+  // encoding fails.
+  bool map(CUtensorMap& tm, unsigned box_cols, unsigned box_rows, CUtensorMapSwizzle sw) const {
+    const EncodeTiled encode = encode_tiled();
+    const int elem = ct == F32 ? 4 : 2;
+    const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)n_pad, (cuuint64_t)n_planes};
+    const cuuint64_t strides[2] = {(cuuint64_t)cols * elem, (cuuint64_t)cols * elem * n_pad};
+    const cuuint32_t box[3] = {box_cols, box_rows, 1u}, unit[3] = {1u, 1u, 1u};
+    return encode &&
+           encode(&tm, ct == F32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                  3, base, dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, sw,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  }
   // Launch B's parameters over this workspace: G's partials at g, H's at
   // h, and the planes as a tensor map of 128-row boxes in the 128-byte
   // swizzle (64 bf16 or 32 f32 columns); false if the encoding fails.
@@ -1637,20 +1992,53 @@ struct Workspace {
     b.edge = n_pad / TILE;
     b.cols = group_cols;
     b.stride = stride;
-    const EncodeTiled encode = encode_tiled();
-    const int elem = ct == F32 ? 4 : 2;
-    const cuuint64_t dims[3] = {(cuuint64_t)cols, (cuuint64_t)n_pad, (cuuint64_t)n_planes};
-    const cuuint64_t strides[2] = {(cuuint64_t)cols * elem, (cuuint64_t)cols * elem * n_pad};
-    const cuuint32_t box[3] = {128u / elem, (cuuint32_t)TILE, 1u}, unit[3] = {1u, 1u, 1u};
-    if (!encode ||
-        encode(&b.tm, ct == F32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-               3, base, dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-               CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
-      return false;
-    return true;
+    return map(b.tm, 128u / (ct == F32 ? 4 : 2), TILE, CU_TENSOR_MAP_SWIZZLE_128B);
   }
 };
+
+// The wgmma launch A's parameters (plain bf16 on bf16 X) over the chunk
+// workspace wk: W's tensor map (boxes of P_KC columns x TILE rows of the
+// caller's zero-padded (n_pad, kp) bf16 plane) and, where X's rows are
+// 16-byte aligned (vec), X's (boxes of P_BN columns x P_KC rows); W
+// resident where kp <= P_RESIDENT_KP, and a ring as deep as the shared
+// memory left allows. False if an encoding fails.
+bool pw_params(int n, long long t, int need_ysq, double alpha, int cols, const void* w,
+               const void* x, const Workspace& wk, float* ll, float* dysq, float* pm, float* ysq,
+               long long stride, PwParams& p) {
+  p = PwParams{};
+  fill_common(p, n, t, need_ysq, alpha, cols, ll, dysq, pm, ysq, stride);
+  p.n_ks = p.kp / P_KC;
+  p.vec = (t * 2) % 16 == 0 && reinterpret_cast<std::uintptr_t>(x) % 16 == 0;
+  p.x = static_cast<const __nv_bfloat16*>(x);
+  p.psi = wk.plane(0);
+  p.y = wk.plane(1);
+  p.psid = wk.plane(2);
+  p.y2 = wk.plane(3);
+  p.ws_cols = wk.cols;
+  p.resident = p.kp <= P_RESIDENT_KP;
+  if (!wk.map(p.omap, P_BN, P_OROWS, CU_TENSOR_MAP_SWIZZLE_128B)) return false;
+  const int left = SM_SMEM - BLOCK_RESERVED - 1024 - P_FIXED - (p.resident ? p.n_ks * P_W_BOX : 0);
+  const int stages = left / (P_NC * plain_stage_bytes(p.resident));
+  p.stages = stages < P_MAX_STAGES ? stages : P_MAX_STAGES;
+  const EncodeTiled encode = encode_tiled();
+  if (!encode || p.stages < 2) return false;
+  const cuuint32_t unit[2] = {1u, 1u};
+  const cuuint64_t wdims[2] = {(cuuint64_t)p.kp, (cuuint64_t)wk.n_pad};
+  const cuuint64_t wstrides[1] = {(cuuint64_t)p.kp * 2};
+  const cuuint32_t wbox[2] = {(cuuint32_t)P_KC, (cuuint32_t)TILE};
+  if (encode(&p.wmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(w), wdims, wstrides,
+             wbox, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) != CUDA_SUCCESS)
+    return false;
+  if (!p.vec) return true;
+  const cuuint64_t xdims[2] = {(cuuint64_t)t, (cuuint64_t)n};
+  const cuuint64_t xstrides[1] = {(cuuint64_t)t * 2};
+  const cuuint32_t xbox[2] = {(cuuint32_t)P_BN, (cuuint32_t)P_KC};
+  return encode(&p.xmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(x), xdims,
+                xstrides, xbox, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
 
 bool bad_shape(int n, long long t, int cols, int n_parts, int density, long long stride,
                const void* w) {
@@ -1673,7 +2061,8 @@ int picard_stream_tc_tile() { return TILE; }
 int picard_stream_tc_kc() { return A_KC; }
 // The k depth of a step of the wgmma launch A (its W layout's k blocks).
 int picard_stream_wgmma_ks() { return G_KS; }
-// 1 if the pair's launch A is the wgmma kernel (wgmma_pair), else 0.
+// 1 if the pair's launch A is rotate_wgmma_kernel, whose W the caller lays
+// out as it reads it (wgmma_pair), else 0.
 int picard_stream_wgmma_pair(int delta, int rot_tier, int ct_tier, int x_bf16) {
   return wgmma_pair(delta != 0, rot_tier, ct_tier, x_bf16 != 0);
 }
@@ -1682,7 +2071,7 @@ int picard_stream_wgmma_pair(int delta, int rot_tier, int ct_tier, int x_bf16) {
 // delta = 1 (delta mode, with M_old and dM = M_new - M_old) or 0 (plain
 // mode, with M_new), the rotation at rot_tier and the contraction at
 // ct_tier, on f32 X or (x_bf16 = 1) bf16 X, in one of the ten pairs of
-// split_pairs and rotate_density_kernel (an unknown pair returns
+// split_pairs and plain_wgmma_pair (an unknown pair returns
 // cudaErrorInvalidValue and launches nothing). w: the weights' zero-padded
 // (n_pad, kp) bf16 planes, each matrix's parts at rot_tier in order (one
 // at BF16; hi, lo at BF16X3; hi, mid, lo at F32), M_old's then dM's in
@@ -1703,18 +2092,14 @@ int picard_streaming_fused_tc(int delta, int rot_tier, int ct_tier, int x_bf16, 
   const int n_pad = (n + TILE - 1) / TILE * TILE;
   const Workspace wk(ws, ct_tier, need_h, n_pad, (long long)groups_per_chunk * cols);
 
-  // Plain bf16 on bf16 X runs rotate_density_kernel; every other pair the
-  // split launch.
-  const bool dense = !delta && rot_tier == BF16 && ct_tier == BF16 && x_bf16;
-  AParams a{};
+  // Plain bf16 on bf16 X runs rotate_plain_wgmma_kernel; every other pair
+  // the split launch.
+  const bool dense = plain_wgmma_pair(delta != 0, rot_tier, ct_tier, x_bf16 != 0);
+  PwParams a;
   DParams d{};
   if (dense) {
-    a = a_params(n, t, need_ysq, alpha, cols, w, x, dll, dysq, pm, ysq, stride);
-    a.psi = wk.plane(0);
-    a.y = wk.plane(1);
-    a.psid = wk.plane(2);
-    a.y2 = wk.plane(3);
-    a.ws_cols = wk.cols;
+    if (!pw_params(n, t, need_ysq, alpha, cols, w, x, wk, dll, dysq, pm, ysq, stride, a))
+      return (int)cudaErrorInvalidValue;
   } else {
     d = d_params(x_bf16, n, t, need_ysq, alpha, cols, w, x, dll, dysq, pm, ysq, stride);
     for (int i = 0; i < 8; ++i) d.ws[i] = wk.plane(i);
@@ -1732,8 +2117,8 @@ int picard_streaming_fused_tc(int delta, int rot_tier, int ct_tier, int x_bf16, 
     const dim3 grid_a(n_pad / TILE, ng), grid_b(b.edge * b.edge, ng, need_h ? 2 : 1);
     cudaError_t e;
     if (dense) {
-      e = need_h ? launch_a<MODE_PLAIN, true>(density, grid_a, a, st)
-                 : launch_a<MODE_PLAIN, false>(density, grid_a, a, st);
+      e = need_h ? launch_plain_wgmma<true>(density, grid_a, a, st)
+                 : launch_plain_wgmma<false>(density, grid_a, a, st);
       if (e == cudaSuccess) e = launch_contract<BF16>(grid_b, b, st);
     } else {
       e = delta ? split_pairs<MODE_DELTA>(rot_tier, ct_tier, x_bf16, density, need_h, grid_a, d,
@@ -1793,7 +2178,7 @@ int picard_streaming_loglik_tc(int tier, int density, int need_ysq, double alpha
   const dim3 grid((n + TILE - 1) / TILE, n_parts);
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (tier == BF16)
-    return (int)launch_a<MODE_LOGLIK, false>(
+    return (int)launch_loglik_bf16(
         density, grid, a_params(n, t, need_ysq, alpha, cols, w, x, ll, nullptr, nullptr, ysq,
                                 stride),
         st);

@@ -11,6 +11,12 @@ the same state and the same semantics:
     data pass fuses the rotation into its reduction: one read of X per
     line-search try, none for the moments of the accepted W.
   * the L-BFGS memory is a fixed (m, N, N) ring with a count;
+  * over f32 data, a stage that accepts on the loss change (every tier
+    but the plain-accept bf16 one) holds W in f64 (:func:`w_dtype`) and
+    hands the kernels M_old and dM = M_new - M_old rounded apart: W sits
+    near the identity, where an f32 diagonal drops the small steps of a
+    converging fit and their loss changes drown in its rounding. The JAX
+    package keeps W in f32 throughout;
   * the backtracking line search accepts the first loss decrease and
     costs one host synchronization per try (the accept flag);
   * the staged bf16 -> bf16x3 -> f32 schedule of ``kernel_precision=
@@ -106,7 +112,7 @@ class LbfgsMemory:
 
 @dataclasses.dataclass
 class CoreState:
-    w: torch.Tensor  # (N, N); Y == W @ X implicitly
+    w: torch.Tensor  # (N, N), of w_dtype(); Y == W @ X implicitly
     loss: torch.Tensor  # 0-d
     signs: torch.Tensor  # (N,)
     old_signs: torch.Tensor  # (N,)
@@ -196,7 +202,7 @@ def data_moments(w, x, opts: CoreOptions, need_h: bool, need_ysq: bool) -> RawMo
     if opts.use_kernels:
         sums = rotated_moments_sums(w, x, opts.density, need_h, need_ysq)
     else:
-        sums = raw_moment_sums(w @ x, opts.density, need_h, need_ysq)
+        sums = raw_moment_sums(w.to(x.dtype) @ x, opts.density, need_h, need_ysq)
     inv_t = 1.0 / n_samples(x, shards)
     return RawMoments(*(v * inv_t for v in _all_reduced_sums(sums, shards)))
 
@@ -207,7 +213,7 @@ def data_loglik(m, x, opts: CoreOptions, need_ysq: bool):
     if opts.use_kernels:
         ll, ysq = rotated_loglik_sums(m, x, opts.density, need_ysq)
     else:
-        y = m @ x
+        y = m.to(x.dtype) @ x
         ll = _row_sum(opts.density.log_lik(y))
         ysq = _row_sum(y * y) if need_ysq else torch.zeros_like(ll)
     ll, ysq = _all_reduced_sums((ll, ysq), shards)
@@ -252,13 +258,13 @@ def _fused_sums_torch(m_new, m_old, x, opts: CoreOptions, need_h: bool, need_ysq
 
     zeros_n = torch.zeros((n,), dtype=dtype, device=x.device)
     if opts.plain_ls:
-        y_new = tdot(m_new, x)
+        y_new = tdot(m_new.to(dtype), x)
         psi, psi_d, ll_el = opts.density.score_der_loglik(y_new)
         dll = _row_sum(ll_el)
         dysq = _row_sum(y_new * y_new) if need_ysq else zeros_n
     else:
-        y_old = tdot(m_old, x)
-        dy = tdot(m_new - m_old, x)
+        y_old = tdot(m_old.to(dtype), x)
+        dy = tdot((m_new - m_old).to(dtype), x)
         y_new = y_old + dy
         psi, psi_d, dll_el = opts.density.score_der_loglik_delta(y_old, dy)
         dll = _row_sum(dll_el)
@@ -396,7 +402,10 @@ def line_search(x, w, direction, signs, current_loss, ls_tries: int,
     """
     n = w.shape[0]
     dtype = work_dtype(x)
-    eye = torch.eye(n, dtype=dtype, device=w.device)
+    eye = torch.eye(n, dtype=w.dtype, device=w.device)
+    # The candidates are formed in W's dtype (f64 in the delta stages over
+    # f32 data, :func:`w_dtype`); the step and the memory stay in X's.
+    d_w = direction.to(w.dtype)
     need_h = not opts.ortho
     need_ysq = opts.extended and not opts.ortho
     if accept_slack is None:
@@ -410,7 +419,7 @@ def line_search(x, w, direction, signs, current_loss, ls_tries: int,
     use_chain = opts.ortho and dtype != torch.float64 and max_tries is not None
     chain_accurate = True
     if use_chain:
-        chain, chain_top = expm_pow2_chain(direction, int(max_tries) + _ALPHA_EXP_CAP)
+        chain, chain_top = expm_pow2_chain(d_w, int(max_tries) + _ALPHA_EXP_CAP)
         if not opts.adaptive_alpha:
             chain_accurate = bool(direction.abs().max() <= 2.0 ** -10)
 
@@ -419,9 +428,9 @@ def line_search(x, w, direction, signs, current_loss, ls_tries: int,
             if use_chain and chain_accurate:
                 tm = chain[chain_top - init_alpha_exp - k]
             else:
-                tm = matrix_exp(direction * alpha)
+                tm = matrix_exp(d_w * alpha)
         else:
-            tm = eye + alpha * direction
+            tm = eye + alpha * d_w
         w_new = tm @ w
 
         dll, dysq, moments = data_fused_step(w_new, w, x, opts, need_h, need_ysq)
@@ -537,7 +546,8 @@ def _iteration_update(st: CoreState, x, g, h, h_off, signs, old_signs,
 
     # Extended covariance proxy C = W cov W^T (core.rs:375-379).
     if opts.extended and opts.has_cov:
-        c = (new_w @ covariance) @ new_w.T
+        w_c = new_w.to(covariance.dtype)
+        c = (w_c @ covariance) @ w_c.T
     else:
         c = st.c
 
@@ -646,6 +656,16 @@ def _iteration_body(st: CoreState, x, covariance, tol, lambda_min,
     )
 
 
+def w_dtype(x, opts: CoreOptions):
+    """W's dtype in a stage: f64 where the stage accepts on the loss
+    change (delta mode), else X's working dtype. Near the identity an f32
+    W's diagonal (ulp 6e-8) drops what a small rotation changes there, and
+    at gradients of a few 1e-7 that rounding raises the loss by far more
+    than the step lowers it, so every try fails
+    (tests/test_torch_core.py, ``test_delta_stage_holds_w_in_f64``)."""
+    return work_dtype(x) if opts.plain_ls else torch.float64
+
+
 def init_state(x, covariance, opts: CoreOptions, x_stage=None):
     """Build the initial state (core.rs:176-209).
 
@@ -658,7 +678,7 @@ def init_state(x, covariance, opts: CoreOptions, x_stage=None):
     dtype = x.dtype
     dev = x.device
     xs = x if x_stage is None else x_stage
-    w = torch.eye(n, dtype=dtype, device=dev)
+    w = torch.eye(n, dtype=w_dtype(x, opts), device=dev)
     signs = torch.ones((n,), dtype=dtype, device=dev)
 
     need_h = not opts.ortho
@@ -790,7 +810,8 @@ def run_core(x, covariance, tol, lambda_min, max_iter, opts: CoreOptions) -> Cor
             else:
                 moments = state.moments
             state = dataclasses.replace(
-                state, moments=moments, converged=False,
+                state, w=state.w.to(w_dtype(x, stage_opts)),
+                moments=moments, converged=False,
                 best_gnorm=_scalar(float("inf"), x), since_improve=0,
                 consec_fallbacks=0,
             )
@@ -820,14 +841,15 @@ def run_core(x, covariance, tol, lambda_min, max_iter, opts: CoreOptions) -> Cor
 
     # Materialize the sources once, at the end.
     _ready(state.moments)
+    w = state.w.to(x.dtype)
     if opts.donate_data:
-        y = rotate_rows_inplace(state.w, x)
+        y = rotate_rows_inplace(w, x)
     else:
-        y = state.w @ x
+        y = w @ x
 
     return CoreResult(
         y=y,
-        w=state.w,
+        w=w,
         converged=state.converged,
         gradient_norm=float(state.gradient_norm),
         n_iterations=state.n_iter_done,

@@ -211,6 +211,17 @@ def _mats(x, *mats):
     return [m.to(x.dtype) for m in mats]
 
 
+def _delta_mats(x, m_new, m_old):
+    """Delta mode's ``(M_old, dM = M_new - M_old)`` in X's working dtype.
+    On f32 X, dM is taken in the weights' own dtype before the conversion,
+    so that the small steps of an f64 W (models/core) keep their digits;
+    on bf16 X both weights are rounded first, as in :func:`_mats`."""
+    if x.dtype == torch.bfloat16:
+        mn, mo = _mats(x, m_new, m_old)
+        return mo, mn - mo
+    return m_old.to(x.dtype), (m_new - m_old).to(x.dtype)
+
+
 def _weights(x, *mats):
     """X and the weights in the working dtype (:func:`_mats`); bf16 X is
     widened exactly."""
@@ -274,8 +285,8 @@ def rotated_fused_sums_plain(m_new, m_old, x, density, need_h: bool,
         dll = ll.sum(dim=1)
         dysq = (y_new * y_new).sum(dim=1) if need_ysq else _zeros((n,), x)
     else:
-        xf, (mn, mo) = _weights(x, m_new, m_old)
-        dm = mn - mo
+        xf = x.to(acc)
+        mo, dm = _delta_mats(x, m_new, m_old)
         if rot == "bf16x3" and acc != torch.float64:
             # One shared hi/lo split of X feeds both rotations.
             x_pair = _split_bf16(xf)
@@ -479,7 +490,8 @@ def streaming_fused_sums_plain(m_new, m_old, x, density, need_h: bool,
     n_tiles = _n_chunks(t, bt)
     group = stream_group(n_tiles, n, 1 + need_h)
     tpad = _n_chunks(n_tiles, group) * group * bt
-    xf, mats = _weights(x, m_new) if absolute_ll else _weights(x, m_new, m_old)
+    xf = x.to(acc)
+    mats = _mats(x, m_new) if absolute_ll else _delta_mats(x, m_new, m_old)
     xf = _pad(xf, (0, tpad - t))  # masked columns: X = 0, so Y = 0
     valid = torch.arange(tpad, device=x.device) < t
     # One shared hi/lo split of X feeds every rotation (:1012-1018).
@@ -498,8 +510,8 @@ def streaming_fused_sums_plain(m_new, m_old, x, density, need_h: bool,
             ll = torch.where(valid, ll, 0.0)  # log_lik(0) != 0
             dysq = y * y
         else:
-            y_old = rotate(blk[1])
-            dy = rotate(blk[0] - blk[1])
+            y_old = rotate(blk[0])
+            dy = rotate(blk[1])
             y = y_old + dy
             _, psi_d, ll = density.score_der_loglik_delta(y_old, dy)
             dysq = (2.0 * y_old + dy) * dy
@@ -689,17 +701,15 @@ def _fused_launch(entry, n_parts, m_new, m_old, x, density, need_h, need_ysq,
     """Launch a resident fused kernel (``entry``: the ``mma.sync`` one or,
     for a :func:`_core_wgmma_pair`, the ``wgmma`` one, which take the same
     arguments) with ``n_parts`` partials per output and fold them: the
-    weights of the mode (delta mode takes dm = M_new - M_old in f32), the
+    weights of the mode (delta mode takes M_old and dM, :func:`_delta_mats`), the
     tiers of X's dtype, and the six outputs, zeros where a flag is off."""
     n, t = x.shape
     precision, rot = _tiers(x, precision)
     code, alpha = _density_code(density)
-    (mn,) = _mats(x, m_new)
     if absolute_ll:
-        w, dm = mn.contiguous(), None
+        w, dm = _mats(x, m_new)[0].contiguous(), None
     else:
-        (mo,) = _mats(x, m_old)
-        w, dm = mo.contiguous(), (mn - mo).contiguous()
+        w, dm = (v.contiguous() for v in _delta_mats(x, m_new, m_old))
     outputs = _fused_outputs(n, need_h, need_ysq)
 
     def launch(ptrs, stride):
@@ -882,7 +892,7 @@ def _streaming_fused_tc(m_new, m_old, x, density, need_h, need_ysq, precision, a
     """The tensor-core route: the weights in X's working dtype (rounded to
     bf16 on bf16 X, :func:`_mats`) as zero-padded (n_pad, kp) bf16 planes
     of their parts at the rotation tier (:data:`_PARTS`), M_new's in plain
-    mode, M_old's then dM = M_new - M_old's (in f32) in delta mode; one
+    mode, M_old's then dM = M_new - M_old's (:func:`_delta_mats`) in delta mode; one
     workspace of :func:`stream_tc_plan`'s size at the contraction tier;
     both launches per chunk in one C call; the packed partials folded as
     the resident kernels'. The :data:`WGMMA_PAIRS` in delta mode on f32 X
@@ -894,8 +904,7 @@ def _streaming_fused_tc(m_new, m_old, x, density, need_h, need_ysq, precision, a
     if absolute_ll:
         mats = _mats(x, m_new)
     else:
-        m_new, m_old = _mats(x, m_new, m_old)
-        mats = [m_old, m_new - m_old]
+        mats = list(_delta_mats(x, m_new, m_old))
     wgmma = _wgmma_pair(not absolute_ll, rot, tier, x.dtype == torch.bfloat16)
     w = (_wgmma_weights if wgmma else _tc_weights)(
         [p for m in mats for p in _PARTS[rot](m)], n, plan.n_pad, x.device)

@@ -56,18 +56,23 @@ seconds, iterations, stage exits, launches by mode and tier; the pinned
 fit's unmixing goes to ``chiprun_out/pinned_bf16_<tree>.npy``, and the
 Amari distance between the two trees' is printed and kept in the output.
 
-    python3 port_turns.py --profile [TREE]
+    python3 port_turns.py --profile [TREE] [--case LABEL ...]
 
 traces one tree's ``streaming_fused_sums`` calls of a fit's passes
 (plain bf16 on bf16 X, delta bf16x3, delta f32, plain f32 and delta bf16
-on f32 X) at both shapes, with the tanh and cube densities, in
+on f32 X; ``--case`` keeps only the STREAM_CASES so labelled) at every
+STREAM_SHAPES shape, with the tanh and cube densities, in
 ``torch.profiler`` and prints each CUDA kernel's device ms a call (mean
-of 5 calls).
+of 5 calls). Given two trees, ``--profile BEFORE AFTER`` profiles them in
+turns (before, after, after, before), each in a process of its own, and
+prints each case's launch A and launch B ms (``profile_turns.json``
+beside ``--out``).
 
     python3 port_turns.py --parts [TREE ...]
 
-splits launch A of kernel 8's delta pairs on f32 X (bf16x3 and f32) at
-256 x 2,000,000 into its parts. Each TREE (default: this checkout) is
+splits launch A of kernel 8's three pairs on wgmma (plain bf16 on bf16
+X, delta bf16x3 and delta f32 on f32 X) at 256 x 2,000,000 into its
+parts. Each TREE (default: this checkout) is
 built four ways, all builds at once: as the port builds it, and with
 ``-DPICARD_A_SKIP`` (``csrc/streaming_fused_tc.cu``) added to the build's
 ``nvcc`` flags, switching off launch A's products, its density or its
@@ -76,6 +81,17 @@ a process of its own, both pairs with the tanh and the cube density in
 ``torch.profiler`` (5 calls after 3 warm-up calls) and prints launch A's
 and launch B's device ms a call; writes the rows to ``parts.json`` in
 ``--out``'s directory.
+
+    python3 port_turns.py --config4-seeds 7,8,9,10 [TREE ...]
+
+fits BASELINE config 4 as ``chip_smoke.py``'s phase 6 fits it on the
+kernels (JADE(50) -> 128 x 1,000,000 mixed mixture, float64 NumPy, tol
+1e-7, max_iter 200) at each seed, with each TREE's package in a process
+of its own, one tree after the other (default: this checkout); prints a
+line a fit with its tree (convergence, iterations, stage exits,
+line-search passes, gradient norm, Amari to the mixing, core and fit
+seconds) and writes the rows to ``config4_seeds.json`` in ``--out``'s
+directory.
 
     python3 port_turns.py --crossover [TREE]
 
@@ -347,9 +363,10 @@ def _stream_turn(sm, K, tree, turn):
         torch.cuda.empty_cache()
 
 
-def profile(tree: str) -> dict:
+def profile(tree: str, cases=None) -> dict:
     """Device ms a call of each CUDA kernel in the tensor-core route's
-    calls (torch.profiler over 5 calls after 3 warm-up calls)."""
+    calls (torch.profiler over 5 calls after 3 warm-up calls), of the
+    STREAM_CASES labelled in ``cases`` (all by default)."""
     import torch
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as traced
@@ -365,6 +382,8 @@ def profile(tree: str) -> dict:
         xs, ms_old, ms_new = sm._stream_inputs(n, t, seed)
         xs16 = xs.to(torch.bfloat16)
         for case, precision, absolute_ll, bf16_x in STREAM_CASES:
+            if cases and case not in cases:
+                continue
             xx = xs16 if bf16_x else xs
             for density in (Tanh(), Cube()):
                 def call():
@@ -390,9 +409,11 @@ def profile(tree: str) -> dict:
     return out
 
 
-# (label, PICARD_A_SKIP) of --parts' builds, and the pairs it splits.
+# (label, PICARD_A_SKIP) of --parts' builds, and the pairs it splits
+# (STREAM_CASES' rows of the three wgmma launch A pairs).
 PARTS = (("whole", 0), ("no products", 1), ("no density", 2), ("no stores", 4))
-PARTS_CASES = (("delta bf16x3", "bf16x3"), ("delta f32", "f32"))
+PARTS_CASES = [c for c in STREAM_CASES
+               if c[0] in ("plain bf16, bf16 X", "delta bf16x3", "delta f32")]
 
 
 def _part_flags(skip) -> tuple:
@@ -425,12 +446,14 @@ def parts_turn(tree: str) -> dict:
     assert Path(K.__file__).resolve().is_relative_to(Path(tree).resolve()), K.__file__
     n, t, seed = STREAM_SHAPES[0]
     xs, ms_old, ms_new = sm._stream_inputs(n, t, seed)
+    xs16 = xs.to(torch.bfloat16)
     out = {}
-    for case, precision in PARTS_CASES:
+    for case, precision, absolute_ll, bf16_x in PARTS_CASES:
+        xx = xs16 if bf16_x else xs
         for density in (Tanh(), Cube()):
             def call():
-                return K.streaming_fused_sums(ms_new, ms_old, xs, density, False, False,
-                                              precision, False)
+                return K.streaming_fused_sums(ms_new, ms_old, xx, density, False, False,
+                                              precision, absolute_ll)
 
             for _ in range(3):
                 call()
@@ -739,6 +762,64 @@ def conformance(tree: str, out_dir: Path) -> list:
     return rows
 
 
+def profile_turns(trees, cases, out_dir: Path) -> list:
+    """``--profile BEFORE AFTER``: both libraries built at once, then
+    :func:`profile` of each tree in a process of its own, in the order
+    before, after, after, before; each turn's launch A (names holding
+    ``rotate_``) and launch B (``contract_``) device ms a call printed by
+    case, the rows written to ``profile_turns.json`` in ``out_dir``."""
+    before, after = (str(Path(t).resolve()) for t in trees)
+    _build_all([before, after])
+    rows = []
+    for tree in (before, after, after, before):
+        env = dict(os.environ, PYTHONPATH=tree)
+        proc = subprocess.run([sys.executable, __file__, "--profile", tree]
+                              + [a for c in cases or () for a in ("--case", c)],
+                              env=env, cwd=tree, capture_output=True, text=True)
+        if proc.returncode != 0:
+            sys.stderr.write(proc.stderr[-4000:])
+            raise SystemExit(f"the profile of {tree} failed")
+        got = json.loads(proc.stdout.strip().splitlines()[-1])
+        for label, kernels in got.items():
+            a = sum(v for k, v in kernels.items() if "rotate_" in k)
+            b = sum(v for k, v in kernels.items() if "contract_" in k)
+            print(f"[{tree}] {label}: launch A {a:.3f} ms, launch B {b:.3f} ms, "
+                  f"total {sum(kernels.values()):.3f} ms", flush=True)
+        rows.append({"tree": tree, "profile": got})
+    out_dir.mkdir(parents=True, exist_ok=True)
+    (out_dir / "profile_turns.json").write_text(json.dumps(rows, indent=1))
+    return rows
+
+
+def config4_seeds(tree, seeds):
+    """BASELINE config 4 as ``chip_smoke.py``'s phase 6 fits it on the
+    kernels (JADE(50) -> 128 x 1,000,000 float64 NumPy, tol 1e-7, max_iter
+    200), at each of ``seeds`` of the data: convergence, iterations, stage
+    exits, line-search passes, gradient norm, Amari to the mixing, core
+    and fit seconds."""
+    from picard_ica_tpu_torch.utils.datagen import generate_mixed_kurtosis_data
+    from picard_ica_tpu_torch.utils.metrics import amari_distance
+
+    smoke = _smoke()
+    rows = []
+    for seed in seeds:
+        _, a, x = generate_mixed_kurtosis_data(smoke.N6, smoke.T6, seed)
+        r, wall = smoke._fit(x, None, **smoke.CONFIG6)
+        row = {"tree": tree, "seed": seed, "converged": bool(r.converged),
+               "n_iterations": r.n_iterations, "stage_exits": list(r.stage_exits),
+               "ls_calls": r.ls_calls, "gradient_norm": r.gradient_norm,
+               "amari": amari_distance(r.full_unmixing().double().cpu().numpy(), a),
+               "core_s": r.core_seconds, "fit_s": wall}
+        print(f"[{tree}] config 4 seed {seed}: converged={row['converged']} "
+              f"n_iterations={row['n_iterations']} stage_exits={tuple(r.stage_exits)} "
+              f"ls_calls={row['ls_calls']} gradient_norm={row['gradient_norm']:.4e} "
+              f"amari {row['amari']:.4e} core {row['core_s']:.4f} s fit {wall:.3f} s",
+              flush=True)
+        rows.append(row)
+        del x, r
+    return rows
+
+
 def _build_all(trees):
     """Build every tree's library at once (one process per tree)."""
     procs = [subprocess.Popen(
@@ -758,12 +839,14 @@ def main(argv=None):
     ap.add_argument("--one-parts", help=argparse.SUPPRESS)
     ap.add_argument("--skip", type=int, default=0, help=argparse.SUPPRESS)
     ap.add_argument("--parts", action="store_true",
-                    help="split launch A of kernel 8's delta pairs into its parts")
+                    help="split launch A of kernel 8's wgmma pairs into its parts")
     ap.add_argument("--out", default=str(HERE / "chiprun_out" / "turns.json"))
     ap.add_argument("--staged-fit", action="store_true",
                     help="fit phase 5's data once at the default staged schedule")
     ap.add_argument("--profile", action="store_true",
                     help="trace the streaming tensor-core route's kernels")
+    ap.add_argument("--case", action="append",
+                    help="with --profile, only this STREAM_CASES label (repeatable)")
     ap.add_argument("--kernels-only", action="store_true", help="turns without the fits")
     ap.add_argument("--trace", action="store_true",
                     help="with --staged-fit, print each iteration's gradient norm")
@@ -783,12 +866,40 @@ def main(argv=None):
                     help="sweep N on both paths for use_kernels=None's rule")
     ap.add_argument("--conformance", action="store_true",
                     help="the suite's five oracle-conformance cases against the port's oracle")
+    ap.add_argument("--config4-seeds",
+                    help="comma-separated seeds: config 4's kernel fit in each tree in turn")
+    ap.add_argument("--one-config4", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.one_parts:
         sys.path[:] = [args.one_parts] + [p for p in sys.path
                                           if p and Path(p).resolve() != HERE]
         _add_part_flags(args.skip)
         print(json.dumps(parts_turn(args.one_parts)))
+        return 0
+    seeds = [int(v) for v in args.config4_seeds.split(",")] if args.config4_seeds else None
+    if args.one_config4:
+        sys.path[:] = [args.one_config4] + [p for p in sys.path
+                                            if p and Path(p).resolve() != HERE]
+        print(json.dumps(config4_seeds(args.one_config4, seeds)))
+        return 0
+    if seeds:
+        trees = [str(Path(t).resolve()) for t in args.trees or [HERE]]
+        _build_all(trees)
+        rows = []
+        for tree in trees:
+            proc = subprocess.run([sys.executable, __file__, "--one-config4", tree,
+                                   "--config4-seeds", args.config4_seeds],
+                                  env=dict(os.environ, PYTHONPATH=tree), cwd=tree,
+                                  capture_output=True, text=True)
+            sys.stdout.write(proc.stdout.rsplit("\n", 2)[0] + "\n")
+            if proc.returncode != 0:
+                sys.stderr.write(proc.stderr[-4000:])
+                raise SystemExit(f"config 4's fits in {tree} failed")
+            rows += json.loads(proc.stdout.strip().splitlines()[-1])
+        out = Path(args.out).parent / "config4_seeds.json"
+        out.parent.mkdir(parents=True, exist_ok=True)
+        out.write_text(json.dumps(rows, indent=1))
+        print(json.dumps(rows))
         return 0
     if args.parts:
         trees = [str(Path(t).resolve()) for t in args.trees or [HERE]]
@@ -802,13 +913,16 @@ def main(argv=None):
                          else conformance(tree, out_dir) if args.conformance
                          else profile_fits(tree, out_dir)))
         return 0
+    if args.profile and len(args.trees) == 2:
+        print(json.dumps(profile_turns(args.trees, args.case, Path(args.out).parent)))
+        return 0
     if args.staged_fit or args.profile:
         tree = str(Path(args.trees[0] if args.trees else HERE).resolve())
         sys.path[:] = [tree] + [p for p in sys.path if p and Path(p).resolve() != HERE]
         print(json.dumps(large_n_fit(tree, trace=args.trace, use_kernels=not args.torch_path,
                                      precision="f32" if args.f32 else "auto",
                                      phase3=args.phase3)
-                         if args.staged_fit else profile(tree)))
+                         if args.staged_fit else profile(tree, args.case)))
         return 0
     if args.one:
         # Only the turn's tree provides the package, not this script's.

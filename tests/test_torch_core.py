@@ -176,3 +176,63 @@ def test_staged_f32_kernels_match_jax_pallas():
     assert rt.w.dtype == torch.float32 and rt.y.dtype == torch.float32
     am = amari_distance(rt.w.double().numpy(), np.linalg.inv(np.asarray(rj.w, np.float64)))
     assert am < 1e-4, am
+
+
+@pytest.fixture(scope="module")
+def near_identity():
+    """f32 data whose optimum is the core W expm(S), |S| ~ 3e-3 (W near
+    the identity, as after a warm start), and the kernel path's options."""
+    from picard_ica_tpu_torch import Picard, PicardConfig
+    from picard_ica_tpu_torch.ops.linalg import matrix_exp
+
+    n = 32
+    x = _data(n, 20_000, 7)
+    r = Picard.fit(x, PicardConfig(random_state=0, dtype=torch.float64, tol=1e-10,
+                                   centering=False, whiten=False), device="cpu")
+    rng = np.random.default_rng(0)
+
+    def skew(scale):
+        a = rng.standard_normal((n, n)) * scale
+        return torch.from_numpy(a - a.T)
+
+    s = skew(3e-3)
+    x32 = (matrix_exp(-s) @ r.full_unmixing() @ torch.from_numpy(x)).float()
+    opts = _opts(tc, "use_kernels", True, ortho=True, extended=True, has_cov=False)
+    return x32, [matrix_exp(s + skew(scale)) for scale in (1e-6, 3e-7)], opts
+
+
+@pytest.mark.parametrize("case", [0, 1], ids=["gnorm-6e-7", "gnorm-2e-7"])
+def test_delta_stage_holds_w_in_f64(near_identity, case):
+    """Near the identity an f32 W cannot take the small steps of a
+    converging fit: its candidate's rounding raises the loss by ~100x
+    what the step lowers it, so every try fails. The delta stages hold W
+    in f64 and the kernels' f32 pass then measures the step's own loss
+    change; the plain-accept stage keeps X's dtype."""
+    x32, ws, opts = near_identity
+    assert tc.w_dtype(x32, opts) == torch.float64
+    assert tc.w_dtype(x32, tc.dataclasses.replace(opts, plain_ls=True)) == torch.float32
+    w = ws[case]
+    mom = tc.data_moments(w, x32, opts, False, False)
+    signs = torch.where(mom.pm_raw - torch.diagonal(mom.g_raw) >= 0, 1.0, -1.0)
+    g = signs[:, None] * mom.g_raw
+    g = 0.5 * (g - g.T)
+    assert 1e-7 < float(g.abs().max()) < 1e-6
+    x64, dens = x32.double(), TTanh()
+
+    def exact(w_new, w_old):
+        ll = dens.log_lik(w_new.double() @ x64) - dens.log_lik(w_old.double() @ x64)
+        return float(torch.sum(signs.double() * ll.mean(dim=1)))
+
+    zero = torch.tensor(0.0)
+    ok64, w_new, delta64, *_ = tc.line_search(x32, w, -g, signs, zero, 1, opts, max_tries=1)
+    assert ok64 and w_new.dtype == torch.float64
+    gain = exact(w_new, w)
+    assert gain < 0
+    np.testing.assert_allclose(float(delta64), gain, rtol=1e-2)
+    # The same try from the f32 W: the pass measures its candidate
+    # faithfully, and that candidate is worse than W.
+    w32 = w.float()
+    ok32, w_new32, delta32, *_ = tc.line_search(x32, w32, -g, signs, zero, 1, opts,
+                                                max_tries=1)
+    np.testing.assert_allclose(float(delta32), exact(w_new32, w32), rtol=1e-3)
+    assert not ok32 and float(delta32) > 30 * abs(gain)

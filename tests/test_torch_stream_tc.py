@@ -450,6 +450,25 @@ def test_wgmma_weights_layout(n, n_planes):
     assert torch.equal(flat[at], want)
 
 
+@pytest.mark.parametrize("n", [65, 306, 1344])
+def test_plain_wgmma_weights_layout(n):
+    """Plain bf16 on bf16 X: the wgmma launch A reads the one bf16 plane
+    of M_new through a tensor map of boxes of 64 columns x 128 rows
+    (csrc P_KC x TILE) of a row-major (n_pad, kp) matrix: weight (r, k) at
+    r * kp + k, kp a whole number of boxes, zeros past n in both."""
+    rng = np.random.default_rng(n)
+    m = K._bf16(torch.from_numpy(rng.standard_normal((n, n)).astype(np.float32)))
+    n_pad, kp = -(-n // 128) * 128, -(-n // 64) * 64
+    assert K.STREAM_TC_KC == 64 and K.STREAM_TC_TILE == 128
+    w = K._tc_weights([m], n, n_pad, "cpu")
+    assert w.shape == (1, n_pad, kp) and w.dtype == torch.bfloat16 and w.is_contiguous()
+    flat = w.reshape(-1).float()
+    r, k = torch.meshgrid(torch.arange(n_pad), torch.arange(kp), indexing="ij")
+    want = torch.zeros(n_pad, kp)
+    want[:n, :n] = m
+    assert torch.equal(flat[r * kp + k], want)
+
+
 def _csrc_wgmma_pair(delta, rot, ct, x_bf16):
     """csrc/streaming_fused_tc.cu's wgmma_pair over the C entries' tier
     codes: delta mode on f32 X, both tiers bf16x3 or both f32."""
@@ -962,9 +981,13 @@ def test_tc_route_takes_delta_f32_on_f32_x(recorder):
         assert args[9:13] == (t, plan.cols_per_group, plan.n_parts, plan.groups_per_chunk)
         assert len(recorder.planes[0]) == n_planes
         # the wgmma launch A's pairs take its layout: (row block, k step,
-        # plane, 16 row groups, 2 k halves, 8 x 8 core matrix)
+        # plane, 16 row groups, 2 k halves, 8 x 8 core matrix); plain bf16
+        # on bf16 X runs launch A on wgmma too, reading the one (n_pad, kp)
+        # bf16 plane through a tensor map of 64-column boxes (kp a multiple
+        # of 64); every other pair takes that layout on mma.sync
         wgmma = not absolute_ll and not bf16_x and ct in ("bf16x3", "f32")
         assert K._wgmma_pair(not absolute_ll, rot, ct, bf16_x) == wgmma
+        plain_wgmma = absolute_ll and bf16_x and ct == "bf16"
         (layout, shape), = recorder.layouts
         if wgmma:
             assert layout == "_wgmma_weights"
@@ -972,6 +995,8 @@ def test_tc_route_takes_delta_f32_on_f32_x(recorder):
         else:
             assert layout == "_tc_weights"
             assert shape == (n_planes, plan.n_pad, -(-n // 64) * 64)
+            if plain_wgmma:
+                assert shape == (1, plan.n_pad, -(-n // K.STREAM_TC_KC) * K.STREAM_TC_KC)
         assert K.streaming_fused_sums.launches == 1
         assert K.streaming_fused_sums.launches_by_tier[ct] == 1
         mode = "plain" if absolute_ll else "delta"

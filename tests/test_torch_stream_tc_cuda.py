@@ -177,6 +177,58 @@ def test_stream_tc_chunks_match_plain(dev, monkeypatch, need_h):
     _close(_run_tc(args), K.streaming_fused_sums_plain(*args))
 
 
+@pytest.mark.parametrize("t", [4096, 8200])
+@pytest.mark.parametrize("n", [65, 128, 257, 384, 385, 1344])
+def test_stream_tc_aligned_shapes_match_plain(dev, n, t):
+    """Rows of whole 16-byte pieces (T % 8 == 0), which launch A copies by
+    tensor map: W resident in shared memory up to N = 384 and streamed
+    beside X above it, a last group cut short at 8,200 columns; H and Y^2
+    on."""
+    x, m_old, m_new = _inputs(dev, n, t, seed=n + t + 1)
+    assert (t * 2) % 16 == 0 and x.data_ptr() % 16 == 0
+    args = (m_new, m_old, x, Tanh(), True, True, "bf16", True)
+    _close(_run_tc(args), K.streaming_fused_sums_plain(*args),
+           flips=_flips(m_new, x, Tanh()))
+
+
+def test_stream_tc_unaligned_base_matches_plain(dev):
+    """X starting one element past a 16-byte boundary (a storage offset of
+    one element): rows of a whole number of 16-byte pieces whose base no
+    tensor map can take, so launch A loads X with plain loads."""
+    n, t = 257, 3 * 4096
+    x, m_old, m_new = _inputs(dev, n, t, seed=12)
+    buf = torch.empty(n * t + 1, dtype=x.dtype, device=dev)
+    xu = buf[1:].view(n, t)
+    xu.copy_(x)
+    assert xu.data_ptr() % 16 != 0 and (t * 2) % 16 == 0
+    for flags in (False, True):
+        args = (m_new, m_old, xu, Tanh(), flags, flags, "bf16", True)
+        _close(_run_tc(args), K.streaming_fused_sums_plain(*args),
+               flips=_flips(m_new, xu, Tanh()))
+
+
+def test_stream_tc_rotation_drift_against_f64(dev):
+    """Plain bf16 on bf16 X at 1344 x 200,000, K 1344 deep: ysq = sum Y^2
+    and dll = sum log_lik(Y) against the same sums in f64 of Y = bf16(M)
+    bf16(X) in f64, within DRIFT_FACTOR of the plain version's error plus
+    DRIFT_FLOOR of the output's largest entry (the tensor cores round a
+    chain of products toward zero, which a 1,344-deep rotation would
+    show)."""
+    n, t = 1344, 200_000
+    x, m_old, m_new = _inputs(dev, n, t, seed=13)
+    args = (m_new, m_old, x, Tanh(), False, True, "bf16", True)
+    out_k = _run_tc(args)
+    out_p = K.streaming_fused_sums_plain(*args)
+    y = K._bf16(m_new).double() @ x.double()
+    ysq = (y * y).sum(dim=1)
+    _, _, ll = Tanh().score_der_loglik(y)
+    del y
+    dll = ll.sum(dim=1)
+    del ll
+    _drift(out_k[5], out_p[5], ysq)
+    _drift(out_k[0], out_p[0], dll)
+
+
 def test_moments_hand_off_takes_the_tc_route(dev):
     """rotated_moments_sums on bf16 X above N = 64 is the fused plain mode
     at the bf16 tier: the tensor-core route."""
