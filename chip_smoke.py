@@ -170,7 +170,9 @@ Phase 2 also holds the streaming kernels against their plain versions:
 runs), 306 x 1,000,003 (delta f32, plain bf16 on bf16 X, and the five
 pairs only a direct call takes), 1024 x 200,000 and 72 x 1,000,003 (the
 three pairs whose launch A runs on wgmma), ``streaming_loglik_sums`` at
-256 x 2,000,000 and 1024 x 200,000 on both X dtypes. Every case runs the tensor-core
+256 x 2,000,000 and 1024 x 200,000 on both X dtypes, and at 306 and 72 x
+1,000,003 on both X dtypes with and without the Y^2 sums, every loglik
+case held to its plain version and to f64. Every case runs the tensor-core
 route, which must launch at its mode and tier. A row each in the
 ``kernels`` line: ``streaming_fused_sums/tc`` (plain bf16 on bf16 X,
 launches counted in phase 5b), ``streaming_fused_sums/tc_bf16x3``
@@ -179,9 +181,10 @@ launches counted in phase 5b), ``streaming_fused_sums/tc_bf16x3``
 their f32 cases held to f64 like every f32 case) and
 ``streaming_fused_sums/tc_bf16`` (delta bf16 on f32 X, launches counted
 in phase 5d; the five direct-call pairs are its further cases). The
-loglik kernel runs on the tensor cores on both dtypes, a row each
-(``streaming_loglik_sums/tc_f32``, launches counted in phase 5, held to
-f64; ``streaming_loglik_sums/tc_bf16``, launches counted in phase 5c).
+loglik kernel runs on wgmma on both dtypes (the log-lik modes of the two
+wgmma launch A kernels), a row each (``streaming_loglik_sums/tc_f32``,
+launches counted in phase 5; ``streaming_loglik_sums/tc_bf16``, launches
+counted in phase 5c).
 
 The line before the last is a JSON object describing every kernel:
 launches on its path (phase 3 for the resident core kernels, phase 4
@@ -675,6 +678,16 @@ def _stream_inputs(n, t, seed):
     return x, m_old, m_new
 
 
+def _loglik_cases(loglik, ll):
+    """Kernel 9's phase-2 cases at a ragged shape: f32 and bf16 X, with
+    and without the Y^2 sums, each held to the plain version and to f64."""
+    return [(loglik, f"{label}{', ysq' if need_ysq else ''}", tier, ll(need_ysq), bf16_x, row,
+             True)
+            for label, tier, bf16_x, row in ((LL_F32_LABEL, "f32", False, LL_F32_ROW),
+                                             (LL_BF16_LABEL, "bf16", True, LL_BF16_ROW))
+            for need_ysq in (False, True)]
+
+
 def phase2_streaming_kernels():
     """The streaming kernels against their plain versions at the large-N
     shapes: every mode and tier of the 256-component fit, the MEG width
@@ -718,7 +731,7 @@ def phase2_streaming_kernels():
              TC_BF16_ROW),
             (loglik, LL_F32_LABEL, "f32", ll(False), False, LL_F32_ROW),
             (loglik, LL_F32_LABEL + ", ysq", "f32", ll(True), False, LL_F32_ROW),
-            (loglik, LL_BF16_LABEL, "bf16", ll(False), True, LL_BF16_ROW),
+            (loglik, LL_BF16_LABEL, "bf16", ll(False), True, LL_BF16_ROW, True),
         ]),
         ((N_MEG, T_MEG, 6), [
             (fused, TC_F32_LABEL, "f32", f("f32", False), False, TC_F32_ROW),
@@ -733,6 +746,7 @@ def phase2_streaming_kernels():
             (fused, "delta bf16, bf16 X", "bf16", f("bf16", False), True, TC_BF16_ROW),
             (fused, "delta bf16x3, bf16 X", "bf16x3", f("bf16x3", False), True, TC_BF16_ROW),
             (fused, "plain bf16x3, bf16 X", "bf16x3", f("bf16x3", True), True, TC_BF16_ROW),
+            *_loglik_cases(loglik, ll),
         ]),
         ((N5B, T5B, 7), [
             (fused, TC_F32_LABEL, "f32", f("f32", False), False, TC_F32_ROW),
@@ -740,11 +754,12 @@ def phase2_streaming_kernels():
             (fused, TC3_LABEL, "bf16x3", f("bf16x3", False), False, TC3_ROW, True),
             (fused, TC_PF32_LABEL, "f32", f("f32", True), False, TC_PF32_ROW),
             (loglik, LL_F32_LABEL, "f32", ll(False), False, LL_F32_ROW),
-            (loglik, LL_BF16_LABEL, "bf16", ll(False), True, LL_BF16_ROW),
+            (loglik, LL_BF16_LABEL, "bf16", ll(False), True, LL_BF16_ROW, True),
         ]),
-        # The wgmma launch A's pairs at the route's smallest width: one W
-        # row block, mostly padding, and a ragged T with rows not 16-byte
-        # aligned (plain bf16 on bf16 X: X loaded with plain loads).
+        # The wgmma launch A's pairs and kernel 9 at the route's smallest
+        # width: one W row block, mostly padding, and a ragged T with rows
+        # not 16-byte aligned (bf16 X loaded with plain loads, f32 X's
+        # rows copied as their 16-byte aligned spans).
         ((N_SMALL2, T_RAGGED, 8), [
             (fused, TC_LABEL, "bf16", f("bf16", True), True, TC_ROW),
             (fused, TC_LABEL + ", H+ysq", "bf16", f("bf16", True, True), True, TC_ROW),
@@ -753,6 +768,7 @@ def phase2_streaming_kernels():
             (fused, TC3_LABEL, "bf16x3", f("bf16x3", False), False, TC3_ROW, True),
             (fused, TC3_LABEL + ", H+ysq", "bf16x3", f("bf16x3", False, True), False, TC3_ROW,
              True),
+            *_loglik_cases(loglik, ll),
         ]),
     ]
     rows = {}
@@ -2250,9 +2266,10 @@ _KERNELS = {
 # The instructions each row's products run on: kernel 8's launch B runs
 # on wgmma in every pair, its launch A in the wgmma pairs (plain bf16 on
 # bf16 X, delta bf16x3 and f32 on f32 X) and on mma.sync in the others;
-# the whitening kernels run on the FP32 pipes.
+# kernel 9 on wgmma on both X dtypes; the whitening kernels run on the
+# FP32 pipes.
 _KERNEL_ROUTE = {WG_ROW: "wgmma", TC_ROW: "wgmma", TC3_ROW: "wgmma", TC_F32_ROW: "wgmma",
-                 CONTRACT_ROW: "wgmma",
+                 CONTRACT_ROW: "wgmma", LL_F32_ROW: "wgmma", LL_BF16_ROW: "wgmma",
                  **dict.fromkeys((TC_PF32_ROW, TC_BF16_ROW),
                                  "mma.sync (launch A), wgmma (launch B)"),
                  **dict.fromkeys(("row_sums", "centered_covariance_sums", "covariance_sums",

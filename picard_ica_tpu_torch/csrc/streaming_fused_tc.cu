@@ -21,8 +21,8 @@
 // Launch A of plain bf16 on bf16 X is rotate_plain_wgmma_kernel, of delta
 // bf16x3 and delta f32 on f32 X rotate_wgmma_kernel<ROT> (the three on
 // wgmma), of every other pair rotate_split_kernel<MODE, ROT, CT, XB>.
-// Launch A alone, with a log-lik epilogue and no workspace, is also
-// picard_streaming_loglik_tc, on both X dtypes (below).
+// The two wgmma kernels' log-lik modes, with no workspace, are
+// picard_streaming_loglik_tc on bf16 X and on f32 X (below).
 //
 // What they compute, with f32 sums of exact bf16 products:
 //   * the rotation at ROT: BF16, one product of bf16(W) and bf16(X)
@@ -79,8 +79,8 @@
 //     plain density on 5.1e8 elements (tanh: an exp, two IEEE divisions
 //     and a log1p, ~70 instructions with its masks, sums and packs, ~1.2
 //     ms of the SMs' issue). What held the mma.sync kernel it replaces
-//     (rotate_density_kernel's plain mode, 4.1 ms of launch A there,
-//     PERF.md §6): W streamed again for every 64-column tile, every
+//     (an mma.sync tile loop, 4.1 ms of launch A there, PERF.md §6): W
+//     streamed again for every 64-column tile, every
 //     thread copying between two block barriers a stage, the density and
 //     the stores in the warps of the products, 4-byte stores of half
 //     sectors. The design: one block of a producer and three consumer
@@ -140,7 +140,9 @@
 //     both consumers at once and so is not hidden behind products.
 //   * Launch A, the split pairs (rotate_split_kernel<MODE, ROT, CT, XB>:
 //     plain f32, delta and plain bf16 and plain bf16x3 on f32 X, the bf16
-//     X pairs but plain bf16): the loglik launch's walk with SETS
+//     X pairs but plain bf16): a tile loop on mma.sync (one block owns a
+//     TILE-row block of W and one group of columns, walked in A_BT-column
+//     tiles, k in KC-deep stages of a cp.async ring) with SETS
 //     accumulator sets a warp (two in delta mode, Y_old and dY). The caller
 //     passes each weight matrix split into its P zero-padded bf16 planes;
 //     each landed KC-row f32 X stage is split once, all threads together,
@@ -155,18 +157,39 @@
 //     products and give the delta density's dll, and the plain
 //     score_der_loglik. The workspace follows CT: one bf16 plane an
 //     operand (as plain bf16's), hi / lo at BF16X3, f32 at F32.
-//   * Loglik (picard_streaming_loglik_tc): launch A alone, with no
-//     workspace and no launch B: on bf16 X rotate_density_kernel, the
-//     mma.sync tile loop (one block owns a TILE-row block of W and one
-//     group of columns, walked in A_BT-column tiles, k in A_KC-deep
-//     stages of a cp.async ring; X read with ldmatrix.trans; 16-byte
-//     copies where T % 8 == 0, else plain loads), the row sums ll and ysq
-//     in registers across the group's tiles; on f32 X
-//     rotate_split_kernel<MODE_LOGLIK, F32, F32> (one set). Its groups
-//     are narrower (ops/kernels.py STREAM_TC_LOGLIK_COLS): with only (N,)
-//     partials, a group's width sets nothing but the number of blocks,
-//     and at 1024 x 200k 4,096-column groups would fill 1.5 waves of the
-//     card.
+//   * Loglik (picard_streaming_loglik_tc, kernel 9): the rotation alone,
+//     with a log-lik epilogue, no workspace and no launch B, in the log-lik
+//     mode of a wgmma launch A: on bf16 X rotate_plain_wgmma_kernel
+//     (LOGLIK), on f32 X rotate_wgmma_kernel<F32, MODE_LOGLIK> (one
+//     accumulator set, Y = M X; not delta mode with M_old = 0, which would
+//     double the products and give the delta density's dll). Their bound at
+//     256 x 2M: on bf16 X X's 1.02 GB read (0.31 ms of HBM) beside N^2 T
+//     bf16 products (0.27 ms); on f32 X the six products of N^2 T (1.59 ms
+//     of the tensor cores) beside X's 2 GB (0.61 ms); and beside either
+//     the log-lik on 5.1e8 elements (tanh: an exp, a log1p and an IEEE
+//     division, ~50 instructions, ~0.9 ms of the SMs' issue). What held the
+//     kernels they replace (PERF.md §6): on bf16 X an mma.sync tile loop
+//     that streamed W again for every 64-column tile, every thread copying
+//     between two block barriers, the density in the warps of the
+//     products; on f32 X the split launch A, which read W's three planes
+//     again for every 64-column tile (24.6 KB of W for each 4 KB of X) and
+//     split X between two block barriers with one stage in flight. The
+//     epilogue parks Y, runs log_lik over it, masks columns >= t and drops
+//     rows >= n (log_lik(0) != 0), and sums ll and Y^2 per row: f32 over a
+//     tile, f64 across the tiles (and consumers) of the group, rounded
+//     once into the group's one partial. On f32 X the log-lik mode lands
+//     X's 16 x 128 stage by one tensor-map copy where its rows are 16-byte
+//     aligned, and splits it in seven warps of two producer warpgroups:
+//     sixteen row copies and three splitting warps each held the pipeline
+//     below the products' pace (PERF.md §6). What holds the two kernels
+//     now (same place): on bf16 X the tanh density's issue beside the
+//     fresh-sum adds, which do not overlap; on f32 X the products' chain
+//     waits with the epilogue in lockstep, and at a ragged t the row-span
+//     copies. The groups (ops/kernels.py STREAM_TC_LOGLIK_COLS) are 1,536
+//     columns: with only (N,) partials, a group's width sets nothing but
+//     the number of blocks and the work of each, and 1,536 columns give
+//     each of the bf16 X kernel's three consumers 8 of its 64-column
+//     tiles.
 //   * Launch B (contract_wgmma_kernel<CT>, every pair): G = psi Y^T (H =
 //     psi' (Y^2)^T) as a plain NT GEMM whose K is the group's columns,
 //     built on Hopper's own instructions. One block per TILE x TILE output
@@ -223,26 +246,17 @@ constexpr int THREADS = 32 * WARPS;
 constexpr int NI = 4;              // a warp's 32 columns: 4 n-tiles
 constexpr int MAX_GRID_Y = 65535;
 
-// Launch A's tile: TILE rows x A_BT columns over A_WR x A_WC warps, each
-// 16 A_MI rows x 32 columns; k in A_KC-deep stages of an A_STAGES ring.
+// Split launch A's tile: TILE rows x A_BT columns over A_WR x A_WC warps,
+// each 16 A_MI rows x 32 columns. W's planes are zero-padded along k to a
+// multiple of A_KC (the caller's kp).
 constexpr int A_BT = 64;
 constexpr int A_KC = 64;
-constexpr int A_STAGES = 4;
 constexpr int A_WC = A_BT / 32;
 constexpr int A_WR = WARPS / A_WC;
 constexpr int A_MI = TILE / A_WR / 16;
-constexpr int A_LDK = A_KC + 8;    // row stride (elements) of the [row][k] W stage tile
-constexpr int LDN = A_BT + 8;      // row stride of the [k][column] X stage tile
+constexpr int LDN = A_BT + 8;      // row stride of the [k][column] bf16 X stage tile
 static_assert(TILE % A_BT == 0 && A_WR * A_WC == WARPS, "launch A's warp layout");
-
-// The loglik launch's shared memory: the ring (a W and an X stage tile
-// each), then the row sums of the column warps (2 sums x A_WC warps x TILE
-// rows).
-constexpr int A_W_STAGE = TILE * A_LDK;  // elements
-constexpr int A_X_STAGE = A_KC * LDN;
-constexpr int A_RED = A_STAGES * (A_W_STAGE + A_X_STAGE) * 2;
-constexpr int A_BYTES = A_RED + 2 * A_WC * TILE * 4;
-constexpr int BLOCKS = 2;                // blocks an SM, in every launch
+constexpr int BLOCKS = 2;                // blocks an SM of the split launch A
 constexpr int SM_SMEM = 233472;          // shared memory of an SM for its blocks
 constexpr int BLOCK_RESERVED = 1024;     // kept by the system per block
 
@@ -259,8 +273,10 @@ constexpr int SKIP_PRODUCTS = PICARD_A_SKIP & 1, SKIP_DENSITY = PICARD_A_SKIP & 
               SKIP_STORES = PICARD_A_SKIP & 4;
 
 // What launch A computes from Y: the plain mode's density, row sums and
-// workspace; the delta mode's (two accumulator sets, Y_old and dY); or
-// the log-lik row sums alone (kernel 9: no workspace).
+// workspace (rotate_split_kernel; rotate_plain_wgmma_kernel on bf16 X);
+// the delta mode's (two accumulator sets, Y_old and dY); or the log-lik
+// row sums alone (kernel 9, no workspace: rotate_wgmma_kernel on f32 X,
+// rotate_plain_wgmma_kernel's LOGLIK on bf16 X).
 enum AMode { MODE_PLAIN = 0, MODE_DELTA = 1, MODE_LOGLIK = 2 };
 
 // Split launch A (rotate_split_kernel) at rotation tier ROT with SETS
@@ -292,30 +308,19 @@ struct DCfg {
   static_assert(BLOCKS * (BYTES + BLOCK_RESERVED) <= SM_SMEM, "two blocks fit an SM");
 };
 
-static_assert(A_KC % 16 == 0, "stage depths");
-static_assert(BLOCKS * (A_BYTES + BLOCK_RESERVED) <= SM_SMEM,
-              "two blocks of launch A fit an SM's shared memory");
-
-struct AParams {
-  int n, kp;  // components; k extent of the padded W (a multiple of A_KC)
-  long long t;
-  int need_ysq, vec;
-  float a, m2a, mha;           // the density's constants, as in density.cuh
-  const __nv_bfloat16* w;      // (n_pad, kp) bf16 M, zero-padded
-  const __nv_bfloat16* x;      // (n, t) bf16, row-major
-  int cols, g0;                // columns per group; the first group
-  float *ll, *dysq, *pm, *ysq; // group g's partial at + g * stride (ll, ysq)
-  long long stride;
-};
-
 struct DParams {
+  // rotate_wgmma_kernel's log-lik mode: f32 X as a tensor map of boxes of
+  // G_BN columns x G_KS rows, where xtm (vec X); else X's rows by bulk
+  // copies of their spans
+  CUtensorMap xmap;
+  int xtm;
   int n, kp, n_kc;  // components; k extent of the padded W; KC-deep stages of k
   long long t;
   int need_ysq, vec;
   float a, m2a, mha;
   // SETS P (n_pad, kp) bf16 planes: M_old's parts, then dM's (one at
-  // bf16; hi, lo at bf16x3; hi, mid, lo at f32); in plain and loglik mode
-  // M's
+  // bf16; hi, lo at bf16x3; hi, mid, lo at f32); in plain and log-lik mode
+  // M's (in _wgmma_weights' layout for rotate_wgmma_kernel)
   const __nv_bfloat16* w;
   long long w_plane;  // n_pad * kp
   const void* x;      // (n, t) f32, or bf16 with XB, row-major
@@ -341,156 +346,6 @@ struct BParams {
   long long stride;
 };
 
-// Start launch A's copies for ring step `it` (tile it / n_kc, k-stage it %
-// n_kc) into `ws` / `xs`; the caller commits.
-__device__ __forceinline__ void load_a(const AParams& p, __nv_bfloat16* ws, __nv_bfloat16* xs,
-                                       int it, int n_kc, long long col0) {
-  const int tid = threadIdx.x;
-  const int tile = it / n_kc, k0 = (it % n_kc) * A_KC;
-  // W: TILE rows x A_KC in 16-byte pieces, always in bounds.
-  const __nv_bfloat16* w = p.w + (long long)blockIdx.x * TILE * p.kp + k0;
-  for (int u = tid; u < TILE * (A_KC / 8); u += THREADS) {
-    const int r = u / (A_KC / 8), c = (u % (A_KC / 8)) * 8;
-    cp_async16_zfill(ws + r * A_LDK + c, w + (long long)r * p.kp + c, true);
-  }
-  // X: A_KC rows x A_BT columns, zero past n and t.
-  const long long c0 = col0 + (long long)tile * A_BT;
-  if (p.vec) {  // t % 8 == 0: an 8-column piece is all in or all out
-    for (int u = tid; u < A_KC * (A_BT / 8); u += THREADS) {
-      const int kr = u / (A_BT / 8), c = (u % (A_BT / 8)) * 8;
-      const bool in = k0 + kr < p.n && c0 + c < p.t;
-      cp_async16_zfill(xs + kr * LDN + c, in ? p.x + (long long)(k0 + kr) * p.t + c0 + c : p.x,
-                       in);
-    }
-  } else {  // rows not 16-byte aligned: plain loads
-    for (int u = tid; u < A_KC * A_BT; u += THREADS) {
-      const int kr = u / A_BT, c = u % A_BT;
-      const bool in = k0 + kr < p.n && c0 + c < p.t;
-      xs[kr * LDN + c] = in ? p.x[(long long)(k0 + kr) * p.t + c0 + c] : __float2bfloat16_rn(0.f);
-    }
-  }
-}
-
-// The log-lik launch on bf16 X: warp w owns rows 16 A_MI (w / A_WC) ..
-// and columns 32 (w % A_WC) .. + 31 of the block's TILE x A_BT tile.
-template <int D>
-__global__ void __launch_bounds__(THREADS, BLOCKS) rotate_density_kernel(AParams p) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* ring = reinterpret_cast<__nv_bfloat16*>(smem);
-  float* red = reinterpret_cast<float*>(smem + A_RED);
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, q = lane & 3;
-  const int wr = warp / A_WC, wc = warp % A_WC;
-  const int row0 = blockIdx.x * TILE;
-  const int grp = p.g0 + blockIdx.y;
-  const long long col0 = (long long)grp * p.cols;  // the group's first column of X
-  const int n_kc = p.kp / A_KC;
-  const int total = (p.cols / A_BT) * n_kc;
-
-  auto w_stage = [&](int s) { return ring + s * (A_W_STAGE + A_X_STAGE); };
-  auto x_stage = [&](int s) { return ring + s * (A_W_STAGE + A_X_STAGE) + A_W_STAGE; };
-
-#pragma unroll
-  for (int i = 0; i < A_STAGES - 1; ++i) {
-    if (i < total) load_a(p, w_stage(i), x_stage(i), i, n_kc, col0);
-    cp_async_commit_group();
-  }
-
-  float acc[A_MI][NI][4] = {};
-  // Row sums over the group: [m-tile][row g / g + 8].
-  float rs_ll[A_MI][2] = {}, rs_ysq[A_MI][2] = {};
-
-  for (int it = 0; it < total; ++it) {
-    cp_async_wait<A_STAGES - 2>();
-    __syncthreads();  // step it landed everywhere; stage (it - 1) % A_STAGES is free
-    const int ahead = it + A_STAGES - 1;
-    if (ahead < total)
-      load_a(p, w_stage(ahead % A_STAGES), x_stage(ahead % A_STAGES), ahead, n_kc, col0);
-    cp_async_commit_group();
-
-    const __nv_bfloat16* ws = w_stage(it % A_STAGES);
-    const __nv_bfloat16* xs = x_stage(it % A_STAGES);
-#pragma unroll
-    for (int ks = 0; ks < A_KC / 16; ++ks) {
-      uint32_t b[NI][2];
-#pragma unroll
-      for (int np = 0; np < NI / 2; ++np) {
-        uint32_t r[4];
-        ldmatrix_x4_trans(r, ldm_a_addr(xs + 16 * ks * LDN + 32 * wc + 16 * np, LDN, lane));
-        b[2 * np][0] = r[0], b[2 * np][1] = r[1], b[2 * np + 1][0] = r[2], b[2 * np + 1][1] = r[3];
-      }
-#pragma unroll
-      for (int mi = 0; mi < A_MI; ++mi) {
-        uint32_t a[4];
-        ldmatrix_x4(a, ldm_a_addr(ws + (16 * A_MI * wr + 16 * mi) * A_LDK + 16 * ks, A_LDK, lane));
-#pragma unroll
-        for (int nt = 0; nt < NI; ++nt) mma_bf16(acc[mi][nt], a, b[nt][0], b[nt][1]);
-      }
-    }
-    if (it % n_kc != n_kc - 1) continue;
-
-    // The tile is done: log_lik on the fragments, masked row sums.
-    const long long c0 = col0 + (long long)(it / n_kc) * A_BT;
-#pragma unroll
-    for (int mi = 0; mi < A_MI; ++mi) {
-#pragma unroll
-      for (int nt = 0; nt < NI; ++nt) {
-        const int cl = 32 * wc + 8 * nt + 2 * q;
-#pragma unroll
-        for (int hh = 0; hh < 2; ++hh) {
-          const int row = row0 + 16 * A_MI * wr + 16 * mi + g + 8 * hh;
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const float y = acc[mi][nt][2 * hh + e];
-            const float ll = log_lik<D>(p, y);
-            if (row < p.n && c0 + cl + e < p.t) {  // log_lik(0) != 0
-              rs_ll[mi][hh] += ll;
-              if (p.need_ysq) rs_ysq[mi][hh] += y * y;
-            }
-            acc[mi][nt][2 * hh + e] = 0.f;
-          }
-        }
-      }
-    }
-  }
-
-  // The group's row partials: the quad's lanes, then the column warps in
-  // order, through shared memory.
-#pragma unroll
-  for (int mi = 0; mi < A_MI; ++mi) {
-#pragma unroll
-    for (int hh = 0; hh < 2; ++hh) {
-      float v[2] = {rs_ll[mi][hh], rs_ysq[mi][hh]};
-#pragma unroll
-      for (int k = 0; k < 2; ++k) {
-        v[k] += __shfl_xor_sync(0xffffffffu, v[k], 1);
-        v[k] += __shfl_xor_sync(0xffffffffu, v[k], 2);
-      }
-      if (q == 0) {
-        const int rl = 16 * A_MI * wr + 16 * mi + g + 8 * hh;
-#pragma unroll
-        for (int k = 0; k < 2; ++k) red[(k * A_WC + wc) * TILE + rl] = v[k];
-      }
-    }
-  }
-  __syncthreads();
-  const int row = row0 + tid;
-  if (tid < TILE && row < p.n) {
-    float v[2];
-#pragma unroll
-    for (int k = 0; k < 2; ++k) {
-      const float* r = red + k * A_WC * TILE + tid;
-      v[k] = r[0];
-#pragma unroll
-      for (int c = 1; c < A_WC; ++c) v[k] += r[c * TILE];
-    }
-    const long long o = (long long)grp * p.stride + row;
-    p.ll[o] = v[0];
-    if (p.need_ysq) p.ysq[o] = v[1];
-  }
-}
-
 // Start split launch A's copies for ring step `it` (tile it / n_kc,
 // k-stage it % n_kc) into stage `st`; the caller commits.
 template <int ROT, int SETS, bool XB>
@@ -511,7 +366,7 @@ __device__ __forceinline__ void load_d(const DParams& p, unsigned char* st, int 
   }
   const long long c0 = col0 + (long long)tile * A_BT;
   if constexpr (XB) {
-    // X: KC rows x A_BT bf16 columns, zero past n and t, as load_a's.
+    // X: KC rows x A_BT bf16 columns, zero past n and t.
     __nv_bfloat16* xs = reinterpret_cast<__nv_bfloat16*>(st + C::W_BYTES);
     const __nv_bfloat16* x = static_cast<const __nv_bfloat16*>(p.x);
     if (p.vec) {  // t % 8 == 0: an 8-column piece is all in or all out
@@ -549,15 +404,15 @@ __device__ __forceinline__ void load_d(const DParams& p, unsigned char* st, int 
 }
 
 // Launch A with the rotation at tier ROT (on bf16 X, XB, the bf16 tier),
-// in MODE: delta (two accumulator sets), plain or loglik (one); the
-// workspace planes of the contraction's tier CT. Warps as in the loglik
-// launch on bf16 X.
+// in MODE: delta (two accumulator sets) or plain (one); the workspace
+// planes of the contraction's tier CT. Warp w owns rows 16 A_MI (w / A_WC)
+// .. and columns 32 (w % A_WC) .. + 31 of the block's TILE x A_BT tile.
 template <int MODE, int ROT, int CT, bool XB, int D, bool NEED_H>
 __global__ void __launch_bounds__(THREADS, BLOCKS) rotate_split_kernel(DParams p) {
   constexpr int SETS = MODE == MODE_DELTA ? 2 : 1;
   using C = DCfg<ROT, SETS, XB>;
   constexpr int P = C::P, KC = C::KC;
-  static_assert(MODE != MODE_LOGLIK || CT == ROT, "the log-lik mode has no contraction");
+  static_assert(MODE == MODE_DELTA || MODE == MODE_PLAIN, "the split launch's modes");
   extern __shared__ __align__(16) unsigned char smem[];
   __nv_bfloat16* xsplit = reinterpret_cast<__nv_bfloat16*>(smem + C::SPLIT);  // P part tiles
   double* red = reinterpret_cast<double*>(smem + C::RED);
@@ -650,7 +505,7 @@ __global__ void __launch_bounds__(THREADS, BLOCKS) rotate_split_kernel(DParams p
     if (it % n_kc != n_kc - 1) continue;
 
     // The tile is done: the density on the fragments, the row sums into
-    // shared memory, and (but in loglik mode) the workspace planes (stores
+    // shared memory, and the workspace planes (stores
     // of column pairs: 4-byte bf16 pairs at bf16, 4-byte hi / lo pairs at
     // bf16x3, 8-byte f32 pairs at f32).
     const int tile = it / n_kc;
@@ -691,15 +546,12 @@ __global__ void __launch_bounds__(THREADS, BLOCKS) rotate_split_kernel(DParams p
               acc[0][mi][nt][2 * hh + e] = acc[SETS - 1][mi][nt][2 * hh + e] = 0.f;
             } else {
               const float y = acc[0][mi][nt][2 * hh + e];
-              float psi = 0.f, psid = 0.f, ll;
-              if constexpr (MODE == MODE_PLAIN)
-                score_der_loglik<D>(p, y, psi, psid, ll);
-              else
-                ll = log_lik<D>(p, y);
+              float psi, psid, ll;
+              score_der_loglik<D>(p, y, psi, psid, ll);
               const bool valid = row < p.n && c0 + cl + e < p.t;
               if (valid) {  // log_lik(0) != 0 and psi'(0) != 0
                 sums[0] += ll;
-                if constexpr (MODE == MODE_PLAIN) sums[1] += psid;
+                sums[1] += psid;
                 if (p.need_ysq) sums[3] += y * y;
               }
               yv[e] = y;
@@ -709,9 +561,7 @@ __global__ void __launch_bounds__(THREADS, BLOCKS) rotate_split_kernel(DParams p
             }
           }
           const long long off = (long long)row * p.ws_cols + wcol + cl;
-          if constexpr (MODE == MODE_LOGLIK) {
-            // no workspace
-          } else if constexpr (CT == F32) {
+          if constexpr (CT == F32) {
             *reinterpret_cast<float2*>(p.wsf[0] + off) = make_float2(ps[0], ps[1]);
             *reinterpret_cast<float2*>(p.wsf[1] + off) = make_float2(yv[0], yv[1]);
             if (NEED_H) {
@@ -775,44 +625,50 @@ __global__ void __launch_bounds__(THREADS, BLOCKS) rotate_split_kernel(DParams p
     }
     const long long o = (long long)grp * p.stride + row;
     p.ll[o] = v[0];
-    if (MODE != MODE_LOGLIK) p.pm[o] = v[1];
+    p.pm[o] = v[1];
     if (p.need_ysq) {
       // plain mode: dysq = ysq = sum Y^2
-      if (MODE != MODE_LOGLIK) p.dysq[o] = MODE == MODE_DELTA ? v[2] : v[3];
+      p.dysq[o] = MODE == MODE_DELTA ? v[2] : v[3];
       p.ysq[o] = v[3];
     }
   }
 }
 
-// Launch A of the delta pairs on f32 X at ROT = CT = F32 or BF16X3
-// (rotate_wgmma_kernel): warp specialised on Hopper's own instructions.
-// Warpgroup 0 produces: its warp 0 (one lane) fills a ring of STAGES
-// (GCfg) with bulk copies, each stage a 16-deep k step: the 2 P W parts of the
-// block's 128 rows (laid out by the caller as wgmma reads them, one copy)
+// Launch A of the delta pairs on f32 X at ROT = CT = F32 or BF16X3, and
+// the log-lik launch on f32 X at F32 (rotate_wgmma_kernel, MODE_DELTA or
+// MODE_LOGLIK): warp specialised on Hopper's own instructions. The first
+// warpgroup (two in log-lik mode) produces: warp 0 (one lane) fills a ring of STAGES
+// (GCfg) with bulk copies, each stage a 16-deep k step: the SETS P W parts
+// of the block's 128 rows (laid out by the caller as wgmma reads them, one
+// copy; SETS = 2 in delta mode, M_old's and dM's, else M's)
 // and of the 16 f32 rows of the 128-column X tile each row's 16-byte
 // aligned span (x_span; the row itself at t % 4 == 0), completing on the stage's
-// `full` barrier; its warps 1-3 split each landed f32 X stage once into
-// its P bf16 part tiles (K-major, as wgmma reads B), zero past n and t,
-// and arrive on `ready`. Warpgroups 1 and 2 consume, 64 W rows each, the
-// same X tile: per step and set (Y_old, dY) the step's chain of P (P + 1)
-// / 2 wgmma m64n128k16 starts in a fresh accumulator and is added to
+// `full` barrier (in log-lik mode, where X's rows are 16-byte aligned, X's
+// 16 x 128 box by one tensor-map copy instead: sixteen row copies a stage
+// held the pipeline below the products' pace, PERF.md §6); its other warps
+// (3, or 7 in log-lik mode) split each landed f32 X stage once into its P
+// bf16 part tiles (K-major, as wgmma reads B), zero past n and t, and
+// arrive on `ready`. The last two warpgroups consume, 64 W rows each, the
+// same X tile: per step and set (Y_old and dY, or Y) the step's chain of P
+// (P + 1) / 2 wgmma m64n128k16 starts in a fresh accumulator and is added to
 // the set's f32 sum, to nearest; then each consumer warp arrives on the
 // stage's `empty` barrier, which the producer waits on before it fills
 // the stage again. While one consumer warpgroup adds its fresh sum, the
 // other's chain runs on the tensor cores. The producer gives its
-// registers to the consumers (setmaxnreg 40 / 232): the consumers hold
-// Y_old, dY and the fresh sum, 192 f32 a thread. After a tile's last step
-// each consumer runs the density, the row sums and the workspace stores
-// of its 64 x 128 share (below). Both consumers wait on the same stages
+// registers to the consumers (setmaxnreg 40 / 232; 40 / 216 with log-lik
+// mode's two producer warpgroups): the consumers hold
+// Y_old, dY and the fresh sum, 192 f32 a thread (Y and the fresh sum, 128,
+// in log-lik mode). After a tile's last step each consumer runs the
+// density, the row sums and (in delta mode) the workspace stores of its
+// 64 x 128 share (below). Both consumers wait on the same stages
 // and so reach their epilogues together: no products run meanwhile (the
 // epilogue is not overlapped with the next tile's products); only the
 // producer's copies and splits go on, as far as the ring lets them.
 constexpr int G_BN = 128;         // columns of an X tile
 constexpr int G_KS = 16;          // k depth of a stage (one wgmma)
-constexpr int G_THREADS = 384;    // the producer's and two consumers' warpgroups
-constexpr int G_CONSUMERS = 256;
+constexpr int G_CONSUMERS = 256;  // two consumer warpgroups
 constexpr int G_TILE_BYTES = 128 * G_KS * 2;  // one 128-row (column) part tile
-constexpr int G_PRODUCER_REGS = 40, G_CONSUMER_REGS = 232;
+constexpr int G_PRODUCER_REGS = 40;
 constexpr int OUT_LD = 24;  // row stride (bf16) of the staged output tile: no bank conflicts
 constexpr int G_XS = G_BN + 4;  // row slot (f32) of a stage's f32 X rows: a span's most floats
 
@@ -834,20 +690,29 @@ __device__ __forceinline__ int2 x_span(const float* a, int cols, std::uintptr_t 
   return make_int2((int)(((long long)at - (long long)l) >> 2), len);
 }
 static_assert(G_BN == TILE, "the tile is a group's column multiple and W's row block");
-static_assert(G_PRODUCER_REGS * 128 + G_CONSUMER_REGS * G_CONSUMERS <= 65536, "an SM's registers");
 
-// The wgmma launch's shared memory: STAGES stages of [the 2 P W part
-// tiles][the P X part tiles][the f32 X rows, 16 x G_XS][their 16 {d, len}
-// (x_span)], then the consumers' epilogue slots (32 floats a thread), at
-// BF16X3 their staged
-// output tiles, the row sums (4 sums x TILE rows, f64) and the full /
-// ready / empty barriers. STAGES: as deep as the 227 KB allow; three
-// stages measured within 0.5 ms of four or five at 256 x 2M (PERF.md §6).
-template <int ROT>
+// The wgmma launch's shared memory (from a 128-byte aligned base): STAGES
+// stages of [the SETS P W part tiles][the P X part tiles][the f32 X rows,
+// 16 x G_XS][their 16 {d, len} (x_span)], then the consumers' epilogue
+// slots (16 SETS floats a thread), at BF16X3 their staged output tiles,
+// the row sums (4 sums x TILE rows, f64) and the full / ready / empty
+// barriers. STAGES: as deep as the 227 KB allow; three stages measured
+// within 0.5 ms of four or five at 256 x 2M in delta mode (PERF.md §6).
+// The producers: one warpgroup in delta mode, whose three warps split X
+// (the consumers need 232 registers for two sets); two in log-lik mode,
+// whose seven splitting warps keep up with one set's products (three took
+// as long as the products; PERF.md §6).
+template <int ROT, int SETS>
 struct GCfg {
+  static constexpr int PRODUCERS = SETS == 1 ? 256 : 128;
+  static constexpr int THREADS = PRODUCERS + G_CONSUMERS;
+  static constexpr int SPLITTERS = PRODUCERS / 32 - 1;  // warps; warp 0 copies
+  static constexpr int CONSUMER_REGS = SETS == 1 ? 216 : 232;
+  static_assert(G_PRODUCER_REGS * PRODUCERS + CONSUMER_REGS * G_CONSUMERS <= 65536,
+                "an SM's registers");
   static constexpr int P = parts(ROT);
-  static constexpr int STAGES = ROT == F32 ? 4 : 5;
-  static constexpr int W_BYTES = 2 * P * G_TILE_BYTES;
+  static constexpr int STAGES = SETS == 1 ? 6 : ROT == F32 ? 4 : 5;
+  static constexpr int W_BYTES = SETS * P * G_TILE_BYTES;
   static constexpr int XP = W_BYTES;                    // the X part tiles
   static constexpr int XF = XP + P * G_TILE_BYTES;      // the f32 X rows
   static constexpr int XM = XF + G_KS * G_XS * 4;       // the rows' {d, len}
@@ -856,31 +721,37 @@ struct GCfg {
   // At BF16X3 the psi and Y hi / lo planes of a warp's 16 rows x 16
   // columns go out through OUT (rows OUT_LD bf16 apart) as whole 32-byte
   // sectors; 4-byte stores of column pairs wrote half sectors.
-  static constexpr int OUT = EPI + 32 * G_CONSUMERS * 4;
+  static constexpr int OUT = EPI + 16 * SETS * G_CONSUMERS * 4;
   static constexpr int OUT_WARP = ROT == BF16X3 ? 4 * 16 * OUT_LD * 2 : 0;  // bytes
   static constexpr int RED = OUT + 8 * OUT_WARP;
   static constexpr int BAR = RED + 4 * TILE * 8;
-  static constexpr int BYTES = BAR + 3 * STAGES * 8;
+  static constexpr int BYTES = BAR + 3 * STAGES * 8 + 128;  // + the aligning slack
   static_assert(BYTES + BLOCK_RESERVED <= SM_SMEM, "one block fits an SM");
+  static_assert(STAGE % 128 == 0 && XF % 128 == 0, "X's tensor-map boxes 128-byte aligned");
 };
 
 // A consumer thread's values of quarter QT of its tile's columns (the
-// fragment's n8 blocks 4 QT .. 4 QT + 3) into its 32 slots of `epi`
+// fragment's n8 blocks 4 QT .. 4 QT + 3) into its 16 SETS slots of `epi`
 // (slot j of consumer thread t at j * G_CONSUMERS + t): Y_old's 16, then
-// dY's.
-template <int QT>
-__device__ __forceinline__ void park(const float (&acc)[2][64], float* epi, int ct) {
+// dY's (or Y's 16).
+template <int QT, int SETS>
+__device__ __forceinline__ void park(const float (&acc)[SETS][64], float* epi, int ct) {
 #pragma unroll
-  for (int set = 0; set < 2; ++set)
+  for (int set = 0; set < SETS; ++set)
 #pragma unroll
     for (int j = 0; j < 16; ++j) epi[(16 * set + j) * G_CONSUMERS + ct] = acc[set][16 * QT + j];
 }
 
-template <int ROT, int D, bool NEED_H>
-__global__ void __launch_bounds__(G_THREADS, 1) rotate_wgmma_kernel(DParams p) {
-  using C = GCfg<ROT>;
-  constexpr int P = C::P, ST = C::STAGES;
-  extern __shared__ __align__(16) unsigned char smem[];
+template <int ROT, int MODE, int D, bool NEED_H>
+__global__ void __launch_bounds__(GCfg<ROT, MODE == MODE_DELTA ? 2 : 1>::THREADS, 1)
+    rotate_wgmma_kernel(const __grid_constant__ DParams p) {
+  static_assert(MODE == MODE_DELTA || (MODE == MODE_LOGLIK && ROT == F32 && !NEED_H),
+                "delta mode, or the log-lik mode at F32");
+  constexpr int SETS = MODE == MODE_DELTA ? 2 : 1;
+  using C = GCfg<ROT, SETS>;
+  constexpr int P = C::P, ST = C::STAGES, PT = C::PRODUCERS;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((128 - (smem_u32(smem_raw) & 127)) & 127);
   float* epi = reinterpret_cast<float*>(smem + C::EPI);
   __nv_bfloat16* outs = reinterpret_cast<__nv_bfloat16*>(smem + C::OUT);
   double* red = reinterpret_cast<double*>(smem + C::RED);
@@ -894,19 +765,19 @@ __global__ void __launch_bounds__(G_THREADS, 1) rotate_wgmma_kernel(DParams p) {
   const long long ws0 = (long long)blockIdx.y * p.cols;
   const int n_ks = p.n_kc, n_tiles = p.cols / G_BN, total = n_tiles * n_ks;
 
-  for (int u = tid; u < 4 * TILE; u += G_THREADS) red[u] = 0.0;
+  for (int u = tid; u < 4 * TILE; u += C::THREADS) red[u] = 0.0;
   if (tid == 0) {
     for (int s = 0; s < ST; ++s) {
       mbar_init(&full[s], 1);
-      mbar_init(&ready[s], 3);
+      mbar_init(&ready[s], C::SPLITTERS);
       mbar_init(&empty[s], 8);
     }
     mbar_init_fence();
   }
   __syncthreads();
 
-  if (tid < 128) {
-    // ---- the producer warpgroup ----
+  if (tid < PT) {
+    // ---- the producer warpgroups ----
     regs_dec<G_PRODUCER_REGS>();
     if (tid == 0) {
       // The copies: stage `it` % ST holds step it % n_ks of tile it / n_ks.
@@ -926,6 +797,12 @@ __global__ void __launch_bounds__(G_THREADS, 1) rotate_wgmma_kernel(DParams p) {
         const long long left = p.t - c0;
         const int cols = left <= 0 ? 0 : left < G_BN ? (int)left : G_BN;
         const float* x0 = x + (long long)k0 * p.t + c0;
+        if (p.xtm) {  // X's 16 x 128 box by tensor map, zero past n and t (counted whole)
+          mbar_arrive_expect_tx(&full[s], C::W_BYTES + G_KS * G_BN * 4);
+          bulk_load(st, w + (long long)(it % n_ks) * (C::W_BYTES / 2), C::W_BYTES, &full[s]);
+          tma_load_2d(st + C::XF, &p.xmap, (int)c0, k0, &full[s]);
+          continue;
+        }
         unsigned bytes = C::W_BYTES;
         if (p.vec) {
           bytes += rows * cols * 4;
@@ -947,8 +824,11 @@ __global__ void __launch_bounds__(G_THREADS, 1) rotate_wgmma_kernel(DParams p) {
       }
     } else if (tid >= 32) {
       // The split: (column, 8-deep half of k) units, each 8 f32 values
-      // into P 16-byte rows of the part tiles' core matrices.
+      // into P 16-byte rows of the part tiles' core matrices. A landed
+      // tensor-map box has rows of G_BN floats, a stage of spans rows of
+      // G_XS.
       const float* x = static_cast<const float*>(p.x);
+      const int ld = p.xtm ? G_BN : G_XS;
       for (int it = 0; it < total; ++it) {
         const int s = it % ST, tile = it / n_ks, k0 = (it % n_ks) * G_KS;
         mbar_wait(&full[s], (it / ST) & 1);
@@ -958,7 +838,7 @@ __global__ void __launch_bounds__(G_THREADS, 1) rotate_wgmma_kernel(DParams p) {
         const long long c0 = col0 + (long long)tile * G_BN;
         const long long left = p.t - c0;
         const int cols = left <= 0 ? 0 : left < G_BN ? (int)left : G_BN;
-        for (int u = tid - 32; u < 2 * G_BN; u += 96) {
+        for (int u = tid - 32; u < 2 * G_BN; u += PT - 32) {
           const int col = u % G_BN, kh = u / G_BN;
           uint32_t packed[P][4];
 #pragma unroll
@@ -970,7 +850,7 @@ __global__ void __launch_bounds__(G_THREADS, 1) rotate_wgmma_kernel(DParams p) {
               v[e] = 0.f;
               if (col < cols && k0 + k < p.n) {
                 if (p.vec) {
-                  v[e] = xf[k * G_XS + col];
+                  v[e] = xf[k * ld + col];
                 } else {
                   const int2 span = spans[k];
                   const int c = col + span.x;
@@ -1000,16 +880,18 @@ __global__ void __launch_bounds__(G_THREADS, 1) rotate_wgmma_kernel(DParams p) {
   }
 
   // ---- the consumer warpgroups: cg owns rows 64 cg .. 64 cg + 63 ----
-  regs_inc<G_CONSUMER_REGS>();
-  const int ct = tid - 128, cg = ct / 128, warp = (ct % 128) / 32;
+  regs_inc<C::CONSUMER_REGS>();
+  const int ct = tid - PT, cg = ct / 128, warp = (ct % 128) / 32;
   const int wo = (ct / 32) * (C::OUT_WARP / 2);  // the warp's staged output tile
   const int g = lane >> 2, q = lane & 3;
   const int row0 = blockIdx.x * TILE;
-  float acc[2][64];  // Y_old, dY
-  float fr[64] = {};  // a step's fresh sum
+  float acc[SETS][64];  // Y_old, dY in delta mode; else Y
+  float fr[64] = {};     // a step's fresh sum
   for (int tile = 0; tile < n_tiles; ++tile) {
 #pragma unroll
-    for (int i = 0; i < 64; ++i) acc[0][i] = acc[1][i] = 0.f;
+    for (int set = 0; set < SETS; ++set)
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[set][i] = 0.f;
     for (int ks = 0; ks < n_ks; ++ks) {
       const int it = tile * n_ks + ks, s = it % ST;
       mbar_wait(&full[s], (it / ST) & 1);
@@ -1017,7 +899,7 @@ __global__ void __launch_bounds__(G_THREADS, 1) rotate_wgmma_kernel(DParams p) {
       const unsigned char* st = smem + s * C::STAGE;
       if constexpr (!SKIP_PRODUCTS) {
 #pragma unroll
-        for (int set = 0; set < 2; ++set) {
+        for (int set = 0; set < SETS; ++set) {
           // part (a, b) of W's rows and of X: A at set's plane a, rows 64 cg.
           auto a = [&](int part) {
             return core_desc(st + (set * P + part) * G_TILE_BYTES + cg * (G_TILE_BYTES / 2));
@@ -1048,97 +930,119 @@ __global__ void __launch_bounds__(G_THREADS, 1) rotate_wgmma_kernel(DParams p) {
     }
 
     // The tile is done. A quarter of its columns at a time, each thread
-    // parks the quarter's Y_old and dY values in its own slots of shared
-    // memory and runs the density, the row sums and the workspace stores
-    // over them in a rolled loop, four values at a time: one copy of the
-    // density's code, not one for each of the 64 (unrolled, the tanh
-    // density's code ran from an instruction cache it did not fit).
+    // parks the quarter's values (Y_old and dY, or Y) in its own slots of
+    // shared memory and runs the density, the row sums and (in delta mode)
+    // the workspace stores over them in a rolled loop, four values at a
+    // time: one copy of the density's code, not one for each of the 64
+    // (unrolled, the tanh density's code ran from an instruction cache it
+    // did not fit).
     const long long c0 = col0 + (long long)tile * G_BN;
     const long long wcol = ws0 + (long long)tile * G_BN;
     const long long left = p.t - c0;  // the tile's columns before t
     const int cols_in = left <= 0 ? 0 : left < G_BN ? (int)left : G_BN;
-    float sums[2][4] = {};  // rows g and g + 8: dll, pm, dysq, ysq
+    float sums[2][4] = {};  // rows g and g + 8: dll (ll), pm, dysq, ysq
 #pragma unroll 1
     for (int qt = 0; qt < 4; ++qt) {
       switch (qt) {
-        case 0: park<0>(acc, epi, ct); break;
-        case 1: park<1>(acc, epi, ct); break;
-        case 2: park<2>(acc, epi, ct); break;
-        default: park<3>(acc, epi, ct); break;
+        case 0: park<0, SETS>(acc, epi, ct); break;
+        case 1: park<1, SETS>(acc, epi, ct); break;
+        case 2: park<2, SETS>(acc, epi, ct); break;
+        default: park<3, SETS>(acc, epi, ct); break;
       }
 #pragma unroll 1
       for (int il = 0; il < 4; ++il) {
         const int cl = 32 * qt + 8 * il + 2 * q;
+        if constexpr (MODE == MODE_LOGLIK) {
+          // The warp's 16 rows hold a row below n and the tile a column
+          // below t, or their Y is all zeros (W's padded rows, X's padded
+          // columns): then the density is skipped.
+          const bool live = cols_in > 0 && row0 + 64 * cg + 16 * warp < p.n;
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          const int row = row0 + 64 * cg + 16 * warp + g + 8 * h;
-          float yv[2], ps[2], pd[2];
+          for (int h = 0; h < 2; ++h) {
+            const int row = row0 + 64 * cg + 16 * warp + g + 8 * h;
 #pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int j = 4 * il + 2 * h + e;
-            const float y_old = epi[j * G_CONSUMERS + ct], dy = epi[(16 + j) * G_CONSUMERS + ct];
-            float psi = y_old, psid = dy, dll = y_old;
-            if constexpr (!SKIP_DENSITY) score_der_loglik_delta<D>(p, y_old, dy, psi, psid, dll);
-            const float y = y_old + dy;
-            const bool valid = row < p.n && cl + e < cols_in;
-            if (valid) {  // dysq and ysq summed always, written with need_ysq
-              sums[h][0] += dll;
-              sums[h][1] += psid;
-              sums[h][2] += (2.f * y_old + dy) * dy;
-              sums[h][3] += y * y;
-            }
-            if constexpr (!SKIP_DENSITY)
-              score_der<D>(p, y, psi, psid);  // the contraction's psi, psi' of the f32 Y
-            yv[e] = y;  // 0 at padded rows and columns
-            ps[e] = psi;
-            pd[e] = valid ? psid : 0.f;
-          }
-          const long long off = (long long)row * p.ws_cols + wcol + cl;
-          if constexpr (SKIP_STORES) {
-            // no workspace
-          } else if constexpr (ROT == F32) {
-            *reinterpret_cast<float2*>(p.wsf[0] + off) = make_float2(ps[0], ps[1]);
-            *reinterpret_cast<float2*>(p.wsf[1] + off) = make_float2(yv[0], yv[1]);
-            if (NEED_H) {
-              *reinterpret_cast<float2*>(p.wsf[2] + off) = make_float2(pd[0], pd[1]);
-              *reinterpret_cast<float2*>(p.wsf[3] + off) =
-                  make_float2(yv[0] * yv[0], yv[1] * yv[1]);
-            }
-          } else {
-            // psi and Y into the warp's staged tile (plane, row, column of
-            // the il pair), psi' and Y^2 straight out.
-            __nv_bfloat16* o = outs + wo + (g + 8 * h) * OUT_LD + 8 * (il & 1) + 2 * q;
-            uint32_t v[4];
-            split_pair(ps[0], ps[1], v[0], v[1]);
-            split_pair(yv[0], yv[1], v[2], v[3]);
-#pragma unroll
-            for (int k = 0; k < 4; ++k) *reinterpret_cast<uint32_t*>(o + k * 16 * OUT_LD) = v[k];
-            if (NEED_H) {
-              uint32_t hi, lo;
-              split_pair(pd[0], pd[1], hi, lo);
-              *reinterpret_cast<uint32_t*>(p.ws[4] + off) = hi;
-              *reinterpret_cast<uint32_t*>(p.ws[5] + off) = lo;
-              split_pair(yv[0] * yv[0], yv[1] * yv[1], hi, lo);
-              *reinterpret_cast<uint32_t*>(p.ws[6] + off) = hi;
-              *reinterpret_cast<uint32_t*>(p.ws[7] + off) = lo;
+            for (int e = 0; e < 2; ++e) {
+              const float y = epi[(4 * il + 2 * h + e) * G_CONSUMERS + ct];
+              float ll = y;
+              if (!SKIP_DENSITY && live) ll = log_lik<D>(p, y);
+              if (row < p.n && cl + e < cols_in) {  // log_lik(0) != 0
+                sums[h][0] += ll;
+                sums[h][3] += y * y;
+              }
             }
           }
-        }
-        if constexpr (ROT == BF16X3 && !SKIP_STORES) {
-          if (il & 1) {
-            // The il pair's 16 columns of the warp's 16 rows, four planes:
-            // 16 bytes a lane, two lanes a row's 32-byte sector.
-            __syncwarp();
-            const long long col = wcol + 32 * qt + 16 * (il >> 1);
+        } else {
 #pragma unroll
-            for (int k = 0; k < 4; ++k) {
-              const int c = lane + 32 * k, r = (c & 31) >> 1, half = c & 1;
-              const uint4 v = *reinterpret_cast<const uint4*>(outs + wo + (k * 16 + r) * OUT_LD +
-                                                              8 * half);
-              *reinterpret_cast<uint4*>(p.ws[k] + (long long)(row0 + 64 * cg + 16 * warp + r) *
-                                                      p.ws_cols + col + 8 * half) = v;
+          for (int h = 0; h < 2; ++h) {
+            const int row = row0 + 64 * cg + 16 * warp + g + 8 * h;
+            float yv[2], ps[2], pd[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int j = 4 * il + 2 * h + e;
+              const float y_old = epi[j * G_CONSUMERS + ct], dy = epi[(16 + j) * G_CONSUMERS + ct];
+              float psi = y_old, psid = dy, dll = y_old;
+              if constexpr (!SKIP_DENSITY) score_der_loglik_delta<D>(p, y_old, dy, psi, psid, dll);
+              const float y = y_old + dy;
+              const bool valid = row < p.n && cl + e < cols_in;
+              if (valid) {  // dysq and ysq summed always, written with need_ysq
+                sums[h][0] += dll;
+                sums[h][1] += psid;
+                sums[h][2] += (2.f * y_old + dy) * dy;
+                sums[h][3] += y * y;
+              }
+              if constexpr (!SKIP_DENSITY)
+                score_der<D>(p, y, psi, psid);  // the contraction's psi, psi' of the f32 Y
+              yv[e] = y;  // 0 at padded rows and columns
+              ps[e] = psi;
+              pd[e] = valid ? psid : 0.f;
             }
-            __syncwarp();
+            const long long off = (long long)row * p.ws_cols + wcol + cl;
+            if constexpr (SKIP_STORES) {
+              // no workspace
+            } else if constexpr (ROT == F32) {
+              *reinterpret_cast<float2*>(p.wsf[0] + off) = make_float2(ps[0], ps[1]);
+              *reinterpret_cast<float2*>(p.wsf[1] + off) = make_float2(yv[0], yv[1]);
+              if (NEED_H) {
+                *reinterpret_cast<float2*>(p.wsf[2] + off) = make_float2(pd[0], pd[1]);
+                *reinterpret_cast<float2*>(p.wsf[3] + off) =
+                    make_float2(yv[0] * yv[0], yv[1] * yv[1]);
+              }
+            } else {
+              // psi and Y into the warp's staged tile (plane, row, column of
+              // the il pair), psi' and Y^2 straight out.
+              __nv_bfloat16* o = outs + wo + (g + 8 * h) * OUT_LD + 8 * (il & 1) + 2 * q;
+              uint32_t v[4];
+              split_pair(ps[0], ps[1], v[0], v[1]);
+              split_pair(yv[0], yv[1], v[2], v[3]);
+#pragma unroll
+              for (int k = 0; k < 4; ++k) *reinterpret_cast<uint32_t*>(o + k * 16 * OUT_LD) = v[k];
+              if (NEED_H) {
+                uint32_t hi, lo;
+                split_pair(pd[0], pd[1], hi, lo);
+                *reinterpret_cast<uint32_t*>(p.ws[4] + off) = hi;
+                *reinterpret_cast<uint32_t*>(p.ws[5] + off) = lo;
+                split_pair(yv[0] * yv[0], yv[1] * yv[1], hi, lo);
+                *reinterpret_cast<uint32_t*>(p.ws[6] + off) = hi;
+                *reinterpret_cast<uint32_t*>(p.ws[7] + off) = lo;
+              }
+            }
+          }
+          if constexpr (ROT == BF16X3 && !SKIP_STORES) {
+            if (il & 1) {
+              // The il pair's 16 columns of the warp's 16 rows, four planes:
+              // 16 bytes a lane, two lanes a row's 32-byte sector.
+              __syncwarp();
+              const long long col = wcol + 32 * qt + 16 * (il >> 1);
+#pragma unroll
+              for (int k = 0; k < 4; ++k) {
+                const int c = lane + 32 * k, r = (c & 31) >> 1, half = c & 1;
+                const uint4 v = *reinterpret_cast<const uint4*>(outs + wo + (k * 16 + r) * OUT_LD +
+                                                                8 * half);
+                *reinterpret_cast<uint4*>(p.ws[k] + (long long)(row0 + 64 * cg + 16 * warp + r) *
+                                                        p.ws_cols + col + 8 * half) = v;
+              }
+              __syncwarp();
+            }
           }
         }
       }
@@ -1165,16 +1069,17 @@ __global__ void __launch_bounds__(G_THREADS, 1) rotate_wgmma_kernel(DParams p) {
   if (ct < TILE && row < p.n) {
     const long long o = (long long)grp * p.stride + row;
     p.ll[o] = (float)red[ct];
-    p.pm[o] = (float)red[TILE + ct];
-    if (p.need_ysq) {
-      p.dysq[o] = (float)red[2 * TILE + ct];
-      p.ysq[o] = (float)red[3 * TILE + ct];
+    if (MODE == MODE_DELTA) {
+      p.pm[o] = (float)red[TILE + ct];
+      if (p.need_ysq) p.dysq[o] = (float)red[2 * TILE + ct];
     }
+    if (p.need_ysq) p.ysq[o] = (float)red[3 * TILE + ct];
   }
 }
 
-// Launch A of plain bf16 on bf16 X (rotate_plain_wgmma_kernel): warp
-// specialised on Hopper's own instructions. One block of 512 threads an
+// Launch A of plain bf16 on bf16 X, and the log-lik launch on bf16 X
+// (rotate_plain_wgmma_kernel, LOGLIK): warp specialised on Hopper's own
+// instructions. One block of 512 threads an
 // SM owns TILE rows of W and one group of `cols` columns, walked in
 // P_BN-column tiles. Warpgroups 1-3 consume alternate tiles of the group
 // (consumer c takes tiles c, c + P_NC, ...), all TILE rows of each, so
@@ -1204,7 +1109,10 @@ __global__ void __launch_bounds__(G_THREADS, 1) rotate_wgmma_kernel(DParams p) {
 // quarter, a slot set for each consumer, added in the consumers' order at
 // the group's end; psi and Y are staged a warp's 8 rows at a time (two
 // buffers) in the 128-byte swizzle and written by tensor-map stores of
-// whole 128-byte rows (psi' and Y^2, with H, as 4-byte column pairs).
+// whole 128-byte rows (psi' and Y^2, with H, as 4-byte column pairs). The
+// log-lik mode runs log_lik alone, sums ll and Y^2, and stores nothing: it
+// has no workspace, so no staging buffers either, and its rings take their
+// room.
 constexpr int P_BN = 64;   // columns of an X tile: one 128-byte swizzle row of bf16
 constexpr int P_KC = 64;   // k depth of a stage: one box of X's rows (and of W's columns)
 constexpr int P_NC = 3;    // consumer warpgroups
@@ -1217,8 +1125,9 @@ constexpr int P_MAX_STAGES = 8;           // of a consumer's ring
 // After the rings and W: each consumer thread's 16 parked f32 values, each
 // consumer warp's two staging buffers of psi and Y (each 2 planes x a box
 // of the workspace's tensor map, P_OROWS rows of the tile's P_BN columns,
-// 128-byte rows in the 128-byte swizzle), the row sums (P_NC x 3 sums x
-// TILE rows, f64), and the rings' full / empty barriers and W's.
+// 128-byte rows in the 128-byte swizzle; none in log-lik mode), the row
+// sums (P_NC x 3 sums x TILE rows, f64), and the rings' full / empty
+// barriers and W's.
 constexpr int P_OROWS = 8;
 constexpr int P_PARK = P_NC * 16 * 128 * 4;
 constexpr int P_OBOX = P_OROWS * P_BN;      // bf16 elements of one box
@@ -1226,7 +1135,10 @@ constexpr int P_OUT_BUF = 2 * P_OBOX;       // of one buffer
 constexpr int P_OUT_WARP = 2 * P_OUT_BUF;
 constexpr int P_OUT = P_NC * 4 * P_OUT_WARP * 2;
 constexpr int P_RED = P_NC * 3 * TILE * 8;
-constexpr int P_FIXED = P_PARK + P_OUT + P_RED + (2 * P_NC * P_MAX_STAGES + 1) * 8;
+__host__ __device__ constexpr int plain_out_bytes(bool loglik) { return loglik ? 0 : P_OUT; }
+__host__ __device__ constexpr int plain_fixed_bytes(bool loglik) {
+  return P_PARK + plain_out_bytes(loglik) + P_RED + (2 * P_NC * P_MAX_STAGES + 1) * 8;
+}
 static_assert(P_KC == A_KC, "W's plane is padded along k to whole boxes");
 static_assert(P_BN * 2 == 128 && P_KC % 16 == 0 && P_X_BOX % 1024 == 0 && P_W_BOX % 1024 == 0,
               "boxes of whole 128-byte swizzle atoms");
@@ -1238,12 +1150,12 @@ struct PwParams {
   CUtensorMap wmap;  // W, (n_pad, kp) bf16: boxes of P_KC columns x TILE rows
   CUtensorMap xmap;  // X, (n, t) bf16: boxes of P_BN columns x P_KC rows (vec only)
   CUtensorMap omap;  // the workspace's planes: boxes of P_BN columns x P_OROWS rows
-  int n, kp, n_ks, stages, resident;  // stages: of each consumer's ring
+  int n, kp, n_ks, stages, resident, loglik;  // stages: of each consumer's ring
   long long t;
   int need_ysq, vec;
   float a, m2a, mha;
   const __nv_bfloat16* x;
-  __nv_bfloat16 *psi, *y, *psid, *y2;  // workspace, (n_pad, ws_cols) each
+  __nv_bfloat16 *psi, *y, *psid, *y2;  // workspace, (n_pad, ws_cols) each; null in log-lik mode
   long long ws_cols;
   int cols, g0;
   float *ll, *dysq, *pm, *ysq;
@@ -1257,7 +1169,7 @@ __host__ __device__ constexpr int plain_stage_bytes(int resident) {
 }
 int plain_smem_bytes(const PwParams& p) {
   return 1024 + P_NC * p.stages * plain_stage_bytes(p.resident) +
-         (p.resident ? p.n_ks * P_W_BOX : 0) + P_FIXED;
+         (p.resident ? p.n_ks * P_W_BOX : 0) + plain_fixed_bytes(p.loglik);
 }
 
 // A consumer thread's values of quarter QT of its tile, its row g + 8 (QT
@@ -1271,9 +1183,11 @@ __device__ __forceinline__ void park_plain(const float (&acc)[2][32], float* pk)
     for (int e = 0; e < 2; ++e) pk[(2 * i + e) * 128] = acc[QT / 2][4 * i + 2 * (QT % 2) + e];
 }
 
-template <int D, bool NEED_H>
+template <int D, bool NEED_H, bool LOGLIK>
 __global__ void __launch_bounds__(P_THREADS, 1)
     rotate_plain_wgmma_kernel(const __grid_constant__ PwParams p) {
+  static_assert(!(LOGLIK && NEED_H), "the log-lik mode has no contraction");
+  constexpr bool STORES = !LOGLIK && !SKIP_STORES;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   const int ST = p.stages, stage_bytes = plain_stage_bytes(p.resident);
@@ -1281,8 +1195,8 @@ __global__ void __launch_bounds__(P_THREADS, 1)
   unsigned char* fixed = wres + (p.resident ? p.n_ks * P_W_BOX : 0);
   float* park = reinterpret_cast<float*>(fixed);
   __nv_bfloat16* outs = reinterpret_cast<__nv_bfloat16*>(fixed + P_PARK);
-  double* red = reinterpret_cast<double*>(fixed + P_PARK + P_OUT);
-  uint64_t* full = reinterpret_cast<uint64_t*>(fixed + P_PARK + P_OUT + P_RED);
+  double* red = reinterpret_cast<double*>(fixed + P_PARK + plain_out_bytes(LOGLIK));
+  uint64_t* full = reinterpret_cast<uint64_t*>(fixed + P_PARK + plain_out_bytes(LOGLIK) + P_RED);
   uint64_t* empty = full + P_NC * P_MAX_STAGES;
   uint64_t* wfull = empty + P_NC * P_MAX_STAGES;
 
@@ -1427,7 +1341,7 @@ __global__ void __launch_bounds__(P_THREADS, 1)
       // The warp's buffer of this quarter, free once the store of two
       // quarters ago has read it.
       __nv_bfloat16* ob = ow + (nq & 1) * P_OUT_BUF;
-      if constexpr (!SKIP_STORES) {
+      if constexpr (STORES) {
         if (lane == 0) bulk_wait_read<1>();
         __syncwarp();
       }
@@ -1440,10 +1354,15 @@ __global__ void __launch_bounds__(P_THREADS, 1)
         for (int e = 0; e < 2; ++e) {
           const float y = pk[(2 * i + e) * 128];
           float psi = y, psid = y, ll = y;
-          if (!SKIP_DENSITY && live) score_der_loglik<D>(p, y, psi, psid, ll);
+          if (!SKIP_DENSITY && live) {
+            if constexpr (LOGLIK)
+              ll = log_lik<D>(p, y);
+            else
+              score_der_loglik<D>(p, y, psi, psid, ll);
+          }
           if (row < p.n && cl + e < cols_in) {  // log_lik(0) != 0 and psi'(0) != 0
             sums[0] += ll;
-            sums[1] += psid;
+            if constexpr (!LOGLIK) sums[1] += psid;
             sums[2] += y * y;
             pd[e] = psid;
           } else {
@@ -1452,7 +1371,7 @@ __global__ void __launch_bounds__(P_THREADS, 1)
           yv[e] = y;    // 0 at padded rows and columns
           ps[e] = psi;  // psi(0) == 0
         }
-        if constexpr (!SKIP_STORES) {
+        if constexpr (STORES) {
           // Row g's 16-byte chunk i of each plane's box at chunk i ^ g.
           const int off = g * P_BN + ((i ^ g) << 3) + 2 * q;
           *reinterpret_cast<uint32_t*>(ob + off) = pack_bf16(ps[0], ps[1]);
@@ -1464,7 +1383,7 @@ __global__ void __launch_bounds__(P_THREADS, 1)
           }
         }
       }
-      if constexpr (!SKIP_STORES) {
+      if constexpr (STORES) {
         // The warp's 8 rows of the tile, psi then Y, as two tensor-map
         // stores of whole 128-byte rows.
         fence_async_shared();  // the buffer, before the stores read it
@@ -1489,7 +1408,7 @@ __global__ void __launch_bounds__(P_THREADS, 1)
 
   // The group's row partials: the consumers' sums in order, rounded once;
   // and no store outlives the block.
-  if (lane == 0) bulk_wait<0>();
+  if (STORES && lane == 0) bulk_wait<0>();
   bar_sync<128 * P_NC>(1);
   const int row = row0 + ct;
   if (ct < TILE && row < p.n) {
@@ -1500,8 +1419,12 @@ __global__ void __launch_bounds__(P_THREADS, 1)
       for (int k = 0; k < 3; ++k) v[k] += red[(3 * cc + k) * TILE + ct];
     const long long o = (long long)grp * p.stride + row;
     p.ll[o] = (float)v[0];
-    p.pm[o] = (float)v[1];
-    if (p.need_ysq) p.ysq[o] = p.dysq[o] = (float)v[2];
+    if (LOGLIK) {
+      if (p.need_ysq) p.ysq[o] = (float)v[2];
+    } else {
+      p.pm[o] = (float)v[1];
+      if (p.need_ysq) p.ysq[o] = p.dysq[o] = (float)v[2];
+    }
   }
 }
 
@@ -1741,26 +1664,18 @@ cudaError_t launch(Kernel kernel, int smem, dim3 grid, const Params& p, cudaStre
   return cudaGetLastError();
 }
 
-cudaError_t launch_loglik_bf16(int dens, dim3 grid, const AParams& p, cudaStream_t st) {
-  switch (dens) {
-    case TANH: return launch(rotate_density_kernel<TANH>, A_BYTES, grid, p, st);
-    case EXP: return launch(rotate_density_kernel<EXP>, A_BYTES, grid, p, st);
-    case CUBE: return launch(rotate_density_kernel<CUBE>, A_BYTES, grid, p, st);
-  }
-  return cudaErrorInvalidValue;
-}
-
-// The wgmma launch A of plain bf16 on bf16 X (rotate_plain_wgmma_kernel).
-template <bool NEED_H>
+// The wgmma launch on bf16 X (rotate_plain_wgmma_kernel): launch A of
+// plain bf16, or with LOGLIK the log-lik launch.
+template <bool NEED_H, bool LOGLIK>
 cudaError_t launch_plain_wgmma(int dens, dim3 grid, const PwParams& p, cudaStream_t st) {
   const int smem = plain_smem_bytes(p);
   switch (dens) {
     case TANH:
-      return launch(rotate_plain_wgmma_kernel<TANH, NEED_H>, smem, grid, p, st, P_THREADS);
+      return launch(rotate_plain_wgmma_kernel<TANH, NEED_H, LOGLIK>, smem, grid, p, st, P_THREADS);
     case EXP:
-      return launch(rotate_plain_wgmma_kernel<EXP, NEED_H>, smem, grid, p, st, P_THREADS);
+      return launch(rotate_plain_wgmma_kernel<EXP, NEED_H, LOGLIK>, smem, grid, p, st, P_THREADS);
     case CUBE:
-      return launch(rotate_plain_wgmma_kernel<CUBE, NEED_H>, smem, grid, p, st, P_THREADS);
+      return launch(rotate_plain_wgmma_kernel<CUBE, NEED_H, LOGLIK>, smem, grid, p, st, P_THREADS);
   }
   return cudaErrorInvalidValue;
 }
@@ -1781,18 +1696,22 @@ cudaError_t launch_d(int dens, dim3 grid, const DParams& p, cudaStream_t st) {
   return cudaErrorInvalidValue;
 }
 
-template <int ROT, bool NEED_H>
+// rotate_wgmma_kernel in MODE (delta, or the log-lik launch on f32 X).
+template <int ROT, int MODE, bool NEED_H>
 cudaError_t launch_g(int dens, dim3 grid, const DParams& p, cudaStream_t st) {
-  constexpr int BYTES = GCfg<ROT>::BYTES;
+  using C = GCfg<ROT, MODE == MODE_DELTA ? 2 : 1>;
   DParams q = p;
   q.n_kc = (p.n + G_KS - 1) / G_KS;
   switch (dens) {
     case TANH:
-      return launch(rotate_wgmma_kernel<ROT, TANH, NEED_H>, BYTES, grid, q, st, G_THREADS);
+      return launch(rotate_wgmma_kernel<ROT, MODE, TANH, NEED_H>, C::BYTES, grid, q, st,
+                    C::THREADS);
     case EXP:
-      return launch(rotate_wgmma_kernel<ROT, EXP, NEED_H>, BYTES, grid, q, st, G_THREADS);
+      return launch(rotate_wgmma_kernel<ROT, MODE, EXP, NEED_H>, C::BYTES, grid, q, st,
+                    C::THREADS);
     case CUBE:
-      return launch(rotate_wgmma_kernel<ROT, CUBE, NEED_H>, BYTES, grid, q, st, G_THREADS);
+      return launch(rotate_wgmma_kernel<ROT, MODE, CUBE, NEED_H>, C::BYTES, grid, q, st,
+                    C::THREADS);
   }
   return cudaErrorInvalidValue;
 }
@@ -1816,8 +1735,8 @@ cudaError_t launch_contract(int ct, dim3 grid, const BParams& b, cudaStream_t st
 template <int ROT>
 cudaError_t launch_wgmma_split(int dens, bool need_h, dim3 grid_a, const DParams& d,
                                dim3 grid_b, const BParams& b, cudaStream_t st) {
-  cudaError_t e = need_h ? launch_g<ROT, true>(dens, grid_a, d, st)
-                         : launch_g<ROT, false>(dens, grid_a, d, st);
+  cudaError_t e = need_h ? launch_g<ROT, MODE_DELTA, true>(dens, grid_a, d, st)
+                         : launch_g<ROT, MODE_DELTA, false>(dens, grid_a, d, st);
   if (e != cudaSuccess) return e;
   return launch_contract<ROT>(grid_b, b, st);
 }
@@ -1902,20 +1821,10 @@ void fill_common(Params& a, int n, long long t, int need_ysq, double alpha, int 
   a.stride = stride;
 }
 
-// Launch A's parameters: the loglik launch's on bf16 X (w: the (n_pad, kp)
-// bf16 plane) and the split launch's (w: the planes of its tiers and
-// mode, n_pad * kp apart; f32 X, or bf16 X with x_bf16; launch_d sets the
-// stage count n_kc).
-AParams a_params(int n, long long t, int need_ysq, double alpha, int cols, const void* w,
-                 const void* x, float* ll, float* dysq, float* pm, float* ysq, long long stride) {
-  AParams a{};
-  fill_common(a, n, t, need_ysq, alpha, cols, ll, dysq, pm, ysq, stride);
-  a.vec = (t * 2) % 16 == 0 && reinterpret_cast<std::uintptr_t>(x) % 16 == 0;
-  a.w = static_cast<const __nv_bfloat16*>(w);
-  a.x = static_cast<const __nv_bfloat16*>(x);
-  return a;
-}
-
+// The parameters of the split launch A and of rotate_wgmma_kernel (w: the
+// planes of the pair's tiers and mode, n_pad * kp apart for the split
+// launch, in _wgmma_weights' layout for rotate_wgmma_kernel; f32 X, or
+// bf16 X with x_bf16; launch_d and launch_g set the stage count n_kc).
 DParams d_params(int x_bf16, int n, long long t, int need_ysq, double alpha, int cols,
                  const void* w, const void* x, float* ll, float* dysq, float* pm, float* ysq,
                  long long stride) {
@@ -1996,34 +1905,40 @@ struct Workspace {
   }
 };
 
-// The wgmma launch A's parameters (plain bf16 on bf16 X) over the chunk
-// workspace wk: W's tensor map (boxes of P_KC columns x TILE rows of the
-// caller's zero-padded (n_pad, kp) bf16 plane) and, where X's rows are
-// 16-byte aligned (vec), X's (boxes of P_BN columns x P_KC rows); W
-// resident where kp <= P_RESIDENT_KP, and a ring as deep as the shared
+// rotate_plain_wgmma_kernel's parameters over the chunk workspace wk
+// (launch A of plain bf16 on bf16 X), or with no workspace (wk null: the
+// log-lik launch on bf16 X): W's tensor map (boxes of P_KC columns x TILE
+// rows of the caller's zero-padded (n_pad, kp) bf16 plane) and, where X's
+// rows are 16-byte aligned (vec), X's (boxes of P_BN columns x P_KC rows);
+// W resident where kp <= P_RESIDENT_KP, and a ring as deep as the shared
 // memory left allows. False if an encoding fails.
 bool pw_params(int n, long long t, int need_ysq, double alpha, int cols, const void* w,
-               const void* x, const Workspace& wk, float* ll, float* dysq, float* pm, float* ysq,
+               const void* x, const Workspace* wk, float* ll, float* dysq, float* pm, float* ysq,
                long long stride, PwParams& p) {
   p = PwParams{};
   fill_common(p, n, t, need_ysq, alpha, cols, ll, dysq, pm, ysq, stride);
   p.n_ks = p.kp / P_KC;
   p.vec = (t * 2) % 16 == 0 && reinterpret_cast<std::uintptr_t>(x) % 16 == 0;
   p.x = static_cast<const __nv_bfloat16*>(x);
-  p.psi = wk.plane(0);
-  p.y = wk.plane(1);
-  p.psid = wk.plane(2);
-  p.y2 = wk.plane(3);
-  p.ws_cols = wk.cols;
+  p.loglik = wk == nullptr;
+  if (wk) {
+    p.psi = wk->plane(0);
+    p.y = wk->plane(1);
+    p.psid = wk->plane(2);
+    p.y2 = wk->plane(3);
+    p.ws_cols = wk->cols;
+    if (!wk->map(p.omap, P_BN, P_OROWS, CU_TENSOR_MAP_SWIZZLE_128B)) return false;
+  }
   p.resident = p.kp <= P_RESIDENT_KP;
-  if (!wk.map(p.omap, P_BN, P_OROWS, CU_TENSOR_MAP_SWIZZLE_128B)) return false;
-  const int left = SM_SMEM - BLOCK_RESERVED - 1024 - P_FIXED - (p.resident ? p.n_ks * P_W_BOX : 0);
+  const int left = SM_SMEM - BLOCK_RESERVED - 1024 - plain_fixed_bytes(p.loglik) -
+                   (p.resident ? p.n_ks * P_W_BOX : 0);
   const int stages = left / (P_NC * plain_stage_bytes(p.resident));
   p.stages = stages < P_MAX_STAGES ? stages : P_MAX_STAGES;
   const EncodeTiled encode = encode_tiled();
   if (!encode || p.stages < 2) return false;
+  const int n_pad = (n + TILE - 1) / TILE * TILE;
   const cuuint32_t unit[2] = {1u, 1u};
-  const cuuint64_t wdims[2] = {(cuuint64_t)p.kp, (cuuint64_t)wk.n_pad};
+  const cuuint64_t wdims[2] = {(cuuint64_t)p.kp, (cuuint64_t)n_pad};
   const cuuint64_t wstrides[1] = {(cuuint64_t)p.kp * 2};
   const cuuint32_t wbox[2] = {(cuuint32_t)P_KC, (cuuint32_t)TILE};
   if (encode(&p.wmap, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(w), wdims, wstrides,
@@ -2038,6 +1953,24 @@ bool pw_params(int n, long long t, int need_ysq, double alpha, int cols, const v
                 xstrides, xbox, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The log-lik launch on f32 X (rotate_wgmma_kernel): where X's rows are
+// 16-byte aligned (d.vec), X's tensor map of boxes of G_BN columns x G_KS
+// rows (xtm). False if the encoding fails.
+bool x_map(DParams& d) {
+  if (!d.vec) return true;
+  const EncodeTiled encode = encode_tiled();
+  const cuuint32_t unit[2] = {1u, 1u};
+  const cuuint64_t dims[2] = {(cuuint64_t)d.t, (cuuint64_t)d.n};
+  const cuuint64_t strides[1] = {(cuuint64_t)d.t * 4};
+  const cuuint32_t box[2] = {(cuuint32_t)G_BN, (cuuint32_t)G_KS};
+  d.xtm = encode &&
+          encode(&d.xmap, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<void*>(d.x), dims, strides,
+                 box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE,
+                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return d.xtm;
 }
 
 bool bad_shape(int n, long long t, int cols, int n_parts, int density, long long stride,
@@ -2098,7 +2031,7 @@ int picard_streaming_fused_tc(int delta, int rot_tier, int ct_tier, int x_bf16, 
   PwParams a;
   DParams d{};
   if (dense) {
-    if (!pw_params(n, t, need_ysq, alpha, cols, w, x, wk, dll, dysq, pm, ysq, stride, a))
+    if (!pw_params(n, t, need_ysq, alpha, cols, w, x, &wk, dll, dysq, pm, ysq, stride, a))
       return (int)cudaErrorInvalidValue;
   } else {
     d = d_params(x_bf16, n, t, need_ysq, alpha, cols, w, x, dll, dysq, pm, ysq, stride);
@@ -2117,8 +2050,8 @@ int picard_streaming_fused_tc(int delta, int rot_tier, int ct_tier, int x_bf16, 
     const dim3 grid_a(n_pad / TILE, ng), grid_b(b.edge * b.edge, ng, need_h ? 2 : 1);
     cudaError_t e;
     if (dense) {
-      e = need_h ? launch_plain_wgmma<true>(density, grid_a, a, st)
-                 : launch_plain_wgmma<false>(density, grid_a, a, st);
+      e = need_h ? launch_plain_wgmma<true, false>(density, grid_a, a, st)
+                 : launch_plain_wgmma<false, false>(density, grid_a, a, st);
       if (e == cudaSuccess) e = launch_contract<BF16>(grid_b, b, st);
     } else {
       e = delta ? split_pairs<MODE_DELTA>(rot_tier, ct_tier, x_bf16, density, need_h, grid_a, d,
@@ -2164,10 +2097,11 @@ int picard_stream_contract_tc(int ct_tier, int need_h, int n, int cols, int n_pa
 
 // picard_streaming_loglik_sums' row sums on the tensor cores: ll = sum
 // log_lik(M x), masked at columns >= t, and with need_ysq ysq = sum (M
-// x)^2, one partial each per group at out + group index * stride, launch A
-// alone in loglik mode. tier = BF16: bf16 X; w: the (n_pad, kp)
-// zero-padded bf16 copy of M. tier = F32: f32 X; w: 3 (n_pad, kp)
-// zero-padded bf16 planes, the hi / mid / lo splits of M. T is cut into
+// x)^2, one partial each per group at out + group index * stride, the
+// wgmma launches in log-lik mode. tier = BF16: bf16 X,
+// rotate_plain_wgmma_kernel; w: the (n_pad, kp) zero-padded bf16 copy of
+// M. tier = F32: f32 X, rotate_wgmma_kernel<F32, MODE_LOGLIK>; w: the
+// hi / mid / lo splits of M in _wgmma_weights' layout. T is cut into
 // n_parts groups of `cols` columns, at most MAX_GRID_Y (one launch).
 int picard_streaming_loglik_tc(int tier, int density, int need_ysq, double alpha, int n,
                                long long t, int cols, int n_parts, const void* w, const void* x,
@@ -2177,14 +2111,16 @@ int picard_streaming_loglik_tc(int tier, int density, int need_ysq, double alpha
     return (int)cudaErrorInvalidValue;
   const dim3 grid((n + TILE - 1) / TILE, n_parts);
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (tier == BF16)
-    return (int)launch_loglik_bf16(
-        density, grid, a_params(n, t, need_ysq, alpha, cols, w, x, ll, nullptr, nullptr, ysq,
-                                stride),
-        st);
-  return (int)launch_d<MODE_LOGLIK, F32, F32, false, false>(
-      density, grid,
-      d_params(0, n, t, need_ysq, alpha, cols, w, x, ll, nullptr, nullptr, ysq, stride), st);
+  if (tier == BF16) {
+    PwParams a;
+    if (!pw_params(n, t, need_ysq, alpha, cols, w, x, nullptr, ll, nullptr, nullptr, ysq, stride,
+                   a))
+      return (int)cudaErrorInvalidValue;
+    return (int)launch_plain_wgmma<false, true>(density, grid, a, st);
+  }
+  DParams d = d_params(0, n, t, need_ysq, alpha, cols, w, x, ll, nullptr, nullptr, ysq, stride);
+  if (!x_map(d)) return (int)cudaErrorInvalidValue;
+  return (int)launch_g<F32, MODE_LOGLIK, false>(density, grid, d, st);
 }
 
 }  // extern "C"

@@ -35,8 +35,8 @@ no longer fits whole in shared memory:
     caller fills (:func:`contract_workspace`): each group's partials of
     G (H), for the tests, ``chip_smoke.py`` and ``port_turns.py``;
   * :func:`streaming_loglik_sums` — kernel 3's outputs for large N
-    (replaces ``streaming_loglik_sums``, :1205-1274), on the tensor
-    cores: the route's rotation launch alone with a log-lik epilogue
+    (replaces ``streaming_loglik_sums``, :1205-1274), on ``wgmma``: the
+    log-lik modes of the route's two ``wgmma`` launch A kernels
     (``picard_streaming_loglik_tc``), on bf16 X at the bf16 tier and on
     f32 X at the f32 tier, with no workspace.
 
@@ -150,9 +150,10 @@ STREAM_LOGLIK_TILE = 128
 STREAM_TC_TILE = 128
 STREAM_TC_KC = 64
 # The delta pairs on f32 X at the bf16x3 and f32 tiers (WGMMA_PAIRS) run
-# launch A on wgmma (csrc/streaming_fused_tc.cu rotate_wgmma_kernel, G_KS):
-# its W is zero-padded along k to a multiple of STREAM_TC_WGMMA_KS and laid
-# out in the order the kernel copies and reads it (_wgmma_weights).
+# launch A on wgmma (csrc/streaming_fused_tc.cu rotate_wgmma_kernel, G_KS),
+# and so does the loglik kernel on f32 X: its W is zero-padded along k to a
+# multiple of STREAM_TC_WGMMA_KS and laid out in the order the kernel copies
+# and reads it (_wgmma_weights).
 STREAM_TC_WGMMA_KS = 16
 WGMMA_PAIRS = ("bf16x3", "f32")
 # Columns per partial (group) of the route, at least: a group is the
@@ -164,10 +165,13 @@ STREAM_TC_GROUP_COLS = 4096
 # many bytes; a larger call runs in chunks of whole groups.
 STREAM_TC_WORKSPACE_MAX = 2 * 1024**3
 # Columns per partial of the loglik kernel on the route, at least: its
-# partials are (N,) rows, so a group's width sets only the number of
-# blocks (1,568 at 1024 x 200,000, against 392 with 4,096-column groups
-# on the card's 264 two-block slots).
-STREAM_TC_LOGLIK_COLS = 1024
+# partials are (N,) rows, so a group's width sets only the work of a block
+# and the number of blocks. 1,536 columns are 24 of the bf16 X kernel's
+# 64-column tiles, 8 for each of its three consumers (1,024 left one
+# consumer 6 tiles to the others' 5), and 12 of the f32 X kernel's
+# 128-column tiles; at 128 x 1,000,000 they still fill ~5 waves of the
+# card's 132 blocks (PERF.md §6).
+STREAM_TC_LOGLIK_COLS = 1536
 # Groups one launch may take (a CUDA grid's y extent).
 _MAX_GRID_Y = 65535
 # The fused plain version's tile rule (stream_tile): a model of a Y tile
@@ -858,9 +862,11 @@ def _tc_weights(planes, n: int, n_pad: int, device):
 
 
 def _wgmma_weights(planes, n: int, n_pad: int, device):
-    """The weights' bf16 planes for the wgmma launch A: zero-padded to
-    (n_pad, kp), kp a multiple of :data:`STREAM_TC_WGMMA_KS`, in the order
-    its ring copies them, (row block, k step, plane, 128 x 16 tile) with
+    """The weights' bf16 planes for ``rotate_wgmma_kernel`` (the wgmma
+    launch A of :data:`WGMMA_PAIRS`, and the loglik kernel on f32 X):
+    zero-padded to (n_pad, kp), kp a multiple of
+    :data:`STREAM_TC_WGMMA_KS`, in the order its ring copies them, (row
+    block, k step, plane, 128 x 16 tile) with
     each tile in wgmma's no-swizzle K-major layout (8 x 8 core matrices of
     16-byte rows: element (r, k) of a tile at (r // 8) * 128 + (k // 8) *
     64 + (r % 8) * 8 + k % 8), so that one stage's planes are one
@@ -924,10 +930,11 @@ def _streaming_fused_tc(m_new, m_old, x, density, need_h, need_ysq, precision, a
 
 def streaming_loglik_sums(m, x, density, need_ysq: bool):
     """:func:`rotated_loglik_sums` for N up to :data:`STREAM_MAX_N`, on
-    the tensor cores: bf16 X at the bf16 tier (M rounded to bf16, one
-    bf16 plane), f32 X at the f32 tier (M's hi / mid / lo splits, six
-    products a 16-deep step); groups of
-    :func:`stream_tc_plan`'s ``planes=False`` partition, one launch."""
+    ``wgmma``: bf16 X at the bf16 tier (M rounded to bf16, one bf16 plane
+    read through a tensor map, :func:`_tc_weights`), f32 X at the f32 tier
+    (M's hi / mid / lo splits in :func:`_wgmma_weights`' layout, six
+    products a 16-deep step); groups of :func:`stream_tc_plan`'s
+    ``planes=False`` partition, one launch."""
     _stream_cap(x)
     if x.device.type == "cpu":
         return streaming_loglik_sums_plain(m, x, density, need_ysq)
@@ -935,7 +942,8 @@ def streaming_loglik_sums(m, x, density, need_ysq: bool):
     tier = "bf16" if x.dtype == torch.bfloat16 else "f32"
     plan = stream_tc_plan(n, t, False, planes=False)
     code, alpha = _density_code(density)
-    w = _tc_weights(_PARTS[tier](_mats(x, m)[0]), n, plan.n_pad, x.device)
+    w = (_tc_weights if tier == "bf16" else _wgmma_weights)(
+        _PARTS[tier](_mats(x, m)[0]), n, plan.n_pad, x.device)
 
     def launch(ptrs, stride):
         _run(_lib().picard_streaming_loglik_tc, _TIERS[tier], code, int(need_ysq), alpha, n, t,

@@ -43,7 +43,11 @@ four turns, also written to ``--out`` (default
 ``chiprun_out/turns.json``). Needs one CUDA card and nvcc.
 
 With ``--kernels-only`` the turns time the kernels alone, without the
-fits; with ``--core-only`` only the resident core kernels' cases at
+fits; with ``--loglik`` only ``streaming_loglik_sums`` (kernel 9) at every
+STREAM_SHAPES shape, on f32 X and on bf16 X, with the tanh and the cube
+density, timed the same two ways and then in ``torch.profiler`` (5 calls:
+each CUDA kernel's device ms a call, by name); with ``--core-only`` only
+the resident core kernels' cases at
 64 x 2,000,000 (kernel 1's three tiers, kernels 2 and 3) and kernel 1's
 cases at the ragged shapes and at 64 x 4,000,000. With
 ``--large-n`` they take only the kernels (the ``rotated_fused_sums``,
@@ -71,7 +75,8 @@ beside ``--out``).
     python3 port_turns.py --parts [TREE ...]
 
 splits launch A of kernel 8's three pairs on wgmma (plain bf16 on bf16
-X, delta bf16x3 and delta f32 on f32 X) at 256 x 2,000,000 into its
+X, delta bf16x3 and delta f32 on f32 X) and kernel 9 on both X dtypes
+(the same kernels' log-lik modes) at 256 x 2,000,000 into its
 parts. Each TREE (default: this checkout) is
 built four ways, all builds at once: as the port builds it, and with
 ``-DPICARD_A_SKIP`` (``csrc/streaming_fused_tc.cu``) added to the build's
@@ -212,7 +217,7 @@ def _count_tiers(core, kernels):
 
 
 def one_turn(tree: str, kernels_only: bool = False, large_n: bool = False,
-             core_only: bool = False) -> dict:
+             core_only: bool = False, loglik: bool = False) -> dict:
     import numpy as np
     import torch
 
@@ -230,6 +235,9 @@ def one_turn(tree: str, kernels_only: bool = False, large_n: bool = False,
     assert Path(K.__file__).resolve().is_relative_to(Path(tree).resolve()), K.__file__
     _build.load()
     turn = {"tree": tree, "kernel": {}, "fits": {}}
+    if loglik:
+        _loglik_turn(sm, K, tree, turn)
+        return turn
     rng = np.random.default_rng(sm.SEED)
     x = torch.from_numpy((rng.laplace(size=(sm.N, sm.T)) / np.sqrt(2.0))
                          .astype(np.float32)).cuda()
@@ -363,6 +371,42 @@ def _stream_turn(sm, K, tree, turn):
         torch.cuda.empty_cache()
 
 
+def _loglik_turn(sm, K, tree, turn):
+    """Time ``streaming_loglik_sums`` at each STREAM_SHAPES shape on f32 X
+    and on bf16 X, with the tanh and the cube density: one synchronised
+    call at a time and 10 back to back, then 5 calls in torch.profiler
+    (each CUDA kernel's device ms a call, by name)."""
+    import torch
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as traced
+
+    from picard_ica_tpu_torch.ops.densities import Cube, Tanh
+
+    for n, t, seed in STREAM_SHAPES:
+        xs, ms_old, _ = sm._stream_inputs(n, t, seed)
+        xs16 = xs.to(torch.bfloat16)
+        for case, xx in (("f32", xs), ("bf16 X", xs16)):
+            for density in (Tanh(), Cube()):
+                def call():
+                    return K.streaming_loglik_sums(ms_old, xx, density, False)
+
+                label = f"streaming loglik {case}, {n} x {t}, {type(density).__name__}"
+                ms, ms_stream = sm._time_both(call)
+                with traced(activities=[ProfilerActivity.CUDA]) as prof:
+                    for _ in range(5):
+                        call()
+                    torch.cuda.synchronize()
+                kernels = {e.key[:90]: e.device_time_total / 5e3 for e in prof.key_averages()
+                           if e.device_time_total > 0}
+                turn["kernel"][label] = {"ms": ms, "ms_stream": ms_stream, "profile": kernels}
+                sm._log(f"[{tree}] streaming_loglik_sums [{label}]: "
+                        f"{sm._fmt_pair((ms, ms_stream))}; profiler "
+                        + "; ".join(f"{k}: {v:.3f}" for k, v in
+                                    sorted(kernels.items(), key=lambda kv: -kv[1])))
+        del xs, xs16, xx
+        torch.cuda.empty_cache()
+
+
 def profile(tree: str, cases=None) -> dict:
     """Device ms a call of each CUDA kernel in the tensor-core route's
     calls (torch.profiler over 5 calls after 3 warm-up calls), of the
@@ -410,10 +454,12 @@ def profile(tree: str, cases=None) -> dict:
 
 
 # (label, PICARD_A_SKIP) of --parts' builds, and the pairs it splits
-# (STREAM_CASES' rows of the three wgmma launch A pairs).
+# (STREAM_CASES' rows of the three wgmma launch A pairs), and the loglik
+# kernel's two X dtypes, the same kernels' log-lik modes (no stores).
 PARTS = (("whole", 0), ("no products", 1), ("no density", 2), ("no stores", 4))
 PARTS_CASES = [c for c in STREAM_CASES
                if c[0] in ("plain bf16, bf16 X", "delta bf16x3", "delta f32")]
+PARTS_LOGLIK = (("loglik f32", False), ("loglik bf16 X", True))
 
 
 def _part_flags(skip) -> tuple:
@@ -466,6 +512,21 @@ def parts_turn(tree: str) -> dict:
             b = sum(e.device_time_total for e in prof.key_averages()
                     if "contract_" in e.key)
             out[f"{case}, {type(density).__name__}"] = {"A_ms": a / 5e3, "B_ms": b / 5e3}
+    for case, bf16_x in PARTS_LOGLIK:
+        xx = xs16 if bf16_x else xs
+        for density in (Tanh(), Cube()):
+            def call():
+                return K.streaming_loglik_sums(ms_old, xx, density, False)
+
+            for _ in range(3):
+                call()
+            torch.cuda.synchronize()
+            with traced(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(5):
+                    call()
+                torch.cuda.synchronize()
+            a = sum(e.device_time_total for e in prof.key_averages() if "rotate_" in e.key)
+            out[f"{case}, {type(density).__name__}"] = {"A_ms": a / 5e3, "B_ms": 0.0}
     return out
 
 
@@ -848,6 +909,8 @@ def main(argv=None):
     ap.add_argument("--case", action="append",
                     help="with --profile, only this STREAM_CASES label (repeatable)")
     ap.add_argument("--kernels-only", action="store_true", help="turns without the fits")
+    ap.add_argument("--loglik", action="store_true",
+                    help="turns of the streaming loglik kernel's cases only")
     ap.add_argument("--trace", action="store_true",
                     help="with --staged-fit, print each iteration's gradient norm")
     ap.add_argument("--torch-path", action="store_true",
@@ -927,7 +990,8 @@ def main(argv=None):
     if args.one:
         # Only the turn's tree provides the package, not this script's.
         sys.path[:] = [args.one] + [p for p in sys.path if p and Path(p).resolve() != HERE]
-        print(json.dumps(one_turn(args.one, args.kernels_only, args.large_n, args.core_only)))
+        print(json.dumps(one_turn(args.one, args.kernels_only, args.large_n, args.core_only,
+                                  args.loglik)))
         return 0
     if len(args.trees) != 2:
         ap.error("give the BEFORE and AFTER directories")
@@ -939,7 +1003,8 @@ def main(argv=None):
         proc = subprocess.run([sys.executable, __file__, "--one", tree]
                               + ["--kernels-only"] * args.kernels_only
                               + ["--large-n"] * args.large_n
-                              + ["--core-only"] * args.core_only, env=env,
+                              + ["--core-only"] * args.core_only
+                              + ["--loglik"] * args.loglik, env=env,
                               cwd=tree, capture_output=True, text=True)
         sys.stdout.write(proc.stdout.rsplit("\n", 2)[0] + "\n")
         if proc.returncode != 0:

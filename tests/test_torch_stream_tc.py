@@ -31,12 +31,16 @@ surrounds it is held here:
     weights' planes, their layout (the wgmma launch A's, for its pairs)
     and the plan; the wgmma layout's place of every weight; and the
     library's load holding its wgmma pairs to the wrapper's;
-  * a torch emulation of the loglik kernel (the ``planes=False`` plan's
-    groups, the rotation of either tier, the masked log-lik and Y^2 row
-    sums per group, the groups folded pairwise) against the JAX package's
+  * a torch emulation of the loglik kernel, the log-lik modes of the two
+    wgmma launch A kernels (the ``planes=False`` plan's groups; the
+    rotation of either tier in fresh 16-deep steps; the masked log-lik and
+    Y^2 row sums per group in each kernel's order: on bf16 X f32 over
+    64-column tiles, f64 over each of three consumers' alternate tiles,
+    the consumers in order; on f32 X f32 over 128-column tiles, f64 across
+    them; the groups folded pairwise) against the JAX package's
     ``streaming_loglik_sums(..., interpret=True)`` and
     ``streaming_loglik_sums_plain``, and its wrapper's launch on the meta
-    device.
+    device (the weights' layout of each X dtype).
 
 Tolerances: with a bf16 contraction, 1e-3 of each output's largest
 entry, the bf16 rule of tests/test_torch_streaming.py (psi and Y are
@@ -731,13 +735,42 @@ def test_cpu_wrapper_runs_the_plain_version_in_plain_f32():
 LL_TOL = 2e-5
 
 
+# The loglik kernel on bf16 X (rotate_plain_wgmma_kernel's log-lik mode):
+# 64-column tiles, consumer c of three taking tiles c, c + 3, ... of a
+# group.
+PLAIN_TILE, PLAIN_CONSUMERS = 64, 3
+
+
+def _steps_rotate(w, x):
+    """W X as the wgmma kernels sum it: each 16-deep k step's products in a
+    fresh sum, the steps added to the f32 result in order."""
+    out = 0.0
+    for s in range(0, x.shape[0], STEP):
+        out = out + w[:, s:s + STEP] @ x[s:s + STEP]
+    return out
+
+
+def _consumer_row_sums(v, s):
+    """Each row's sum of ``v`` over the columns ``s`` as the log-lik mode
+    on bf16 X adds it: f32 over each 64-column tile, each consumer's tiles
+    in f64, the consumers' sums in order, rounded once."""
+    u = v[:, s]
+    tiles = u.reshape(u.shape[0], -1, PLAIN_TILE).sum(dim=2).double()
+    total = 0.0
+    for c in range(PLAIN_CONSUMERS):
+        total = total + tiles[:, c::PLAIN_CONSUMERS].sum(dim=1)
+    return total.float()
+
+
 def _emulate_loglik(m, x, density, need_ysq):
     """The loglik kernel in torch, on the CPU: the ``planes=False`` plan's
-    groups; Y = bf16(M) X on bf16 X (exact bf16 products, f32 sums) or,
-    on f32 X, the f32 tier's rotation (hi / mid / lo of M and X, six
-    products a 16-deep k step in a fresh sum); log_lik(Y) masked at
-    padded rows and at columns >= T (log_lik(0) != 0), and Y^2; row sums
-    per group, the groups folded pairwise."""
+    groups; Y = bf16(M) X on bf16 X (exact bf16 products, a fresh f32 sum
+    a 16-deep k step) or, on f32 X, the f32 tier's rotation (hi / mid / lo
+    of M and X, six products a 16-deep k step in a fresh sum); log_lik(Y)
+    masked at padded rows and at columns >= T (log_lik(0) != 0), and Y^2;
+    each row's sums per group in the kernels' order (bf16 X:
+    :func:`_consumer_row_sums`; f32 X: f32 over 128-column tiles, f64
+    across them, :func:`_row_sums`), the groups folded pairwise."""
     n, t = x.shape
     tier = "bf16" if x.dtype == torch.bfloat16 else "f32"
     plan = K.stream_tc_plan(n, t, False, tier, planes=False)
@@ -747,13 +780,16 @@ def _emulate_loglik(m, x, density, need_ysq):
     if tier == "f32":
         y = _x6_rotate(_padded_planes(K._split3_bf16(m), plan.n_pad), K._split3_bf16(xc))
     else:
-        y = _padded_planes([K._bf16(m.float())], plan.n_pad)[0] @ xc
+        y = _steps_rotate(_padded_planes([K._bf16(m.float())], plan.n_pad)[0], xc)
     valid = (torch.arange(plan.n_pad) < n)[:, None] & (torch.arange(width) < t)[None]
     ll = torch.where(valid, density.log_lik(y), 0.0)
     assert not y[~valid].any()  # zeros past n and t: Y^2 needs no mask
 
     def folded(v):
-        return fold_pairwise(v[:n].reshape(n, plan.n_parts, cols).sum(dim=2).T)
+        groups = [slice(g * cols, (g + 1) * cols) for g in range(plan.n_parts)]
+        if tier == "f32":
+            return fold_pairwise(torch.stack([_row_sums(v[:n], s, True) for s in groups]))
+        return fold_pairwise(torch.stack([_consumer_row_sums(v[:n], s) for s in groups]))
 
     return folded(ll), folded(y * y) if need_ysq else torch.zeros(n)
 
@@ -816,8 +852,9 @@ LOGLIK_PLAN_CASES = [  # (n, t)
 @pytest.mark.parametrize("n,t", LOGLIK_PLAN_CASES)
 def test_loglik_plan_invariants(n, t):
     """The loglik kernel's partition: whole tiles covering T once, groups
-    of at least STREAM_TC_LOGLIK_COLS columns where T allows, at most
-    65,535 of them in the one launch, and no workspace."""
+    of at least STREAM_TC_LOGLIK_COLS columns where T allows (then a
+    multiple of three 64-column tiles), at most 65,535 of them in the one
+    launch, and no workspace."""
     plan = K.stream_tc_plan(n, t, False, "f32", planes=False)
     tile = K.STREAM_TC_TILE
     assert plan.n_pad % tile == 0 and n <= plan.n_pad < n + tile
@@ -826,16 +863,21 @@ def test_loglik_plan_invariants(n, t):
     assert 1 <= plan.n_parts == plan.groups_per_chunk <= 65535
     assert plan.ws_bytes == 0
     assert plan.cols_per_group >= min(K.STREAM_TC_LOGLIK_COLS, -(-t // tile) * tile)
+    if plan.cols_per_group == K.STREAM_TC_LOGLIK_COLS:
+        # whole tiles of both kernels, and as many for each of the bf16 X
+        # kernel's three consumers
+        assert plan.cols_per_group % (3 * PLAIN_TILE) == plan.cols_per_group % WGMMA_TILE == 0
     assert plan == K.stream_tc_plan(n, t, True, "bf16", planes=False)  # H and the tier: no say
 
 
 def test_loglik_plan_of_the_fits():
-    """256 x 2,000,000 (phases 5 and 5c) in 1,954 groups of 1,024 columns,
-    1024 x 200,000 in 196."""
+    """256 x 2,000,000 (phases 5 and 5c) in 1,303 groups of 1,536 columns
+    (24 of the bf16 X kernel's 64-column tiles, 8 a consumer), 1024 x
+    200,000 in 131."""
     assert K.stream_tc_plan(256, 2_000_000, False, planes=False) == K.StreamTcPlan(
-        256, 1024, 1954, 1954, 0)
+        256, 1536, 1303, 1303, 0)
     assert K.stream_tc_plan(1024, 200_000, False, planes=False) == K.StreamTcPlan(
-        1024, 1024, 196, 196, 0)
+        1024, 1536, 131, 131, 0)
 
 
 def test_cpu_loglik_wrapper_runs_the_plain_version():
@@ -898,9 +940,11 @@ def _meta(v):
 @pytest.mark.parametrize("bf16_x", [False, True], ids=["f32x", "bf16x"])
 def test_loglik_wrapper_routes_both_dtypes(recorder, bf16_x):
     """A non-CPU tensor of either dtype takes the route's loglik entry: the
-    bf16 tier on bf16 X with M rounded to bf16 (one plane), the f32 tier
-    on f32 X with M's hi / mid / lo (three planes), the ``planes=False``
-    plan's groups, one launch counted by tier; then the fold."""
+    bf16 tier on bf16 X with M rounded to bf16 (one (n_pad, kp) plane, read
+    through W's tensor map), the f32 tier on f32 X with M's hi / mid / lo
+    (three planes in the wgmma launch's layout, ``_wgmma_weights``), the
+    ``planes=False`` plan's groups, one launch counted by tier; then the
+    fold."""
     n, t = 257, 3000
     _, _, tm, tx = _loglik_case(n, t, 13, bf16_x)
     K.reset_launch_counts()
@@ -916,6 +960,11 @@ def test_loglik_wrapper_routes_both_dtypes(recorder, bf16_x):
     (planes,) = recorder.planes  # meta tensors hold no values: their count and shapes
     assert len(planes) == (1 if bf16_x else 3)
     assert all(p.shape == (n, n) for p in planes)
+    (layout,) = recorder.layouts
+    if bf16_x:
+        assert layout == ("_tc_weights", (1, plan.n_pad, -(-n // 64) * 64))
+    else:  # (row block, 16-deep k step, plane, 128 x 16 tile in core matrices)
+        assert layout == ("_wgmma_weights", (plan.n_pad // 128, -(-n // 16), 3, 16, 2, 8, 8))
 
 
 def test_plain_f32_wrapper_takes_the_route(recorder):

@@ -41,11 +41,11 @@ Their drift (dysq and ysq, and G) is held against f64 sums of the f32
 operands themselves, within DRIFT_FACTOR of the plain version's error
 plus DRIFT_FLOOR of the output's largest entry.
 
-The loglik kernel: RTOL_F32 at both tiers (it rounds nothing to bf16
-after its rotation, so only the order of the f32 sums differs); at the
-f32 tier its ll and ysq drift against f64 sums of the f32 operands under
-the same DRIFT_FACTOR rule (ll is the loss baseline the line search
-compares against).
+The loglik kernel (the wgmma launches' log-lik modes): RTOL_F32 at both
+tiers (it rounds nothing to bf16 after its rotation, so only the order of
+the f32 sums differs); at both tiers its ll and ysq drift against f64
+sums of its operands under the same DRIFT_FACTOR rule (ll is the loss
+baseline the line search compares against).
 
 Launch B alone (``K.stream_contract_sums``) over a workspace of the same
 values as its plain version's: each group's partials within RTOL_F32 of
@@ -711,8 +711,8 @@ def _loglik_args(dev, n, t, seed, bf16_x, density=Tanh(), need_ysq=True):
 @pytest.mark.parametrize("n", WIDE_N)
 def test_stream_loglik_tc_shapes_match_plain(dev, n, t, bf16_x, need_ysq):
     """The loglik kernel at the edges of the 128-row blocks and the k
-    stages (64-deep on bf16 X, 32-deep on f32 X) and ragged T, masked at
-    columns >= T (log_lik(0) != 0)."""
+    stages (64-deep boxes on bf16 X, 16-deep steps on f32 X) and ragged T,
+    masked at columns >= T (log_lik(0) != 0)."""
     args = _loglik_args(dev, n, t, n + t + 30, bf16_x, need_ysq=need_ysq)
     out = _run_loglik(args)
     _close(out, K.streaming_loglik_sums_plain(*args), RTOL_F32)
@@ -729,9 +729,9 @@ def test_stream_loglik_tc_densities_match_plain(dev, bf16_x, density):
 
 @pytest.mark.parametrize("bf16_x", [False, True], ids=["f32x", "bf16x"])
 def test_stream_loglik_tc_unaligned_and_narrow_groups_match_plain(dev, monkeypatch, bf16_x):
-    """1,000,003 columns (rows not 16-byte aligned: plain loads of bf16,
-    4-byte copies of f32), then groups of one 128-column tile (7,813
-    groups in the one launch)."""
+    """1,000,003 columns (rows not 16-byte aligned: plain loads of bf16 X,
+    bulk copies of the 16-byte aligned spans around f32 X's rows), then
+    groups of one 128-column tile (7,813 groups in the one launch)."""
     args = _loglik_args(dev, 1024, 1_000_003, 32, bf16_x)
     _close(_run_loglik(args), K.streaming_loglik_sums_plain(*args), RTOL_F32)
     monkeypatch.setattr(K, "STREAM_TC_LOGLIK_COLS", 128)
@@ -753,21 +753,63 @@ def test_rotated_loglik_hand_off_takes_the_route(dev):
         _close(out, K.rotated_loglik_sums_plain(*args), RTOL_F32)
 
 
-def test_stream_loglik_tc_drift_against_f64(dev):
-    """The loglik kernel's f32 tier at 1024 x 200,000, K 1024 deep: ll and
-    ysq against the same sums in f64 of the f32 operands (M and X), within
-    DRIFT_FACTOR of the exact-f32 plain version's error (ll is the loss
-    baseline the line search compares against)."""
-    args = _loglik_args(dev, 1024, 200_000, 35, False)
+@pytest.mark.parametrize("bf16_x", [False, True], ids=["f32x", "bf16x"])
+@pytest.mark.parametrize("n", [1024, 1344])
+def test_stream_loglik_tc_drift_against_f64(dev, n, bf16_x):
+    """The loglik kernel at N x 200,000, K up to 1344 deep: ll and ysq
+    against the same sums in f64 of the kernel's operands (M and X on f32
+    X; bf16(M) and X on bf16 X), within DRIFT_FACTOR of the plain
+    version's error (ll is the loss baseline the line search compares
+    against). A chain of wgmma sums over all of k rounds toward zero and
+    fails at 1344 x 200,000; each 16-deep step's fresh sum holds."""
+    args = _loglik_args(dev, n, 200_000, 35, bf16_x)
     m, x, density = args[:3]
     out_k = _run_loglik(args)
     out_p = K.streaming_loglik_sums_plain(*args)
-    y = m.double() @ x.double()
+    y = (K._bf16(m) if bf16_x else m).double() @ x.double()
     ll = density.log_lik(y).sum(dim=1)
     ysq = (y * y).sum(dim=1)
     del y
     _drift(out_k[0], out_p[0], ll)
     _drift(out_k[1], out_p[1], ysq)
+
+
+@pytest.mark.parametrize("need_ysq", [False, True], ids=["no-ysq", "ysq"])
+@pytest.mark.parametrize("bf16_x", [False, True], ids=["f32x", "bf16x"])
+def test_stream_loglik_tc_small_ragged_matches_plain(dev, bf16_x, need_ysq):
+    """72 x 1,000,003 (chip_smoke.py's N_SMALL2 x T_RAGGED): one W row
+    block, mostly padding (log_lik(0) != 0: the padded rows are dropped),
+    and rows not 16-byte aligned (plain loads of bf16 X; f32 X's rows as
+    their 16-byte aligned spans)."""
+    args = _loglik_args(dev, 72, 1_000_003, 36, bf16_x, need_ysq=need_ysq)
+    out = _run_loglik(args)
+    _close(out, K.streaming_loglik_sums_plain(*args), RTOL_F32)
+    if not need_ysq:
+        assert not out[1].any()
+
+
+def test_loglik_launches_no_mma_sync_kernel(dev):
+    """A loglik call can launch only the wgmma kernels' log-lik modes: the
+    built library holds ``rotate_plain_wgmma_kernel`` with LOGLIK (bf16 X)
+    and ``rotate_wgmma_kernel`` at F32 in MODE_LOGLIK (f32 X), for every
+    density, and neither ``rotate_density_kernel`` nor a MODE_LOGLIK
+    instantiation of the mma.sync ``rotate_split_kernel`` (ptxas's report
+    of the build, by mangled name: template arguments <D, NEED_H = false,
+    LOGLIK = true> and <ROT = F32, MODE = MODE_LOGLIK, D, NEED_H = false>;
+    MODE first in the split kernel's). The kernels' names in a trace:
+    ``port_turns.py --loglik``."""
+    from picard_ica_tpu_torch.ops import _build
+
+    K._lib()
+    assert b"rotate_density_kernel" not in _build.library_path().read_bytes()
+    names = [k[0] for ks in _build.resource_report().values() for k in ks]
+    assert not any("rotate_density_kernel" in k or "rotate_split_kernelILi2E" in k
+                   for k in names)
+    for d in range(3):  # TANH, EXP, CUBE
+        assert sum(f"rotate_plain_wgmma_kernelILi{d}ELb0ELb1E" in k for k in names) == 1
+        assert sum(f"rotate_wgmma_kernelILi0ELi2ELi{d}ELb0E" in k for k in names) == 1
+    for bf16_x in (True, False):
+        _run_loglik(_loglik_args(dev, 130, 50_000, 37, bf16_x))
 
 
 def test_staged_fit_makes_no_scalar_launch(dev):
